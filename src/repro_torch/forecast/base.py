@@ -1,0 +1,331 @@
+"""Shared load/score plumbing for the forecasters — the scoring half.
+
+Each concrete model supplies:
+    _predict(params, X) -> yhat             (one-step prediction, plain torch)
+and optionally the fleet hooks (stacked across instances). Training is not
+ported yet: ``transform``, ``train`` and ``fleet_train`` raise
+``NotImplementedError``; versions arrive through a converter such as
+``ann.ann_version_from_numpy``.
+
+A model object here is ``{"kind", "params": {name: f32 tensor}, "mu",
+"sd" (f32 tensors (F,)), "y_scale" (float), "resid_q" (numpy f64 (2,))}``
+with every tensor on the system's device, so scoring never re-uploads a
+version.
+
+user_params (Listing 2): train_window_days, horizon, frequency, target_lags,
+weather_lags, plus model-specific extras (hidden, epochs, lr, ...).
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.registry import ModelInterface
+from ..obs.trace import get_tracer
+from ..timeseries.transforms import DAY, calendar_phases
+from .features import (FeatureSpec, bucket_n, edge_pad, fleet_hourly_series,
+                       make_device_rollout, recursive_forecast)
+
+TRAINING_NOT_PORTED = ("training is not ported yet: it arrives with the "
+                       "ANN training slice (fleet_train, _fleet_fit, "
+                       "_fleet_window_predict, FleetRuntime.fleet_xy)")
+
+
+class _LRUCache:
+    """Bounded LRU for built rollouts, with hit/miss counters (surfaced per
+    bin via ``FleetExecutor.last_bin_stats``)."""
+
+    def __init__(self, cap: int = 32):
+        self.cap = int(cap)
+        self._d: "OrderedDict[tuple, Callable]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key):
+        fn = self._d.get(key)
+        if fn is None:
+            self.misses += 1
+            return None
+        self._d.move_to_end(key)
+        self.hits += 1
+        return fn
+
+    def put(self, key, fn):
+        self._d[key] = fn
+        self._d.move_to_end(key)
+        while len(self._d) > self.cap:
+            self._d.popitem(last=False)
+        return fn
+
+    def __len__(self):
+        return len(self._d)
+
+    def stats(self) -> dict:
+        return {"size": len(self._d), "cap": self.cap,
+                "hits": self.hits, "misses": self.misses}
+
+
+#: whole-horizon rollouts, keyed by (model class, FeatureSpec, horizon,
+#: class-specific statics) — one per configuration, reused across every
+#: score bin of that configuration. LRU-bounded (see _LRUCache).
+_ROLLOUT_CACHE = _LRUCache(cap=32)
+
+
+def rollout_cache_stats() -> dict:
+    return _ROLLOUT_CACHE.stats()
+
+
+#: prediction-interval quantiles (lower, upper) for every forecaster's
+#: residual band — q10..q90, the band the detection flow compares against
+BAND_QUANTILES = (0.1, 0.9)
+
+
+def prediction_bands(model_object, values):
+    """(lower, upper) quantile bands around a rolled-out point forecast.
+
+    Bands come from the TRAINING residual quantiles persisted in the model
+    object (``resid_q``, one-step-ahead errors), widened by sqrt(h+1) per
+    horizon step — the standard recursive-forecast error growth heuristic:
+    step 0 is the raw one-step band, later steps widen as accumulated
+    prediction error compounds. Works per instance (``resid_q`` shape
+    ``(2,)``, values ``(H,)``) and per fleet bin (``(N, 2)`` / ``(N, H)``).
+    Returns ``(None, None)`` for model objects without residual quantiles
+    — callers persist band-less forecasts rather than failing.
+    """
+    rq = model_object.get("resid_q") if isinstance(model_object, dict) \
+        else None
+    if rq is None:
+        return None, None
+    values = np.asarray(values, np.float64)
+    rq = np.asarray(rq, np.float64)
+    widen = np.sqrt(1.0 + np.arange(values.shape[-1], dtype=np.float64))
+    return (values + rq[..., 0, None] * widen,
+            values + rq[..., 1, None] * widen)
+
+
+def stack_versions(model_objects):
+    """Fleet layout of per-instance model objects: ``(params, mu, sd)``
+    with a leading instance axis, stacked on the objects' device."""
+    stacked = {k: torch.stack([m["params"][k] for m in model_objects])
+               for k in model_objects[0]["params"]}
+    mu = torch.stack([m["mu"] for m in model_objects])
+    sd = torch.stack([m["sd"] for m in model_objects])
+    return stacked, mu, sd
+
+
+class ForecastModelBase(ModelInterface):
+    DEFAULTS = {"train_window_days": 28, "horizon": 24}
+    #: the fleet hooks accept a ``runtime=`` kwarg (FleetRuntime): the
+    #: executor only threads its runtime through classes advertising this
+    SUPPORTS_RUNTIME = True
+
+    # ------------- paper 4-function workflow -------------
+    def load(self):
+        """Single-instance case of ``fleet_load``: one shared pipeline is
+        what makes LocalPool and Fleet execution structurally equivalent."""
+        self.fleet_load([self])
+        return self._loaded
+
+    def transform(self):
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+    def train(self) -> dict:
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+    def score(self, model_object):
+        self.load()
+        spec, times, target, temps, now = self._loaded
+        up = {**self.DEFAULTS, **self.user_params}
+        H = int(up["horizon"])
+        warm = max(spec.target_lags, spec.weather_lags) + 1
+        ent = self.context.entity
+        # history grid ends at now-step; the first unknown interval is AT now
+        fut_t = now + spec.step * np.arange(0, H)
+        temps_future = self.system.weather.forecast(ent.lat, ent.lon, now, fut_t)
+        mu, sd = model_object["mu"], model_object["sd"]
+        device = self.system.device
+
+        def predict(x):
+            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+            return self._predict(model_object["params"], (x - mu) / sd)
+
+        vals = recursive_forecast(predict, spec, target[-warm:], temps[-warm:],
+                                  temps_future, now, H)
+        lower, upper = prediction_bands(model_object, vals)
+        return fut_t, vals, lower, upper
+
+    # ------------- fleet plumbing (stacked across instances) -------------
+    @classmethod
+    def fleet_load(cls, instances: List[ModelInterface]) -> None:
+        """Batched ``load()`` for a fleet bin: ONE ``store.read_many`` per
+        shared (window, step) group instead of one ``read()`` per instance.
+
+        Jobs in a bin share user_params and ``now``, so normally this is a
+        single group — the whole bin's history arrives in one store call.
+        Sets each instance's ``_loaded`` to exactly what ``load()`` would,
+        keeping LocalPool and Fleet observationally equivalent.
+        """
+        groups: dict = {}
+        for inst in instances:
+            up = {**cls.DEFAULTS, **inst.user_params}
+            spec = FeatureSpec.from_params(up)
+            now = float(up.get("now", 0.0))
+            t0 = now - float(up["train_window_days"]) * DAY
+            groups.setdefault((t0, now, spec.step), []).append(
+                (inst, spec, now))
+        for (t0, t1, step), members in groups.items():
+            ctxs = [m[0].context for m in members]
+            system = members[0][0].system
+            grid, targets = fleet_hourly_series(system, ctxs, t0, t1, step)
+            # ONE vectorized weather call per bin group; history weather is
+            # the OBSERVED temperature (paper §4.2 trains on observed
+            # weather), only the scoring horizon uses forecasts
+            widx = [i for i, m in enumerate(members) if m[1].use_weather]
+            if widx:
+                ents = [members[i][0].context.entity for i in widx]
+                wtemps = system.weather.temperature_many(
+                    [e.lat for e in ents], [e.lon for e in ents], grid)
+            temps_rows: Dict[int, np.ndarray] = {
+                i: wtemps[j] for j, i in enumerate(widx)}
+            for i, ((inst, spec, now), target) in enumerate(
+                    zip(members, targets)):
+                temps = temps_rows.get(i)
+                if temps is None:
+                    temps = np.zeros_like(grid)
+                inst._loaded = (spec, grid, target, temps, now)
+
+    @classmethod
+    def _require_one_window(cls, instances) -> None:
+        """Batched *scoring* rolls one recursive forecast with a single
+        shared time axis, so a bin mixing execution times ('now') would
+        silently compute wrong calendar features for all but the first
+        instance — fail loudly instead."""
+        nows = {inst._loaded[4] for inst in instances}
+        if len(nows) > 1:
+            raise RuntimeError(
+                f"fleet bin mixes execution times {sorted(nows)[:3]}...; "
+                "run each poll's jobs separately")
+
+    @classmethod
+    def fleet_train(cls, instances: List[ModelInterface], *, mesh=None,
+                    runtime=None):
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+    @classmethod
+    def _attach_bands(cls, model_objects, results):
+        """Zip per-instance quantile bands onto ``(times, values)`` fleet
+        results — shared by the device-runtime and cold scoring paths so
+        both return the same 4-tuple shape."""
+        return [(t, v, *prediction_bands(m, v))
+                for m, (t, v) in zip(model_objects, results)]
+
+    @classmethod
+    def fleet_score(cls, instances: List[ModelInterface], model_objects, *,
+                    mesh=None, runtime=None):
+        if mesh is not None:
+            raise NotImplementedError("sharding a bin across cards is not "
+                                      "ported; the executor passes mesh=None")
+        if runtime is not None:
+            res = runtime.fleet_score(cls, instances, model_objects)
+            if res is not None:
+                return cls._attach_bands(model_objects, res)
+        cls.fleet_load(instances)
+        cls._require_one_window(instances)
+        # jobs in a bin share user_params_key: one merge speaks for all
+        up = {**cls.DEFAULTS, **instances[0].user_params}
+        H = int(up["horizon"])
+        spec = None
+        y_hists, temp_hists, fut_ts = [], [], []
+        for inst in instances:
+            spec, times, target, temps, now = inst._loaded
+            warm = max(spec.target_lags, spec.weather_lags) + 1
+            fut_t = now + spec.step * np.arange(0, H)
+            y_hists.append(target[-warm:])
+            temp_hists.append(temps[-warm:])
+            fut_ts.append(fut_t)
+        # one vectorized weather call per bin (bitwise == per-instance)
+        ents = [inst.context.entity for inst in instances]
+        temps_futs = instances[0].system.weather.forecast_many(
+            [e.lat for e in ents], [e.lon for e in ents],
+            instances[0]._loaded[4], fut_ts[0])
+        device = instances[0].system.device
+        stacked, mu, sd = stack_versions(model_objects)
+        t_start = fut_ts[0][0]
+        y_hist = np.stack(y_hists)
+        temp_hist = np.stack(temp_hists)
+        temps_fut = np.stack(temps_futs)
+
+        vals = None
+        if up.get("rollout", "device") != "host":
+            vals = cls._device_rollout(spec, up, stacked, mu, sd, y_hist,
+                                       temp_hist, temps_fut, t_start, H,
+                                       device)
+        if vals is None:                 # reference path / no device hook
+            def predict(x):                              # x: (N, F)
+                x = torch.as_tensor(x, dtype=torch.float32, device=device)
+                return cls._fleet_predict(stacked, (x - mu) / sd)
+
+            vals = recursive_forecast(predict, spec, y_hist, temp_hist,
+                                      temps_fut, t_start, H)
+        return cls._attach_bands(
+            model_objects, [(fut_ts[i], vals[i]) for i in range(len(instances))])
+
+    # ------------- device-resident scoring rollout -------------
+    @classmethod
+    def _rollout_statics(cls, up: dict, stacked: dict) -> tuple:
+        """Hashable per-class statics derived from the bin's shared
+        user_params / stacked model params. Part of the rollout cache
+        key."""
+        return ()
+
+    @classmethod
+    def _device_predict_factory(cls, spec: FeatureSpec,
+                                statics: tuple) -> Optional[Callable]:
+        """Return a ``(stacked_params, x) -> (N,)`` one-step predictor on
+        device tensors, or None to keep scoring on the numpy reference
+        path (``recursive_forecast``)."""
+        return None
+
+    @classmethod
+    def _device_rollout(cls, spec: FeatureSpec, up: dict, stacked, mu, sd,
+                        y_hist, temp_hist, temps_future, t_start: float,
+                        H: int, device) -> Optional[np.ndarray]:
+        """Score a whole bin on ``device`` with one host round-trip (see
+        ``make_device_rollout``) instead of H host-loop steps. Returns None
+        when the model has no device predictor — callers then fall back to
+        the numpy reference path, preserving the executor equivalence
+        contract for models that cannot run device-resident."""
+        statics = cls._rollout_statics(up, stacked)
+        key = (cls, spec, H, statics)
+        fn = _ROLLOUT_CACHE.get(key)
+        if fn is None:
+            predict = cls._device_predict_factory(spec, statics)
+            if predict is None:
+                return None
+            fn = _ROLLOUT_CACHE.put(key, make_device_rollout(predict, spec, H))
+        tl, wl = spec.target_lags, spec.weather_lags
+        f32 = torch.float32
+        y0 = torch.as_tensor(y_hist, dtype=f32, device=device)[..., -tl:]
+        if spec.use_weather:
+            tw0 = torch.as_tensor(temp_hist, dtype=f32,
+                                  device=device)[..., -(wl + 1):]
+        else:                            # unused window, keep it minimal
+            tw0 = y0.new_zeros(y0.shape[:-1] + (1,))
+        hod, dow = calendar_phases(t_start + spec.step * np.arange(H))
+        # pad the instance axis to its bucket (per-instance recursion =>
+        # padded lanes cannot perturb real ones); slice the pad back off
+        n = y0.shape[0]
+        pad = bucket_n(n) - n
+        stacked = {k: edge_pad(v, pad) for k, v in stacked.items()}
+        args = [edge_pad(torch.as_tensor(a, dtype=f32, device=device), pad)
+                for a in (mu, sd, y0, tw0, temps_future)]
+        # the span ends after the copy to the host, which waits for the
+        # device: it is the rollout's wall time, launches included
+        with get_tracer().span("rollout.device", n=n, horizon=H):
+            out = fn(stacked, *args,
+                     torch.as_tensor(hod, dtype=f32, device=device),
+                     torch.as_tensor(dow, dtype=f32, device=device))
+            return out[:n].cpu().numpy().astype(np.float64)
