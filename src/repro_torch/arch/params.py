@@ -1,0 +1,128 @@
+"""Parameter-spec machinery.
+
+Every model declares a nested dict of :class:`ParamSpec` leaves. From that
+single declaration come:
+  * ``param_count`` — the exact parameter count
+  * ``init_tree``   — materialised parameters, drawn from a ``torch.Generator``
+  * ``params_from_numpy`` — the same tree from arrays made elsewhere (the
+    JAX package's parameters, handed over as numpy), leaf for leaf
+
+Sharding specs wait for the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]          # logical axis name per dim
+    init: str = "normal"                     # see _init_leaf
+    scale: Optional[float] = None            # stddev / fill override
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(f, tree):
+    """Apply ``f`` to every leaf of a nested dict (a spec or a tensor)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(f, v) for k, v in tree.items()}
+    return f(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the order of the JAX package's pytree flattening: dict
+    keys sorted."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack_specs(tree, n: int, axis_name: str = "layers"):
+    """Prepend a leading stacked dim (one entry per period)."""
+    return tree_map(
+        lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.init, s.scale),
+        tree)
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype, device):
+    s = spec.shape
+    fan_in = s[-2] if len(s) >= 2 else max(s[-1], 1)
+
+    def normal():
+        return torch.randn(s, generator=gen, dtype=torch.float32, device=device)
+
+    def uniform(lo, hi):
+        u = torch.rand(s, generator=gen, dtype=torch.float32, device=device)
+        return u * (hi - lo) + lo
+
+    if spec.init == "normal":
+        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        return (normal() * std).to(dtype)
+    if spec.init == "embed":
+        std = spec.scale if spec.scale is not None else 0.02
+        return (normal() * std).to(dtype)
+    if spec.init == "zeros":
+        return torch.zeros(s, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(s, dtype=dtype, device=device)
+    if spec.init == "const":
+        return torch.full(s, spec.scale or 0.0, dtype=dtype, device=device)
+    if spec.init == "ssm_A":     # A_log: log Uniform[1, 16]
+        return torch.log(uniform(1.0, 16.0)).to(dtype)
+    if spec.init == "ssm_dt":    # softplus^-1 of Uniform[1e-3, 1e-1]
+        return torch.log(torch.expm1(uniform(1e-3, 1e-1))).to(dtype)
+    if spec.init == "rwkv_decay":  # w0 so that exp(-exp(w0)) ~ 0.85..0.99
+        return uniform(-3.0, -0.5).to(dtype)
+    if spec.init == "uniform_small":
+        return (uniform(-0.5, 0.5) * (spec.scale or 1.0)).to(dtype)
+    raise ValueError(f"unknown init {spec.init}")
+
+
+def init_tree(tree, generator: torch.Generator, dtype=torch.float32,
+              device="cpu"):
+    """Materialise a spec tree with the JAX package's init laws. The draws
+    come from ``generator`` (on ``device``), leaf by leaf in sorted-key
+    order, so the values differ from ``jax.random``'s by design."""
+    device = torch.device(device)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(t[k]) for k in sorted(t)}
+        return _init_leaf(t, generator, dtype, device)
+    return draw(tree)
+
+
+def param_count(tree) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(tree))
+
+
+def cast_tree(params, dtype):
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """The JAX package's parameter tree, its leaves as numpy arrays (or
+    anything ``np.asarray`` takes), as the port's tree of tensors on
+    ``device``: same keys, same shapes, the stacked leading period axis
+    kept. Floating leaves keep their dtype unless ``dtype`` is given."""
+    device = torch.device(device)
+
+    def one(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":      # numpy has no bf16 of its own
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, copy=True))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+    return tree_map(one, tree)

@@ -13,8 +13,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import torch
-
+from ..kernels.common import resolve_device
 from ..obs.metrics import get_metrics
 from ..obs.trace import get_tracer
 from ..timeseries.store import TimeSeriesStore
@@ -25,16 +24,6 @@ from .lineage import ModelVersionStore, PredictionStore
 from .registry import ModelRegistry
 from .scheduler import ModelScheduler, Schedule
 from .semantics import Context, Entity, SemanticGraph, Signal
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises for CUDA without a card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA card "
-                           "is available (pass device='cpu' to run on the "
-                           "CPU)")
-    return dev
 
 
 class Castor:

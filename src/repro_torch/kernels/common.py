@@ -28,3 +28,13 @@ def resolve(*tensors: torch.Tensor) -> str:
     if device.type == "cuda":
         return KERNEL
     raise RuntimeError(f"no kernel and no plain route for device {device}")
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; raises for CUDA without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA card "
+                           "is available (pass device='cpu' to run on the "
+                           "CPU)")
+    return dev

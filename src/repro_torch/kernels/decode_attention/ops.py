@@ -1,0 +1,55 @@
+"""Public entry point for single-token GQA decode attention."""
+from __future__ import annotations
+
+import torch
+
+from ..common import KERNEL, resolve
+from .kernel import decode_attention_cuda
+from .ref import decode_attention_reference
+
+#: Dispatch counter, one per call that ran. A CUDA tensor only ever reaches
+#: the kernel, so on a card each count is one kernel launch.
+_invocations = 0
+
+
+def invocation_count() -> int:
+    return _invocations
+
+
+def reset_invocation_count() -> None:
+    global _invocations
+    _invocations = 0
+
+
+def _check_shapes(q, k_cache, v_cache, lengths) -> None:
+    if (q.dim() != 3 or k_cache.dim() != 4
+            or tuple(k_cache.shape) != tuple(v_cache.shape)):
+        raise ValueError(f"q must be (B,H,D) and caches (B,S,KV,D), got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    B, H, D = q.shape
+    if k_cache.shape[0] != B or k_cache.shape[3] != D:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch or head dim")
+    KV = k_cache.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B,H,D), caches: (B,S,KV,D), lengths: (B,) -> (B,H,D) in
+    ``q.dtype``; cache slots at and past ``lengths[b]`` are masked. CPU
+    tensors take the plain version, CUDA tensors the kernel (or the call
+    raises); any other device raises."""
+    global _invocations
+    _check_shapes(q, k_cache, v_cache, lengths)
+    if resolve(q, k_cache, v_cache, lengths) == KERNEL:
+        out = decode_attention_cuda(q, k_cache, v_cache, lengths)
+    else:
+        out = decode_attention_reference(q, k_cache, v_cache, lengths)
+    _invocations += 1
+    return out

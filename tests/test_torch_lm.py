@@ -1,0 +1,298 @@
+"""The port's language model against the JAX package's, on the six
+pure-attention smoke configs: the JAX parameters from
+``M.init_params(cfg, PRNGKey(0))`` cross as numpy through
+``params_from_numpy``, and both packages compute ``forward`` (train and
+prefill) and ``decode_step`` on the same tokens. f32 where the point is
+the algorithm; one bf16 case at a looser, stated tolerance."""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.arch import model as JM
+from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
+from repro_torch.arch import layers
+from repro_torch.arch import model as TM
+from repro_torch.arch.params import cast_tree, params_from_numpy, tree_leaves
+from repro_torch.configs import get_config, list_archs
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+torch.set_num_threads(1)
+
+ATTN_ARCHS = ["qwen3-1.7b", "llama3-8b", "starcoder2-7b", "internlm2-20b",
+              "qwen2-vl-7b", "hubert-xlarge"]
+DECODERS = [a for a in ATTN_ARCHS if a != "hubert-xlarge"]
+OTHER_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b", "zamba2-2.7b",
+               "rwkv6-7b"]
+# f32: the two packages run the same f32 arithmetic in other orders (XLA's
+# fused dots against ATen's GEMMs); after two layers the logits agree to a
+# few ulps of their largest entry
+F32_TOL = 2e-5
+# bf16: the packages round to bf16 at other places inside attention (the
+# JAX CPU path casts the probabilities to bf16 before p.v, the port keeps
+# them f32, as the kernels do), one bf16 ulp is 2^-8 = 3.9e-3 relative;
+# logits agree to a few ulps of their largest entry
+BF16_TOL = 2e-2
+B, S = 2, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch, dtype="float32"):
+    """(JAX cfg, port cfg, JAX params, port params) of an arch's smoke
+    config, with the same f32 parameter values on both sides."""
+    jcfg = jax_get_config(arch + "-smoke").replace(dtype=dtype)
+    tcfg = get_config(arch + "-smoke").replace(dtype=dtype)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _batch(cfg, seed, seq=S):
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "frames":
+        fr = rng.normal(size=(B, seq, cfg.d_model)).astype(np.float32)
+        return {"frames": jnp.asarray(fr)}, {"frames": torch.tensor(fr)}
+    tk = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    return {"tokens": jnp.asarray(tk)}, {"tokens": torch.tensor(tk)}
+
+
+def _rel_max(got, want):
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+def test_configs_match_jax():
+    assert list_archs() == jax_list_archs()
+    for arch in list_archs():
+        for name in (arch, arch + "-smoke"):
+            assert dataclasses.asdict(get_config(name)) == \
+                dataclasses.asdict(jax_get_config(name))
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_param_tree_matches_jax(arch):
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jleaves = jax.tree_util.tree_leaves(jp)
+    tleaves = tree_leaves(tp)
+    assert [l.shape for l in jleaves] == [tuple(t.shape) for t in tleaves]
+    assert TM.param_count(tcfg) == JM.param_count(jcfg)
+    assert TM.param_count(get_config(arch)) == \
+        JM.param_count(jax_get_config(arch))
+    g = torch.Generator().manual_seed(0)
+    own = TM.init_params(tcfg, g, device="cpu")
+    assert [tuple(t.shape) for t in tree_leaves(own)] == \
+        [tuple(t.shape) for t in tleaves]
+    half = cast_tree(own, torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(half))
+    assert all(torch.equal(a.to(torch.bfloat16), b)
+               for a, b in zip(tree_leaves(own), tree_leaves(half)))
+
+
+def test_qwen3_full_width_sizes():
+    cfg = get_config("qwen3-1.7b")
+    assert TM.param_count(cfg) == 1_720_574_976
+    spec = TM.decode_state_specs(cfg, 8, 2048)
+    k = spec["caches"]["pos0"]["k"]
+    assert k.shape == (28, 8, 2048, 8, 128) and k.dtype == torch.bfloat16
+    per_token = 2 * 28 * 8 * 128 * 2
+    assert per_token == 114_688
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_forward_train_matches_jax(arch):
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jb, tb = _batch(jcfg, 1)
+    want, _ = JM.forward(jcfg, jp, jb, mode="train", remat=False)
+    before = fa_ops.invocation_count()
+    got, aux = TM.forward(tcfg, tp, tb, mode="train")
+    assert fa_ops.invocation_count() == before + tcfg.num_layers
+    assert aux == {} and got.dtype == torch.float32
+    assert got.shape == (B, S, tcfg.vocab_size)
+    assert _rel_max(got, want) < F32_TOL
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_prefill_matches_jax(arch):
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jb, tb = _batch(jcfg, 2)
+    want, jstate = JM.forward(jcfg, jp, jb, mode="prefill", remat=False)
+    got, state = TM.forward(tcfg, tp, tb, mode="prefill")
+    assert got.shape == (B, tcfg.vocab_size)
+    assert _rel_max(got, want) < F32_TOL
+    assert state["lengths"].dtype == torch.int32
+    assert state["lengths"].tolist() == [S] * B
+    for name in ("k", "v"):
+        jc = np.asarray(jstate["caches"]["pos0"][name])
+        tc = state["caches"]["pos0"][name]
+        assert tuple(tc.shape) == jc.shape == (
+            tcfg.num_periods, B, S, tcfg.num_kv_heads, tcfg.head_dim)
+        assert _rel_max(tc, jc) < F32_TOL
+    hidden, _ = TM.forward(tcfg, tp, tb, mode="hidden")
+    jh, _ = JM.forward(jcfg, jp, jb, mode="hidden", remat=False)
+    assert hidden.shape == (B, S, tcfg.d_model)
+    assert _rel_max(hidden, jh) < F32_TOL
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_decode_steps_match_jax(arch):
+    """Three decode steps from a zeroed state: logits at every step, then
+    the caches and lengths."""
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jstate = JM.init_decode_state(jcfg, B, 8)
+    state = TM.init_decode_state(tcfg, B, 8, device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        tok = rng.integers(0, jcfg.vocab_size, (B, 1)).astype(np.int32)
+        want, jstate = JM.decode_step(jcfg, jp, jstate,
+                                      {"tokens": jnp.asarray(tok)})
+        got, state = TM.decode_step(tcfg, tp, state,
+                                    {"tokens": torch.tensor(tok)})
+        assert got.shape == (B, tcfg.vocab_size)
+        assert _rel_max(got, want) < F32_TOL
+    assert state["lengths"].tolist() == np.asarray(jstate["lengths"]).tolist()
+    for name in ("k", "v"):
+        assert _rel_max(state["caches"]["pos0"][name],
+                        jstate["caches"]["pos0"][name]) < F32_TOL
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_prefill_decode_consistency(arch):
+    """decode(prefill(x[:-1]), x[-1]) == forward(x)[-1] inside the port, at
+    the JAX package's own bound (tests/test_arch_smoke.py)."""
+    _, tcfg, _, tp = _pair(arch)
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, tcfg.vocab_size, (B, S)))
+    full, _ = TM.forward(tcfg, tp, {"tokens": toks}, mode="train")
+    _, state = TM.forward(tcfg, tp, {"tokens": toks[:, :S - 1]},
+                          mode="prefill")
+    grow = lambda c: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1))  # noqa: E731
+    state = {"caches": {k: {n: grow(c) for n, c in v.items()}
+                        for k, v in state["caches"].items()},
+             "lengths": state["lengths"]}
+    got, _ = TM.decode_step(tcfg, tp, state, {"tokens": toks[:, S - 1:]})
+    rel = float((got - full[:, -1]).abs().max()
+                / (full[:, -1].abs().max() + 1e-9))
+    assert rel < 2e-3, f"{arch}: prefill+decode rel err {rel}"
+
+
+def test_decode_rows_leave_other_rows_exact():
+    """``rows`` writes only those batch rows' caches; the others keep every
+    byte."""
+    _, tcfg, _, tp = _pair("qwen3-1.7b")
+    state = TM.init_decode_state(tcfg, 3, 8, device="cpu")
+    for c in tree_leaves(state["caches"]):
+        c.normal_(generator=torch.Generator().manual_seed(0))
+    before = [c.clone() for c in tree_leaves(state["caches"])]
+    state["lengths"] = torch.tensor([2, 5, 1], dtype=torch.int32)
+    TM.decode_step(tcfg, tp, state, {"tokens": torch.ones(3, 1, dtype=torch.long)},
+                   rows=torch.tensor([1]))
+    for old, new in zip(before, tree_leaves(state["caches"])):
+        assert torch.equal(old[:, [0, 2]], new[:, [0, 2]])
+        assert not torch.equal(old[:, 1, 5], new[:, 1, 5])
+        assert torch.equal(old[:, 1, :5], new[:, 1, :5])
+
+
+def test_bf16_forward_matches_jax():
+    """qwen3 smoke in its own compute dtype (bf16), f32 parameters cast at
+    use on both sides."""
+    jcfg, tcfg, jp, tp = _pair("qwen3-1.7b", "bfloat16")
+    jb, tb = _batch(jcfg, 5)
+    want, _ = JM.forward(jcfg, jp, jb, mode="train", remat=False)
+    got, _ = TM.forward(tcfg, tp, tb, mode="train")
+    assert _rel_max(got, want) < BF16_TOL
+    jw, jstate = JM.forward(jcfg, jp, jb, mode="prefill", remat=False)
+    tw, state = TM.forward(tcfg, tp, tb, mode="prefill")
+    assert state["caches"]["pos0"]["k"].dtype == torch.bfloat16
+    assert _rel_max(tw, jw) < BF16_TOL
+
+
+def test_bf16_parameters_as_stored():
+    """``init_params(..., dtype=bfloat16)`` stores bf16 leaves; the JAX
+    function takes the same argument, so the same bf16 values give the same
+    logits on both sides."""
+    jcfg = jax_get_config("qwen3-1.7b-smoke")
+    tcfg = get_config("qwen3-1.7b-smoke")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(tp))
+    own = TM.init_params(tcfg, torch.Generator().manual_seed(0),
+                         dtype=torch.bfloat16, device="cpu")
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(own))
+    jb, tb = _batch(jcfg, 6)
+    want, _ = JM.forward(jcfg, jp, jb, mode="train", remat=False)
+    got, _ = TM.forward(tcfg, tp, tb, mode="train")
+    assert _rel_max(got, want) < BF16_TOL
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_unported_block_kinds_raise(arch):
+    cfg = get_config(arch + "-smoke")
+    slice_name = "Zamba2" if "zamba" in arch else \
+        "RWKV6" if "rwkv" in arch else "MoE"
+    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
+        TM.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
+        TM.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
+        TM.init_decode_state(cfg, 1, 4, device="cpu")
+
+
+def test_encoder_has_no_decode_and_dist_waits():
+    cfg = get_config("hubert-xlarge-smoke")
+    with pytest.raises(ValueError, match="encoder-only"):
+        TM.decode_step(cfg, {}, {"lengths": torch.zeros(2, dtype=torch.int32)},
+                       {})
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        layers.attention_decode(get_config("qwen3-1.7b-smoke"), {}, None,
+                                None, None, 0, None, dist={"mesh": None})
+
+
+def test_cuda_default_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = get_config("qwen3-1.7b-smoke")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TM.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TM.init_decode_state(cfg, 1, 4)
+
+
+def test_layer_numerics_match_jax():
+    """The rounding points of the layers: layernorm (population variance),
+    the qk-norm eps, M-RoPE's sections and the tanh gelu."""
+    from repro.arch import layers as JL
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 5, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 50, (3, 2, 5))
+    for mrope in (False, True):
+        p = pos if mrope else pos[0]
+        want = JL.apply_rope(jnp.asarray(x), jnp.asarray(p), 1e4, mrope=mrope)
+        got = layers.apply_rope(torch.tensor(x), torch.tensor(p), 1e4,
+                                mrope=mrope)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert layers.mrope_sections(128) == JL.mrope_sections(128) == (16, 24, 24)
+    scale = rng.normal(size=16).astype(np.float32)
+    np.testing.assert_allclose(
+        layers.rms_head_norm(torch.tensor(scale), torch.tensor(x)).numpy(),
+        JL.rms_head_norm(jnp.asarray(scale), jnp.asarray(x)), atol=1e-6,
+        rtol=1e-5)
+    h = rng.normal(size=(2, 3, 64)).astype(np.float32)
+    for arch in ("hubert-xlarge", "qwen3-1.7b"):
+        jcfg, tcfg, jp, tp = _pair(arch)
+        lp = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["pos0"])
+        tl = {k: {n: t[0] for n, t in v.items()}
+              for k, v in tp["blocks"]["pos0"].items()}
+        np.testing.assert_allclose(
+            layers.apply_norm(tcfg, tl["ln1"], torch.tensor(h)).numpy(),
+            JL.apply_norm(jcfg, lp["ln1"], jnp.asarray(h)), atol=1e-5,
+            rtol=1e-5)
+        np.testing.assert_allclose(
+            layers.mlp_block(tcfg, tl["mlp"], torch.tensor(h)).numpy(),
+            JL.mlp_block(jcfg, lp["mlp"], jnp.asarray(h)), atol=1e-5,
+            rtol=1e-5)

@@ -1,0 +1,204 @@
+"""The port's serving engine and launcher: greedy generations equal the JAX
+engine's token for token (f32, qwen3-1.7b-smoke, 2 slots, 3 requests, so a
+request is admitted while another slot is active and a slot is reused),
+the throughput accounting, idle rows kept exactly, the CPU launcher, a
+serve run that loads no JAX, and chip_smoke.py's language-model phases
+rehearsed at a tiny size."""
+import importlib.util
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.arch import model as JM
+from repro.configs import get_config as jax_get_config
+from repro.serve import Request as JaxRequest
+from repro.serve import ServeEngine as JaxServeEngine
+from repro_torch.arch import model as TM
+from repro_torch.arch.params import params_from_numpy, tree_leaves
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.launch import serve as launch_serve
+from repro_torch.serve import Request, ServeEngine
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _params(dtype="float32"):
+    jcfg = jax_get_config("qwen3-1.7b-smoke").replace(dtype=dtype)
+    tcfg = get_config("qwen3-1.7b-smoke").replace(dtype=dtype)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jp, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu")
+
+
+def _run(engine_cls, request_cls, cfg, params, prompts, new_tokens):
+    eng = engine_cls(cfg, params, max_slots=2, max_seq=96)
+    reqs = [request_cls(rid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new_tokens))]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return eng, reqs
+
+
+def test_engine_tokens_equal_jax_engine():
+    jcfg, tcfg, jp, tp = _params()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
+               for n in (5, 9, 3)]
+    new_tokens = [6, 3, 5]       # request 1 ends first: 2 reuses its slot
+    _, want = _run(JaxServeEngine, JaxRequest, jcfg, jp, prompts, new_tokens)
+    eng, got = _run(ServeEngine, Request, tcfg, tp, prompts, new_tokens)
+    assert all(r.done for r in got)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    # admission decodes the whole batch once per prompt token but the last
+    assert eng.decode_calls == eng.steps + sum(len(p) - 1 for p in prompts)
+
+
+def test_engine_throughput_accounting():
+    cfg = get_config("qwen3-1.7b-smoke")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            dtype=cfg.dtype, device="cpu")
+    eng = ServeEngine(cfg, params, max_slots=2, max_seq=64)
+    for i in range(2):
+        eng.submit(Request(rid=i, prompt=np.asarray([1, 2, 3], np.int32),
+                           max_new_tokens=4))
+    before = dec_ops.invocation_count()
+    total = eng.run_until_idle()
+    assert total == 8 == eng.tokens_out
+    assert dec_ops.invocation_count() - before == \
+        cfg.num_layers * eng.decode_calls
+
+
+def test_engine_keeps_idle_rows_exact_and_stops_when_full():
+    """A slot that does not advance keeps its cache and length exactly; a
+    request stops at ``max_seq - 1``."""
+    _, tcfg, _, tp = _params()
+    eng = ServeEngine(tcfg, tp, max_slots=2, max_seq=12)
+    eng.submit(Request(rid=0, prompt=np.arange(1, 5, dtype=np.int32),
+                       max_new_tokens=50))
+    eng.step()
+    idle = [leaf[:, 1].clone() for leaf in tree_leaves(eng.state["caches"])]
+    eng.run_until_idle()
+    assert eng.lengths[1] == 0
+    for old, leaf in zip(idle, tree_leaves(eng.state["caches"])):
+        assert torch.equal(old, leaf[:, 1])
+    assert eng.lengths[0] == eng.max_seq - 1
+    assert len(eng.slot_req) == 2 and eng.slot_req[0] is None
+
+
+def test_engine_sampling_draws_from_step_seeded_rng():
+    """``greedy=False`` draws each token from numpy's ``default_rng(step)``
+    over the softmax of the slot's logits, as the reference does."""
+    _, tcfg, _, tp = _params()
+    eng = ServeEngine(tcfg, tp, max_slots=1, max_seq=32, greedy=False)
+    req = Request(rid=0, prompt=np.asarray([3, 1, 4], np.int32),
+                  max_new_tokens=3)
+    eng.submit(req)
+    eng.run_until_idle()
+    ref = TM.init_decode_state(tcfg, 1, 32, device="cpu")
+    want, nxt = [], 4
+    for tok in (3, 1):
+        _, ref = TM.decode_step(tcfg, tp, ref, {"tokens": torch.tensor([[tok]])})
+    for step in range(3):
+        logits, ref = TM.decode_step(tcfg, tp, ref,
+                                     {"tokens": torch.tensor([[nxt]])})
+        row = logits[0].numpy()
+        e = np.exp(row - row.max())
+        nxt = int(np.random.default_rng(step).choice(len(row), p=e / e.sum()))
+        want.append(nxt)
+    assert req.tokens == want
+
+
+def test_launcher_runs_on_cpu(capsys):
+    reqs = launch_serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                              "--slots", "2", "--new-tokens", "4"])
+    assert len(reqs) == 3 and all(r.done and len(r.tokens) == 4 for r in reqs)
+    out = capsys.readouterr().out
+    assert "3/3 requests" in out and "device=cpu" in out
+
+
+def test_launcher_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch_serve.main(["--smoke"])
+
+
+def test_serve_never_loads_jax_or_repro():
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.launch import serve
+        reqs = serve.main(["--smoke", "--device", "cpu", "--requests", "2",
+                           "--slots", "2", "--new-tokens", "3"])
+        assert all(r.done for r in reqs)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_lm_rehearsal_on_cpu():
+    """chip_smoke.py's attention kernel phases and its prefill and serve
+    paths at a tiny size through the plain versions: the same checks the
+    card run makes."""
+    smoke = _chip_smoke()
+    flash = [("prefill", 1, 64, 64, 4, 2, 16, "bfloat16", True)] + [
+        c for c in smoke.FLASH_CASES[1:] if c[1] * c[2] <= 128]
+    rec = smoke.flash_phase("cpu", flash, time_it=False)
+    assert rec["max_abs_err"] == 0.0 and rec["bound_by"] == "bytes"
+    dec = [("serve", 2, 64, 4, 2, 16, "bfloat16")] + smoke.DECODE_CASES[1:3]
+    rec = smoke.decode_phase("cpu", dec, time_it=False)
+    assert rec["max_abs_err"] == 0.0 and rec["bound_by"] == "bytes"
+    cfg, params = smoke.lm_params("qwen3-1.7b-smoke", "cpu")
+    pre = smoke.prefill_phase("cpu", cfg, params, batch=2, seq=32,
+                              check_len=16)
+    assert pre["launches"] == cfg.num_layers
+    assert pre["rel_l2"] <= smoke.PREFILL_DECODE_TOL
+    serve = smoke.serve_phase("cpu", cfg, params, slots=2, max_seq=64,
+                              n_requests=3, prompt_lens=(4, 8), new_tokens=4)
+    assert serve["requests"] == 3 and serve["tokens"] == 12
+    assert serve["launches"] == cfg.num_layers * serve["decode_calls"]
+    prof = smoke.profile_decode(serve["engine"], calls=2)
+    assert prof["device_ms_per_call"] is None      # no device on the CPU
+
+
+def test_chip_smoke_bounds():
+    """The bound counts what this run's data needs: the visible pairs of a
+    causal tile, the valid cache entries of a decode row."""
+    smoke = _chip_smoke()
+    q = torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16)
+    k = torch.zeros(1, 6, 1, 8, dtype=torch.bfloat16)
+    # rows see 3, 4, 5, 6 keys (offset 2): 18 pairs x 2 heads x 4 D
+    assert smoke.flash_bound(q, k, True)["flops"] == 18 * 2 * 4 * 8
+    assert smoke.flash_bound(q, k, False)["flops"] == 24 * 2 * 4 * 8
+    assert smoke.flash_bound(q, k, True)["bytes"] == 2 * (64 + 48) * 2
+    qd = torch.zeros(2, 4, 8, dtype=torch.bfloat16)
+    kc = torch.zeros(2, 10, 2, 8, dtype=torch.bfloat16)
+    lengths = torch.tensor([3, 12], dtype=torch.int32)   # 12 counts as 10
+    b = smoke.decode_bound(qd, kc, lengths)
+    assert b["flops"] == 13 * 4 * 4 * 8
+    assert b["bytes"] == (2 * 64 + 2 * 13 * 2 * 8) * 2 + 2 * 4
