@@ -5,10 +5,11 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. card: ``nvidia-smi`` name and power limit; the three kernels
-   (``fleet_mlp``, ``flash_attention``, ``decode_attention``) are built
-   from the sources in the checkout, one ``nvcc`` each, all started
-   together (seconds and ``ptxas`` lines).
+1. card: ``nvidia-smi`` name and power limit; the five kernels
+   (``fleet_mlp``, ``flash_attention``, ``decode_attention``,
+   ``ssd_scan``, ``wkv6_scan``) are built from the sources in the
+   checkout, one ``nvcc`` each, all started together (seconds and
+   ``ptxas`` lines).
 2. kernel: each kernel through its public op against its plain PyTorch
    version on the same inputs. ``fleet_mlp`` at the scoring shape (N=512,
    b=1, F=54, width 512, depth 5, f32), the unit-test shapes in f32 and
@@ -16,9 +17,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shape (B 4, S 1024, H 16, KV 8, D 128, bf16, causal) and the test
    shapes in both dtypes (D 80, non-causal, Sq < Skv, ragged).
    ``decode_attention`` at the engine shape (B 8, S 2048, H 16, KV 8,
-   D 128, bf16, seeded lengths) and the test shapes. Each path shape is
-   timed with CUDA events beside its bound, the plain version's time and
-   (for attention) ``scaled_dot_product_attention``'s.
+   D 128, bf16, seeded lengths) and the test shapes. Both attention
+   kernels also at zamba2-2.7b's shapes (prefill B 4, S 1024, H = KV = 32,
+   D 80, causal; engine B 4, S 512, group 1, D 80). ``ssd_scan`` at the
+   zamba2-2.7b prefill shape (B 4, S 1024, H 80, P = N = 64, bf16) and
+   ``wkv6_scan`` at the rwkv6-7b prefill shape (B 4, S 1024, H 64,
+   K = V = 64, bf16, w in f32), both also at the unit-test shapes in f32
+   and bf16 (``wkv6_scan`` at mild and aggressive decay), outputs and
+   final states. Each path shape is timed with CUDA events beside its
+   bound, the plain version's time and (for attention)
+   ``scaled_dot_product_attention``'s.
 3. fleet path: ``Castor.tick(executor="fleet")`` over a 512-prosumer site
    at the paper's ANN width (hidden 512), seeded versions, three hourly
    score ticks: every job ok, 24 ``fleet_mlp`` launches per score bin, the
@@ -34,8 +42,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    positions, 16 seeded requests (prompts of 16-96 tokens, 32 new tokens
    each, greedy): every request done, 28 ``decode_attention`` launches per
    engine decode call; tokens/s, step time, time to first token, peak
-   device memory.
+   device memory; a profiler window of a few decode calls.
+6. zamba2-2.7b at full width (54 Mamba2 blocks, the shared attention
+   block once per 6-block period), as 4-5: prefill of 4 x 1024 tokens with
+   54 ``ssd_scan`` and 9 ``flash_attention`` launches, a 128-token
+   prompt's logits and final ``ssd`` states held against token-by-token
+   decode, and ``ServeEngine`` with 4 slots x 512 positions and 8 requests
+   (prompts 16-64, 16 new tokens): 9 ``decode_attention`` launches per
+   decode call.
+7. rwkv6-7b at full width (32 blocks), the same way: 32 ``wkv6_scan``
+   launches per prefill, the ``wkv`` states held, the same engine run
+   (its decode runs no kernel: the recurrences are plain, as in the
+   reference).
 
+Each model is freed before the next is drawn.
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -80,20 +100,55 @@ FLASH_CASES = [FLASH_PATH_CASE] + [
     for causal in (True, False)
     for i, s in enumerate([(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 32),
                            (1, 128, 128, 8, 2, 64), (1, 96, 96, 4, 4, 80),
-                           (1, 64, 256, 4, 2, 32), (2, 37, 200, 4, 1, 80)])]
+                           (1, 64, 256, 4, 2, 32), (2, 37, 200, 4, 1, 80)])] + [
+    ("zamba2", 4, 1024, 1024, 32, 32, 80, "bfloat16", True)]
 # (label, B, S, H, KV, D, dtype); the first is the engine shape
 DECODE_PATH_CASE = ("serve", 8, 2048, 16, 8, 128, "bfloat16")
 DECODE_CASES = [DECODE_PATH_CASE] + [
     (f"test{i}", *s, dt) for dt in ("float32", "bfloat16")
     for i, s in enumerate([(3, 256, 4, 2, 32), (2, 128, 8, 8, 64),
-                           (3, 200, 4, 4, 80), (2, 300, 28, 4, 128)])]
+                           (3, 200, 4, 4, 80), (2, 300, 28, 4, 128)])] + [
+    ("zamba2", 4, 512, 32, 32, 80, "bfloat16")]
 # prefill vs token-by-token decode of the same 128 tokens, relative L2 of
 # the last logits: both run in bf16 but round in different places (GEMMs of
 # 128 rows against 1, the caches written by prefill against by decode), a
 # few bf16 ulps (2^-8 each) that 28 residual layers carry to the logits
 PREFILL_DECODE_TOL = 5e-2
+# the same check for the recurrent families, on the last logits and on the
+# final scan states (``ssd`` / ``wkv``, every layer). There the gap is
+# larger: prefill rounds the conv / token-shift inputs and the scan's
+# inputs over 128 rows, decode over one, and each flipped bf16 rounding is
+# carried by the recurrence as well as by the residual stream. The same
+# check at full depth on the CPU, at widths 256-1024 (bf16, 64 tokens),
+# read 5.4e-2 to 7.7e-2 on the logits and 4.0e-2 to 7.5e-2 on the states
+# for both families, flat in width; 1.5e-1 keeps a 2x margin over that. A
+# scan that is wrong (a decay, a state carried wrongly) moves both by O(1);
+# the kernels themselves are held to their plain versions far tighter
+RECURRENT_DECODE_TOL = 1.5e-1
 
-KERNEL_NAMES = ("fleet_mlp", "flash_attention", "decode_attention")
+# tests/test_kernels.py's tolerances for the scans in f32 (per-token sums
+# against chunked ones; WKV's decay products over up to 32 steps), on
+# |got - ref| / (1 + |ref|); bf16 outputs keep ~3 significant digits. The
+# final states are f32 on both sides and always take the f32 tolerance.
+SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+WKV_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# (label, B, S, H, P, N, dtype, chunk); the first is the zamba2-2.7b
+# prefill shape, the rest tests/test_kernels.py's
+SSD_PATH_CASE = ("prefill", 4, 1024, 80, 64, 64, "bfloat16", 64)
+SSD_CASES = [SSD_PATH_CASE] + [
+    (f"test{i}", *s[:5], dt, s[5]) for dt in ("float32", "bfloat16")
+    for i, s in enumerate([(2, 128, 3, 16, 16, 32), (1, 64, 2, 8, 32, 16),
+                           (1, 96, 1, 32, 16, 32)])]
+# (label, B, S, H, K, dtype, wmin, chunk); decays w ~ U(wmin, 0.999): 0.4
+# is mild, 0.001 aggressive. The first is the rwkv6-7b prefill shape
+WKV_PATH_CASE = ("prefill", 4, 1024, 64, 64, "bfloat16", 0.4, 32)
+WKV_CASES = [WKV_PATH_CASE] + [
+    (f"test{i}", *s[:4], dt, wmin, s[4]) for dt in ("float32", "bfloat16")
+    for wmin in (0.4, 0.001)
+    for i, s in enumerate([(2, 128, 3, 16, 32), (1, 64, 2, 32, 16)])]
+
+KERNEL_NAMES = ("fleet_mlp", "flash_attention", "decode_attention",
+                "ssd_scan", "wkv6_scan")
 DAY, HOUR = 86400.0, 3600.0
 HORIZON = 24
 # tracer spans summed per tick: the tick, the scheduler poll, the score
@@ -366,28 +421,41 @@ def path_phase(device: str, *, n_prosumers: int = 512, hidden: int = 512,
     return {"ticks": ticks, "launches": launches, "peak_bytes": peak}
 
 
-def reset_counts() -> None:
-    """Every kernel's launch count to 0 (before each path)."""
+def _kernel_ops() -> dict:
+    """Each kernel's public op module, by name (each holds its count)."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fleet_mlp import ops as fleet
-    for ops in (fleet, fa, dec):
+    from repro_torch.kernels.mamba2_scan import ops as ssd
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    return dict(zip(KERNEL_NAMES, (fleet, fa, dec, ssd, wkv)))
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (before each path)."""
+    for ops in _kernel_ops().values():
         ops.reset_invocation_count()
 
 
-def _agree(label, got, want, dtype) -> dict:
-    """Error of ``got`` against ``want``; fails past ``ATTN_TOL``."""
+def counts() -> dict:
+    """Every kernel's launch count, by name."""
+    return {name: ops.invocation_count()
+            for name, ops in _kernel_ops().items()}
+
+
+def _agree(label, got, want, dtype, tol=ATTN_TOL) -> dict:
+    """Error of ``got`` against ``want``; fails past ``tol[dtype]``."""
     import torch
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{label}: kernel gave {tuple(got.shape)} {got.dtype}")
     diff = (got.float() - want.float()).abs()
     rel = float((diff / (1 + want.float().abs())).max())
-    ok = rel <= ATTN_TOL[dtype] and bool(torch.isfinite(got.float()).all())
+    ok = rel <= tol[dtype] and bool(torch.isfinite(got.float()).all())
     print(f"{label} {dtype}: rel_err={rel:.3e} max_abs_err="
-          f"{float(diff.max()):.3e} tol={ATTN_TOL[dtype]:.0e} "
+          f"{float(diff.max()):.3e} tol={tol[dtype]:.0e} "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{label} disagrees with its plain version: {rel:.3e} > "
-              f"{ATTN_TOL[dtype]:.0e}")
+              f"{tol[dtype]:.0e}")
     return {"max_abs_err": float(diff.max()), "rel_err": rel}
 
 
@@ -424,10 +492,11 @@ def decode_bound(q, k_cache, lengths) -> dict:
 
 
 def _timed(record: dict, kernel, plain, library, iters: int) -> None:
-    """CUDA-event times, in turns: plain, kernel, library, kernel, plain."""
+    """CUDA-event times, in turns: plain, kernel, library, kernel, plain;
+    ``library`` None where no single PyTorch call computes the function."""
     plain_ms = [_time_ms(plain, max(1, iters // 4))]
     kern_ms = [_time_ms(kernel, iters)]
-    lib_ms = _time_ms(library, iters)
+    lib_ms = None if library is None else _time_ms(library, iters)
     kern_ms.append(_time_ms(kernel, iters))
     plain_ms.append(_time_ms(plain, max(1, iters // 4)))
     record.update(ms=sum(kern_ms) / 2, plain_ms=sum(plain_ms) / 2,
@@ -515,6 +584,120 @@ def decode_phase(device: str, cases=DECODE_CASES, *, time_it: bool) -> dict:
     return record
 
 
+def ssd_bound(x, dt, Bm, D, chunk: int) -> dict:
+    """x, dt, A, B, C, D read once, y and the final f32 state written once
+    over HBM, against the chunked form's products per (batch row, chunk,
+    head): C B^T and (C B^T o L)(dt x), 2 c^2 (N + P), and the chunk's
+    state contribution and the state's read-out, 4 c P N; over the bf16
+    tensor-core rate."""
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    c = min(chunk, S)
+    io = (x, dt, Bm, Bm, D, D)                   # B and C, A and D alike
+    nbytes = sum(t.numel() * t.element_size() for t in io) \
+        + x.numel() * x.element_size() + B * H * P * N * 4
+    flops = B * (S // c) * H * (2 * c * c * (N + P) + 4 * c * P * N)
+    return _bound(flops, nbytes, BF16_FLOP_PER_S)
+
+
+def wkv_bound(r, w, u, chunk: int) -> dict:
+    """r, k, v (r's type), w and u read once, y and the final f32 state
+    written once over HBM, against the chunked form's multiply-adds per
+    (batch row, head, chunk): the decayed scores r k dec, 3 c^2 K, their
+    product with v, 2 c^2 V, and the state's read-out and update,
+    4 c K V; over the bf16 tensor-core rate."""
+    B, S, H, K = r.shape
+    V = K
+    c = min(chunk, S)
+    nbytes = 4 * r.numel() * r.element_size() \
+        + (w.numel() + u.numel() + B * H * K * V) * 4
+    flops = B * H * (S // c) * (3 * c * c * K + 2 * c * c * V + 4 * c * K * V)
+    return _bound(flops, nbytes, BF16_FLOP_PER_S)
+
+
+def _uniform(g, lo, hi, shape, device):
+    import torch
+    return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
+
+
+def ssd_phase(device: str, cases=SSD_CASES, *, time_it: bool) -> dict:
+    """``ssd_scan`` through its public op against the plain chunked version
+    for every case, output and final state; returns the path case's
+    record. Inputs as tests/test_kernels.py draws them."""
+    import torch
+    from repro_torch.kernels.mamba2_scan.ops import ssd_scan
+    from repro_torch.kernels.mamba2_scan.ref import ssd_chunked
+    record = None
+    for seed, (label, B, S, H, P, N, dtype, chunk) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(300 + seed)
+        dt_ = getattr(torch, dtype)
+        x = torch.randn(B, S, H, P, generator=g, device=device).to(dt_)
+        dt = _uniform(g, 1e-3, 0.1, (B, S, H), device)
+        A = -_uniform(g, 0.5, 2.0, (H,), device)
+        Bm, Cm = (torch.randn(B, S, 1, N, generator=g, device=device).to(dt_)
+                  for _ in range(2))
+        D = torch.randn(H, generator=g, device=device)
+        y, st = ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+        want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
+        name = f"ssd_scan {label:7s} B={B} S={S} H={H} P={P} N={N}"
+        rec = _agree(name, y, want_y, dtype, SSD_TOL)
+        _agree(name + " state", st, want_st, "float32", SSD_TOL)
+        if label != SSD_PATH_CASE[0]:
+            continue
+        record = {**rec, **ssd_bound(x, dt, Bm, D, chunk)}
+        if time_it:
+            _timed(record,
+                   lambda: ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk),
+                   lambda: ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk),
+                   None, 20)
+            print(f"ssd_scan prefill time: {record['ms']:.4f} ms/launch; "
+                  f"bound {record['bound_ms']:.4f} ms by "
+                  f"{record['bound_by']} ({record['bytes']} bytes, "
+                  f"{record['flops']} flop); plain version "
+                  f"{record['plain_ms']:.4f} ms; library: none (no single "
+                  "PyTorch call computes the scan)")
+    return record
+
+
+def wkv_phase(device: str, cases=WKV_CASES, *, time_it: bool) -> dict:
+    """``wkv6_scan`` through its public op against the plain chunked
+    version (exact masked decay) for every case, output and final state;
+    returns the path case's record. w is f32 in every case, as on the
+    path."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked
+    record = None
+    for seed, (label, B, S, H, K, dtype, wmin, chunk) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(400 + seed)
+        dt_ = getattr(torch, dtype)
+        r, k, v = (torch.randn(B, S, H, K, generator=g, device=device).to(dt_)
+                   for _ in range(3))
+        w = _uniform(g, wmin, 0.999, (B, S, H, K), device)
+        u = torch.randn(H, K, generator=g, device=device)
+        y, st = wkv6_scan(r, k, v, w, u, chunk=chunk)
+        want_y, want_st = wkv6_chunked(r, k, v, w, u, chunk=chunk)
+        name = (f"wkv6_scan {label:7s} B={B} S={S} H={H} K={K} "
+                f"wmin={wmin}")
+        rec = _agree(name, y, want_y, dtype, WKV_TOL)
+        _agree(name + " state", st, want_st, "float32", WKV_TOL)
+        if label != WKV_PATH_CASE[0]:
+            continue
+        record = {**rec, **wkv_bound(r, w, u, chunk)}
+        if time_it:
+            _timed(record,
+                   lambda: wkv6_scan(r, k, v, w, u, chunk=chunk),
+                   lambda: wkv6_chunked(r, k, v, w, u, chunk=chunk),
+                   None, 20)
+            print(f"wkv6_scan prefill time: {record['ms']:.4f} ms/launch; "
+                  f"bound {record['bound_ms']:.4f} ms by "
+                  f"{record['bound_by']} ({record['bytes']} bytes, "
+                  f"{record['flops']} flop); plain version "
+                  f"{record['plain_ms']:.4f} ms; library: none (no single "
+                  "PyTorch call computes the scan)")
+    return record
+
+
 def lm_params(arch: str, device: str, seed: int = 0):
     """The config and its parameters, drawn on the device from a seeded
     generator and stored in the config's compute dtype."""
@@ -532,14 +715,35 @@ def lm_params(arch: str, device: str, seed: int = 0):
     return cfg, params
 
 
+def forward_launches(cfg) -> dict:
+    """Kernel launches of one ``forward``: one ``flash_attention`` per
+    attention block and per application of the shared block, one scan per
+    recurrent block, nothing else."""
+    per = cfg.num_periods
+    n = {name: 0 for name in KERNEL_NAMES}
+    n["flash_attention"] = per * (cfg.pattern.count("attn")
+                                  + int(cfg.shared_attn_every_period))
+    n["ssd_scan"] = per * cfg.pattern.count("mamba2")
+    n["wkv6_scan"] = per * cfg.pattern.count("rwkv6")
+    return n
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+    return float(torch.linalg.vector_norm((got - want).float())
+                 / torch.linalg.vector_norm(want.float()))
+
+
 def prefill_phase(device: str, cfg, params, *, batch: int = 4,
                   seq: int = 1024, check_len: int = 128,
                   seed: int = 12) -> dict:
     """``forward(mode="prefill")`` on seeded prompts, then the decode
-    cross-check. Returns the path's record."""
+    cross-check: the last logits and, for the recurrent families, the
+    final scan states (``ssd`` / ``wkv`` of every layer). Returns the
+    path's record."""
     import torch
     from repro_torch.arch import model as M
-    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.arch.params import tree_leaves
     cuda = device != "cpu"
     g = torch.Generator(device=device).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
@@ -553,42 +757,58 @@ def prefill_phase(device: str, cfg, params, *, batch: int = 4,
     if cuda:
         torch.cuda.synchronize()
     secs = time.perf_counter() - t
-    launches = fa.invocation_count()
-    print(f"prefill: {batch} x {seq} tokens in {secs:.3f} s wall "
-          f"({batch * seq / secs:.1f} tokens/s), flash_attention launches "
-          f"{launches}")
-    check(launches == cfg.num_layers,
-          f"prefill: {launches} flash_attention launches for "
-          f"{cfg.num_layers} layers")
+    launches = counts()
+    print(f"prefill: {cfg.name} {batch} x {seq} tokens in {secs:.3f} s wall "
+          f"({batch * seq / secs:.1f} tokens/s), launches " + ", ".join(
+              f"{name} {n}" for name, n in launches.items() if n))
+    want = forward_launches(cfg)
+    check(launches == want,
+          f"prefill: kernel launches {launches}, expected {want}")
     check(tuple(logits.shape) == (batch, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill: logits {tuple(logits.shape)} not finite / wrong shape")
-    want = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
-    for name in ("k", "v"):
-        got = tuple(state["caches"]["pos0"][name].shape)
-        check(got == want, f"prefill: {name} cache {got} != {want}")
+    specs = tree_leaves(M.decode_state_specs(cfg, batch, seq)["caches"])
+    for spec, got in zip(specs, tree_leaves(state["caches"]), strict=True):
+        check(tuple(got.shape) == spec.shape and got.dtype == spec.dtype,
+              f"prefill: cache {tuple(got.shape)} {got.dtype} != "
+              f"{spec.shape} {spec.dtype}")
     check(state["lengths"].tolist() == [seq] * batch,
           f"prefill: lengths {state['lengths'].tolist()}")
     del state
 
-    # the same prompt through both kernels: prefill's last logits against
-    # decode_step fed the tokens one at a time
+    # the same prompt through both paths: prefill's last logits (and final
+    # scan states) against decode_step fed the tokens one at a time
     prompt = tokens[:1, :check_len]
     with torch.no_grad():
-        pf_logits, _ = M.forward(cfg, params, {"tokens": prompt},
-                                 mode="prefill")
+        pf_logits, pf_state = M.forward(cfg, params, {"tokens": prompt},
+                                        mode="prefill")
         dstate = M.init_decode_state(cfg, 1, check_len, device=device)
         for i in range(check_len):
             dec_logits, dstate = M.decode_step(
                 cfg, params, dstate, {"tokens": prompt[:, i:i + 1]})
-    rel = float(torch.linalg.vector_norm(dec_logits - pf_logits)
-                / torch.linalg.vector_norm(pf_logits))
-    ok = rel <= PREFILL_DECODE_TOL
+    recurrent = [(key, n) for key, leaves in pf_state["caches"].items()
+                 for n in leaves if n in ("ssd", "wkv")]
+    tol = RECURRENT_DECODE_TOL if recurrent else PREFILL_DECODE_TOL
+    rel = _rel_l2(dec_logits, pf_logits)
+    ok = rel <= tol
     print(f"prefill check: {check_len}-token prompt, prefill vs "
-          f"token-by-token decode logits rel L2 {rel:.3e} (tol "
-          f"{PREFILL_DECODE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+          f"token-by-token decode logits rel L2 {rel:.3e} (tol {tol:.1e}) "
+          f"{'ok' if ok else 'FAIL'}")
     check(ok, f"prefill and decode disagree: rel L2 {rel:.3e}")
-    return {"seconds": secs, "launches": launches, "rel_l2": rel}
+    rec = {"seconds": secs, "launches": launches, "rel_l2": rel, "tol": tol}
+    if recurrent:
+        cat = lambda st: torch.cat([st["caches"][key][n].flatten()  # noqa: E731
+                                    for key, n in recurrent])
+        rec["state_rel_l2"] = _rel_l2(cat(dstate), cat(pf_state))
+        ok = rec["state_rel_l2"] <= tol
+        names = sorted({n for _, n in recurrent})
+        print(f"prefill check: final {'/'.join(names)} states of "
+              f"{len(recurrent) * cfg.num_periods} layers, prefill vs decode "
+              f"rel L2 {rec['state_rel_l2']:.3e} (tol {tol:.1e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"prefill and decode states disagree: rel L2 "
+                  f"{rec['state_rel_l2']:.3e}")
+    return rec
 
 
 def serve_phase(device: str, cfg, params, *, slots: int = 8,
@@ -602,7 +822,6 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     Returns the path's record."""
     import numpy as np
     import torch
-    from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.serve import Request, ServeEngine
     cuda = device != "cpu"
     rng = np.random.default_rng(seed)
@@ -636,7 +855,7 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     if cuda:
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dec.invocation_count()
+    launches = counts()
     done = sum(r.done for r in reqs)
     check(len(first) == n_requests, "serve: a request emitted no token")
     ttft = [first[r.rid] - r.arrived_at for r in reqs]
@@ -651,14 +870,14 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
            "ttft_max_s": float(np.max(ttft)),
            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
            "engine": eng}
-    print(f"serve: {done}/{n_requests} requests, {total} tokens out in "
+    print(f"serve: {cfg.name} {done}/{n_requests} requests, {total} tokens out in "
           f"{secs:.3f} s ({rec['tokens_per_s']:.1f} tokens/s); "
           f"{eng.steps} engine steps (mean {rec['step_ms']:.2f} ms), "
           f"{eng.decode_calls} decode calls with admission (mean "
           f"{rec['decode_call_ms']:.2f} ms); time to first token median "
           f"{rec['ttft_median_s']:.3f} s, mean {rec['ttft_mean_s']:.3f} s, "
           f"max {rec['ttft_max_s']:.3f} s over {n_requests} requests; "
-          f"decode_attention launches {launches}")
+          f"decode_attention launches {launches['decode_attention']}")
     if cuda:
         print(f"serve peak device memory: {rec['peak_bytes']} bytes "
               f"(torch.cuda.max_memory_allocated over the run)")
@@ -667,9 +886,14 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     check(done == n_requests, f"serve: {n_requests - done} requests not done")
     check(total == n_requests * new_tokens == eng.tokens_out,
           f"serve: {total} tokens out, {eng.tokens_out} counted")
-    check(launches == cfg.num_layers * eng.decode_calls,
-          f"serve: {launches} decode_attention launches for "
-          f"{eng.decode_calls} decode calls x {cfg.num_layers} layers")
+    # decode runs one decode_attention per attention application and no
+    # other kernel (the recurrences decode through their plain versions)
+    per_call = forward_launches(cfg)["flash_attention"]
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["decode_attention"] = per_call * eng.decode_calls
+    check(launches == want,
+          f"serve: kernel launches {launches} for {eng.decode_calls} decode "
+          f"calls x {per_call} attention applications, expected {want}")
     check(all(len(r.tokens) == new_tokens and
               all(0 <= t < cfg.vocab_size for t in r.tokens) for r in reqs),
           "serve: a request's tokens are out of range or short")
@@ -730,6 +954,9 @@ def build_all() -> None:
     from repro_torch.kernels.decode_attention import kernel as dec
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fleet_mlp import kernel as fleet
+    from repro_torch.kernels.mamba2_scan import kernel as ssd
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv
+    mods = (fleet, fa, dec, ssd, wkv)
 
     def timed(mod):
         t = time.perf_counter()
@@ -737,8 +964,8 @@ def build_all() -> None:
         return lib, log, time.perf_counter() - t
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        built = list(zip(KERNEL_NAMES, pool.map(timed, (fleet, fa, dec))))
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = list(zip(KERNEL_NAMES, pool.map(timed, mods)))
     for name, (lib, log, secs) in built:
         print(f"build: {name} {secs:.2f} s -> {lib.relative_to(ROOT)}")
         for line in log.splitlines():
@@ -747,25 +974,62 @@ def build_all() -> None:
     print(f"build: all kernels in {time.perf_counter() - t:.2f} s")
 
 
-def kernel_line(fleet_rec, fleet_path, flash_rec, prefill, dec_rec,
-                serve) -> dict:
+# where each kernel's TPU twin is defined (file:line of the function that
+# reaches pl.pallas_call)
+REPLACES = {
+    "fleet_mlp": "src/repro/kernels/fleet_mlp/kernel.py:34",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:65",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:53",
+    "ssd_scan": "src/repro/kernels/mamba2_scan/kernel.py:63",
+    "wkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:60",
+}
+# the package directory of each kernel under src/repro_torch/kernels
+PACKAGE = {"ssd_scan": "mamba2_scan", "wkv6_scan": "rwkv6_scan"}
+
+
+def kernel_line(records: dict, launches: dict) -> dict:
+    """The ``{"kernels": [...]}`` record: for each kernel its timed path
+    case (``records``) and its launches on its main path (``launches``)."""
     rows = []
-    for name, rec, launches, replaces in (
-            ("fleet_mlp", fleet_rec, fleet_path["launches"],
-             "src/repro/kernels/fleet_mlp/kernel.py:34"),
-            ("flash_attention", flash_rec, prefill["launches"],
-             "src/repro/kernels/flash_attention/kernel.py:65"),
-            ("decode_attention", dec_rec, serve["launches"],
-             "src/repro/kernels/decode_attention/kernel.py:53")):
+    for name in KERNEL_NAMES:
+        rec = records[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches,
+            "source": f"src/repro_torch/kernels/{PACKAGE.get(name, name)}/"
+                      f"csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms")})
     return {"kernels": rows}
+
+
+def lm_path(arch: str, device: str, *, profile: bool = True,
+            serve_kw=None) -> dict:
+    """One language model's prefill and serve paths (and a profiler window
+    over its engine); the model is freed before returning. Returns the
+    prefill and serve records (the serve record without its engine)."""
+    import torch
+    cfg, params = lm_params(arch, device)
+    prefill = prefill_phase(device, cfg, params)
+    serve = serve_phase(device, cfg, params, **(serve_kw or {}))
+    eng = serve.pop("engine")
+    if profile:
+        prof = profile_decode(eng)
+        if prof["device_ms_per_call"] is not None:
+            print(f"serve: {cfg.name} device busy share "
+                  f"{prof['device_ms_per_call'] / serve['decode_call_ms']:.3f}"
+                  f" of a decode call (kernel time over the unprofiled mean)")
+    del eng, params
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"cfg": cfg, "prefill": prefill, "serve": serve}
+
+
+# the recurrent families' engine runs: 4 slots x 512 positions, 8 requests
+RECURRENT_SERVE = dict(slots=4, max_seq=512, n_requests=8,
+                       prompt_lens=(16, 64), new_tokens=16)
 
 
 def main() -> int:
@@ -782,21 +1046,23 @@ def main() -> int:
     print(_card_line())           # name, power limit
     build_all()
 
-    fleet_rec = kernel_phase("cuda", time_it=True)
-    flash_rec = flash_phase("cuda", time_it=True)
-    dec_rec = decode_phase("cuda", time_it=True)
+    records = {"fleet_mlp": kernel_phase("cuda", time_it=True),
+               "flash_attention": flash_phase("cuda", time_it=True),
+               "decode_attention": decode_phase("cuda", time_it=True),
+               "ssd_scan": ssd_phase("cuda", time_it=True),
+               "wkv6_scan": wkv_phase("cuda", time_it=True)}
     fleet_path = path_phase("cuda")
-    cfg, params = lm_params("qwen3-1.7b", "cuda")
-    prefill = prefill_phase("cuda", cfg, params)
-    serve = serve_phase("cuda", cfg, params)
-    prof = profile_decode(serve["engine"])
-    if prof["device_ms_per_call"] is not None:
-        print(f"serve: device busy share "
-              f"{prof['device_ms_per_call'] / serve['decode_call_ms']:.3f} "
-              f"of a decode call (kernel time over the unprofiled mean)")
+    qwen = lm_path("qwen3-1.7b", "cuda")
+    zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
+    rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
+    # each kernel's launches on the path of the slice that ported it
+    launches = {"fleet_mlp": fleet_path["launches"],
+                "flash_attention": qwen["prefill"]["launches"]["flash_attention"],
+                "decode_attention": qwen["serve"]["launches"]["decode_attention"],
+                "ssd_scan": zamba["prefill"]["launches"]["ssd_scan"],
+                "wkv6_scan": rwkv["prefill"]["launches"]["wkv6_scan"]}
     print(f"smoke: {time.perf_counter() - t_all:.1f} s in all")
-    print(json.dumps(kernel_line(fleet_rec, fleet_path, flash_rec, prefill,
-                                 dec_rec, serve)))
+    print(json.dumps(kernel_line(records, launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

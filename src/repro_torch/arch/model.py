@@ -1,6 +1,7 @@
-"""LM builder for the pure-attention architectures: the PyTorch twin of the
-reference's one scan-over-superblocks code path, with the scan written out
-as a Python loop over the stacked period leaves.
+"""The language model: the PyTorch twin of the reference's one
+scan-over-superblocks code path (dense / GQA attention, Mamba2 hybrid with
+Zamba2's weight-shared block, RWKV6, encoder), with the scan written out as
+a Python loop over the stacked period leaves.
 
 Public surface:
     build_param_specs(cfg)            ParamSpec tree (init & counting)
@@ -11,10 +12,9 @@ Public surface:
     decode_step(cfg, params, state, batch)  (logits, state)
     param_count(cfg)                  exact parameter count
 
-Block kinds other than ``attn`` (``attn_moe``, ``mamba2``, ``rwkv6``) and
-the Zamba2 shared block raise ``NotImplementedError`` naming the slice of
-ROADMAP.md that ports them. Training (``chunked_ce``, ``train_loss``)
-waits for the training slice.
+The ``attn_moe`` block kind raises ``NotImplementedError`` naming the
+slice of ROADMAP.md that ports it. Training (``chunked_ce``,
+``train_loss``) waits for the training slice.
 """
 from __future__ import annotations
 
@@ -24,15 +24,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
-from . import layers
+from . import layers, mamba2, rwkv6
 from .params import (ParamSpec, init_tree, param_count as _spec_count,
                      stack_specs, tree_map)
 
-_SLICE_OF = {
-    "attn_moe": "the MoE slice",
-    "mamba2": "the Zamba2 slice",
-    "rwkv6": "the RWKV6 slice",
-}
 
 
 class TensorSpec(NamedTuple):
@@ -41,15 +36,10 @@ class TensorSpec(NamedTuple):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    for kind in cfg.pattern:
-        if kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} comes with "
-                f"{_SLICE_OF.get(kind, 'a later slice')} (ROADMAP.md Queue 1)")
-    if cfg.shared_attn_every_period:
+    if "attn_moe" in cfg.pattern:
         raise NotImplementedError(
-            f"{cfg.name}: the weight-shared attention block comes with the "
-            "Zamba2 slice (ROADMAP.md Queue 1)")
+            f"{cfg.name}: block kind 'attn_moe' comes with the MoE slice "
+            "(ROADMAP.md Queue 1)")
 
 
 def _dtype(name) -> torch.dtype:
@@ -58,19 +48,40 @@ def _dtype(name) -> torch.dtype:
 
 # ------------------------------------------------------------------ specs
 
-def _block_specs(cfg: ModelConfig):
-    return {"ln1": layers.norm_specs(cfg), "attn": layers.attention_specs(cfg),
-            "ln2": layers.norm_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+def _block_specs(cfg: ModelConfig, kind: str):
+    if kind == "attn":
+        return {"ln1": layers.norm_specs(cfg), "attn": layers.attention_specs(cfg),
+                "ln2": layers.norm_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+    if kind == "mamba2":
+        return {"ln1": layers.norm_specs(cfg), "mixer": mamba2.mamba2_specs(cfg)}
+    if kind == "rwkv6":
+        return {"ln1": layers.norm_specs(cfg), "tm": rwkv6.timemix_specs(cfg),
+                "ln2": layers.norm_specs(cfg), "cm": rwkv6.channelmix_specs(cfg)}
+    raise ValueError(kind)
+
+
+def _shared_block_specs(cfg: ModelConfig):
+    """Zamba2's weight-shared attention+MLP block, on concat(h, emb0)."""
+    d2 = 2 * cfg.d_model
+    return {"ln1": layers.norm_specs(cfg, d2),
+            "attn": layers.attention_specs(cfg, d_in=d2),
+            "ln2": layers.norm_specs(cfg, d2),
+            "mlp": layers.mlp_specs(cfg, d_in=d2)}
 
 
 def build_param_specs(cfg: ModelConfig):
     _check_supported(cfg)
-    period = {f"pos{i}": _block_specs(cfg) for i in range(cfg.period_len)}
+    period = {f"pos{i}": _block_specs(cfg, kind)
+              for i, kind in enumerate(cfg.pattern)}
     specs = {"blocks": stack_specs(period, cfg.num_periods),
              "final_norm": layers.norm_specs(cfg)}
     if cfg.frontend != "frames":
         specs["embed"] = ParamSpec((cfg.vocab_size, cfg.d_model),
                                    ("vocab", "embed"), "embed")
+    if "rwkv6" in cfg.pattern:
+        specs["ln0"] = layers.norm_specs(cfg)
+    if cfg.shared_attn_every_period:
+        specs["shared"] = _shared_block_specs(cfg)
     if not (cfg.tie_embeddings and cfg.frontend != "frames"):
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"), "normal")
@@ -126,21 +137,51 @@ def _period(blocks, i: int):
 
 # ------------------------------------------------------------------ forward
 
-def _apply_block(cfg, p, h, positions):
-    """Full-sequence ``attn`` block. Returns (h, cache)."""
+def _apply_block(cfg, kind, p, h, positions):
+    """Full-sequence application of one block. Returns (h, cache)."""
+    if kind == "attn":
+        a, (k, v) = layers.attention_block(cfg, p["attn"],
+                                           layers.apply_norm(cfg, p["ln1"], h),
+                                           positions)
+        h = h + a
+        h = h + layers.mlp_block(cfg, p["mlp"],
+                                 layers.apply_norm(cfg, p["ln2"], h))
+        return h, {"k": k, "v": v}
+    if kind == "mamba2":
+        m, (conv_s, ssd_s) = mamba2.mamba2_block(
+            cfg, p["mixer"], layers.apply_norm(cfg, p["ln1"], h))
+        return h + m, {"conv": conv_s, "ssd": ssd_s}
+    if kind == "rwkv6":
+        x_prev0 = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
+                              device=h.device)
+        t, x_tm, wkv = rwkv6.timemix_block(
+            cfg, p["tm"], layers.apply_norm(cfg, p["ln1"], h), x_prev0)
+        h = h + t
+        c, x_cm = rwkv6.channelmix_block(
+            cfg, p["cm"], layers.apply_norm(cfg, p["ln2"], h), x_prev0)
+        return h + c, {"x_tm": x_tm, "x_cm": x_cm, "wkv": wkv}
+    raise ValueError(kind)
+
+
+def _apply_shared(cfg, p, h, emb0, positions):
+    """Zamba2 weight-shared attention+MLP block on concat(h, emb0)."""
+    cat = torch.cat([h, emb0], dim=-1)
     a, (k, v) = layers.attention_block(cfg, p["attn"],
-                                       layers.apply_norm(cfg, p["ln1"], h),
+                                       layers.apply_norm(cfg, p["ln1"], cat),
                                        positions)
     h = h + a
+    cat = torch.cat([h, emb0], dim=-1)
     h = h + layers.mlp_block(cfg, p["mlp"],
-                             layers.apply_norm(cfg, p["ln2"], h))
+                             layers.apply_norm(cfg, p["ln2"], cat))
     return h, {"k": k, "v": v}
 
 
 def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
     """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, {});
-    "prefill" -> (last-token logits (B,V) f32, decode_state with caches
-    (periods, B, S, KV, hd)); "hidden" -> (final hidden states, {})."""
+    "prefill" -> (last-token logits (B,V) f32, decode_state whose caches
+    are the per-period caches stacked over periods: k/v (periods, B, S,
+    KV, hd), Mamba2's conv/ssd and RWKV6's x_tm/x_cm/wkv states, Zamba2's
+    shared k/v); "hidden" -> (final hidden states, {})."""
     _check_supported(cfg)
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -153,16 +194,24 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
         device = batch["tokens"].device
     h = _embed(cfg, params, batch, dtype)
     positions = _positions(cfg, batch, B, S, device)
+    if "ln0" in params:
+        h = layers.apply_norm(cfg, params["ln0"], h)
+    emb0 = h
+    shared_p = params.get("shared")
 
     want_cache = mode == "prefill"
     per_period = []
     for i in range(cfg.num_periods):
         p = _period(params["blocks"], i)
         caches = {}
-        for j in range(cfg.period_len):
-            h, cache = _apply_block(cfg, p[f"pos{j}"], h, positions)
+        for j, kind in enumerate(cfg.pattern):
+            h, cache = _apply_block(cfg, kind, p[f"pos{j}"], h, positions)
             if want_cache:
                 caches[f"pos{j}"] = cache
+        if cfg.shared_attn_every_period:
+            h, sc = _apply_shared(cfg, shared_p, h, emb0, positions)
+            if want_cache:
+                caches["shared"] = sc
         per_period.append(caches)
 
     h = layers.apply_norm(cfg, params["final_norm"], h)
@@ -173,21 +222,41 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
     # prefill: logits for the last position + populated decode state
     logits = _unembed(cfg, params, h[:, -1]).to(torch.float32)
     caches = {key: {n: torch.stack([c[key][n] for c in per_period])
-                    for n in ("k", "v")}
-              for key in per_period[0]}
+                    for n in leaves}
+              for key, leaves in per_period[0].items()}
     lengths = torch.full((B,), S, dtype=torch.int32, device=device)
     return logits, {"caches": caches, "lengths": lengths}
 
 
 # ------------------------------------------------------------------ decode
 
+def _cache_entry_spec(cfg: ModelConfig, kind: str, B: int, S: int, dtype):
+    if kind in ("attn", "shared"):
+        shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}
+    if kind == "mamba2":
+        di, H, N, conv_ch, _ = mamba2._dims(cfg)
+        return {"conv": TensorSpec((B, cfg.ssm_conv - 1, conv_ch), dtype),
+                "ssd": TensorSpec((B, H, cfg.ssm_head_dim, N), torch.float32)}
+    if kind == "rwkv6":
+        H, K = cfg.rwkv_heads, cfg.rwkv_head_size
+        return {"x_tm": TensorSpec((B, cfg.d_model), dtype),
+                "x_cm": TensorSpec((B, cfg.d_model), dtype),
+                "wkv": TensorSpec((B, H, K, K), torch.float32)}
+    raise ValueError(kind)
+
+
 def decode_state_specs(cfg: ModelConfig, B: int, S: int, dtype=None):
+    """Every cache leaf stacked over periods: (periods, B, ...). Recurrent
+    states (``ssd``, ``wkv``) are f32 whatever ``dtype`` is."""
     _check_supported(cfg)
     dtype = _dtype(dtype or cfg.dtype)
-    shape = (cfg.num_periods, B, S, cfg.num_kv_heads, cfg.head_dim)
-    caches = {f"pos{i}": {"k": TensorSpec(shape, dtype),
-                          "v": TensorSpec(shape, dtype)}
-              for i in range(cfg.period_len)}
+    per = {f"pos{i}": _cache_entry_spec(cfg, kind, B, S, dtype)
+           for i, kind in enumerate(cfg.pattern)}
+    if cfg.shared_attn_every_period:
+        per["shared"] = _cache_entry_spec(cfg, "shared", B, S, dtype)
+    caches = tree_map(
+        lambda s: TensorSpec((cfg.num_periods,) + s.shape, s.dtype), per)
     return {"caches": caches, "lengths": TensorSpec((B,), torch.int32)}
 
 
@@ -199,14 +268,69 @@ def init_decode_state(cfg: ModelConfig, B: int, S: int, dtype=None,
                     decode_state_specs(cfg, B, S, dtype))
 
 
+def _put(stack, layer: int, new, rows) -> None:
+    """Write one layer's new recurrent state (B, ...) into its stack
+    (periods, B, ...) IN PLACE: every row, or only the rows in ``rows``."""
+    if rows is None:
+        stack[layer] = new.to(stack.dtype)
+    else:
+        stack[layer, rows] = new[rows].to(stack.dtype)
+
+
+def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows):
+    """One block against its STACKED caches ``cs``, updated in place."""
+    if kind == "attn":
+        a, _, _ = layers.attention_decode(
+            cfg, p["attn"], layers.apply_norm(cfg, p["ln1"], h),
+            cs["k"], cs["v"], layer, lengths, rows=rows)
+        h = h + a
+        return h + layers.mlp_block(cfg, p["mlp"],
+                                    layers.apply_norm(cfg, p["ln2"], h))
+    if kind == "mamba2":
+        m, (conv_s, ssd_s) = mamba2.mamba2_decode(
+            cfg, p["mixer"], layers.apply_norm(cfg, p["ln1"], h),
+            (cs["conv"][layer], cs["ssd"][layer]))
+        _put(cs["conv"], layer, conv_s, rows)
+        _put(cs["ssd"], layer, ssd_s, rows)
+        return h + m
+    if kind == "rwkv6":
+        t, x_tm, wkv = rwkv6.timemix_decode(
+            cfg, p["tm"], layers.apply_norm(cfg, p["ln1"], h),
+            cs["x_tm"][layer], cs["wkv"][layer])
+        h = h + t
+        # channelmix's shift uses x_prev at t=0 == stored last token
+        c, x_cm = rwkv6.channelmix_block(
+            cfg, p["cm"], layers.apply_norm(cfg, p["ln2"], h),
+            cs["x_cm"][layer])
+        _put(cs["x_tm"], layer, x_tm, rows)
+        _put(cs["x_cm"], layer, x_cm, rows)
+        _put(cs["wkv"], layer, wkv, rows)
+        return h + c
+    raise ValueError(kind)
+
+
+def _decode_shared(cfg, p, h, emb0, cs, layer, lengths, rows):
+    """The Zamba2 shared block for one token; period ``layer``'s slice of
+    the shared k/v stack is written in place."""
+    cat = torch.cat([h, emb0], dim=-1)
+    a, _, _ = layers.attention_decode(
+        cfg, p["attn"], layers.apply_norm(cfg, p["ln1"], cat),
+        cs["k"], cs["v"], layer, lengths, rows=rows)
+    h = h + a
+    cat = torch.cat([h, emb0], dim=-1)
+    return h + layers.mlp_block(cfg, p["mlp"],
+                                layers.apply_norm(cfg, p["ln2"], cat))
+
+
 def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None):
     """One-token decode. batch: {"tokens": (B,1)} (or {"frames": (B,1,d)}).
 
     The stacked caches in ``state`` are updated IN PLACE: each layer writes
-    the new k/v at ``lengths`` for every row, or only for the batch rows in
-    ``rows`` (an index tensor), so rows outside it keep their caches
-    exactly. Returns (logits (B,V) f32, {"caches": the same caches,
-    "lengths": lengths + 1}).
+    its new k/v at ``lengths`` and its new recurrent state (conv, ssd,
+    x_tm, x_cm, wkv) for every row, or only for the batch rows in ``rows``
+    (an index tensor), so rows outside it keep their caches exactly.
+    Returns (logits (B,V) f32, {"caches": the same caches, "lengths":
+    lengths + 1}).
     """
     if not cfg.is_decoder:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
@@ -215,16 +339,17 @@ def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None):
     lengths = state["lengths"]
     caches = state["caches"]
     h = _embed(cfg, params, batch, dtype)
+    if "ln0" in params:
+        h = layers.apply_norm(cfg, params["ln0"], h)
+    emb0 = h
     for layer in range(cfg.num_periods):
         p = _period(params["blocks"], layer)
-        for j in range(cfg.period_len):
-            pj, cs = p[f"pos{j}"], caches[f"pos{j}"]
-            a, _, _ = layers.attention_decode(
-                cfg, pj["attn"], layers.apply_norm(cfg, pj["ln1"], h),
-                cs["k"], cs["v"], layer, lengths, rows=rows)
-            h = h + a
-            h = h + layers.mlp_block(cfg, pj["mlp"],
-                                     layers.apply_norm(cfg, pj["ln2"], h))
+        for j, kind in enumerate(cfg.pattern):
+            h = _decode_block(cfg, kind, p[f"pos{j}"], h, caches[f"pos{j}"],
+                              layer, lengths, rows)
+        if cfg.shared_attn_every_period:
+            h = _decode_shared(cfg, params["shared"], h, emb0,
+                               caches["shared"], layer, lengths, rows)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     logits = _unembed(cfg, params, h[:, 0]).to(torch.float32)
     return logits, {"caches": caches, "lengths": lengths + 1}

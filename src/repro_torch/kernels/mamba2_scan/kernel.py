@@ -1,0 +1,108 @@
+"""Builds and launches the hand-written CUDA ``ssd_scan`` kernel
+(``csrc/ssd_scan.cu``).
+
+The source compiles at first use through ``kernels/build.py`` (``nvcc``
+into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
+or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .. import build as _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+
+# Launch geometry of csrc/ssd_scan.cu; checked against the library's own
+# constants when it loads.
+THREADS = 256
+LANES_PER_ROW = 4
+MAX_P = 64
+MAX_N = 64
+TOKENS = 32
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def build():
+    """Compile the kernel library unless a build of this exact source and
+    these flags exists. Returns ``(path, compiler output)``."""
+    return _build.build(SOURCE, "ssd_scan")
+
+
+def _bind(lib, path) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                     i, p]
+    lib.ssd_scan_forward.restype = i
+    lib.ssd_scan_config.argtypes = [ctypes.POINTER(i)]
+    lib.ssd_scan_config.restype = None
+    lib.ssd_scan_error_string.argtypes = [i]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    cfg = (i * 5)()
+    lib.ssd_scan_config(cfg)
+    want = (THREADS, LANES_PER_ROW, MAX_P, MAX_N, TOKENS)
+    if tuple(cfg) != want:
+        raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
+                           f"!= the wrapper's {want}")
+
+
+def _library():
+    return _build.load(SOURCE, "ssd_scan", _bind)
+
+
+def check_launch(P: int, N: int) -> None:
+    """Raise on a head width or a state size the kernel does not take:
+    P up to ``MAX_P`` (its rows of threads), N a multiple of 16 up to
+    ``MAX_N`` (its float4 register groups)."""
+    if not 1 <= P <= MAX_P:
+        raise ValueError(f"ssd_scan kernel takes 1..{MAX_P} channels per "
+                         f"head, got {P}")
+    if N % 16 or not 16 <= N <= MAX_N:
+        raise ValueError(f"ssd_scan kernel takes a state size that is a "
+                         f"multiple of 16 up to {MAX_N}, got {N}")
+
+
+def ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state=None):
+    """Launch the kernel on the current stream of ``x``'s card and return
+    ``(y, final_state)`` without synchronising. Shapes are checked by
+    ``ops.ssd_scan``; this checks what the kernel itself needs, every
+    check before the library is built or loaded."""
+    if init_state is not None:
+        raise ValueError("ssd_scan kernel starts from a zero state (prefill); "
+                         "an init_state takes the plain version on the CPU")
+    if Bm.shape[2] != 1:
+        raise ValueError(f"ssd_scan kernel takes one group, got "
+                         f"{Bm.shape[2]}")
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x, got "
+                        f"{x.dtype}")
+    for name, t, want in (("Bm", Bm, x.dtype), ("Cm", Cm, x.dtype),
+                          ("dt", dt, torch.float32), ("A", A, torch.float32),
+                          ("D", D, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"ssd_scan kernel takes {name} in {want}, got "
+                            f"{t.dtype}")
+    for t in (x, dt, A, Bm, Cm, D):
+        if t.device.type != "cuda":
+            raise ValueError(f"ssd_scan kernel takes CUDA tensors, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError("ssd_scan kernel takes contiguous tensors")
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    check_launch(P, N)
+    lib = _library()
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_forward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
+            B, S, H, P, N, code, stream)
+    _build.check_error(lib, "ssd_scan", err)
+    return y, state

@@ -7,8 +7,9 @@ the admitted slot advances), every engine step decodes one token for all
 active slots, finished requests free their slot immediately.
 
 The engine runs where its parameters lie. The decode state lives on that
-device and is updated IN PLACE: a decode step writes the new k/v only for
-the rows that advance, so every other row keeps its cache and its length
+device and is updated IN PLACE: a decode step writes the new k/v and the
+new recurrent states (Mamba2's conv/ssd, RWKV6's x_tm/x_cm/wkv) only for
+the rows that advance, so every other row keeps its caches and its length
 exactly. (The reference rebuilds the whole state by merging the advanced
 rows into the old one; the result is the same.) The lengths are mirrored
 on the host, where the scheduler reads them.

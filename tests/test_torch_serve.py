@@ -1,8 +1,9 @@
 """The port's serving engine and launcher: greedy generations equal the JAX
-engine's token for token (f32, qwen3-1.7b-smoke, 2 slots, 3 requests, so a
-request is admitted while another slot is active and a slot is reused),
-the throughput accounting, idle rows kept exactly, the CPU launcher, a
-serve run that loads no JAX, and chip_smoke.py's language-model phases
+engine's token for token (f32, qwen3-1.7b-smoke and the recurrent
+zamba2-2.7b-smoke and rwkv6-7b-smoke, 2 slots, 3 requests, so a request
+is admitted while another slot is active and a slot is reused), the
+throughput accounting, idle rows kept exactly, the CPU launcher, serve
+runs that load no JAX, and chip_smoke.py's language-model and scan phases
 rehearsed at a tiny size."""
 import importlib.util
 import os
@@ -31,9 +32,12 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _params(dtype="float32"):
-    jcfg = jax_get_config("qwen3-1.7b-smoke").replace(dtype=dtype)
-    tcfg = get_config("qwen3-1.7b-smoke").replace(dtype=dtype)
+RECURRENT_ARCHS = ["zamba2-2.7b", "rwkv6-7b"]
+
+
+def _params(dtype="float32", arch="qwen3-1.7b"):
+    jcfg = jax_get_config(arch + "-smoke").replace(dtype=dtype)
+    tcfg = get_config(arch + "-smoke").replace(dtype=dtype)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     return jcfg, tcfg, jp, params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jp), "cpu")
@@ -50,7 +54,16 @@ def _run(engine_cls, request_cls, cfg, params, prompts, new_tokens):
 
 
 def test_engine_tokens_equal_jax_engine():
-    jcfg, tcfg, jp, tp = _params()
+    _engine_tokens_equal_jax_engine("qwen3-1.7b")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_engine_tokens_equal_jax_engine(arch):
+    _engine_tokens_equal_jax_engine(arch)
+
+
+def _engine_tokens_equal_jax_engine(arch):
+    jcfg, tcfg, jp, tp = _params(arch=arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
                for n in (5, 9, 3)]
@@ -81,7 +94,18 @@ def test_engine_throughput_accounting():
 def test_engine_keeps_idle_rows_exact_and_stops_when_full():
     """A slot that does not advance keeps its cache and length exactly; a
     request stops at ``max_seq - 1``."""
-    _, tcfg, _, tp = _params()
+    _engine_keeps_idle_rows_exact("qwen3-1.7b")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_engine_keeps_idle_rows_exact(arch):
+    """The same for the recurrent states (conv / ssd, x_tm / x_cm / wkv)
+    beside zamba2's shared k / v."""
+    _engine_keeps_idle_rows_exact(arch)
+
+
+def _engine_keeps_idle_rows_exact(arch):
+    _, tcfg, _, tp = _params(arch=arch)
     eng = ServeEngine(tcfg, tp, max_slots=2, max_seq=12)
     eng.submit(Request(rid=0, prompt=np.arange(1, 5, dtype=np.int32),
                        max_new_tokens=50))
@@ -119,8 +143,18 @@ def test_engine_sampling_draws_from_step_seeded_rng():
 
 
 def test_launcher_runs_on_cpu(capsys):
-    reqs = launch_serve.main(["--smoke", "--device", "cpu", "--requests", "3",
-                              "--slots", "2", "--new-tokens", "4"])
+    _launcher_runs_on_cpu(capsys, "qwen3-1.7b")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_launcher_runs_recurrent_archs_on_cpu(capsys, arch):
+    _launcher_runs_on_cpu(capsys, arch)
+
+
+def _launcher_runs_on_cpu(capsys, arch):
+    reqs = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--requests", "3", "--slots", "2",
+                              "--new-tokens", "4"])
     assert len(reqs) == 3 and all(r.done and len(r.tokens) == 4 for r in reqs)
     out = capsys.readouterr().out
     assert "3/3 requests" in out and "device=cpu" in out
@@ -134,12 +168,16 @@ def test_launcher_defaults_to_the_card():
 
 
 def test_serve_never_loads_jax_or_repro():
+    """Serve runs of an attention model and of both recurrent families
+    (their scans and decode recurrences included) load no JAX module."""
     code = textwrap.dedent("""
         import sys
         from repro_torch.launch import serve
-        reqs = serve.main(["--smoke", "--device", "cpu", "--requests", "2",
-                           "--slots", "2", "--new-tokens", "3"])
-        assert all(r.done for r in reqs)
+        for arch in ("qwen3-1.7b", "zamba2-2.7b", "rwkv6-7b"):
+            reqs = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                               "--requests", "2", "--slots", "2",
+                               "--new-tokens", "3", "--prompt-len", "8"])
+            assert all(r.done for r in reqs)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
@@ -176,12 +214,13 @@ def test_chip_smoke_lm_rehearsal_on_cpu():
     cfg, params = smoke.lm_params("qwen3-1.7b-smoke", "cpu")
     pre = smoke.prefill_phase("cpu", cfg, params, batch=2, seq=32,
                               check_len=16)
-    assert pre["launches"] == cfg.num_layers
+    assert pre["launches"]["flash_attention"] == cfg.num_layers
     assert pre["rel_l2"] <= smoke.PREFILL_DECODE_TOL
     serve = smoke.serve_phase("cpu", cfg, params, slots=2, max_seq=64,
                               n_requests=3, prompt_lens=(4, 8), new_tokens=4)
     assert serve["requests"] == 3 and serve["tokens"] == 12
-    assert serve["launches"] == cfg.num_layers * serve["decode_calls"]
+    assert serve["launches"]["decode_attention"] == \
+        cfg.num_layers * serve["decode_calls"]
     prof = smoke.profile_decode(serve["engine"], calls=2)
     assert prof["device_ms_per_call"] is None      # no device on the CPU
 
@@ -202,3 +241,70 @@ def test_chip_smoke_bounds():
     b = smoke.decode_bound(qd, kc, lengths)
     assert b["flops"] == 13 * 4 * 4 * 8
     assert b["bytes"] == (2 * 64 + 2 * 13 * 2 * 8) * 2 + 2 * 4
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_chip_smoke_recurrent_rehearsal_on_cpu(arch):
+    """chip_smoke.py's scan kernel phase and the recurrent family's prefill
+    (launch counts, state check) and serve paths at a tiny size through
+    the plain versions: the same checks the card run makes."""
+    smoke = _chip_smoke()
+    if arch == "zamba2-2.7b":
+        cases = [("prefill", 1, 64, 4, 16, 16, "bfloat16", 64)] + \
+            smoke.SSD_CASES[1:3]
+        rec = smoke.ssd_phase("cpu", cases, time_it=False)
+    else:
+        cases = [("prefill", 1, 64, 4, 16, "bfloat16", 0.4, 32)] + \
+            smoke.WKV_CASES[1:3]
+        rec = smoke.wkv_phase("cpu", cases, time_it=False)
+    assert rec["max_abs_err"] == 0.0 and rec["bound_by"] == "bytes"
+    out = smoke.lm_path(arch + "-smoke", "cpu", profile=False, serve_kw=dict(
+        slots=2, max_seq=48, n_requests=3, prompt_lens=(4, 8), new_tokens=3))
+    cfg, pre, serve = out["cfg"], out["prefill"], out["serve"]
+    assert pre["launches"] == smoke.forward_launches(cfg)
+    assert pre["launches"]["ssd_scan"] + pre["launches"]["wkv6_scan"] == \
+        cfg.num_layers
+    assert pre["rel_l2"] <= pre["tol"] == smoke.RECURRENT_DECODE_TOL
+    assert pre["state_rel_l2"] <= smoke.RECURRENT_DECODE_TOL
+    assert serve["requests"] == 3 and serve["tokens"] == 9
+    assert "engine" not in serve
+    per_call = cfg.num_periods if cfg.shared_attn_every_period else 0
+    assert serve["launches"]["decode_attention"] == \
+        per_call * serve["decode_calls"]
+
+
+def test_chip_smoke_scan_bounds():
+    """The scans' bounds at the path shapes: the bytes each function must
+    move (91.5 MB for zamba2's ssd_scan, 205.5 MB for rwkv6's wkv6_scan)
+    over 3.35 TB/s bound both; the chunked forms' operations do not."""
+    smoke = _chip_smoke()
+    bf16 = torch.bfloat16
+    b = smoke.ssd_bound(torch.zeros(4, 1024, 80, 64, dtype=bf16),
+                        torch.zeros(4, 1024, 80),
+                        torch.zeros(4, 1024, 1, 64, dtype=bf16),
+                        torch.zeros(80), 64)
+    assert b["bytes"] == 2 * 41_943_040 + 1_310_720 + 2 * 524_288 \
+        + 5_242_880 + 2 * 320
+    assert b["flops"] == 10_737_418_240
+    assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 0.0273) < 1e-4
+    w = smoke.wkv_bound(torch.zeros(4, 1024, 64, 64, dtype=bf16),
+                        torch.zeros(4, 1024, 64, 64), torch.zeros(64, 64), 32)
+    assert w["bytes"] == 4 * 33_554_432 + 67_108_864 + 16_384 + 4_194_304
+    assert w["bound_by"] == "bytes" and abs(w["bound_ms"] - 0.0614) < 1e-4
+
+
+def test_chip_smoke_kernel_line_lists_five_kernels():
+    smoke = _chip_smoke()
+    rec = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
+           "bound_by": "bytes"}
+    line = smoke.kernel_line({n: rec for n in smoke.KERNEL_NAMES},
+                             {n: i for i, n in enumerate(smoke.KERNEL_NAMES)})
+    rows = line["kernels"]
+    assert [r["name"] for r in rows] == list(smoke.KERNEL_NAMES)
+    assert len(rows) == 5
+    for r in rows:
+        assert (ROOT / r["source"]).is_file()
+        path, line_no = r["replaces"].split(":")
+        text = (ROOT / path).read_text().splitlines()[int(line_no) - 1]
+        assert text.startswith("def ") and "_pallas(" in text
+        assert r["library_ms"] is None and r["route"] == "cuda"
