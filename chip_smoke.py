@@ -19,14 +19,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``decode_attention`` at the engine shape (B 8, S 2048, H 16, KV 8,
    D 128, bf16, seeded lengths) and the test shapes. Both attention
    kernels also at zamba2-2.7b's shapes (prefill B 4, S 1024, H = KV = 32,
-   D 80, causal; engine B 4, S 512, group 1, D 80). ``ssd_scan`` at the
+   D 80, causal; engine B 4, S 512, group 1, D 80), timed there too.
+   ``flash_attention`` runs its wgmma route on bf16 and its CUDA-core
+   route on f32; ``decode_attention`` is two launches per call (split-KV
+   partial pass and combine). ``ssd_scan`` at the
    zamba2-2.7b prefill shape (B 4, S 1024, H 80, P = N = 64, bf16) and
    ``wkv6_scan`` at the rwkv6-7b prefill shape (B 4, S 1024, H 64,
    K = V = 64, bf16, w in f32), both also at the unit-test shapes in f32
    and bf16 (``wkv6_scan`` at mild and aggressive decay), outputs and
    final states. Each path shape is timed with CUDA events beside its
    bound, the plain version's time and (for attention)
-   ``scaled_dot_product_attention``'s.
+   ``scaled_dot_product_attention``'s, on rotating copies of its inputs
+   that keep them cold in L2: eager calls (``ms``, the host's issue time
+   where that is longer), and the kernel's and the library's calls
+   replayed from a CUDA graph (device time).
 3. fleet path: ``Castor.tick(executor="fleet")`` over a 512-prosumer site
    at the paper's ANN width (hidden 512), seeded versions, three hourly
    score ticks: every job ok, 24 ``fleet_mlp`` launches per score bin, the
@@ -36,8 +42,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. prefill path: qwen3-1.7b at full width (28 layers, bf16 parameters
    from a seeded generator), ``forward(mode="prefill")`` on 4 prompts of
    1024 tokens: 28 ``flash_attention`` launches, finite logits, caches
-   (28, 4, 1024, 8, 128); then one 128-token prompt's prefill logits held
-   against ``decode_step`` fed the same tokens one at a time.
+   (28, 4, 1024, 8, 128), and the same forward timed again warm; then
+   one 128-token prompt's prefill logits held against ``decode_step`` fed
+   the same tokens one at a time.
 5. serve path: ``ServeEngine`` on the same parameters, 8 slots of 2048
    positions, 16 seeded requests (prompts of 16-96 tokens, 32 new tokens
    each, greedy): every request done, 28 ``decode_attention`` launches per
@@ -63,6 +70,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -75,6 +83,8 @@ ROOT = Path(__file__).resolve().parent
 # and float32 outside the tensor cores (the kernel's FMAs are f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# the card's L2 cache, which timed inputs must not stay in between calls
+L2_BYTES = 50 * 2**20
 
 # same tolerances as tests/test_torch_fleet_mlp.py, on |got - ref| / (1 + |ref|)
 TOL = {"float32": 2e-4, "bfloat16": 2e-1}
@@ -102,6 +112,9 @@ FLASH_CASES = [FLASH_PATH_CASE] + [
                            (1, 128, 128, 8, 2, 64), (1, 96, 96, 4, 4, 80),
                            (1, 64, 256, 4, 2, 32), (2, 37, 200, 4, 1, 80)])] + [
     ("zamba2", 4, 1024, 1024, 32, 32, 80, "bfloat16", True)]
+# the attention cases timed beside their plain version and SDPA: the path
+# shapes (qwen3-1.7b's, in the kernels line) and zamba2-2.7b's
+TIMED_LABELS = ("prefill", "serve", "zamba2")
 # (label, B, S, H, KV, D, dtype); the first is the engine shape
 DECODE_PATH_CASE = ("serve", 8, 2048, 16, 8, 128, "bfloat16")
 DECODE_CASES = [DECODE_PATH_CASE] + [
@@ -184,16 +197,43 @@ def _fleet_inputs(N, b, F, hidden, depth, dtype, device, seed):
     return x, ws, bs
 
 
-def _time_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call between CUDA events, after a warm-up."""
+def _input_sets(inputs: tuple, nbytes: int) -> list:
+    """``inputs`` and as many clones as it takes for the other sets' bytes
+    between two uses of one set to reach twice the card's L2: a call then
+    finds its inputs cold, as it does on the path, where the other layers'
+    weights and caches pass through the L2 between two calls."""
+    n = 1 if nbytes >= 2 * L2_BYTES else 1 + -(-2 * L2_BYTES // nbytes)
+    return [inputs] + [tuple(t.clone() for t in inputs)
+                       for _ in range(n - 1)]
+
+
+def _time_ms(fn, sets: list, iters: int, graph: bool = False) -> float:
+    """Mean milliseconds per call of ``fn(*sets[i % len(sets)])`` between
+    CUDA events, after a warm-up. Eager, an op that the host issues more
+    slowly than the card runs it reads the host's issue time; with
+    ``graph`` the same calls are captured in one CUDA graph and replayed,
+    and the time is the device's alone."""
     import torch
-    for _ in range(3):
-        fn()
+    calls = [functools.partial(fn, *sets[i % len(sets)])
+             for i in range(iters)]
+    for call in calls[:len(sets) + 2]:
+        call()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for call in calls:
+                call()
+        g.replay()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for call in calls:
+            call()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -245,19 +285,12 @@ def kernel_phase(device: str, cases=KERNEL_CASES, *, time_it: bool) -> dict:
             continue
         record = {"max_abs_err": max_abs, "rel_err": rel,
                   **fleet_mlp_bound(x, ws, bs)}
-        if time_it:     # in turns: plain, kernel, kernel, plain
-            plain = [_time_ms(lambda: fleet_mlp_reference(x, ws, bs), 20)]
-            kern = [_time_ms(lambda: fleet_mlp(x, ws, bs), 50)
-                    for _ in range(2)]
-            plain.append(_time_ms(lambda: fleet_mlp_reference(x, ws, bs), 20))
-            record["ms"] = sum(kern) / 2
-            record["plain_ms"] = sum(plain) / 2
-            print(f"kernel scoring time: {record['ms']:.4f} ms/launch; "
-                  f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}"
-                  f" ({record['bytes']} bytes, {record['flops']} flop); "
-                  f"plain version {record['plain_ms']:.4f} ms; "
-                  "library: none (no single PyTorch call computes the "
-                  "per-instance chain)")
+        if time_it:
+            _timed(record, _input_sets((x, ws, bs), record["bytes"]),
+                   fleet_mlp, fleet_mlp_reference, None, 50)
+            print("kernel scoring time: " + _times(
+                record, "no single PyTorch call computes the per-instance "
+                        "chain"))
     return record
 
 
@@ -491,16 +524,35 @@ def decode_bound(q, k_cache, lengths) -> dict:
     return _bound(valid * H * 4 * D, nbytes, BF16_FLOP_PER_S)
 
 
-def _timed(record: dict, kernel, plain, library, iters: int) -> None:
-    """CUDA-event times, in turns: plain, kernel, library, kernel, plain;
-    ``library`` None where no single PyTorch call computes the function."""
-    plain_ms = [_time_ms(plain, max(1, iters // 4))]
-    kern_ms = [_time_ms(kernel, iters)]
-    lib_ms = None if library is None else _time_ms(library, iters)
-    kern_ms.append(_time_ms(kernel, iters))
-    plain_ms.append(_time_ms(plain, max(1, iters // 4)))
-    record.update(ms=sum(kern_ms) / 2, plain_ms=sum(plain_ms) / 2,
-                  library_ms=lib_ms)
+def _timed(record: dict, sets: list, kernel, plain, library,
+           iters: int) -> None:
+    """Times of ``kernel``, ``plain`` and ``library`` (None where no single
+    PyTorch call computes the function), each called on the input sets in
+    turn: eager in turns, plain, kernel, library, kernel, plain (``ms``,
+    ``plain_ms``, ``library_ms``); then the kernel's and the library's
+    calls replayed from a CUDA graph (``graph_ms``, ``library_graph_ms``)."""
+    plain_ms = [_time_ms(plain, sets, max(1, iters // 4))]
+    kern_ms = [_time_ms(kernel, sets, iters)]
+    lib_ms = None if library is None else _time_ms(library, sets, iters)
+    kern_ms.append(_time_ms(kernel, sets, iters))
+    plain_ms.append(_time_ms(plain, sets, max(1, iters // 4)))
+    record.update(
+        ms=sum(kern_ms) / 2, plain_ms=sum(plain_ms) / 2, library_ms=lib_ms,
+        graph_ms=_time_ms(kernel, sets, iters, graph=True),
+        library_graph_ms=None if library is None
+        else _time_ms(library, sets, iters, graph=True))
+
+
+def _times(rec: dict, library: str) -> str:
+    """The timing half of a kernel phase's print line."""
+    lib = f"{library} {rec['library_ms']:.4f} ms (graph replay " \
+          f"{rec['library_graph_ms']:.4f})" if rec["library_ms"] is not None \
+        else f"library: none ({library})"
+    return (f"{rec['ms']:.4f} ms/call eager, {rec['graph_ms']:.4f} ms by "
+            f"CUDA graph replay, inputs cold in L2; bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bytes']} "
+            f"bytes, {rec['flops']} flop); plain version "
+            f"{rec['plain_ms']:.4f} ms; {lib}")
 
 
 def flash_phase(device: str, cases=FLASH_CASES, *, time_it: bool) -> dict:
@@ -521,22 +573,23 @@ def flash_phase(device: str, cases=FLASH_CASES, *, time_it: bool) -> dict:
         want = attention_reference(q, k, v, causal=causal)
         rec = _agree(f"flash_attention {label:7s} B={B} Sq={Sq} Skv={Skv} "
                      f"H={H} KV={KV} D={D} causal={causal}", got, want, dtype)
-        if label != FLASH_PATH_CASE[0]:
+        if label not in TIMED_LABELS:
             continue
-        record = {**rec, **flash_bound(q, k, causal)}
-        if time_it:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            _timed(record,
-                   lambda: flash_attention(q, k, v, causal=causal),
-                   lambda: attention_reference(q, k, v, causal=causal),
-                   lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
-            print(f"flash_attention prefill time: {record['ms']:.4f} "
-                  f"ms/launch; bound {record['bound_ms']:.4f} ms by "
-                  f"{record['bound_by']} ({record['bytes']} bytes, "
-                  f"{record['flops']} flop); plain version "
-                  f"{record['plain_ms']:.4f} ms; scaled_dot_product_attention "
-                  f"{record['library_ms']:.4f} ms")
+        rec.update(flash_bound(q, k, causal))
+        if time_it:     # each set: q, k, v and SDPA's (B, H, S, D) views
+            sets = [(*s, *(t.transpose(1, 2) for t in s))
+                    for s in _input_sets((q, k, v), rec["bytes"])]
+            _timed(rec, sets,
+                   lambda q, k, v, *_: flash_attention(q, k, v,
+                                                       causal=causal),
+                   lambda q, k, v, *_: attention_reference(q, k, v,
+                                                           causal=causal),
+                   lambda *s: F.scaled_dot_product_attention(
+                       *s[3:], is_causal=causal, enable_gqa=True), 20)
+            print(f"flash_attention {label} time: " + _times(
+                rec, "scaled_dot_product_attention"))
+        if label == FLASH_PATH_CASE[0]:
+            record = rec
     return record
 
 
@@ -562,25 +615,24 @@ def decode_phase(device: str, cases=DECODE_CASES, *, time_it: bool) -> dict:
         rec = _agree(f"decode_attention {label:5s} B={B} S={S} H={H} KV={KV} "
                      f"D={D} lengths={lengths.tolist() if B <= 8 else '...'}",
                      got, want, dtype)
-        if label != DECODE_PATH_CASE[0]:
+        if label not in TIMED_LABELS:
             continue
-        record = {**rec, **decode_bound(q, kc, lengths)}
-        if time_it:
-            qt = q[:, :, None]
-            kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        rec.update(decode_bound(q, kc, lengths))
+        if time_it:     # each set: q, caches, lengths and SDPA's views
             mask = (torch.arange(S, device=device)[None, :]
                     < lengths[:, None])[:, None, None, :]
-            _timed(record,
-                   lambda: decode_attention(q, kc, vc, lengths),
-                   lambda: decode_attention_reference(q, kc, vc, lengths),
-                   lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, attn_mask=mask, enable_gqa=True), 50)
-            print(f"decode_attention engine time: {record['ms']:.4f} "
-                  f"ms/launch; bound {record['bound_ms']:.4f} ms by "
-                  f"{record['bound_by']} ({record['bytes']} bytes, "
-                  f"{record['flops']} flop); plain version "
-                  f"{record['plain_ms']:.4f} ms; scaled_dot_product_attention "
-                  f"{record['library_ms']:.4f} ms")
+            sets = [(q, kc, vc, n, q[:, :, None], kc.transpose(1, 2),
+                     vc.transpose(1, 2)) for q, kc, vc, n in
+                    _input_sets((q, kc, vc, lengths), rec["bytes"])]
+            _timed(rec, sets,
+                   lambda *s: decode_attention(*s[:4]),
+                   lambda *s: decode_attention_reference(*s[:4]),
+                   lambda *s: F.scaled_dot_product_attention(
+                       *s[4:], attn_mask=mask, enable_gqa=True), 50)
+            print(f"decode_attention {label} time (partial + combine "
+                  "launch): " + _times(rec, "scaled_dot_product_attention"))
+        if label == DECODE_PATH_CASE[0]:
+            record = rec
     return record
 
 
@@ -647,15 +699,11 @@ def ssd_phase(device: str, cases=SSD_CASES, *, time_it: bool) -> dict:
         record = {**rec, **ssd_bound(x, dt, Bm, D, chunk)}
         if time_it:
             _timed(record,
-                   lambda: ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk),
-                   lambda: ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk),
-                   None, 20)
-            print(f"ssd_scan prefill time: {record['ms']:.4f} ms/launch; "
-                  f"bound {record['bound_ms']:.4f} ms by "
-                  f"{record['bound_by']} ({record['bytes']} bytes, "
-                  f"{record['flops']} flop); plain version "
-                  f"{record['plain_ms']:.4f} ms; library: none (no single "
-                  "PyTorch call computes the scan)")
+                   _input_sets((x, dt, A, Bm, Cm, D), record["bytes"]),
+                   lambda *a: ssd_scan(*a, chunk=chunk),
+                   lambda *a: ssd_chunked(*a, chunk=chunk), None, 20)
+            print("ssd_scan prefill time: " + _times(
+                record, "no single PyTorch call computes the scan"))
     return record
 
 
@@ -686,15 +734,11 @@ def wkv_phase(device: str, cases=WKV_CASES, *, time_it: bool) -> dict:
         record = {**rec, **wkv_bound(r, w, u, chunk)}
         if time_it:
             _timed(record,
-                   lambda: wkv6_scan(r, k, v, w, u, chunk=chunk),
-                   lambda: wkv6_chunked(r, k, v, w, u, chunk=chunk),
-                   None, 20)
-            print(f"wkv6_scan prefill time: {record['ms']:.4f} ms/launch; "
-                  f"bound {record['bound_ms']:.4f} ms by "
-                  f"{record['bound_by']} ({record['bytes']} bytes, "
-                  f"{record['flops']} flop); plain version "
-                  f"{record['plain_ms']:.4f} ms; library: none (no single "
-                  "PyTorch call computes the scan)")
+                   _input_sets((r, k, v, w, u), record["bytes"]),
+                   lambda *a: wkv6_scan(*a, chunk=chunk),
+                   lambda *a: wkv6_chunked(*a, chunk=chunk), None, 20)
+            print("wkv6_scan prefill time: " + _times(
+                record, "no single PyTorch call computes the scan"))
     return record
 
 
@@ -774,7 +818,17 @@ def prefill_phase(device: str, cfg, params, *, batch: int = 4,
               f"{spec.shape} {spec.dtype}")
     check(state["lengths"].tolist() == [seq] * batch,
           f"prefill: lengths {state['lengths'].tolist()}")
-    del state
+    del state, logits
+    # the same forward again, warm (allocator, cuBLAS and the kernel
+    # libraries loaded): the wall that the kernels' speed moves
+    t = time.perf_counter()
+    with torch.no_grad():
+        M.forward(cfg, params, {"tokens": tokens}, mode="prefill")
+    if cuda:
+        torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    print(f"prefill: {cfg.name} warm forward (the same prompts again) in "
+          f"{warm:.3f} s wall ({batch * seq / warm:.1f} tokens/s)")
 
     # the same prompt through both paths: prefill's last logits (and final
     # scan states) against decode_step fed the tokens one at a time
@@ -795,7 +849,8 @@ def prefill_phase(device: str, cfg, params, *, batch: int = 4,
           f"token-by-token decode logits rel L2 {rel:.3e} (tol {tol:.1e}) "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"prefill and decode disagree: rel L2 {rel:.3e}")
-    rec = {"seconds": secs, "launches": launches, "rel_l2": rel, "tol": tol}
+    rec = {"seconds": secs, "warm_seconds": warm, "launches": launches,
+           "rel_l2": rel, "tol": tol}
     if recurrent:
         cat = lambda st: torch.cat([st["caches"][key][n].flatten()  # noqa: E731
                                     for key, n in recurrent])
@@ -971,7 +1026,16 @@ def build_all() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {line.strip()}")
+            elif "Compiling entry function" in line:
+                print(f"build: {line.strip().split(chr(39))[1][:110]}")
     print(f"build: all kernels in {time.perf_counter() - t:.2f} s")
+    import torch
+    for D in (128, 80):
+        print(f"build: dynamic shared memory per block at D {D}: "
+              f"flash_attention bf16 {fa.smem_bytes(D, torch.bfloat16)} B, "
+              f"f32 {fa.smem_bytes(D, torch.float32)} B; decode_attention "
+              f"(group 2) bf16 {dec.smem_bytes(2, D, torch.bfloat16)} B, "
+              f"f32 {dec.smem_bytes(2, D, torch.float32)} B")
 
 
 # where each kernel's TPU twin is defined (file:line of the function that
@@ -1001,7 +1065,8 @@ def kernel_line(records: dict, launches: dict) -> dict:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "library_ms": rec.get("library_ms")})
+            **{key: rec.get(key) for key in
+               ("library_ms", "graph_ms", "library_graph_ms")}})
     return {"kernels": rows}
 
 

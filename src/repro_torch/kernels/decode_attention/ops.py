@@ -8,7 +8,8 @@ from .kernel import decode_attention_cuda
 from .ref import decode_attention_reference
 
 #: Dispatch counter, one per call that ran. A CUDA tensor only ever reaches
-#: the kernel, so on a card each count is one kernel launch.
+#: the kernels, so on a card each count is one call of the split-KV pair:
+#: two launches, the partial pass and the combine pass.
 _invocations = 0
 
 

@@ -1,5 +1,14 @@
-"""Builds and launches the hand-written CUDA ``flash_attention`` kernel
-(``csrc/flash_attention.cu``).
+"""Builds and launches the hand-written CUDA ``flash_attention`` kernels
+(``csrc/flash_attention.cu``), one route per dtype:
+
+    bfloat16   tensor cores: wgmma (m64n128k16 for QK^T, m64n64k16 for PV),
+               128-key K/V tiles by TMA into a ring of mbarrier-guarded
+               stages, 128 q rows per block
+    float32    CUDA cores: f32 FMAs, 64 q rows per block. f32 attention is
+               held to 2e-5, which TF32 tensor cores (about 3 digits)
+               cannot meet; no model path runs it on the card
+
+Both are launches of ``flash_attention``.
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -17,10 +26,17 @@ from .. import build as _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 # Launch geometry of csrc/flash_attention.cu; checked against the
-# library's own constants when it loads.
+# library's own constants when it loads. The f32 route:
 BLOCK_Q = 64
 BLOCK_K = 64
 THREADS = 256
+# the bf16 route: two consumer warpgroups of 64 q rows and a producer warp
+WG_BLOCK_Q = 128
+WG_BLOCK_K = 128
+WG_THREADS = 288
+STAGES = 3
+Q_ATOM_BYTES = 64 * 64 * 2              # q box: 64 rows of 64 bf16 columns
+KV_ATOM_BYTES = WG_BLOCK_K * 64 * 2     # k / v box: 128 rows of 64 columns
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,9 +57,10 @@ def _bind(lib, path) -> None:
     lib.flash_attention_config.restype = None
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
-    cfg = (i * 5)()
+    cfg = (i * 9)()
     lib.flash_attention_config(cfg)
-    want = (BLOCK_Q, BLOCK_K, THREADS, MAX_HEAD_DIM, MAX_SMEM_BYTES)
+    want = (BLOCK_Q, BLOCK_K, THREADS, WG_BLOCK_Q, WG_BLOCK_K, WG_THREADS,
+            STAGES, MAX_HEAD_DIM, MAX_SMEM_BYTES)
     if tuple(cfg) != want:
         raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
                            f"!= the wrapper's {want}")
@@ -53,31 +70,44 @@ def _library():
     return _build.load(SOURCE, "flash_attention", _bind)
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one block, all f32: the scaled q tile
-    (padded rows), the transposed k tile (padded rows), the v tile and the
-    probability tile (padded rows)."""
+def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one block of ``dtype``'s route.
+
+    bf16: 1024 bytes of alignment slack, then 128-byte-swizzled tiles in
+    64-column atoms (one for D <= 64, two up to 128; TMA zero-fills the
+    columns past D): the two warpgroups' 64-row q tiles and ``STAGES``
+    128-key K and V tiles, and 2 * ``STAGES`` + 1 mbarriers of 8 bytes.
+    f32: the scaled q tile (padded rows), the transposed k tile (padded
+    rows), the v tile and the probability tile (padded rows)."""
+    if dtype == torch.bfloat16:
+        atoms = 1 if head_dim <= 64 else 2
+        return 1024 + atoms * (2 * Q_ATOM_BYTES + 2 * STAGES * KV_ATOM_BYTES) \
+            + 8 * (2 * STAGES + 1)
     return 4 * (BLOCK_Q * (head_dim + 1) + head_dim * (BLOCK_K + 1)
                 + BLOCK_K * head_dim + BLOCK_Q * (BLOCK_K + 1))
 
 
-def check_launch(head_dim: int) -> None:
-    """Raise on a head dim the kernel does not take: a multiple of 8 (its
-    16-byte loads) up to ``MAX_HEAD_DIM`` (its register tile)."""
+def check_launch(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> None:
+    """Raise on a head dim the kernels do not take: a multiple of 8 (the
+    f32 route's 16-byte loads; the bf16 route's TMA rows of 16-byte
+    multiples and wgmma's N) up to ``MAX_HEAD_DIM`` (two 64-column atoms,
+    the register tiles of both routes)."""
     if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes a head dim that is "
                          f"a multiple of 8 up to {MAX_HEAD_DIM}, got "
                          f"{head_dim}")
-    if smem_bytes(head_dim) > MAX_SMEM_BYTES:
+    if smem_bytes(head_dim, dtype) > MAX_SMEM_BYTES:
         raise ValueError(f"flash_attention kernel needs "
-                         f"{smem_bytes(head_dim)} bytes of shared memory")
+                         f"{smem_bytes(head_dim, dtype)} bytes of shared "
+                         "memory")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
-    """Launch the kernel on the current stream of ``q``'s card and return
-    the output without synchronising. Shapes are checked by
-    ``ops.flash_attention``; this checks what the kernel itself needs."""
+    """Launch the kernel of ``q.dtype``'s route on the current stream of
+    ``q``'s card and return the output without synchronising. Shapes are
+    checked by ``ops.flash_attention``; this checks what the kernel itself
+    needs."""
     code = _DTYPE_CODES.get(q.dtype)
     if code is None:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
@@ -91,7 +121,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "tensors on 16-byte boundaries")
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    check_launch(D)
+    check_launch(D, q.dtype)
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

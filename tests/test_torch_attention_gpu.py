@@ -1,14 +1,17 @@
 """The hand-written CUDA ``flash_attention`` and ``decode_attention``
 kernels against their plain PyTorch versions on the card, at the unit-test
 shapes of tests/test_kernels.py, head dims 16, 80 and 128, Sq < Skv,
-ragged lengths, and the serving path's shapes. Imports no JAX, so it runs
-on a machine with a card:
+ragged lengths, and the serving path's shapes (qwen3-1.7b, zamba2-2.7b,
+hubert-xlarge's non-causal D 80). f32 inputs exercise flash_attention's
+CUDA-core route, bf16 its wgmma route; decode lengths on and around the
+split-KV boundaries. Imports no JAX, so it runs on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_attention_gpu.py
 """
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -25,12 +28,15 @@ FLASH_SHAPES = [
     (2, 64, 64, 4, 2, 16), (1, 96, 96, 4, 4, 80), (1, 64, 256, 4, 2, 32),
     (2, 37, 200, 4, 1, 80), (1, 100, 100, 16, 8, 128),
     (4, 1024, 1024, 16, 8, 128),       # qwen3-1.7b prefill
+    (4, 1024, 1024, 32, 32, 80),       # zamba2-2.7b's shared attention block
+    (2, 500, 500, 16, 16, 80),         # hubert-xlarge (its encoder is non-causal)
 ]
 # (B, S, H, KV, D)
 DECODE_SHAPES = [
     (3, 256, 4, 2, 32), (2, 128, 8, 8, 64), (2, 96, 4, 2, 16),
     (3, 200, 4, 4, 80), (2, 300, 28, 4, 128),
     (8, 2048, 16, 8, 128),             # qwen3-1.7b serving, 8 slots
+    (4, 512, 32, 32, 80),              # zamba2-2.7b serving, group 1
 ]
 
 
@@ -83,6 +89,43 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     assert dec_ops.invocation_count() == before + 1
     want = decode_attention_reference(q, kc, vc, lengths)
     assert got.shape == want.shape and got.dtype == q.dtype
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _edge_lengths(case, B, S, split_len):
+    """Lengths on and around the split boundaries of ``split_plan``."""
+    if case == "boundaries":
+        cuts = list(range(split_len, S + 1, split_len)) or [S]
+        return [cuts[i % len(cuts)] for i in range(B)]
+    if case == "ones":
+        return [1] * B
+    if case == "full":
+        return [S] * B
+    return [0] + [split_len + 1, S + 5, split_len - 1][:B - 1]   # "zero"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["boundaries", "ones", "full", "zero"])
+@pytest.mark.parametrize("shape", [(4, 512, 32, 32, 80), (4, 2048, 16, 8, 128),
+                                   (3, 200, 4, 2, 32)])
+def test_decode_kernel_split_edges_on_card(cuda_device, dtype, case, shape):
+    """Every length on a split boundary, all 1, all S, and a row of 0 (with
+    one above S, which counts as S): the partial pass's empty splits and
+    the combine pass's rescale against the plain version."""
+    B, S, H, KV, D = shape
+    _, split_len = dec_kernel.split_plan(B, KV, S)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = _randn(g, (B, H, D), dtype, cuda_device)
+    kc = _randn(g, (B, S, KV, D), dtype, cuda_device)
+    vc = _randn(g, (B, S, KV, D), dtype, cuda_device)
+    lengths = torch.tensor(_edge_lengths(case, B, S, split_len),
+                           dtype=torch.int32, device=cuda_device)
+    got = dec_ops.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    want = decode_attention_reference(q, kc, vc, lengths.clamp(min=1))
+    want = torch.where((lengths > 0)[:, None, None], want, 0)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
