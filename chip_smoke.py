@@ -26,8 +26,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    zamba2-2.7b prefill shape (B 4, S 1024, H 80, P = N = 64, bf16) and
    ``wkv6_scan`` at the rwkv6-7b prefill shape (B 4, S 1024, H 64,
    K = V = 64, bf16, w in f32), both also at the unit-test shapes in f32
-   and bf16 (``wkv6_scan`` at mild and aggressive decay), outputs and
-   final states. Each path shape is timed with CUDA events beside its
+   and bf16 (``wkv6_scan`` at mild and aggressive decay), at strong decay
+   (SSD, dt |A| up to 10) and extreme decay (WKV, w down to 1e-30) in both
+   dtypes, outputs and final states. The scans run their tensor-core
+   route on bf16 and their per-token route on f32 (each route's kernel,
+   registers and shared memory printed at the build); the f32 route is
+   also checked and timed at the path shape. Each path shape is timed
+   with CUDA events beside its
    bound, the plain version's time and (for attention)
    ``scaled_dot_product_attention``'s, on rotating copies of its inputs
    that keep them cold in L2: eager calls (``ms``, the host's issue time
@@ -145,20 +150,32 @@ RECURRENT_DECODE_TOL = 1.5e-1
 # final states are f32 on both sides and always take the f32 tolerance.
 SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 WKV_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
-# (label, B, S, H, P, N, dtype, chunk); the first is the zamba2-2.7b
-# prefill shape, the rest tests/test_kernels.py's
-SSD_PATH_CASE = ("prefill", 4, 1024, 80, 64, 64, "bfloat16", 64)
+# (label, B, S, H, P, N, dtype, chunk[, dt range]); the first is the
+# zamba2-2.7b prefill shape, then tests/test_kernels.py's (dt ~ U(1e-3,
+# 0.1), the default), then strong decay: dt ~ U(1, 5), so dt |A| reaches
+# 10. The strong cases are held against the per-token recurrence
+# (ssd_sequential): there the chunked plain form's f32 differences of
+# large cumulative decays lose digits (1e-4 against a float64 recurrence)
+SSD_PATH_CASE = ("prefill", 4, 1024, 80, 64, 64, "bfloat16", 64, (1e-3, 0.1))
 SSD_CASES = [SSD_PATH_CASE] + [
-    (f"test{i}", *s[:5], dt, s[5]) for dt in ("float32", "bfloat16")
+    (f"test{i}", *s[:5], dt, s[5], (1e-3, 0.1)) for dt in ("float32", "bfloat16")
     for i, s in enumerate([(2, 128, 3, 16, 16, 32), (1, 64, 2, 8, 32, 16),
-                           (1, 96, 1, 32, 16, 32)])]
+                           (1, 96, 1, 32, 16, 32)])] + [
+    (f"strong{i}", *s[:5], dt, s[5], (1.0, 5.0)) for dt in ("float32", "bfloat16")
+    for i, s in enumerate([(2, 128, 3, 16, 16, 32), (1, 256, 4, 64, 64, 64)])]
 # (label, B, S, H, K, dtype, wmin, chunk); decays w ~ U(wmin, 0.999): 0.4
-# is mild, 0.001 aggressive. The first is the rwkv6-7b prefill shape
+# is mild, 0.001 aggressive; below 1e-6 (extreme) w is log-uniform on
+# [wmin, 0.999], so decays near 1e-30 occur, and the case is held against
+# the per-token recurrence (wkv6_sequential), as the strong SSD cases
+# are (the chunked form misses a float64 recurrence by 2e-3 there). The
+# first is the rwkv6-7b prefill shape
 WKV_PATH_CASE = ("prefill", 4, 1024, 64, 64, "bfloat16", 0.4, 32)
 WKV_CASES = [WKV_PATH_CASE] + [
     (f"test{i}", *s[:4], dt, wmin, s[4]) for dt in ("float32", "bfloat16")
     for wmin in (0.4, 0.001)
-    for i, s in enumerate([(2, 128, 3, 16, 32), (1, 64, 2, 32, 16)])]
+    for i, s in enumerate([(2, 128, 3, 16, 32), (1, 64, 2, 32, 16)])] + [
+    (f"extreme{i}", *s[:4], dt, 1e-30, s[4]) for dt in ("float32", "bfloat16")
+    for i, s in enumerate([(2, 128, 3, 16, 32), (1, 256, 4, 64, 32)])]
 
 KERNEL_NAMES = ("fleet_mlp", "flash_attention", "decode_attention",
                 "ssd_scan", "wkv6_scan")
@@ -672,25 +689,49 @@ def _uniform(g, lo, hi, shape, device):
     return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
 
 
+def _decays(g, wmin, shape, device):
+    """w ~ U(wmin, 0.999); log-uniform on [wmin, 0.999] below 1e-6."""
+    import math
+    import torch
+    if wmin >= 1e-6:
+        return _uniform(g, wmin, 0.999, shape, device)
+    lo, hi = math.log(wmin), math.log(0.999)
+    return torch.exp(_uniform(g, lo, hi, shape, device))
+
+
+def _f32_route_times(record: dict, inputs: tuple, op) -> None:
+    """The f32 route's eager and graph-replay times on copies of ``inputs``
+    rotated cold in L2, as the bf16 route is timed (``f32_ms``,
+    ``f32_graph_ms``)."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    sets = _input_sets(inputs, nbytes)
+    record.update(f32_ms=_time_ms(op, sets, 20),
+                  f32_graph_ms=_time_ms(op, sets, 20, graph=True))
+
+
 def ssd_phase(device: str, cases=SSD_CASES, *, time_it: bool) -> dict:
     """``ssd_scan`` through its public op against the plain chunked version
     for every case, output and final state; returns the path case's
     record. Inputs as tests/test_kernels.py draws them."""
     import torch
     from repro_torch.kernels.mamba2_scan.ops import ssd_scan
-    from repro_torch.kernels.mamba2_scan.ref import ssd_chunked
+    from repro_torch.kernels.mamba2_scan.ref import ssd_chunked, ssd_sequential
     record = None
-    for seed, (label, B, S, H, P, N, dtype, chunk) in enumerate(cases):
+    for seed, (label, B, S, H, P, N, dtype, chunk, *dt_range) in \
+            enumerate(cases):
+        dt_range = dt_range[0] if dt_range else (1e-3, 0.1)
         g = torch.Generator(device=device).manual_seed(300 + seed)
         dt_ = getattr(torch, dtype)
         x = torch.randn(B, S, H, P, generator=g, device=device).to(dt_)
-        dt = _uniform(g, 1e-3, 0.1, (B, S, H), device)
+        dt = _uniform(g, *dt_range, (B, S, H), device)
         A = -_uniform(g, 0.5, 2.0, (H,), device)
         Bm, Cm = (torch.randn(B, S, 1, N, generator=g, device=device).to(dt_)
                   for _ in range(2))
         D = torch.randn(H, generator=g, device=device)
         y, st = ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
-        want_y, want_st = ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
+        want_y, want_st = ssd_sequential(x, dt, A, Bm, Cm, D) \
+            if label.startswith("strong") \
+            else ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
         name = f"ssd_scan {label:7s} B={B} S={S} H={H} P={P} N={N}"
         rec = _agree(name, y, want_y, dtype, SSD_TOL)
         _agree(name + " state", st, want_st, "float32", SSD_TOL)
@@ -704,6 +745,20 @@ def ssd_phase(device: str, cases=SSD_CASES, *, time_it: bool) -> dict:
                    lambda *a: ssd_chunked(*a, chunk=chunk), None, 20)
             print("ssd_scan prefill time: " + _times(
                 record, "no single PyTorch call computes the scan"))
+            # the per-token route (the first design, which f32 still takes)
+            # at the same shape, checked and timed on the same card
+            f32 = (x.float(), dt, A, Bm.float(), Cm.float(), D)
+            y32, st32 = ssd_scan(*f32, chunk=chunk)
+            want32 = ssd_chunked(*f32, chunk=chunk)
+            _agree(name + " f32 route", y32, want32[0], "float32", SSD_TOL)
+            _agree(name + " f32 route state", st32, want32[1], "float32",
+                   SSD_TOL)
+            _f32_route_times(record, f32, lambda *a: ssd_scan(*a, chunk=chunk))
+            print(f"ssd_scan prefill f32 route (per token, CUDA cores): "
+                  f"{record['f32_ms']:.4f} ms/call eager, "
+                  f"{record['f32_graph_ms']:.4f} ms by CUDA graph replay; "
+                  f"the bf16 route is {record['f32_ms'] / record['ms']:.2f}x "
+                  f"faster eager")
     return record
 
 
@@ -714,17 +769,19 @@ def wkv_phase(device: str, cases=WKV_CASES, *, time_it: bool) -> dict:
     path."""
     import torch
     from repro_torch.kernels.rwkv6_scan.ops import wkv6_scan
-    from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked, wkv6_sequential
     record = None
     for seed, (label, B, S, H, K, dtype, wmin, chunk) in enumerate(cases):
         g = torch.Generator(device=device).manual_seed(400 + seed)
         dt_ = getattr(torch, dtype)
         r, k, v = (torch.randn(B, S, H, K, generator=g, device=device).to(dt_)
                    for _ in range(3))
-        w = _uniform(g, wmin, 0.999, (B, S, H, K), device)
+        w = _decays(g, wmin, (B, S, H, K), device)
         u = torch.randn(H, K, generator=g, device=device)
         y, st = wkv6_scan(r, k, v, w, u, chunk=chunk)
-        want_y, want_st = wkv6_chunked(r, k, v, w, u, chunk=chunk)
+        want_y, want_st = wkv6_sequential(r, k, v, w, u) \
+            if label.startswith("extreme") \
+            else wkv6_chunked(r, k, v, w, u, chunk=chunk)
         name = (f"wkv6_scan {label:7s} B={B} S={S} H={H} K={K} "
                 f"wmin={wmin}")
         rec = _agree(name, y, want_y, dtype, WKV_TOL)
@@ -739,6 +796,19 @@ def wkv_phase(device: str, cases=WKV_CASES, *, time_it: bool) -> dict:
                    lambda *a: wkv6_chunked(*a, chunk=chunk), None, 20)
             print("wkv6_scan prefill time: " + _times(
                 record, "no single PyTorch call computes the scan"))
+            f32 = (r.float(), k.float(), v.float(), w, u)
+            y32, st32 = wkv6_scan(*f32, chunk=chunk)
+            want32 = wkv6_chunked(*f32, chunk=chunk)
+            _agree(name + " f32 route", y32, want32[0], "float32", WKV_TOL)
+            _agree(name + " f32 route state", st32, want32[1], "float32",
+                   WKV_TOL)
+            _f32_route_times(record, f32,
+                             lambda *a: wkv6_scan(*a, chunk=chunk))
+            print(f"wkv6_scan prefill f32 route (per token, CUDA cores): "
+                  f"{record['f32_ms']:.4f} ms/call eager, "
+                  f"{record['f32_graph_ms']:.4f} ms by CUDA graph replay; "
+                  f"the bf16 route is {record['f32_ms'] / record['ms']:.2f}x "
+                  f"faster eager")
     return record
 
 
@@ -1003,6 +1073,46 @@ def _card_line() -> str:
     return proc.stdout.strip()
 
 
+def _ptxas_table(log: str) -> dict:
+    """``ptxas -v`` output as {mangled entry function: (registers, spill
+    store bytes, static shared memory bytes)}."""
+    import re
+    table, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            table[name] = (int(m.group(1)), spill,
+                           int(smem.group(1)) if smem else 0)
+    return table
+
+
+def scan_routes(name: str, mod, log: str) -> None:
+    """Print each route of a scan kernel: the dtype, the kernel function it
+    launches, its registers, spills and shared memory (the bf16 route's
+    16-byte-load instantiation, which the path shapes take)."""
+    import torch
+    table = _ptxas_table(log)
+    for dtype, route in mod.ROUTES.items():
+        fn = route.split()[0]
+        tc = dtype == torch.bfloat16
+        hits = [v for k, v in table.items()
+                if fn + ("ILb1E" if tc else "I") in k]
+        check(len(hits) == 1, f"build: {fn} not found once in ptxas output")
+        regs, spill, smem = hits[0]
+        mem = (f"{mod.TC_SMEM_BYTES} B dynamic shared memory a block, "
+               f"{mod.blocks_per_sm()} blocks an SM") if tc else \
+            f"{smem} B static shared memory a block"
+        print(f"build: {name} route {str(dtype)[6:]} -> {route}: {regs} "
+              f"registers, {spill} B spilled, {mem}")
+
+
 def build_all() -> None:
     """One ``nvcc`` per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1029,6 +1139,9 @@ def build_all() -> None:
             elif "Compiling entry function" in line:
                 print(f"build: {line.strip().split(chr(39))[1][:110]}")
     print(f"build: all kernels in {time.perf_counter() - t:.2f} s")
+    logs = {name: log for name, (_, log, _) in built}
+    for name, mod in (("ssd_scan", ssd), ("wkv6_scan", wkv)):
+        scan_routes(name, mod, logs[name])
     import torch
     for D in (128, 80):
         print(f"build: dynamic shared memory per block at D {D}: "
@@ -1066,7 +1179,8 @@ def kernel_line(records: dict, launches: dict) -> dict:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             **{key: rec.get(key) for key in
-               ("library_ms", "graph_ms", "library_graph_ms")}})
+               ("library_ms", "graph_ms", "library_graph_ms", "f32_ms",
+                "f32_graph_ms")}})
     return {"kernels": rows}
 
 

@@ -10,30 +10,54 @@
 // Semantics, per (b, h), from a zero state:
 //     S_t = exp(dt_t A_h) S_{t-1} + dt_t x_t B_t^T      (P, N)
 //     y_t = S_t C_t + D_h x_t
-// the same function as the TPU kernel's chunked form (which carries the
-// state across chunks and rebuilds the within-chunk part from the decay
-// L[t,u] = exp(cum_t - cum_u)); this kernel takes the recurrence token by
-// token instead, so it needs no exponent of a difference at all.
 //
 // What bounds it on this card: bytes. At the zamba2-2.7b prefill shape
 // (B 4, S 1024, H 80, P = N = 64) the function reads x, dt, B, C and
 // writes y and the state once, about 91 MB, 0.027 ms at 3.35 TB/s; the
-// chunked form's 10.7 GFLOP take 0.011 ms on the tensor cores. This first
-// version spends a few CUDA-core instructions on every state element and
-// token (1.3 G element updates at that shape), so instruction throughput,
-// not memory, sets its time; the chunked tensor-core form is later work.
+// chunked form's 10.7 GFLOP take 0.011 ms on the tensor cores.
 //
-// What the design does:
-//  * one block per (head, batch row); the TPU grid's sequential chunk axis
-//    becomes a loop over the sequence inside the block, with the (P, N)
-//    state in registers: 4 threads share row p, each holding 16 of its N
-//    entries (n = 4 (q + 4 i) + c), so P <= 64 rows fill 256 threads;
-//  * kTokens tokens of x, dt, exp(dt A), B and C are staged in shared
-//    memory as f32 per pass, read back as float4 broadcasts free of bank
-//    conflicts; y_t's sum over N reduces over the row's 4 lanes with
-//    shuffles, and the pass's y tile is stored from shared memory in rows
-//    of P contiguous values;
-//  * the final state leaves the registers once, at the end.
+// Two routes, chosen by the input type alone:
+//
+// f32: the first design, token by token on CUDA cores. One block of 256
+// threads per (head, batch row), the (P, N) state in registers (4 threads
+// share row p, 16 entries each), 32 tokens staged per pass as f32 in shared
+// memory. What held it back, as the bf16 route (0.63 ms at the path shape on
+// an H100 SXM): every token costs each thread 16 state FMAs, 16 multiplies,
+// a 16-long dependent FMA chain and two shuffles (1.3 G element updates at
+// that shape, all on CUDA cores) while the tensor cores sit idle. Each
+// pass's loads are scalar 2-byte reads behind a barrier, with nothing in
+// flight while its 32 tokens compute, but the token loop set the time: a
+// variant that staged once and reused the tile ran nearly as long. It stays
+// for f32, whose 3e-5 tolerance bf16 products cannot meet.
+//
+// bf16: the TPU kernel's chunked form on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate), 64-token chunks, one block of 4
+// warps per (head, batch row), 68,096 bytes of shared memory so that 3
+// blocks share an SM and the path's 320 blocks run in one wave. Per chunk,
+// warp w owns query rows t (and state rows p) 16w..16w+15:
+//  * loads: x, B, C in 16-byte cp.async copies (dt in 4-byte ones) into a
+//    two-stage ring; the next chunk's copies are issued before this one
+//    computes, so they stay in flight under its products. Tiles are bf16,
+//    64 columns, 16-byte units XOR-swizzled by row (ldmatrix reads them
+//    free of bank conflicts); rows past the sequence and columns past P /
+//    N are zeros, and a zero dt makes a padded token a no-op;
+//  * decay: cum = cumsum(dt A) by a warp scan (each warp its own copy);
+//  * G = C B^T (c x c, depth N) on the causal tiles only, exact in f32;
+//    the weight M[t,u] = G[t,u] exp(cum_t - cum_u) dt_u (u <= t, exponent
+//    <= 0) is formed in f32 in the accumulators, so x enters M x exact;
+//  * y = exp(cum_t) (C S^T)[t] + M x + D x: exp(cum_t) scales the f32 rows
+//    after C S^T, so C enters exact;
+//  * state: S <- exp(total) S + sum_u (w_u x_u)^T B_u, w_u = dt_u
+//    exp(total - cum_u), the f32 accumulator in registers; its A fragments
+//    come from x by a transposed ldmatrix and are scaled in registers;
+//  * every operand that is not a bf16 input (M, w x, and the state as C
+//    S^T reads it) is split into bf16 hi = bf16(f) and lo = bf16(f - hi),
+//    and both go through the product: one bf16 rounding errs by about
+//    2^-9 of each term, and y is a sum of terms larger than itself: in an
+//    earlier version y reached 1.8e-2 of the 2e-2 tolerance at the path
+//    shape, and the final state misses its 3e-5
+//    (tests/test_torch_scan_design.py models both);
+//  * two barriers a chunk; the final state leaves the registers once.
 //
 // Plain C interface, loaded with ctypes (see ../kernel.py).
 
@@ -41,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -163,16 +188,425 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm,
-                   const void* Cm, const void* D, void* y, void* state, int B, int S,
-                   int H, int P, int N, cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16 route
+
+constexpr int kTcThreads = 128;                // 4 warps
+constexpr int kTcChunk = 64;                   // tokens per chunk
+constexpr int kTcCols = 64;                    // P and N, padded in shared memory
+constexpr int kTile = kTcChunk * kTcCols * 2;  // one bf16 tile, bytes
+constexpr int kStageBytes = 3 * kTile + kTcChunk * 4;           // x, B, C, dt
+constexpr int kStateHi = 2 * kStageBytes;      // the state as bf16 hi, rows p, cols n
+constexpr int kStateLo = kStateHi + kTile;     //                   lo
+constexpr int kCum = kStateLo + kTile;         // each warp's cum, f32 [4][64]
+constexpr int kWts = kCum + 4 * kTcChunk * 4;  // each warp's w_u, f32 [4][64]
+constexpr int kTcSmemBytes = kWts + 4 * kTcChunk * 4;            // 68,096
+
+typedef __nv_bfloat16 bf16;
+
+// element offset of (row, col) in a 64-column bf16 tile whose 16-byte
+// units are XOR-swizzled by row
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kTcCols + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as bf16 pairs hi = bf16(f) and lo = bf16(f - hi): a product with
+// hi and one with lo recover f to about 2^-16
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack(a - __low2float(h), b - __high2float(h));
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+// ldmatrix lane addresses (lane l, matrix l >> 3, row l & 7) for a 16 x 16
+// block at (r0, c0) of a tile:
+//  A operand, tile rows = m, cols = k:       rows r0 + (l & 15), cols c0 + (l >> 4) 8
+//  A operand from a tile stored k x m (.trans): rows r0 + (l & 7) + (l >> 4) 8,
+//                                              cols c0 + ((l >> 3) & 1) 8
+//  B operands of two n8 tiles, tile rows = n, cols = k:
+//                                              rows r0 + (l & 7) + (l >> 4) 8,
+//                                              cols c0 + ((l >> 3) & 1) 8
+//  B operands from a tile stored k x n (.trans): rows r0 + (l & 7) + ((l >> 3) & 1) 8,
+//                                              cols c0 + (l >> 4) 8
+__device__ __forceinline__ int a_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 15), c0 + ((l >> 4) << 3));
+}
+__device__ __forceinline__ int at_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 7) + ((l >> 4) << 3), c0 + (((l >> 3) & 1) << 3));
+}
+__device__ __forceinline__ int b_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 7) + ((l >> 4) << 3), c0 + (((l >> 3) & 1) << 3));
+}
+__device__ __forceinline__ int bt_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 7) + (((l >> 3) & 1) << 3), c0 + ((l >> 4) << 3));
+}
+
+// one chunk's rows of a (rows, cols) bf16 source into a swizzled tile:
+// row t at src + t * stride; rows at or past nt and columns past cols
+// (already zero) are left as zeros. kVec: 16-byte cp.async copies (cols a
+// multiple of 8, 16-byte aligned rows); otherwise element by element.
+template <bool kVec>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, size_t stride,
+                                          int cols, int nt, int tid) {
+  if (kVec) {
+    const int units = cols >> 3;
+    for (int i = tid; i < kTcChunk * 8; i += kTcThreads) {
+      const int t = i >> 3;
+      const int j = i & 7;
+      if (j < units)
+        cp_async16(tile + swz(t, j << 3), t < nt ? src + t * stride + (j << 3) : src, t < nt);
+    }
+  } else {
+    for (int i = tid; i < kTcChunk * cols; i += kTcThreads) {
+      const int t = i / cols;
+      const int c = i % cols;
+      tile[swz(t, c)] = t < nt ? src[t * stride + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_chunk(unsigned char* stage, const bf16* x, const float* dt,
+                                           const bf16* Bm, const bf16* Cm, int b, int h,
+                                           int t0, int S, int H, int P, int N, int tid) {
+  const int nt = min(kTcChunk, S - t0);
+  const size_t row0 = static_cast<size_t>(b) * S + t0;
+  load_tile<kVec>(reinterpret_cast<bf16*>(stage), x + (row0 * H + h) * P,
+                  static_cast<size_t>(H) * P, P, nt, tid);
+  load_tile<kVec>(reinterpret_cast<bf16*>(stage + kTile), Bm + row0 * N, N, N, nt, tid);
+  load_tile<kVec>(reinterpret_cast<bf16*>(stage + 2 * kTile), Cm + row0 * N, N, N, nt, tid);
+  float* dts = reinterpret_cast<float*>(stage + 3 * kTile);
+  if (tid < kTcChunk) cp_async4(dts + tid, dt + (row0 + (tid < nt ? tid : 0)) * H + h, tid < nt);
+  cp_async_commit();
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kTcThreads, 3)
+    ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ A, const bf16* __restrict__ Bm,
+                       const bf16* __restrict__ Cm, const float* __restrict__ D,
+                       bf16* __restrict__ y, float* __restrict__ state, int S, int H, int P,
+                       int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;       // fragment row
+  const int c2 = (lane & 3) * 2; // fragment column pair
+  const float a_h = A[h];
+  const float d_h = D[h];
+  bf16* s_hi = reinterpret_cast<bf16*>(smem + kStateHi);
+  bf16* s_lo = reinterpret_cast<bf16*>(smem + kStateLo);
+  float* cum = reinterpret_cast<float*>(smem + kCum) + w * kTcChunk;
+  float* wts = reinterpret_cast<float*>(smem + kWts) + w * kTcChunk;
+
+  // zeros everywhere once: the padding columns stay zero for good, and the
+  // state starts at zero
+  for (int i = tid; i < kWts / 16; i += kTcThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int n_chunks = (S + kTcChunk - 1) / kTcChunk;
+  load_chunk<kVec>(smem, x, dt, Bm, Cm, b, h, 0, S, H, P, N, tid);
+
+  float s[8][4];   // state rows p = 16w + g (+8), cols n = 8j + c2 (+1)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int t0 = ci * kTcChunk;
+    const int nt = min(kTcChunk, S - t0);
+    unsigned char* stage = smem + (ci & 1) * kStageBytes;
+    const bf16* xs = reinterpret_cast<const bf16*>(stage);
+    const bf16* bs = reinterpret_cast<const bf16*>(stage + kTile);
+    const bf16* cs = reinterpret_cast<const bf16*>(stage + 2 * kTile);
+    const float* dts = reinterpret_cast<const float*>(stage + 3 * kTile);
+    cp_async_wait_all();
+    __syncthreads();   // this chunk has landed; the previous one is done with
+    if (ci + 1 < n_chunks)
+      load_chunk<kVec>(smem + ((ci + 1) & 1) * kStageBytes, x, dt, Bm, Cm, b, h, t0 + kTcChunk,
+                       S, H, P, N, tid);
+
+    // cum = cumsum(dt A), each warp its own copy: lane l holds tokens 2l, 2l+1
+    {
+      const float a0 = dts[2 * lane] * a_h;
+      const float a1 = dts[2 * lane + 1] * a_h;
+      float incl = a0 + a1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const float total = __shfl_sync(0xffffffffu, incl, 31);
+      const float c0 = incl - a1;
+      cum[2 * lane] = c0;
+      cum[2 * lane + 1] = incl;
+      wts[2 * lane] = dts[2 * lane] * __expf(total - c0);
+      wts[2 * lane + 1] = dts[2 * lane + 1] * __expf(total - incl);
+    }
+    __syncwarp();
+
+    const int ta = 16 * w + g;   // this thread's two query rows
+    const int tb = ta + 8;
+
+    // C fragments of this warp's rows, k over n
+    uint32_t cf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldsm_x4(cf[kk], cs + a_off(16 * w, 16 * kk, lane));
+
+    // G = C B^T on the causal tiles (u <= 16w + 15)
+    float gm[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) gm[j][0] = gm[j][1] = gm[j][2] = gm[j][3] = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (jp <= w) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t bf[4];
+          ldsm_x4(bf, bs + b_off(16 * jp, 16 * kk, lane));
+          mma(gm[2 * jp], cf[kk], bf[0], bf[1]);
+          mma(gm[2 * jp + 1], cf[kk], bf[2], bf[3]);
+        }
+      }
+    }
+
+    // y = exp(cum_t) (C S^T)[t], S as hi + lo
+    float yv[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) yv[j][0] = yv[j][1] = yv[j][2] = yv[j][3] = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, s_hi + b_off(16 * jp, 16 * kk, lane));
+        ldsm_x4(bl, s_lo + b_off(16 * jp, 16 * kk, lane));
+        mma(yv[2 * jp], cf[kk], bh[0], bh[1]);
+        mma(yv[2 * jp], cf[kk], bl[0], bl[1]);
+        mma(yv[2 * jp + 1], cf[kk], bh[2], bh[3]);
+        mma(yv[2 * jp + 1], cf[kk], bl[2], bl[3]);
+      }
+    }
+    const float cum_a = cum[ta];
+    const float cum_b = cum[tb];
+    {
+      const float ea = __expf(cum_a);
+      const float eb = __expf(cum_b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        yv[j][0] *= ea;
+        yv[j][1] *= ea;
+        yv[j][2] *= eb;
+        yv[j][3] *= eb;
+      }
+    }
+
+    // y += M x, M[t,u] = G[t,u] exp(cum_t - cum_u) dt_u for u <= t, as hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk <= w) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 2 * kk + half;
+          const int u0 = 8 * j + c2;
+          const float cu0 = cum[u0], cu1 = cum[u0 + 1];
+          const float du0 = dts[u0], du1 = dts[u0 + 1];
+          const float m0 = u0 <= ta ? gm[j][0] * __expf(cum_a - cu0) * du0 : 0.f;
+          const float m1 = u0 + 1 <= ta ? gm[j][1] * __expf(cum_a - cu1) * du1 : 0.f;
+          const float m2 = u0 <= tb ? gm[j][2] * __expf(cum_b - cu0) * du0 : 0.f;
+          const float m3 = u0 + 1 <= tb ? gm[j][3] * __expf(cum_b - cu1) * du1 : 0.f;
+          split2(m0, m1, ah[2 * half], al[2 * half]);
+          split2(m2, m3, ah[2 * half + 1], al[2 * half + 1]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, xs + bt_off(16 * kk, 16 * jp, lane));
+          mma(yv[2 * jp], ah, bf[0], bf[1]);
+          mma(yv[2 * jp], al, bf[0], bf[1]);
+          mma(yv[2 * jp + 1], ah, bf[2], bf[3]);
+          mma(yv[2 * jp + 1], al, bf[2], bf[3]);
+        }
+      }
+    }
+
+    // + D x, one rounding, stored for the rows inside the sequence
+    {
+      const size_t row0 = static_cast<size_t>(b) * S + t0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = 8 * j + c2;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = half ? tb : ta;
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(xs + swz(t, p));
+          const float v0 = fmaf(d_h, __low2float(xv), yv[j][2 * half]);
+          const float v1 = fmaf(d_h, __high2float(xv), yv[j][2 * half + 1]);
+          if (t < nt && p < P) {
+            bf16* out = y + ((row0 + t) * H + h) * P + p;
+            if (kVec) {
+              *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              out[0] = __float2bfloat16(v0);
+              if (p + 1 < P) out[1] = __float2bfloat16(v1);
+            }
+          }
+        }
+      }
+    }
+
+    // S <- exp(total) S + (w x)^T B, this warp's rows p = 16w..16w+15;
+    // the A fragments (w_u x_u)^T come from x by a transposed ldmatrix,
+    // scaled in f32 and split into hi + lo in registers
+    {
+      const float decay = __expf(cum[kTcChunk - 1]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] *= decay;
+        s[j][1] *= decay;
+        s[j][2] *= decay;
+        s[j][3] *= decay;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t xa[4], ah[4], al[4];
+        ldsm_x4_t(xa, xs + at_off(16 * kk, 16 * w, lane));
+        // registers 0, 1 hold u = 16kk + c2 (+1), registers 2, 3 u + 8 (+1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int u = 16 * kk + c2 + (i >> 1) * 8;
+          const float2 xv = unpack(xa[i]);
+          split2(xv.x * wts[u], xv.y * wts[u + 1], ah[i], al[i]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, bs + bt_off(16 * kk, 16 * jp, lane));
+          mma(s[2 * jp], ah, bf[0], bf[1]);
+          mma(s[2 * jp], al, bf[0], bf[1]);
+          mma(s[2 * jp + 1], ah, bf[2], bf[3]);
+          mma(s[2 * jp + 1], al, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done reading the state's copies
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t hi, lo;
+      split2(s[j][0], s[j][1], hi, lo);
+      *reinterpret_cast<uint32_t*>(s_hi + swz(ta, 8 * j + c2)) = hi;
+      *reinterpret_cast<uint32_t*>(s_lo + swz(ta, 8 * j + c2)) = lo;
+      split2(s[j][2], s[j][3], hi, lo);
+      *reinterpret_cast<uint32_t*>(s_hi + swz(tb, 8 * j + c2)) = hi;
+      *reinterpret_cast<uint32_t*>(s_lo + swz(tb, 8 * j + c2)) = lo;
+    }
+  }
+
+  // the final state, rows p < P, columns n < N
+  const int pa = 16 * w + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = 8 * j + c2;
+    if (n >= N) continue;
+    if (pa < P)
+      *reinterpret_cast<float2*>(state + ((static_cast<size_t>(b) * H + h) * P + pa) * N + n) =
+          make_float2(s[j][0], s[j][1]);
+    if (pa + 8 < P)
+      *reinterpret_cast<float2*>(state + ((static_cast<size_t>(b) * H + h) * P + pa + 8) * N +
+                                 n) = make_float2(s[j][2], s[j][3]);
+  }
+}
+
+cudaError_t launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
+                       const void* Cm, const void* D, void* y, void* state, int B, int S,
+                       int H, int P, int N, cudaStream_t stream) {
   const dim3 grid(H, B);
-  ssd_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      static_cast<const float*>(D), static_cast<T*>(y), static_cast<float*>(state), S, H,
-      P, N);
+  ssd_scan_kernel<float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(D), static_cast<float*>(y),
+      static_cast<float*>(state), S, H, P, N);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch_bf16(const void* x, const void* dt, const void* A, const void* Bm,
+                        const void* Cm, const void* D, void* y, void* state, int B, int S,
+                        int H, int P, int N, cudaStream_t stream) {
+  const bool vec = P % 8 == 0 && aligned16(x) && aligned16(Bm) && aligned16(Cm) && aligned16(y);
+  auto kernel = vec ? ssd_scan_tc_kernel<true> : ssd_scan_tc_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kTcThreads, kTcSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), static_cast<const float*>(D),
+      static_cast<bf16*>(y), static_cast<float*>(state), S, H, P, N);
   return cudaGetLastError();
 }
 
@@ -180,14 +614,18 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 extern "C" {
 
-// Launch geometry, read by the wrapper to check it agrees:
-// {kThreads, kLanesPerRow, kMaxP, kMaxN, kTokens}.
+// Launch geometry, read by the wrapper to check it agrees: f32 route
+// {kThreads, kLanesPerRow, kMaxP, kMaxN, kTokens}, then bf16 route
+// {kTcThreads, kTcChunk, kTcSmemBytes}.
 void ssd_scan_config(int* cfg) {
   cfg[0] = kThreads;
   cfg[1] = kLanesPerRow;
   cfg[2] = kMaxP;
   cfg[3] = kMaxN;
   cfg[4] = kTokens;
+  cfg[5] = kTcThreads;
+  cfg[6] = kTcChunk;
+  cfg[7] = kTcSmemBytes;
 }
 
 const char* ssd_scan_error_string(int err) {
@@ -195,10 +633,11 @@ const char* ssd_scan_error_string(int err) {
 }
 
 // x (B, S, H, P), Bm / Cm (B, S, 1, N), y (B, S, H, P) of one type:
-// dtype 0 = float32, 1 = bfloat16; dt (B, S, H), A (H,), D (H,) and state
-// (B, H, P, N) float32; all contiguous on the card, state 16-byte aligned.
-// 1 <= P <= 64, N a multiple of 16 up to 64. Launches on `stream` and
-// returns cudaGetLastError() (0 on success); does not synchronise.
+// dtype 0 = float32 (the per-token route), 1 = bfloat16 (the tensor-core
+// route); dt (B, S, H), A (H,), D (H,) and state (B, H, P, N) float32;
+// all contiguous on the card, state 16-byte aligned. 1 <= P <= 64, N a
+// multiple of 16 up to 64. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); does not synchronise.
 int ssd_scan_forward(const void* x, const void* dt, const void* A, const void* Bm,
                      const void* Cm, const void* D, void* y, void* state, int B, int S,
                      int H, int P, int N, int dtype, void* stream) {
@@ -207,10 +646,9 @@ int ssd_scan_forward(const void* x, const void* dt, const void* A, const void* B
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, N, st));
+    return static_cast<int>(launch_f32(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, N, st));
   if (dtype == 1)
-    return static_cast<int>(
-        launch<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, N, st));
+    return static_cast<int>(launch_bf16(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, N, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,7 @@
 """Builds and launches the hand-written CUDA ``ssd_scan`` kernel
-(``csrc/ssd_scan.cu``).
+(``csrc/ssd_scan.cu``). Two routes, chosen by dtype alone: float32 takes
+the per-token recurrence on CUDA cores, bfloat16 the chunked scan on the
+tensor cores (``ROUTES``).
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -17,13 +19,28 @@ from .. import build as _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
 # Launch geometry of csrc/ssd_scan.cu; checked against the library's own
-# constants when it loads.
+# constants when it loads. f32 route: one row of the state per 4 threads,
+# TOKENS staged per pass.
 THREADS = 256
 LANES_PER_ROW = 4
 MAX_P = 64
 MAX_N = 64
 TOKENS = 32
+# bf16 route: 4 warps, CHUNK tokens per chunk, and its dynamic shared
+# memory: a two-stage ring of x, B, C (bf16, 64 x 64) and dt, the state as
+# bf16 hi and lo, and each warp's cum and weights
+TC_THREADS = 128
+TC_CHUNK = 64
+TC_STAGES = 2
+_TILE = TC_CHUNK * 64 * 2
+TC_SMEM_BYTES = TC_STAGES * (3 * _TILE + TC_CHUNK * 4) + 2 * _TILE \
+    + 2 * (TC_THREADS // 32) * TC_CHUNK * 4
+MAX_SMEM_BYTES = 232448          # the most one block may hold
+SM_SMEM_BYTES = 233472           # an SM's shared memory, 1 KB kept per block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel function each dtype launches
+ROUTES = {torch.float32: "ssd_scan_kernel (per token, CUDA cores)",
+          torch.bfloat16: "ssd_scan_tc_kernel (chunked, mma.sync tensor cores)"}
 
 
 def build():
@@ -41,9 +58,10 @@ def _bind(lib, path) -> None:
     lib.ssd_scan_config.restype = None
     lib.ssd_scan_error_string.argtypes = [i]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    cfg = (i * 5)()
+    cfg = (i * 8)()
     lib.ssd_scan_config(cfg)
-    want = (THREADS, LANES_PER_ROW, MAX_P, MAX_N, TOKENS)
+    want = (THREADS, LANES_PER_ROW, MAX_P, MAX_N, TOKENS, TC_THREADS,
+            TC_CHUNK, TC_SMEM_BYTES)
     if tuple(cfg) != want:
         raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
                            f"!= the wrapper's {want}")
@@ -51,6 +69,11 @@ def _bind(lib, path) -> None:
 
 def _library():
     return _build.load(SOURCE, "ssd_scan", _bind)
+
+
+def blocks_per_sm() -> int:
+    """Blocks of the bf16 route one SM holds by shared memory."""
+    return SM_SMEM_BYTES // (TC_SMEM_BYTES + 1024)
 
 
 def check_launch(P: int, N: int) -> None:

@@ -10,32 +10,66 @@
 // Semantics, per (b, h), from a zero state:
 //     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 //     S_t = diag(w_t) S_{t-1} + k_t v_t^T                 (K, V)
-// the same function as the TPU kernel's chunked form, which rebuilds the
-// within-chunk part from the masked decay exp(cum_excl[t] - cum[u]) in a
-// (chunk, chunk, K) f32 tile: 256 KiB at chunk 32 and K 64, more than the
-// 227 KB a block can hold here. This kernel takes the recurrence token by
-// token instead and multiplies by w_t directly: exact for any decay in
-// (0, 1), with no exponent, no logarithm and no clamp.
+// The TPU kernel's chunked form rebuilds the within-chunk part from the
+// masked decay exp(cum_excl[t] - cum[u]) in a (chunk, chunk, K) f32 tile:
+// 256 KiB at chunk 32 and K 64, more than the 227 KB a block can hold here.
 //
 // What bounds it on this card: bytes. At the rwkv6-7b prefill shape (B 4,
 // S 1024, H 64, K = V = 64) the function reads r, k, v (bf16) and w (f32)
 // and writes y and the state once, about 206 MB, 0.061 ms at 3.35 TB/s.
-// This first version spends a few CUDA-core instructions on every state
-// element and token (1.1 G element updates at that shape), so instruction
-// throughput, not memory, sets its time; a chunked tensor-core form is later
-// work.
 //
-// What the design does:
-//  * one block per (head, batch row); the TPU grid's sequential chunk axis
-//    becomes a loop over the sequence inside the block, with the (K, V)
-//    state in registers: 4 threads share value column j, each holding 16
-//    of its K entries (k = 4 (q + 4 i) + c) and the matching 16 entries of
-//    u, so V <= 64 columns fill 256 threads;
-//  * kTokens tokens of r, k, w and v are staged in shared memory as f32 per
-//    pass, read back as float4 broadcasts free of bank conflicts; y_t's sum
-//    over K reduces over the column's 4 lanes with shuffles, and the pass's
-//    y tile is stored from shared memory in rows of V contiguous values;
-//  * the final state leaves the registers once, at the end.
+// Two routes, chosen by the input type alone:
+//
+// f32: the first design, token by token on CUDA cores, w_t multiplying the
+// state directly (exact for any decay in (0, 1), no exponent, no clamp). One
+// block of 256 threads per (head, batch row), the (K, V) state in registers
+// (4 threads share column j, 16 entries each), 32 tokens staged per pass as
+// f32. What held it back, as the bf16 route (0.61 ms at the path shape on an
+// H100 SXM): every token costs each thread 16 state FMAs, 16 multiplies, a
+// 16-long dependent FMA chain and two shuffles (1.1 G element updates at
+// that shape, on CUDA cores) while the tensor cores sit idle. Each pass's
+// loads are scalar reads behind a barrier, with nothing in flight while its
+// tokens compute, but the token loop set the time: a variant that staged
+// once and reused the tile ran nearly as long. It stays for f32, whose 2e-4
+// tolerance bf16 products cannot meet.
+//
+// bf16: a chunked scan on the tensor cores (mma.sync m16n8k16, bf16 in,
+// f32 accumulate) that never builds the (chunk, chunk, K) tile, takes no
+// exp or log and clamps nothing. 32-token chunks, one block of 8 warps per
+// (head, batch row), 112,896 bytes of shared memory (two blocks an SM: the
+// path's 256 blocks run in one wave). Per chunk:
+//  * loads: r, k, v (bf16) and w (f32) in 16-byte cp.async copies into a
+//    two-stage ring; the next chunk's copies are issued before this one
+//    computes. bf16 tiles have 64 columns with 16-byte units XOR-swizzled
+//    by row; padded rows and columns are zeros, a padded token decays by 1;
+//  * decays: one thread per (column, 8 tokens) forms running products of w
+//    (the FMA pipe): r times the product since the chunk's start (y's
+//    inter-chunk operand), k times the product to its end (the state's);
+//  * scores A[t][u], u < t: the pair is taken at the level l (16, 8, 4, 2,
+//    1) where t falls in the upper and u in the lower half of an aligned
+//    2l-token block, as (r_t prod_{m <= i < t} w_i) . (k_u prod_{u < i < m}
+//    w_i), m the block's middle: both factors are decays in (0, 1), so
+//    nothing overflows and a factor that underflows to 0 stands for a
+//    product smaller still. Each level is one 16 x 16 x 64 product on the
+//    tensor cores (each token a query or a key at each level), masked to
+//    its pairs, one level a warp; the bonus u makes the diagonal (sum_k
+//    r u k, reduced with shuffles in the decay pass). Exact 16 x 16
+//    diagonal blocks on CUDA cores, a 15-step product chain a row, set the
+//    critical path of a chunk in an earlier version of this route;
+//  * y = (r decayed) S + A v; state: S <- diag(prod w) S + (k decayed)^T
+//    v, S the f32 accumulator in registers;
+//  * every operand that is not a bf16 input (the decayed r and k, each
+//    level's operands, A, the state as y reads it) is split into bf16 hi =
+//    bf16(f) and lo = bf16(f - hi): two products where the other operand
+//    is exact (v, the raw r and k), three (hi hi, hi lo, lo hi) where
+//    neither is, in separate accumulators. One bf16 rounding errs by about
+//    2^-9 of each term, and y is a sum of terms far larger than itself:
+//    in an earlier version that reached 1.5e-1 at the path shape against
+//    the 2e-2 tolerance (tests/test_torch_scan_design.py models it);
+//  * each warp forms one level of A, then its 16 x 16 tile of y, then its
+//    16 x 32 tile of the state; five barriers a chunk, and 128 registers a
+//    thread (two blocks of 256 threads an SM); the final state leaves the
+//    registers once.
 //
 // Plain C interface, loaded with ctypes (see ../kernel.py).
 
@@ -43,6 +77,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -166,14 +201,553 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* r, const void* k, const void* v, const void* w,
-                   const void* u, void* y, void* state, int B, int S, int H, int K, int V,
-                   cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16 route
+
+constexpr int kTcThreads = 256;                 // 8 warps
+constexpr int kTcChunk = 32;                    // tokens per chunk
+constexpr int kSub = 16;                        // sub-chunk: the bf16 mma depth
+constexpr int kTcCols = 64;                     // K and V, padded in shared memory
+constexpr int kTile = kTcChunk * kTcCols * 2;   // one bf16 chunk tile, bytes
+constexpr int kStageBytes = 3 * kTile + kTcChunk * kTcCols * 4;  // r, k, v; w in f32
+constexpr int kQuarter = 2 * kStageBytes;      // 8-token products of w, f32 [4][64]
+constexpr int kBonusPart = kQuarter + 4 * kTcCols * 4;   // sum_k r u k per half of k, f32 [2][32]
+// below, each f32 operand is kept as two bf16 chunk tiles, hi then lo
+constexpr int kRdec = kBonusPart + 2 * kTcChunk * 4;   // r times w's product since the chunk's start
+constexpr int kKt = kRdec + 2 * kTile;         // k times w's product to the chunk's end
+constexpr int kL16 = kKt + 2 * kTile;          // level 16, 8, 4, 2 operands (see the kernel)
+constexpr int kL8 = kL16 + 2 * kTile;
+constexpr int kL4 = kL8 + 2 * kTile;
+constexpr int kL2 = kL4 + 2 * kTile;
+constexpr int kA = kL2 + 2 * kTile;            // the chunk's scores A, f32 [32][kAStride]
+constexpr int kAStride = 40;
+constexpr int kState = kA + kTcChunk * kAStride * 4;   // the state, rows k, cols v
+constexpr int kTcSmemBytes = kState + 2 * kTcCols * kTcCols * 2;   // 112,896
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kTcCols + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as bf16 pairs hi = bf16(f) and lo = bf16(f - hi): a product with
+// hi and one with lo recover f to about 2^-16
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack(a - __low2float(h), b - __high2float(h));
+}
+
+// f32 (a, b) at element e of the hi tile, and its remainder at e of lo
+__device__ __forceinline__ void store_split(bf16* hi, bf16* lo, int e, float a, float b) {
+  uint32_t h, l;
+  split2(a, b, h, l);
+  *reinterpret_cast<uint32_t*>(hi + e) = h;
+  *reinterpret_cast<uint32_t*>(lo + e) = l;
+}
+
+// ldmatrix lane addresses for a 16 x 16 block at (r0, c0), as in ssd_scan.cu:
+// A from a tile of rows m, cols k; A from a tile stored k x m (.trans); B
+// (two n8 tiles) from a tile of rows n, cols k; B from a tile stored k x n
+// (.trans)
+__device__ __forceinline__ int a_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 15), c0 + ((l >> 4) << 3));
+}
+__device__ __forceinline__ int at_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 7) + ((l >> 4) << 3), c0 + (((l >> 3) & 1) << 3));
+}
+__device__ __forceinline__ int b_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 7) + ((l >> 4) << 3), c0 + (((l >> 3) & 1) << 3));
+}
+__device__ __forceinline__ int bt_off(int r0, int c0, int l) {
+  return swz(r0 + (l & 7) + (((l >> 3) & 1) << 3), c0 + ((l >> 4) << 3));
+}
+
+// a chunk's rows of a (rows, cols) bf16 source into a swizzled tile, row t
+// at src + t * stride; rows at or past nt and columns past cols (already
+// zero) stay zeros. kVec: 16-byte cp.async copies; otherwise element-wise.
+template <bool kVec>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, size_t stride,
+                                          int cols, int nt, int tid) {
+  if (kVec) {
+    const int units = cols >> 3;
+    for (int i = tid; i < kTcChunk * 8; i += kTcThreads) {
+      const int t = i >> 3;
+      const int j = i & 7;
+      if (j < units)
+        cp_async16(tile + swz(t, j << 3), t < nt ? src + t * stride + (j << 3) : src, t < nt);
+    }
+  } else {
+    for (int i = tid; i < kTcChunk * cols; i += kTcThreads) {
+      const int t = i / cols;
+      const int c = i % cols;
+      tile[swz(t, c)] = t < nt ? src[t * stride + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_chunk(unsigned char* stage, const bf16* r, const bf16* k,
+                                           const bf16* v, const float* w, int b, int h, int t0,
+                                           int S, int H, int K, int V, int tid) {
+  const int nt = min(kTcChunk, S - t0);
+  const size_t row0 = static_cast<size_t>(b) * S + t0;
+  const size_t kst = static_cast<size_t>(H) * K;
+  const size_t koff = (row0 * H + h) * K;
+  load_tile<kVec>(reinterpret_cast<bf16*>(stage), r + koff, kst, K, nt, tid);
+  load_tile<kVec>(reinterpret_cast<bf16*>(stage + kTile), k + koff, kst, K, nt, tid);
+  load_tile<kVec>(reinterpret_cast<bf16*>(stage + 2 * kTile), v + (row0 * H + h) * V,
+                  static_cast<size_t>(H) * V, V, nt, tid);
+  float* ws = reinterpret_cast<float*>(stage + 3 * kTile);   // [32][64], not swizzled
+  if (kVec) {
+    const int units = K >> 2;
+    for (int i = tid; i < kTcChunk * 16; i += kTcThreads) {
+      const int t = i >> 4;
+      const int j = i & 15;
+      if (j < units)
+        cp_async16(ws + t * kTcCols + 4 * j, t < nt ? w + koff + t * kst + 4 * j : w, t < nt);
+    }
+  } else {
+    for (int i = tid; i < kTcChunk * K; i += kTcThreads) {
+      const int t = i / K;
+      const int c = i % K;
+      ws[t * kTcCols + c] = t < nt ? w[koff + t * kst + c] : 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+// f32 value f as bf16 hi at element e of a tile and its remainder at e + lo
+__device__ __forceinline__ void store_split1(bf16* tile, int lo, int e, float f) {
+  const bf16 hi = __float2bfloat16(f);
+  tile[e] = hi;
+  tile[lo + e] = __float2bfloat16(f - __bfloat162float(hi));
+}
+
+// d_hh + d_hl + d_lh += a b over 16 x 64 by 16 (two n8 tiles) x 64: a and
+// b each as hi + lo tiles (lo at +lo elements), a's rows at a0, b's rows
+// (n) at b0; three accumulator sets, so the three products do not wait on
+// one another
+__device__ __forceinline__ void mma_x3(float (&d)[3][2][4], const bf16* a, int a0,
+                                       const bf16* b, int b0, int lo, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t ah[4], al[4], bh[4], bl[4];
+    ldsm_x4(ah, a + a_off(a0, 16 * kk, lane));
+    ldsm_x4(al, a + lo + a_off(a0, 16 * kk, lane));
+    ldsm_x4(bh, b + b_off(b0, 16 * kk, lane));
+    ldsm_x4(bl, b + lo + b_off(b0, 16 * kk, lane));
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      mma(d[0][n], ah, bh[2 * n], bh[2 * n + 1]);
+      mma(d[1][n], ah, bl[2 * n], bl[2 * n + 1]);
+      mma(d[2][n], al, bh[2 * n], bh[2 * n + 1]);
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    wkv6_scan_tc_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ w,
+                        const float* __restrict__ u, bf16* __restrict__ y,
+                        float* __restrict__ state, int S, int H, int K, int V) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int wp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;        // fragment row
+  const int c2 = (lane & 3) * 2;  // fragment column pair
+  float* qtot = reinterpret_cast<float*>(smem + kQuarter);
+  float* bpart = reinterpret_cast<float*>(smem + kBonusPart);
+  // hi tiles; each lo tile follows its hi tile, kLo elements on
+  bf16* rdec = reinterpret_cast<bf16*>(smem + kRdec);
+  bf16* kt = reinterpret_cast<bf16*>(smem + kKt);
+  bf16* l16 = reinterpret_cast<bf16*>(smem + kL16);
+  bf16* l8 = reinterpret_cast<bf16*>(smem + kL8);
+  bf16* l4 = reinterpret_cast<bf16*>(smem + kL4);
+  bf16* l2 = reinterpret_cast<bf16*>(smem + kL2);
+  float* A = reinterpret_cast<float*>(smem + kA);
+  bf16* st = reinterpret_cast<bf16*>(smem + kState);
+  constexpr int kLo = kTile / 2;
+  constexpr int kStateLo = kTcCols * kTcCols;
+
+  // zeros everywhere once: padding columns, A's entries no level writes,
+  // and the state
+  for (int i = tid; i < kTcSmemBytes / 16; i += kTcThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int n_chunks = (S + kTcChunk - 1) / kTcChunk;
+  load_chunk<kVec>(smem, r, k, v, w, b, h, 0, S, H, K, V, tid);
+
+  // the state's tile of this warp: rows k = kr + g (+8), cols v = vc + 8j + c2 (+1)
+  const int kr = 16 * (wp & 3);
+  const int vc = 32 * (wp >> 2);
+  float s[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+
+  // the products' thread: column kc, tokens 8q .. 8q + 7
+  const int kc = tid & 63;
+  const int q = tid >> 6;
+  const float ub = kc < K ? u[static_cast<size_t>(h) * K + kc] : 0.f;
+
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int t0 = ci * kTcChunk;
+    const int nt = min(kTcChunk, S - t0);
+    unsigned char* stage = smem + (ci & 1) * kStageBytes;
+    const bf16* rs = reinterpret_cast<const bf16*>(stage);
+    const bf16* ks = reinterpret_cast<const bf16*>(stage + kTile);
+    const bf16* vs = reinterpret_cast<const bf16*>(stage + 2 * kTile);
+    const float* ws = reinterpret_cast<const float*>(stage + 3 * kTile);
+    cp_async_wait_all();
+    __syncthreads();   // this chunk has landed; the previous one is done with
+    if (ci + 1 < n_chunks)
+      load_chunk<kVec>(smem + ((ci + 1) & 1) * kStageBytes, r, k, v, w, b, h,
+                       t0 + kTcChunk, S, H, K, V, tid);
+
+    // Decays as running products of w along the column (the FMA pipe, no
+    // exp, no log, no clamp): pre[i] = prod of w over this 8-token quarter
+    // before token i, suf[i] after it. A padded token decays by 1.
+    float wv[8], rr[8], kv[8], pre[8], suf[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = 8 * q + i;
+      wv[i] = t < nt ? ws[t * kTcCols + kc] : 1.f;
+      rr[i] = __bfloat162float(rs[swz(t, kc)]);
+      kv[i] = __bfloat162float(ks[swz(t, kc)]);
+    }
+    pre[0] = 1.f;
+#pragma unroll
+    for (int i = 1; i < 8; ++i) pre[i] = pre[i - 1] * wv[i - 1];
+    suf[7] = 1.f;
+#pragma unroll
+    for (int i = 6; i >= 0; --i) suf[i] = suf[i + 1] * wv[i + 1];
+    qtot[q * kTcCols + kc] = pre[7] * wv[7];
+
+    // The scores A[t][u] (u < t) of a chunk are split by the level at which
+    // t and u first fall into different halves of an aligned block: level
+    // l (16, 8, 4, 2, 1) pairs a query t in the upper half of a 2l-token
+    // block with a key u in its lower half, m the block's middle, as
+    //   (r_t prod_{m <= i < t} w_i) . (k_u prod_{u < i < m} w_i)
+    // so each factor is a product of decays in (0, 1): nothing overflows,
+    // and a factor that underflows to 0 stands for a product smaller still.
+    // Each token is a query or a key at each level; the level-l tile holds
+    // its operand. Levels 8, 4, 2 lie inside a quarter.
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = swz(8 * q + i, kc);
+      store_split1(l8, kLo, e, (q & 1) ? rr[i] * pre[i] : kv[i] * suf[i]);
+      float p4 = 1.f;   // the product inside the 8-token block, from or to its middle
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (i >= 4 && j >= 4 && j < i) p4 *= wv[j];
+        if (i < 4 && j > i && j < 4) p4 *= wv[j];
+      }
+      store_split1(l4, kLo, e, i >= 4 ? rr[i] * p4 : kv[i] * p4);
+      const float p2 = (i & 3) == 3 ? wv[i - 1] : (i & 3) == 0 ? wv[i + 1] : 1.f;
+      store_split1(l2, kLo, e, (i & 2) ? rr[i] * p2 : kv[i] * p2);
+    }
+    // the bonus u on the diagonal: sum_k r_t u k_t over the warp's 32
+    // columns, the 8 tokens' sums reduce-scattered over the lanes (9
+    // shuffles), then over the two halves of k when A is formed
+    {
+      float bs[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) bs[i] = rr[i] * ub * kv[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // lanes with bit 16 keep tokens 4..7
+        const bool up = lane & 16;
+        const float recv = __shfl_xor_sync(0xffffffffu, up ? bs[j] : bs[j + 4], 16);
+        bs[j] = (up ? bs[j + 4] : bs[j]) + recv;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {   // bit 8: the upper pair of those four
+        const bool up = lane & 8;
+        const float recv = __shfl_xor_sync(0xffffffffu, up ? bs[j] : bs[j + 2], 8);
+        bs[j] = (up ? bs[j + 2] : bs[j]) + recv;
+      }
+      {                               // bit 4: the upper one of those two
+        const bool up = lane & 4;
+        const float recv = __shfl_xor_sync(0xffffffffu, up ? bs[0] : bs[1], 4);
+        bs[0] = (up ? bs[1] : bs[0]) + recv;
+      }
+      bs[0] += __shfl_xor_sync(0xffffffffu, bs[0], 2);
+      bs[0] += __shfl_xor_sync(0xffffffffu, bs[0], 1);
+      if ((lane & 3) == 0)
+        bpart[(kc >> 5) * kTcChunk + 8 * q + ((lane >> 2) & 7)] = bs[0];
+    }
+    __syncthreads();   // the quarters' products
+    {
+      float before = 1.f, after = 1.f;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const float Q = qtot[qq * kTcCols + kc];
+        if (qq < q) before *= Q;
+        if (qq > q) after *= Q;
+      }
+      // level 16 (the chunk's halves): queries in quarters 2, 3, keys in 0, 1
+      const float m16 = q == 3 ? qtot[2 * kTcCols + kc] : q == 0 ? qtot[kTcCols + kc] : 1.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = swz(8 * q + i, kc);
+        store_split1(rdec, kLo, e, rr[i] * (before * pre[i]));
+        store_split1(kt, kLo, e, kv[i] * (suf[i] * after));
+        store_split1(l16, kLo, e, q >= 2 ? rr[i] * (pre[i] * m16) : kv[i] * (suf[i] * m16));
+      }
+    }
+    __syncthreads();   // every level's operands are complete
+
+    // A, one level of one 16-token sub-chunk per warp: warp (sb, lv) takes
+    // level 8 >> lv of sub-chunk sb; warp (0, 3) also level 16, warp (sb, 3)
+    // level 1 (the raw r and k) and the bonus. Each entry of A below the
+    // diagonal belongs to one level, so the warps' stores never overlap.
+    {
+      const int sb = wp >> 2;
+      const int lv = wp & 3;
+      const int b0 = kSub * sb;
+      float d[3][2][4] = {};
+      if (lv < 3) {
+        const bf16* L = lv == 0 ? l8 : lv == 1 ? l4 : l2;
+        mma_x3(d, L, b0, L, b0, kLo, lane);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t af[4], bf[4];
+          ldsm_x4(af, rs + a_off(b0, 16 * kk, lane));
+          ldsm_x4(bf, ks + b_off(b0, 16 * kk, lane));
+          mma(d[0][0], af, bf[0], bf[1]);
+          mma(d[0][1], af, bf[2], bf[3]);
+        }
+      }
+      const int lvl = 8 >> lv;   // a query's half bit at this level
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tl = g + 8 * (e >> 1);
+          const int ul = 8 * n + c2 + (e & 1);
+          const bool ok = (tl / (2 * lvl)) == (ul / (2 * lvl)) && (tl & lvl) && !(ul & lvl);
+          if (ok) A[(b0 + tl) * kAStride + b0 + ul] = d[0][n][e] + d[1][n][e] + d[2][n][e];
+        }
+      }
+      if (lv == 3) {
+        if (lane < kSub)
+          A[(b0 + lane) * kAStride + b0 + lane] =
+              bpart[b0 + lane] + bpart[kTcChunk + b0 + lane];
+        if (sb == 0) {   // level 16: queries 16..31 against keys 0..15, all below
+          float e16[3][2][4] = {};
+          mma_x3(e16, l16, kSub, l16, 0, kLo, lane);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              A[(kSub + g + 8 * (e >> 1)) * kAStride + 8 * n + c2 + (e & 1)] =
+                  e16[0][n][e] + e16[1][n][e] + e16[2][n][e];
+          }
+        }
+      }
+    }
+    __syncthreads();   // A is complete
+
+    // y: warp (mt, nq) owns rows 16 mt.. and value columns nq..
+    {
+      const int mt = wp >> 2;
+      const int nq = 16 * (wp & 3);
+      // inter-chunk: rdec S, hi hi + hi lo + lo hi in separate sums
+      float yi[3][2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ah[4], al[4], bh[4], bl[4];
+        ldsm_x4(ah, rdec + a_off(kSub * mt, 16 * kk, lane));
+        ldsm_x4(al, rdec + kLo + a_off(kSub * mt, 16 * kk, lane));
+        ldsm_x4_t(bh, st + bt_off(16 * kk, nq, lane));
+        ldsm_x4_t(bl, st + kStateLo + bt_off(16 * kk, nq, lane));
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mma(yi[0][n], ah, bh[2 * n], bh[2 * n + 1]);
+          mma(yi[1][n], ah, bl[2 * n], bl[2 * n + 1]);
+          mma(yi[2][n], al, bh[2 * n], bh[2 * n + 1]);
+        }
+      }
+      // intra-chunk: A v, A (f32 in shared memory) as hi + lo fragments
+      float ya[2][2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (kk <= mt) {
+          uint32_t ah[4], al[4], bf[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = kSub * mt + g + 8 * (i & 1);
+            const int col = 16 * kk + c2 + 8 * (i >> 1);
+            const float2 a2 = *reinterpret_cast<const float2*>(A + row * kAStride + col);
+            split2(a2.x, a2.y, ah[i], al[i]);
+          }
+          ldsm_x4_t(bf, vs + bt_off(16 * kk, nq, lane));
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            mma(ya[0][n], ah, bf[2 * n], bf[2 * n + 1]);
+            mma(ya[1][n], al, bf[2 * n], bf[2 * n + 1]);
+          }
+        }
+      }
+      const size_t row0 = static_cast<size_t>(b) * S + t0;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = nq + 8 * n + c2;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = kSub * mt + g + 8 * hh;
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 2 * hh + e;
+            o[e] = yi[0][n][x] + yi[1][n][x] + yi[2][n][x] + ya[0][n][x] + ya[1][n][x];
+          }
+          if (t < nt && c < V) {
+            bf16* out = y + ((row0 + t) * H + h) * V + c;
+            if (kVec) {
+              *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(o[0], o[1]);
+            } else {
+              out[0] = __float2bfloat16(o[0]);
+              if (c + 1 < V) out[1] = __float2bfloat16(o[1]);
+            }
+          }
+        }
+      }
+    }
+
+    // state: S <- diag(prod w) S + kt^T v, this warp's tile
+    {
+      float da = 1.f, db = 1.f;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        da *= qtot[qq * kTcCols + kr + g];
+        db *= qtot[qq * kTcCols + kr + g + 8];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j][0] *= da;
+        s[j][1] *= da;
+        s[j][2] *= db;
+        s[j][3] *= db;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ah[4], al[4];
+        ldsm_x4_t(ah, kt + at_off(16 * kk, kr, lane));
+        ldsm_x4_t(al, kt + kLo + at_off(16 * kk, kr, lane));
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, vs + bt_off(16 * kk, vc + 16 * jp, lane));
+          mma(s[2 * jp], ah, bf[0], bf[1]);
+          mma(s[2 * jp], al, bf[0], bf[1]);
+          mma(s[2 * jp + 1], ah, bf[2], bf[3]);
+          mma(s[2 * jp + 1], al, bf[2], bf[3]);
+        }
+      }
+    }
+
+    __syncthreads();   // every warp is done reading the state's copies
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      store_split(st, st + kStateLo, swz(kr + g, vc + 8 * j + c2), s[j][0], s[j][1]);
+      store_split(st, st + kStateLo, swz(kr + g + 8, vc + 8 * j + c2), s[j][2], s[j][3]);
+    }
+  }
+
+  // the final state, rows k < K, columns v < V
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = vc + 8 * j + c2;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = kr + g + 8 * hh;
+      if (row >= K) continue;
+      float* out = state + (static_cast<size_t>(b) * H + h) * K * V + static_cast<size_t>(row) * V + c;
+      if (c < V) out[0] = s[j][2 * hh];
+      if (c + 1 < V) out[1] = s[j][2 * hh + 1];
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* r, const void* k, const void* v, const void* w,
+                       const void* u, void* y, void* state, int B, int S, int H, int K, int V,
+                       cudaStream_t stream) {
   const dim3 grid(H, B);
-  wkv6_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(w), static_cast<const float*>(u), static_cast<T*>(y),
+  wkv6_scan_kernel<float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(r), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(w), static_cast<const float*>(u), static_cast<float*>(y),
+      static_cast<float*>(state), S, H, K, V);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch_bf16(const void* r, const void* k, const void* v, const void* w,
+                        const void* u, void* y, void* state, int B, int S, int H, int K,
+                        int V, cudaStream_t stream) {
+  const bool vec = V % 8 == 0 && aligned16(r) && aligned16(k) && aligned16(v) &&
+                   aligned16(w) && aligned16(y);
+  auto kernel = vec ? wkv6_scan_tc_kernel<true> : wkv6_scan_tc_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kTcThreads, kTcSmemBytes, stream>>>(
+      static_cast<const bf16*>(r), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(w), static_cast<const float*>(u), static_cast<bf16*>(y),
       static_cast<float*>(state), S, H, K, V);
   return cudaGetLastError();
 }
@@ -182,25 +756,29 @@ cudaError_t launch(const void* r, const void* k, const void* v, const void* w,
 
 extern "C" {
 
-// Launch geometry, read by the wrapper to check it agrees:
-// {kThreads, kLanesPerCol, kMaxK, kMaxV, kTokens}.
+// Launch geometry, read by the wrapper to check it agrees: f32 route
+// {kThreads, kLanesPerCol, kMaxK, kMaxV, kTokens}, then bf16 route
+// {kTcThreads, kTcChunk, kTcSmemBytes}.
 void wkv6_scan_config(int* cfg) {
   cfg[0] = kThreads;
   cfg[1] = kLanesPerCol;
   cfg[2] = kMaxK;
   cfg[3] = kMaxV;
   cfg[4] = kTokens;
+  cfg[5] = kTcThreads;
+  cfg[6] = kTcChunk;
+  cfg[7] = kTcSmemBytes;
 }
 
 const char* wkv6_scan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// r, k (B, S, H, K), v and y (B, S, H, V) of one type: dtype 0 = float32,
-// 1 = bfloat16; w (B, S, H, K), u (H, K) and state (B, H, K, V) float32;
-// all contiguous on the card. K a multiple of 16 up to 64, 1 <= V <= 64.
-// Launches on `stream` and returns cudaGetLastError() (0 on success); does
-// not synchronise.
+// r, k (B, S, H, K), v and y (B, S, H, V) of one type: dtype 0 = float32
+// (the per-token route), 1 = bfloat16 (the tensor-core route); w (B, S, H,
+// K), u (H, K) and state (B, H, K, V) float32; all contiguous on the card.
+// K a multiple of 16 up to 64, 1 <= V <= 64. Launches on `stream` and
+// returns cudaGetLastError() (0 on success); does not synchronise.
 int wkv6_scan_forward(const void* r, const void* k, const void* v, const void* w,
                       const void* u, void* y, void* state, int B, int S, int H, int K,
                       int V, int dtype, void* stream) {
@@ -209,10 +787,9 @@ int wkv6_scan_forward(const void* r, const void* k, const void* v, const void* w
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(r, k, v, w, u, y, state, B, S, H, K, V, st));
+    return static_cast<int>(launch_f32(r, k, v, w, u, y, state, B, S, H, K, V, st));
   if (dtype == 1)
-    return static_cast<int>(
-        launch<__nv_bfloat16>(r, k, v, w, u, y, state, B, S, H, K, V, st));
+    return static_cast<int>(launch_bf16(r, k, v, w, u, y, state, B, S, H, K, V, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,7 @@
 """Builds and launches the hand-written CUDA ``wkv6_scan`` kernel
-(``csrc/wkv6_scan.cu``).
+(``csrc/wkv6_scan.cu``). Two routes, chosen by dtype alone: float32 takes
+the per-token recurrence on CUDA cores, bfloat16 the chunked scan on the
+tensor cores (``ROUTES``).
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -17,13 +19,33 @@ from .. import build as _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6_scan.cu"
 
 # Launch geometry of csrc/wkv6_scan.cu; checked against the library's own
-# constants when it loads.
+# constants when it loads. f32 route: one column of the state per 4
+# threads, TOKENS staged per pass.
 THREADS = 256
 LANES_PER_COL = 4
 MAX_K = 64
 MAX_V = 64
 TOKENS = 32
+# bf16 route: 8 warps, CHUNK tokens per chunk, the levels that split a
+# chunk's scores, and its dynamic shared memory: a two-stage ring of r, k,
+# v (bf16, 32 x 64) and w (f32), the quarters' products of w (4 x 64 f32),
+# the bonus sums (2 x 32 f32), six operands as bf16 hi and lo tiles (the
+# decayed r and k, levels 16, 8, 4, 2), the scores A (32 x 40 f32) and the
+# state as bf16 hi and lo (64 x 64)
+TC_THREADS = 256
+TC_CHUNK = 32
+LEVELS = (16, 8, 4, 2, 1)
+TC_STAGES = 2
+_TILE = TC_CHUNK * 64 * 2
+TC_SMEM_BYTES = TC_STAGES * (3 * _TILE + TC_CHUNK * 64 * 4) \
+    + 4 * 64 * 4 + 2 * TC_CHUNK * 4 + 6 * 2 * _TILE + TC_CHUNK * 40 * 4 \
+    + 2 * 64 * 64 * 2
+MAX_SMEM_BYTES = 232448          # the most one block may hold
+SM_SMEM_BYTES = 233472           # an SM's shared memory, 1 KB kept per block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel function each dtype launches
+ROUTES = {torch.float32: "wkv6_scan_kernel (per token, CUDA cores)",
+          torch.bfloat16: "wkv6_scan_tc_kernel (chunked, mma.sync tensor cores)"}
 
 
 def build():
@@ -41,9 +63,10 @@ def _bind(lib, path) -> None:
     lib.wkv6_scan_config.restype = None
     lib.wkv6_scan_error_string.argtypes = [i]
     lib.wkv6_scan_error_string.restype = ctypes.c_char_p
-    cfg = (i * 5)()
+    cfg = (i * 8)()
     lib.wkv6_scan_config(cfg)
-    want = (THREADS, LANES_PER_COL, MAX_K, MAX_V, TOKENS)
+    want = (THREADS, LANES_PER_COL, MAX_K, MAX_V, TOKENS, TC_THREADS,
+            TC_CHUNK, TC_SMEM_BYTES)
     if tuple(cfg) != want:
         raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
                            f"!= the wrapper's {want}")
@@ -51,6 +74,11 @@ def _bind(lib, path) -> None:
 
 def _library():
     return _build.load(SOURCE, "wkv6_scan", _bind)
+
+
+def blocks_per_sm() -> int:
+    """Blocks of the bf16 route one SM holds by shared memory."""
+    return SM_SMEM_BYTES // (TC_SMEM_BYTES + 1024)
 
 
 def check_launch(K: int, V: int) -> None:
