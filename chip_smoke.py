@@ -38,12 +38,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that keep them cold in L2: eager calls (``ms``, the host's issue time
    where that is longer), and the kernel's and the library's calls
    replayed from a CUDA graph (device time).
-3. fleet path: ``Castor.tick(executor="fleet")`` over a 512-prosumer site
-   at the paper's ANN width (hidden 512), seeded versions, three hourly
-   score ticks: every job ok, 24 ``fleet_mlp`` launches per score bin, the
-   device rollout entered once per bin, ticks 2-3 on the warm runtime,
-   finite forecasts and bands, and a few forecasts held against the plain
-   per-instance scoring path.
+3. training parity: for each of LR, GAM, ANN and LSTM a small bin (3
+   prosumers at the JAX package's test sizes) trained on the card and on
+   the CPU from the same initial weights: params within rtol 5e-2 / atol
+   5e-3, forecasts and bands within rtol 2e-3 / atol 1e-3.
+   Forecast flow: ``Castor.tick(executor="fleet")`` over a 512-prosumer
+   site (``examples/smartgrid_forecasting.py``'s workload at the paper's
+   widths): an ANN fleet (hidden 512, 300 epochs, 28-day window) and an
+   LR fleet over every prosumer, LR/GAM/ANN/LSTM (ANN and LSTM width 512,
+   DEFAULTS epochs) and the current -> energy transform on the
+   substation. Tick 1 trains everything and scores on the train handoff,
+   ticks 2-3 score warm, then a minutely detection fleet over the ANN
+   fleet's bands runs 5 ticks. Every job ok, 24 ``fleet_mlp`` launches
+   per ANN score bin, the device rollout once per score bin, the runtime
+   modes (cold train bins, warm score bins), the ANN score bin on the
+   fit's own tensors, finite trained params, the fleet's median one-step
+   training MAPE under 30 %, fleet forecasts equal to per-instance
+   ``score()`` for a few prosumers and the four substation kinds, and
+   ``fleet_detect`` records bitwise equal to per-sensor ``detect``. It
+   prints the train tick's wall, the ANN train bin's ``exec.bin`` span,
+   the fit's device time and epochs/s, the peak device memory and the
+   substation models' train walls.
 4. prefill path: qwen3-1.7b at full width (28 layers, bf16 parameters
    from a seeded generator), ``forward(mode="prefill")`` on 4 prompts of
    1024 tokens: 28 ``flash_attention`` launches, finite logits, caches
@@ -181,11 +196,11 @@ KERNEL_NAMES = ("fleet_mlp", "flash_attention", "decode_attention",
                 "ssd_scan", "wkv6_scan")
 DAY, HOUR = 86400.0, 3600.0
 HORIZON = 24
-# tracer spans summed per tick: the tick, the scheduler poll, the score
-# bin, its store reads, the runtime's cold build, and the device rollout
-# (which ends in the copy of the forecasts to the host)
-SPANS = ("castor.tick", "scheduler.poll", "exec.bin", "store.read_many",
-         "runtime.build", "rollout.device")
+# tracer spans summed per tick: the tick, the scheduler poll, the train
+# phase, the fleet bins, their store reads, the runtime's cold builds, and
+# the device rollouts (each ends in the copy of the forecasts to the host)
+SPANS = ("castor.tick", "scheduler.poll", "exec.phase.train", "exec.bin",
+         "store.read_many", "runtime.build", "rollout.device")
 
 
 class SmokeFailure(RuntimeError):
@@ -311,164 +326,484 @@ def kernel_phase(device: str, cases=KERNEL_CASES, *, time_it: bool) -> dict:
     return record
 
 
-def seeded_versions(c, deps, up, device, seed):
-    """One ANN version per deployment in the persisted numpy layout,
-    converted by ``ann_version_from_numpy``: He-normal weights and zero
-    biases (the JAX package's initialisation), ``mu``/``sd`` from each
-    instance's own design matrix, the sigmoid scale from its targets, and
-    the q10/q90 band of its targets around their mean."""
+# the forecast flow's clock: the first tick trains and scores at T0
+T0 = 40 * DAY
+MINUTE = 60.0
+# trained params across reassociation (tests/test_fleet_mesh.py) and
+# forecasts/bands (FLEET_RTOL/ATOL, src/repro/testing.py)
+PARAM_TOL = dict(rtol=5e-2, atol=5e-3)
+FC_TOL = dict(rtol=2e-3, atol=1e-3)
+# the card-against-CPU training check: a small bin per kind at the JAX
+# package's test sizes (tests/test_fleet_rollout.py)
+PARITY_HP = {
+    "LR": {"target_lags": 12, "weather_lags": 4},
+    "GAM": {"target_lags": 12, "weather_lags": 4},
+    "ANN": {"hidden": 24, "epochs": 40, "target_lags": 12},
+    "LSTM": {"hidden": 12, "epochs": 40, "target_lags": 12},
+}
+
+
+def flow_modules():
+    """The port's classes the forecast flow is built from (``build_flow``
+    takes them as an argument, so a test can build the JAX package's twin
+    of the same flow)."""
+    from types import SimpleNamespace
+    from repro_torch.core import Castor, ModelDeployment, Schedule
+    from repro_torch.forecast import PAPER_MODELS, EnergyFromCurrentModel
+    from repro_torch.forecast.anomaly import BandAnomalyDetector
+    from repro_torch.timeseries.ingest import (SiteSpec, build_site,
+                                               ingest_current_feed)
+    return SimpleNamespace(
+        Castor=Castor, ModelDeployment=ModelDeployment, Schedule=Schedule,
+        PAPER_MODELS=PAPER_MODELS,
+        EnergyFromCurrentModel=EnergyFromCurrentModel,
+        BandAnomalyDetector=BandAnomalyDetector, SiteSpec=SiteSpec,
+        build_site=build_site, ingest_current_feed=ingest_current_feed)
+
+
+def build_flow(c, m, *, n_prosumers: int, hidden: int, sub_width: int,
+               epochs, seed: int) -> dict:
+    """The paper's workload (``examples/smartgrid_forecasting.py``) on one
+    site: an ANN fleet over every prosumer (rank 0: the detection flow's
+    bands), an LR fleet over every prosumer (rank 1), the four paper
+    models on the substation at ``sub_width`` (ANN, LSTM), and the
+    current -> 15-minute energy transform. Everything trains weekly and
+    scores hourly from T0; ``epochs`` None keeps each model's DEFAULTS
+    (ANN 300, LSTM 200). ``m`` holds the classes (``flow_modules``)."""
+    info = m.build_site(c, m.SiteSpec("SITE", n_prosumers=n_prosumers,
+                                      n_feeders=8, n_substations=1,
+                                      seed=seed), t0=0.0, t1=41 * DAY)
+    m.ingest_current_feed(c, "SITE_SUB_0", t0=T0 - 5 * DAY, t1=T0)
+    train, score = m.Schedule(T0, 7 * DAY), m.Schedule(T0, HOUR)
+    fit = {} if epochs is None else {"epochs": epochs}
+    c.publish("ann", "1.0", m.PAPER_MODELS["ANN"])
+    for kind, cls in m.PAPER_MODELS.items():
+        c.publish(f"castor-{kind.lower()}", "1.0", cls)
+    c.publish("castor-xform", "1.0", m.EnergyFromCurrentModel)
+    fleet = c.deploy_for_all(package="ann", signal="ENERGY_LOAD",
+                             name_prefix="ann", kind="PROSUMER", train=train,
+                             score=score, user_params={
+                                 "hidden": hidden, "train_window_days": 28,
+                                 "horizon": HORIZON, **fit})
+    lr_fleet = c.deploy_for_all(package="castor-lr", signal="ENERGY_LOAD",
+                                name_prefix="fleet-lr", kind="PROSUMER",
+                                train=train, score=score,
+                                user_params={"train_window_days": 21},
+                                rank=1)
+    for rank, kind in enumerate(m.PAPER_MODELS):
+        hp = {"hidden": sub_width, **fit} if kind in ("ANN", "LSTM") else {}
+        c.deploy(m.ModelDeployment(
+            name=f"{kind}-sub", package=f"castor-{kind.lower()}",
+            signal="ENERGY_LOAD", entity="SITE_SUB_0", train=train,
+            score=score, user_params={"train_window_days": 28, **hp},
+            rank=rank))
+    c.add_signal("ENERGY_LOAD_15MIN", unit="kWh")
+    c.deploy(m.ModelDeployment(
+        name="xform-sub", package="castor-xform", signal="ENERGY_LOAD_15MIN",
+        entity="SITE_SUB_0", train=m.Schedule(T0, 1e12),
+        score=m.Schedule(T0, DAY), user_params={"window_days": 5}))
+    return {"readings": info["readings"], "fleet": fleet,
+            "lr_fleet": lr_fleet}
+
+
+def live_feed(c, m, fleet, t_start: float, n_minutes: int, seed: int):
+    """The detection flow over the ANN fleet: one minutely detector per
+    prosumer from ``t_start + MINUTE``, and minutely readings around each
+    prosumer's best forecast (one sensor spiked far outside its band from
+    the window's midpoint on), as ``repro.testing``'s detection fixture
+    builds them."""
     import numpy as np
-    from repro_torch.forecast import ANNForecaster, ann_version_from_numpy
-    from repro_torch.forecast.base import BAND_QUANTILES
-    from repro_torch.forecast.features import design_matrix
+    c.publish("anom", "1.0", m.BandAnomalyDetector)
+    c.deploy_detections(package="anom", signal="ENERGY_LOAD",
+                        name_prefix="d", kind="PROSUMER",
+                        detect=m.Schedule(t_start + MINUTE, MINUTE))
     rng = np.random.default_rng(seed)
-    now = deps[0].score.start
-    insts = [ANNForecaster(context=c.graph.context(d.signal, d.entity),
-                           task="score", model_id=d.name, model_version=None,
-                           user_params={**up, "now": now}, system=c)
-             for d in deps]
-    ANNForecaster.fleet_load(insts)
-    hidden = int(up["hidden"])
-    out = {}
-    for d, inst in zip(deps, insts):
-        spec, grid, target, temps, _ = inst._loaded
-        X, y = design_matrix(spec, grid, target, temps)
-        sizes = [X.shape[1]] + [hidden] * 4 + [1]
-        p = {f"w{i}": rng.standard_normal((sizes[i], sizes[i + 1]),
-                                          np.float32)
-             * np.float32((2.0 / sizes[i]) ** 0.5) for i in range(5)}
-        p.update({f"b{i}": np.zeros(sizes[i + 1], np.float32)
-                  for i in range(5)})
-        p["y_scale"] = np.abs(y).max() * 1.2 + 1e-6
-        mo = {"kind": "ANN", "params": p, "mu": X.mean(0),
-              "sd": X.std(0) + 1e-8, "y_scale": float(np.abs(y).max() + 1e-6),
-              "resid_q": np.quantile(y - y.mean(), BAND_QUANTILES)}
-        out[d.name] = ann_version_from_numpy(mo, device)
-    return out
+    t = t_start + MINUTE * np.arange(1, n_minutes + 1)
+    for i, d in enumerate(fleet):
+        fc = c.best_forecast(d.signal, d.entity)
+        v = np.interp(t, fc.times, fc.values) + rng.normal(0.0, 0.01, t.shape)
+        if i == 0:
+            v[n_minutes // 2:] += 25.0
+        c.ingest(c.graph.context(d.signal, d.entity).ts_id, t, v)
 
 
-def path_phase(device: str, *, n_prosumers: int = 512, hidden: int = 512,
-               n_ticks: int = 3, n_checked: int = 4, seed: int = 11) -> dict:
-    """Drive ``Castor.tick(executor="fleet")`` and check what it did.
-    Returns the per-tick records and the ``fleet_mlp`` launch total."""
+def flow_ticks(c, n_ticks: int, n_minutes: int, fleet, m, seed: int,
+               sync=lambda: None) -> list:
+    """Drive the flow: ``n_ticks`` hourly ticks from T0 (the first trains
+    and scores, the rest score), then the detection flow and
+    ``n_minutes`` minutely detect ticks. Returns one record per tick."""
+    ticks = []
+    times = [T0 + k * HOUR for k in range(n_ticks)]
+    t_last = times[-1]
+    for k, now in enumerate(times + [t_last + MINUTE * (j + 1)
+                                     for j in range(n_minutes)]):
+        if k == n_ticks:
+            live_feed(c, m, fleet, t_last, n_minutes, seed)
+        c.tracer.clear()
+        t = time.perf_counter()
+        results = c.tick(now, executor="fleet")
+        sync()
+        secs = time.perf_counter() - t
+        ticks.append({"now": now, "seconds": secs, "results": results,
+                      "stats": list(c.fleet_executor().last_bin_stats),
+                      "spans": c.tracer.spans()})
+    return ticks
+
+
+def _package(stats: dict) -> str:
+    return stats["bin"].split("'")[1]
+
+
+def _task(stats: dict) -> str:
+    return stats["bin"].split("'")[5]
+
+
+def tick_modes(ticks) -> list:
+    """(package, task, runtime mode) of every fleet bin, per tick: what
+    the runtime reports, compared with the JAX package's in the tests."""
+    return [[(_package(s), _task(s), s["runtime"]) for s in t["stats"]]
+            for t in ticks]
+
+
+def forecast_flow(device: str, *, n_prosumers: int = 512, hidden: int = 512,
+                  sub_width: int = 512, epochs=None, n_ticks: int = 3,
+                  n_minutes: int = 5, n_checked: int = 4,
+                  seed: int = 11) -> dict:
+    """Drive the forecast flow through ``Castor.tick`` (train -> score ->
+    detect) and check what it did. Returns the runtime modes per tick,
+    the ``fleet_mlp`` launch total and the fleet's median training
+    MAPE."""
     import numpy as np
     import torch
-    from repro_torch.core import Castor, Schedule
-    from repro_torch.forecast import ANNForecaster
+    from repro_torch.forecast import ANNForecaster, ann, lstm
+    from repro_torch.forecast.anomaly import BandAnomalyDetector
     from repro_torch.kernels.fleet_mlp import ops
-    from repro_torch.timeseries.ingest import SiteSpec, build_site
+    from repro_torch.timeseries.transforms import mape
     cuda = device != "cpu"
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
+    m = flow_modules()
     t = time.perf_counter()
-    c = Castor(device=device)
-    info = build_site(c, SiteSpec("SITE", n_prosumers=n_prosumers,
-                                  n_feeders=8, n_substations=1, seed=seed),
-                      t0=0.0, t1=41 * DAY)
-    c.publish("ann", "1.0", ANNForecaster)
-    up = {"hidden": hidden, "train_window_days": 28, "horizon": HORIZON}
-    deps = c.deploy_for_all(package="ann", signal="ENERGY_LOAD",
-                            name_prefix="ann", kind="PROSUMER",
-                            score=Schedule(40 * DAY, HOUR), train=None,
-                            user_params=up)
-    check(len(deps) == n_prosumers, f"{len(deps)} deployments")
-    versions = seeded_versions(c, deps, up, device, seed)
-    for name, mo in versions.items():
-        c.versions.save(name, mo, trained_at=40 * DAY - HOUR)
-    sync()
-    print(f"path setup: {info['readings']} readings, {len(deps)} ANN "
-          f"deployments (hidden {hidden}), seeded versions, "
-          f"{time.perf_counter() - t:.1f} s")
+    c = m.Castor(device=device)
+    built = build_flow(c, m, n_prosumers=n_prosumers, hidden=hidden,
+                       sub_width=sub_width, epochs=epochs, seed=seed)
+    fleet = built["fleet"]
+    check(len(fleet) == len(built["lr_fleet"]) == n_prosumers,
+          f"{len(fleet)} ANN deployments")
+    print(f"flow setup: {built['readings']} readings, {n_prosumers} ANN "
+          f"(hidden {hidden}) + {n_prosumers} LR prosumer deployments, "
+          f"LR/GAM/ANN/LSTM (width {sub_width}) + transform on the "
+          f"substation, {time.perf_counter() - t:.1f} s")
+
+    # the fits' times: CUDA events around each stacked Adam fit (device
+    # time, the fit's whole queue), host clock on the CPU
+    fits = []
+
+    def timed(label, fit):
+        def run(params, loss_fn, n_epochs, lr):
+            n = next(iter(params.values())).shape[0]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if cuda else None
+            t0 = time.perf_counter()
+            if ev:
+                ev[0].record()
+            out = fit(params, loss_fn, n_epochs, lr)
+            if ev:
+                ev[1].record()
+            fits.append({"model": label, "n": n, "epochs": n_epochs,
+                         "events": ev, "host_s": time.perf_counter() - t0})
+            return out
+        return run
+
+    originals = (ann.fit_adam, lstm.fit_adam)
+    ann.fit_adam = timed("ANN", originals[0])
+    lstm.fit_adam = timed("LSTM", originals[1])
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-
-    ticks = []
     reset_counts()
-    for k in range(n_ticks):
-        now = 40 * DAY + k * HOUR
-        before = ops.invocation_count()
-        c.tracer.clear()
-        t = time.perf_counter()
-        results = c.tick(now, executor="fleet")
-        sync()
-        secs = time.perf_counter() - t
-        stats = c.fleet_executor().last_bin_stats
+    try:
+        ticks = flow_ticks(c, n_ticks, n_minutes, fleet, m, seed, sync)
+    finally:
+        ann.fit_adam, lstm.fit_adam = originals
+    launches = ops.invocation_count()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    for f in fits:
+        f["seconds"] = (f["events"][0].elapsed_time(f["events"][1]) / 1e3
+                        if cuda else f["host_s"])
+
+    # ---- what each tick did ----
+    rt = c.fleet_executor().runtime
+    for k, rec in enumerate(ticks):
+        results, stats = rec["results"], rec["stats"]
+        errors = [r.error for r in results if not r.ok]
+        check(not errors, f"tick {k + 1}: {len(errors)} failed jobs, "
+                          f"first: {errors[:1]}")
+        tasks = [_task(s) for s in stats]
+        ann_scores = [s for s in stats if _task(s) == "score"
+                      and _package(s) in ("ann", "castor-ann")]
         spans = {}
-        for sp in c.tracer.spans():
+        for sp in rec["spans"]:
             if sp.name in SPANS:
                 spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration
-        rec = {"tick": k + 1, "seconds": secs, "jobs": len(results),
-               "ok": sum(r.ok for r in results),
-               "launches": ops.invocation_count() - before,
-               "bins": len(stats),
-               "runtime": [s["runtime"] for s in stats],
-               "reasons": [s.get("runtime_reason", "") for s in stats],
-               "rollouts": [s["rollout_cache_hits"] + s["rollout_cache_misses"]
-                            for s in stats],
-               "spans": spans}
-        ticks.append(rec)
-        print(f"tick {k + 1}: {secs:.3f} s wall, jobs {rec['ok']}/"
-              f"{rec['jobs']} ok, fleet_mlp launches {rec['launches']} "
-              f"over {rec['bins']} score bin(s), runtime {rec['runtime']}")
+        rec.update(jobs=len(results), tasks=tasks, span_sums=spans,
+                   ann_score_bins=len(ann_scores))
+        counts_ = {task: sum(r.job.task == task for r in results)
+                   for task in ("train", "score", "detect")}
+        print(f"tick {k + 1} (T0 + {rec['now'] - T0:.0f} s): "
+              f"{rec['seconds']:.3f} s wall, jobs {len(results)}/"
+              f"{len(results)} ok ({counts_['train']} train, "
+              f"{counts_['score']} score, {counts_['detect']} detect), "
+              f"runtime {[s['runtime'] for s in stats]}")
         print(f"tick {k + 1} spans (host clock, s): " + ", ".join(
             f"{name} {spans.get(name, 0.0):.4f}" for name in SPANS))
-        errors = [r.error for r in results if not r.ok]
-        check(not errors, f"tick {k + 1}: failed jobs, first: {errors[:1]}")
-    launches = ops.invocation_count()
+        print(f"tick {k + 1} bins (host clock, s): " + ", ".join(
+            f"{_package(s)} {_task(s)} {s['jobs']} {s['seconds']:.4f}"
+            for s in stats))
+        for s in stats:
+            if _task(s) == "score":
+                # the device rollout ran once per score bin: a fallback to
+                # the host loop skips it, a runtime that gave up repeats it
+                check(s["rollout_cache_hits"] + s["rollout_cache_misses"]
+                      == 1, f"tick {k + 1}: {s['bin'][:60]} rollouts")
+                check(s["runtime"] == "warm",
+                      f"tick {k + 1}: score bin {s['bin'][:60]} ran "
+                      f"{s['runtime']} ({s.get('runtime_reason', '')})")
+            elif _task(s) == "train":
+                check(s["runtime"] in ("cold", "warm"),
+                      f"tick {k + 1}: train bin runtime {s['runtime']}")
+    first, hourly, minutely = ticks[0], ticks[:n_ticks], ticks[n_ticks:]
+    ann_train = [s for s in first["stats"]
+                 if _package(s) == "ann" and _task(s) == "train"]
+    check(len(ann_train) == 1 and ann_train[0]["runtime"] == "cold"
+          and ann_train[0].get("runtime_reason") == "first load"
+          and ann_train[0]["jobs"] == n_prosumers,
+          f"tick 1: ANN fleet train bin {ann_train}")
+    # the train tick: every deployment trains, then scores; the transform
+    # (no fleet hooks) runs on the pool
+    n_deps = 2 * n_prosumers + 4
+    check(first["jobs"] == 2 * (n_deps + 1),
+          f"tick 1: {first['jobs']} jobs for {n_deps + 1} deployments")
+    for rec in hourly[1:]:
+        check(rec["tasks"] and set(rec["tasks"]) == {"score"}
+              and rec["jobs"] == n_deps, f"hourly tick: {rec['jobs']} jobs")
+    for rec in hourly:
+        check(rec["ann_score_bins"] == 2,
+              f"{rec['ann_score_bins']} ANN score bins in an hourly tick")
+    for rec in minutely:
+        check(rec["jobs"] == n_prosumers and set(rec["tasks"]) == {"detect"},
+              f"minutely tick: {rec['jobs']} jobs {set(rec['tasks'])}")
+    n_ann_bins = sum(rec["ann_score_bins"] for rec in hourly)
+    check(launches == HORIZON * n_ann_bins,
+          f"{launches} fleet_mlp launches for {n_ann_bins} ANN score bins")
 
-    for rec in ticks:
-        k = rec["tick"]
-        check(rec["jobs"] == n_prosumers, f"tick {k}: {rec['jobs']} jobs")
-        check(rec["launches"] == HORIZON * rec["bins"] and rec["bins"] >= 1,
-              f"tick {k}: {rec['launches']} fleet_mlp launches for "
-              f"{rec['bins']} score bins")
-        # the device rollout ran once per bin: a fallback to the host loop
-        # skips it, a runtime that gave up repeats it on the cold path
-        check(all(r == 1 for r in rec["rollouts"]),
-              f"tick {k}: device rollouts per bin {rec['rollouts']}")
-        want = ["cold"] if k == 1 else ["warm"]
-        check(rec["runtime"] == want * rec["bins"],
-              f"tick {k}: runtime {rec['runtime']} {rec['reasons']}")
-    check(ticks[0]["reasons"] == ["first load"] * ticks[0]["bins"],
-          f"tick 1: runtime reasons {ticks[0]['reasons']}")
-    check(not c.fleet_executor().runtime._no_rollout,
-          "the runtime gave up its device rollout")
+    # the same-tick score bin took the train handoff: the runtime's padded
+    # parameters for the ANN fleet are the fit's own tensors (N is a
+    # power of two: no pad, no copy)
+    ids = {c.graph.context(d.signal, d.entity).ts_id for d in fleet}
+    states = [s for s in rt._states.values() if set(s.ids) == ids
+              and s.trained is not None and s.trained[4][0]["kind"] == "ANN"]
+    check(len(states) == 1, "no ANN fleet state with a train handoff")
+    state = states[0]
+    stacked = state.trained[1]
+    check(state.param_cache is not None
+          and state.param_cache[1]["w0"] is stacked["w0"],
+          "the ANN score bin re-stacked its versions")
+    print(f"flow handoff: {rt.handoffs} score bins on the train handoff "
+          f"over the hourly ticks; runtime cold loads {rt.cold_loads}, "
+          f"warm loads {rt.warm_loads}")
+    for name, v in stacked.items():
+        check(bool(torch.isfinite(v).all()), f"trained ANN {name} not finite")
+    for d in ("LR-sub", "GAM-sub", "ANN-sub", "LSTM-sub"):
+        for name, v in c.versions.get(d).params["params"].items():
+            check(bool(torch.isfinite(v.double()).all()),
+                  f"{d} {name} not finite")
 
-    last = 40 * DAY + (n_ticks - 1) * HOUR
-    for d in deps:
+    # ---- the train tick's measurements ----
+    ann_bin = [sp for sp in first["spans"] if sp.name == "exec.bin"
+               and (sp.args or {}).get("bin_id") == ann_train[0]["bin_id"]]
+    ann_fit = [f for f in fits if f["model"] == "ANN"
+               and f["n"] == n_prosumers]
+    check(len(ann_bin) == 1 and len(ann_fit) == 1,
+          f"{len(ann_bin)} ANN train bin spans, {len(ann_fit)} fleet fits")
+    fit_s = ann_fit[0]["seconds"]
+    n_epochs = ann_fit[0]["epochs"]
+    print(f"train tick: {first['seconds']:.3f} s wall; ANN fleet train bin "
+          f"(exec.bin span) {ann_bin[0].duration:.3f} s, of which the fit "
+          f"{fit_s:.3f} s ({'device' if cuda else 'host'} time): "
+          f"{n_epochs} epochs x {n_prosumers} instances at width {hidden}, "
+          f"{n_epochs / fit_s:.2f} epochs/s")
+    if cuda:
+        print(f"train tick peak device memory: {peak} bytes "
+              f"(torch.cuda.max_memory_allocated over the flow)")
+    sub_walls = {}
+    for s in first["stats"]:
+        if _task(s) == "train" and _package(s).startswith("castor-") \
+                and s["jobs"] == 1:
+            sub_walls[_package(s)[7:].upper()] = s["seconds"]
+    for f in fits:
+        if f["n"] == 1:
+            print(f"substation fit: {f['model']} {f['epochs']} epochs in "
+                  f"{f['seconds']:.3f} s")
+    print("substation train walls (exec bin, host clock, s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sub_walls.items()))
+    check(set(sub_walls) == {"LR", "GAM", "ANN", "LSTM"},
+          f"substation train bins {sorted(sub_walls)}")
+
+    # ---- the full-width fleet learned something ----
+    up = {**ANNForecaster.DEFAULTS, **fleet[0].user_params, "now": T0}
+    insts = [ANNForecaster(context=c.graph.context(d.signal, d.entity),
+                           task="train", model_id=d.name, model_version=None,
+                           user_params=up, system=c) for d in fleet]
+    X, y, _, _ = ANNForecaster._fleet_xy(insts)
+    yhat = ANNForecaster._fleet_window_predict(stacked, X)
+    mapes = np.asarray([mape(y[i], yhat[i]) for i in range(len(fleet))])
+    med = float(np.median(mapes))
+    print(f"train check: ANN fleet one-step training MAPE median "
+          f"{med:.2f} % (min {mapes.min():.2f}, max {mapes.max():.2f}; "
+          f"bound 30 %)")
+    check(bool(np.isfinite(mapes).all()) and med < 30.0,
+          f"ANN fleet training MAPE median {med}")
+
+    # ---- forecasts: finite, banded; fleet against single ----
+    last = hourly[-1]["now"]
+    for d in fleet:
         fc = c.predictions.latest(d.signal, d.entity)
         check(fc is not None and fc.created_at == last,
-              f"{d.name}: no forecast from the last tick")
+              f"{d.name}: no forecast from the last hourly tick")
         for arr in (fc.values, fc.lower, fc.upper):
             check(arr is not None and arr.shape == (HORIZON,)
                   and bool(np.isfinite(arr).all()),
                   f"{d.name}: forecast or band not finite / not ({HORIZON},)")
-    # the fleet path (kernel, device rollout) against the plain
-    # per-instance path (plain MLP, host recursion) on the same versions
-    worst = 0.0
-    for d in deps[:n_checked]:
-        inst = ANNForecaster(context=c.graph.context(d.signal, d.entity),
-                             task="score", model_id=d.name,
-                             model_version=None,
-                             user_params={**up, "now": last}, system=c)
-        times, vals, lo, hi = inst.score(versions[d.name])
-        fc = c.predictions.latest(d.signal, d.entity)
-        np.testing.assert_array_equal(times, fc.times)
-        for got, want in ((fc.values, vals), (fc.lower, lo), (fc.upper, hi)):
-            np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-3)
-            worst = max(worst, float(np.max(np.abs(got - want))))
-    print(f"path check: {n_checked} forecasts and bands match the plain "
-          f"per-instance path (max |diff| {worst:.3e}; rtol 2e-3, atol 1e-3)")
-    peak = torch.cuda.max_memory_allocated() if cuda else None
-    if cuda:
-        print(f"path peak device memory: {peak} bytes "
-              f"(torch.cuda.max_memory_allocated over the ticks)")
-    print(f"path cut: none ({n_prosumers} prosumers, hidden {hidden}, "
-          f"{n_ticks} ticks)")
-    return {"ticks": ticks, "launches": launches, "peak_bytes": peak}
+    worst = {}
+    checked = [(d.name, d.signal, d.entity, last) for d in fleet[:n_checked]]
+    checked += [(f"{k}-sub", "ENERGY_LOAD", "SITE_SUB_0", T0)
+                for k in m.PAPER_MODELS]
+    for name, sig, ent, at in checked:
+        dep = c.deployments.get(name)
+        cls = c.registry.get(dep.package, dep.version)
+        mv = c.versions.get(name, at=at)
+        fc = [f for f in c.predictions.history(name) if f.created_at == at]
+        inst = cls(context=c.graph.context(sig, ent), task="score",
+                   model_id=name, model_version=mv.version,
+                   user_params={**dep.user_params, "now": at}, system=c)
+        times, vals, lo, hi = inst.score(mv.params)
+        np.testing.assert_array_equal(times, fc[0].times)
+        for got, want in ((fc[0].values, vals), (fc[0].lower, lo),
+                          (fc[0].upper, hi)):
+            np.testing.assert_allclose(got, want, **FC_TOL)
+            key = cls.KIND
+            worst[key] = max(worst.get(key, 0.0),
+                             float(np.max(np.abs(got - want))))
+    print(f"flow check: fleet forecasts and bands equal the per-instance "
+          f"score() path (max |diff| by kind "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }; "
+          f"rtol 2e-3, atol 1e-3)")
+    xform = c.predictions.history("xform-sub")
+    check(len(xform) == 1 and xform[0].values.size > 0
+          and bool((xform[0].values >= 0).all()),
+          "transform model: no 15-minute energy series")
+
+    # ---- detection: fleet_detect against per-sensor detect, bitwise ----
+    t_det = minutely[-1]["now"]
+    n_rec = 0
+    for d in fleet[:n_checked]:
+        name = f"d-{d.entity}"
+        stored = [r for r in c.detections.history(name)
+                  if r.scheduled_at == t_det]
+        inst = BandAnomalyDetector(
+            context=c.graph.context(d.signal, d.entity), task="detect",
+            model_id=name, model_version=None,
+            user_params={"now": t_det}, system=c)
+        single = inst.detect(c.predictions.latest(d.signal, d.entity,
+                                                  at=t_det))
+        check(len(stored) == 1 and vars(stored[0]) == vars(single),
+              f"{name}: fleet record {stored} != per-sensor {single}")
+        n_rec += 1
+    spiked = c.detections.history(f"d-{fleet[0].entity}")[-1]
+    check(spiked.score > 1.0 and spiked.n_anomalies >= 1,
+          f"the spiked sensor scored {spiked.score}")
+    det = c.stats()["detection"]
+    check(det["records"] == n_minutes * n_prosumers,
+          f"{det['records']} detection records")
+    print(f"detect check: {det['records']} records over {n_minutes} "
+          f"minutely ticks; {n_rec} sensors' fleet_detect records bitwise "
+          f"equal to per-sensor detect; the spiked sensor scored "
+          f"{spiked.score:.3f} ({spiked.n_anomalies} anomalies)")
+    print(f"flow cut: none ({n_prosumers} prosumers, hidden {hidden}, "
+          f"epochs {n_epochs}, {n_ticks} hourly + {n_minutes} minutely "
+          f"ticks)")
+    return {"modes": tick_modes(ticks), "launches": launches,
+            "mape_median": med}
+
+
+def train_parity(device: str, *, seed: int = 5) -> dict:
+    """Card against CPU, per kind: a small bin (3 prosumers at the JAX
+    package's test sizes) trained on ``device`` and on the CPU from the
+    same initial weights (ANN and LSTM draw theirs on the CPU, then move
+    them). Parameters must agree at rtol 5e-2 / atol 5e-3, forecasts and
+    bands at rtol 2e-3 / atol 1e-3. Returns the worst |diff| per kind."""
+    import numpy as np
+    from repro_torch.forecast import PAPER_MODELS, ann, lstm, version_to_numpy
+    m = flow_modules()
+    now = 40 * DAY
+    systems = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        c = m.Castor(device=dev)
+        m.build_site(c, m.SiteSpec("P", n_prosumers=3, n_feeders=1,
+                                   n_substations=1, seed=seed),
+                     t0=0.0, t1=now + 2 * DAY)
+        systems[dev] = c
+
+    def on_cpu(init):
+        def draw(*args):
+            *rest, dev = args
+            return {k: v.to(dev) for k, v in init(*rest, "cpu").items()}
+        return draw
+
+    originals = (ann._init_fleet, lstm._init_fleet)
+    ann._init_fleet, lstm._init_fleet = map(on_cpu, originals)
+    worst = {}
+    try:
+        for kind, cls in PAPER_MODELS.items():
+            out = {}
+            for dev, c in systems.items():
+                insts = [cls(context=c.graph.context("ENERGY_LOAD",
+                                                     f"P_PRO_0_{i}"),
+                             task="train", model_id=f"p-{i}",
+                             model_version=None, system=c,
+                             user_params={"train_window_days": 14,
+                                          "now": now, **PARITY_HP[kind]})
+                         for i in range(3)]
+                mos = cls.fleet_train(insts)
+                out[dev] = ([version_to_numpy(mo) for mo in mos],
+                            cls.fleet_score(insts, mos))
+            (got, got_fc), (want, want_fc) = out[device], out["cpu"]
+            p_err = fc_err = 0.0
+            for g, w in zip(got, want):
+                for k, wv in w["params"].items():
+                    np.testing.assert_allclose(g["params"][k], wv,
+                                               err_msg=f"{kind} {k}",
+                                               **PARAM_TOL)
+                    p_err = max(p_err, float(np.max(np.abs(
+                        np.asarray(g["params"][k], np.float64) - wv))))
+                np.testing.assert_allclose(g["resid_q"], w["resid_q"],
+                                           **FC_TOL)
+            for g, w in zip(got_fc, want_fc):
+                np.testing.assert_array_equal(g[0], w[0])
+                for a, b in zip(g[1:], w[1:]):
+                    np.testing.assert_allclose(a, b, **FC_TOL)
+                    fc_err = max(fc_err, float(np.max(np.abs(a - b))))
+            worst[kind] = (p_err, fc_err)
+            print(f"train parity: {kind} on {device} against cpu, same "
+                  f"initial weights: params max |diff| {p_err:.3e} (rtol "
+                  f"5e-2, atol 5e-3), forecasts and bands {fc_err:.3e} "
+                  f"(rtol 2e-3, atol 1e-3) ok")
+    finally:
+        ann._init_fleet, lstm._init_fleet = originals
+    return worst
 
 
 def _kernel_ops() -> dict:
@@ -1230,7 +1565,8 @@ def main() -> int:
                "decode_attention": decode_phase("cuda", time_it=True),
                "ssd_scan": ssd_phase("cuda", time_it=True),
                "wkv6_scan": wkv_phase("cuda", time_it=True)}
-    fleet_path = path_phase("cuda")
+    train_parity("cuda")
+    fleet_path = forecast_flow("cuda")
     qwen = lm_path("qwen3-1.7b", "cuda")
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)

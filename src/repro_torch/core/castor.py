@@ -66,6 +66,13 @@ class Castor:
     def deploy_for_all(self, **kw) -> List[ModelDeployment]:
         return deploy_for_all(self.graph, self.deployments, **kw)
 
+    def deploy_detections(self, **kw) -> List[ModelDeployment]:
+        """Detection-flow fleet deployment: one minutely
+        ``DetectionDeployment`` per entity carrying ``signal`` (see
+        flows.detection.deploy_detections_for_all)."""
+        from ..flows.detection import deploy_detections_for_all
+        return deploy_detections_for_all(self.graph, self.deployments, **kw)
+
     def undeploy(self, name: str) -> None:
         """Remove a deployment. The store's listener protocol clears the
         scheduler's calendar entry, watermark and queued retries for the
@@ -164,6 +171,49 @@ class Castor:
     def metrics(self):
         """The process-global metrics registry (obs/metrics.py)."""
         return get_metrics()
+
+    def dump_trace(self, path) -> str:
+        """Write every buffered span as Chrome trace-event JSON — open
+        the file at ui.perfetto.dev (or chrome://tracing)."""
+        from ..obs.export import write_chrome_trace
+        return str(write_chrome_trace(path, self.tracer))
+
+    def _mirror_metrics(self) -> None:
+        """Absorb the scattered per-subsystem counters into the one
+        namespaced registry (snapshot-time mirroring: the hot paths that
+        maintain these counters stay untouched)."""
+        m = self.metrics
+        st = self.store.stats()
+        m.gauge("store.points").set(st["points"])
+        m.gauge("store.segments").set(st["segments"])
+        m.gauge("store.reads").set(st["reads"])
+        m.gauge("store.read_many").set(st["read_many"])
+        m.gauge("store.delta_reads").set(st["delta_reads"])
+        from ..forecast.base import rollout_cache_stats
+        rc = rollout_cache_stats()
+        m.gauge("rollout_cache.hits").set(rc["hits"])
+        m.gauge("rollout_cache.misses").set(rc["misses"])
+        from ..forecast.features import trace_count
+        m.gauge("jit.retrace.total").set(trace_count())
+        sched = self.scheduler.stats()
+        m.gauge("scheduler.heap_entries").set(sched["heap_entries"])
+        m.gauge("scheduler.tracked").set(sched["tracked"])
+        m.gauge("scheduler.interned_bins").set(sched["interned_bins"])
+        cached = getattr(self, "_fleet_ex", None)
+        rt = cached[1].runtime if cached is not None else None
+        if rt is not None:
+            m.gauge("runtime.cold_loads").set(rt.cold_loads)
+            m.gauge("runtime.warm_loads").set(rt.warm_loads)
+            m.gauge("runtime.invalidations").set(rt.invalidations)
+
+    def snapshot(self) -> dict:
+        """The unified observability snapshot: ``{"stats": <the exact
+        dict stats() returns>, "metrics": <registry snapshot>,
+        "trace": <tracer ring stats>}``. ``stats()`` is the
+        backward-compatible view over this snapshot's ``"stats"`` key."""
+        from ..obs.export import obs_snapshot
+        self._mirror_metrics()
+        return obs_snapshot(self.stats(), self.tracer, self.metrics)
 
     def stats(self) -> dict:
         st = self.store.stats()

@@ -1,5 +1,5 @@
-"""FleetRuntime, scoring half: persistent device-resident per-bin state for
-the steady-state poll hot path.
+"""FleetRuntime: persistent device-resident per-bin state for the
+steady-state poll hot path.
 
 The paper's workload is rolling-horizon operation: thousands of deployed
 models re-scored every cycle against a window that slides by a handful of
@@ -18,8 +18,14 @@ O(1) new data.
   with one ring update on the device. The ``prior_counts`` handshake
   proves no out-of-order append landed behind the watermark; if one did,
   the bin cold-rebuilds.
-* **Device-resident versions.** A bin's stacked parameters are built once
-  per set of versions and kept, bucket-padded, with the bin's state.
+* **On-device feature assembly.** Warm train polls assemble the
+  lag/weather/calendar design matrix, per-instance standardization
+  included, on the device from the ring (``_assemble``); the host numpy
+  path stays the cold/reference path.
+* **Device-resident versions.** ``fleet_train`` hands its stacked device
+  parameters to the bin's state (``note_trained``), so a same-poll score
+  bin of those versions neither re-uploads nor re-stacks them; other
+  versions are stacked once per set and kept, bucket-padded.
 * **Shape buckets.** The ring's instance axis is padded to its
   power-of-two bucket (edge replication).
 
@@ -38,9 +44,6 @@ History weather rides in a third ring: history features use OBSERVED
 temperatures (deterministic per site/time), so a warm poll computes only
 the ``d`` new columns. Horizon weather is a forecast issued at scoring
 time (``forecast``, one call per bin).
-
-Training state (``fleet_xy``, on-device design assembly, the train->score
-parameter handoff) is not ported yet.
 """
 from __future__ import annotations
 
@@ -53,8 +56,8 @@ import torch
 
 from ..forecast.base import stack_versions
 from ..forecast.features import (FeatureSpec, align_delta, bucket_n,
-                                 edge_pad, fleet_window)
-from ..timeseries.transforms import DAY, regular_grid
+                                 design_matrix, edge_pad, fleet_window)
+from ..timeseries.transforms import DAY, calendar_features, regular_grid
 
 
 def _update_rings(ring, filled, ring_t, vals, mask, tvals, T: int,
@@ -62,7 +65,8 @@ def _update_rings(ring, filled, ring_t, vals, mask, tvals, T: int,
     """Roll the target/filled/temperature rings left by ``d`` (the width
     of ``vals``), forward-fill the new target columns from the previous
     ring column (the value the cold aligner would have propagated), and
-    return the new rings plus the trailing window-masked score windows.
+    return the new rings, the window-masked target matrix and the
+    trailing score windows.
 
     The rings are reassigned, not updated in place: ``torch.cat`` writes
     fresh ``(n, cap)`` tensors and the old ones go back to the caching
@@ -79,7 +83,31 @@ def _update_rings(ring, filled, ring_t, vals, mask, tvals, T: int,
     ring_t = torch.cat([ring_t[:, d:], tvals], dim=1)
     seen = filled[:, -T:].cumsum(dim=1) > 0
     y_win = torch.where(seen, ring[:, -T:], 0.0)
-    return ring, filled, ring_t, y_win[:, -warm_s:], ring_t[:, -warm_s:]
+    return (ring, filled, ring_t, y_win, y_win[:, -warm_s:],
+            ring_t[:, -warm_s:])
+
+
+def _assemble(spec: FeatureSpec, T: int, y_win, temps, cal):
+    """Device twin of ``design_matrix`` + ``transform`` over a whole bin:
+    ``y_win``/``temps`` (N, T) f32, ``cal`` (T, 5) f32 calendar features
+    (computed on the host in float64, then cast once — the cold path's
+    cast point). Lag stacking is pure gathering (bitwise the host
+    values); per-instance standardization runs in f32 on the device (the
+    one place warm and cold differ, at f32 epsilon). Returns the
+    standardized X (N, T - warm, F), y, mu and sd."""
+    tl, wl = spec.target_lags, spec.weather_lags
+    warm = max(tl, wl if spec.use_weather else 0)
+    cols = [y_win[:, warm - L: T - L] for L in range(1, tl + 1)]
+    if spec.use_weather:
+        cols.append(temps[:, warm:])
+        cols.extend(temps[:, warm - L: T - L] for L in range(1, wl + 1))
+    parts = [torch.stack(cols, dim=-1)]
+    if spec.use_calendar:
+        parts.append(cal[warm:].expand(y_win.shape[0], T - warm, 5))
+    X = torch.cat(parts, dim=-1)
+    mu = X.mean(dim=1)
+    sd = X.std(dim=1, correction=0) + 1e-8
+    return (X - mu[:, None, :]) / sd[:, None, :], y_win[:, warm:], mu, sd
 
 
 @dataclass
@@ -98,18 +126,22 @@ class _BinState:
     ring: Any = None                 # device (n_pad, cap) f32 targets
     filled: Any = None               # device (n_pad, cap) bool
     ring_t: Any = None               # device (n_pad, cap) f32 temperatures
+    y_win: Any = None                # device (n_pad, T) f32, window-masked
     y_tail: Any = None               # device (n_pad, warm_s) score window
     t_tail: Any = None               # device (n_pad, warm_s) temp window
-    #: (ids(mo), stacked, mu, sd, refs) — refs keep the matched dicts
-    #: alive so the id tuple cannot alias recycled objects
+    targets_host: Optional[np.ndarray] = None   # f64 rows (cold train path)
+    temps_host: Optional[np.ndarray] = None     # f64 rows (cold train path)
+    #: (ids(mo), stacked_dev, mu_dev, sd_dev, refs) — refs keep the
+    #: matched dicts alive so the id tuple cannot alias recycled objects
+    trained: Optional[tuple] = None
     param_cache: Optional[tuple] = None
 
 
 class FleetRuntime:
     """Owns per-bin device state across polls; created by ``FleetExecutor``
-    on the system's device and threaded into ``fleet_score`` of models
-    that set ``SUPPORTS_RUNTIME``. ``fleet_score`` returns None to send the
-    caller down the unchanged cold path."""
+    on the system's device and threaded into ``fleet_train`` /
+    ``fleet_score`` of models that set ``SUPPORTS_RUNTIME``. Every public
+    entry returns None to send the caller down the unchanged cold path."""
 
     def __init__(self, system, *, max_states: int = 32,
                  max_delta_steps: int = 512):
@@ -124,6 +156,7 @@ class FleetRuntime:
         self.cold_loads = 0
         self.warm_loads = 0
         self.invalidations = 0
+        self.handoffs = 0                # score bins on the train handoff
 
     # ------------- telemetry -------------
     def _note(self, mode: str, delta_rows: int, reason: str = "") -> None:
@@ -217,19 +250,21 @@ class FleetRuntime:
             torch.as_tensor(edge_pad(a, pad), device=dev)
             for a in (vals.astype(np.float32), mask, tnew.astype(np.float32)))
         warm_s = max(state.spec.target_lags, state.spec.weather_lags) + 1
-        (state.ring, state.filled, state.ring_t, state.y_tail,
+        (state.ring, state.filled, state.ring_t, state.y_win, state.y_tail,
          state.t_tail) = _update_rings(state.ring, state.filled, state.ring_t,
                                        vals_d, mask_d, tnew_d, state.T,
                                        warm_s)
         state.prior = prior + np.asarray([t.size for t, _ in raw], np.int64)
         state.t0, state.t_hi = t0, now
+        state.targets_host = state.temps_host = None   # cold-build only
         self.warm_loads += 1
         return state
 
     def _build(self, key, ids, instances, spec: FeatureSpec, t0: float,
                now: float, T: int) -> _BinState:
         """Cold build: one full-window batched read (the same one the cold
-        path issues) plus one vectorized observed-temperature call; rings
+        path issues) plus one vectorized observed-temperature call;
+        host-aligned rows kept in f64 for the cold train path, rings
         uploaded once."""
         from ..obs.trace import get_tracer
         with get_tracer().span("runtime.build", n=len(ids)):
@@ -261,26 +296,73 @@ class FleetRuntime:
         state = _BinState(key=key, ids=ids, sites=sites, spec=spec, T=T,
                           cap=cap, n=n, n_pad=n_pad, t0=t0, t_hi=now,
                           prior=prior, ring=ring, filled=filled,
-                          ring_t=ring_t, y_tail=ring[:, cap - warm_s:],
-                          t_tail=ring_t[:, cap - warm_s:])
+                          ring_t=ring_t, y_win=ring[:, cap - T:],
+                          y_tail=ring[:, cap - warm_s:],
+                          t_tail=ring_t[:, cap - warm_s:],
+                          targets_host=targets, temps_host=temps)
         self._states[key] = state
         while len(self._states) > self.max_states:
             self._states.popitem(last=False)
         self.cold_loads += 1
         return state
 
+    # ------------- training -------------
+    def fleet_xy(self, cls, instances) -> Optional[tuple]:
+        """Replacement for ``ForecastModelBase._fleet_xy``: returns
+        ``(X, y, mu, sd, state)`` or None (cold path). A freshly built
+        state answers with the EXACT host-f64 design-matrix path (single
+        polls match the runtime-less executor); warm states assemble on
+        the device from the ring."""
+        up = self._merged(cls, instances)
+        state = self._load(cls, instances, up)
+        if state is None:
+            return None
+        spec, T, n = state.spec, state.T, state.n
+        grid = regular_grid(state.t0, state.t_hi, spec.step)
+        if state.targets_host is not None:      # cold build this poll
+            Xs, ys, mus, sds = [], [], [], []
+            for i in range(n):
+                X, y = design_matrix(spec, grid, state.targets_host[i],
+                                     state.temps_host[i])
+                mu, sd = X.mean(0), X.std(0) + 1e-8
+                Xs.append((X - mu) / sd)
+                ys.append(y), mus.append(mu), sds.append(sd)
+            return (np.stack(Xs), np.stack(ys), np.stack(mus),
+                    np.stack(sds), state)
+        cal = calendar_features(grid) if spec.use_calendar \
+            else np.zeros((T, 5))
+        X, y, mu, sd = _assemble(
+            spec, T, state.y_win, state.ring_t[:, state.cap - T:],
+            torch.as_tensor(cal, dtype=torch.float32, device=self.device))
+        return X[:n], y[:n], mu[:n], sd[:n], state
+
+    def note_trained(self, state: _BinState, params, mu, sd, out) -> None:
+        """Train->score handoff: remember the stacked DEVICE params against
+        the identity of the per-instance model objects just persisted, so
+        a same-cycle (or any later) score poll of those versions never
+        re-uploads or re-stacks them. The dicts themselves ride along in
+        the tuple: identity matching is only sound while the matched
+        objects are provably alive (a deduplicated retrain discards the
+        fresh dicts, and a recycled address must never alias them)."""
+        state.trained = (tuple(id(mo) for mo in out), params, mu, sd, out)
+        state.param_cache = None
+
     # ------------- scoring -------------
     def _stacked(self, state: _BinState, model_objects) -> tuple:
         key = tuple(id(mo) for mo in model_objects)
-        # id-tuple matching is sound because the cache holds the matched
+        # id-tuple matching is sound because both caches hold the matched
         # dicts alive (last element), so an id cannot be recycled to a
         # different live object
         if state.param_cache is not None and state.param_cache[0] == key:
             _, stacked, mu, sd, _ = state.param_cache
             return stacked, mu, sd
-        # stack once per set of versions, bucket-padded: later warm polls
-        # run the rollout without re-stacking or re-padding a parameter
-        stacked, mu, sd = stack_versions(model_objects)
+        if state.trained is not None and state.trained[0] == key:
+            _, stacked, mu, sd, _ = state.trained
+            self.handoffs += 1
+        else:
+            stacked, mu, sd = stack_versions(model_objects)
+        # bucket-padded once: later warm polls run the rollout without
+        # re-stacking or re-padding a parameter
         pad = state.n_pad - state.n
         stacked = {k: edge_pad(v, pad) for k, v in stacked.items()}
         mu, sd = edge_pad(mu, pad), edge_pad(sd, pad)
@@ -289,10 +371,10 @@ class FleetRuntime:
 
     def fleet_score(self, cls, instances, model_objects) -> Optional[list]:
         """Device-resident scoring: trailing windows come from the ring
-        (no store read, no host stacking), params from a once-per-version
-        stacking. Returns None to fall back to the cold path (runtime off,
-        host rollout requested, no device predictor, or a bin the runtime
-        cannot key)."""
+        (no store read, no host stacking), params from the train handoff
+        or a once-per-version stacking. Returns None to fall back to the
+        cold path (runtime off, host rollout requested, no device
+        predictor, or a bin the runtime cannot key)."""
         up = self._merged(cls, instances)
         if up.get("rollout", "device") == "host":
             self._note("off", 0, "host rollout requested")

@@ -1,24 +1,28 @@
-"""Shared load/score plumbing for the forecasters — the scoring half.
+"""Shared load/transform/train/score plumbing for the paper's four
+forecasters.
 
 Each concrete model supplies:
+    _fit(X, y, rng) -> params               (one instance, standardized X)
     _predict(params, X) -> yhat             (one-step prediction, plain torch)
-and optionally the fleet hooks (stacked across instances). Training is not
-ported yet: ``transform``, ``train`` and ``fleet_train`` raise
-``NotImplementedError``; versions arrive through a converter such as
-``ann.ann_version_from_numpy``.
+and optionally the fleet hooks (stacked across instances):
+    _fleet_fit(X, y, rng, up, device) -> stacked params (leading N)
+    _fleet_window_predict(stacked, X) -> (N, T) float64 one-step predictions
 
-A model object here is ``{"kind", "params": {name: f32 tensor}, "mu",
-"sd" (f32 tensors (F,)), "y_scale" (float), "resid_q" (numpy f64 (2,))}``
-with every tensor on the system's device, so scoring never re-uploads a
-version.
+A model object here is ``{"kind", "params": {name: tensor}, "mu", "sd"
+(f32 tensors (F,)), "y_scale" (float), "resid_q" (numpy f64 (2,))}`` with
+every tensor on the system's device, so scoring never re-uploads a
+version. Versions in the persisted numpy layout cross through the
+``*_version_from_numpy`` converters and back through
+``version_to_numpy``.
 
 user_params (Listing 2): train_window_days, horizon, frequency, target_lags,
 weather_lags, plus model-specific extras (hidden, epochs, lr, ...).
 """
 from __future__ import annotations
 
+import zlib
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +30,9 @@ import torch
 from ..core.registry import ModelInterface
 from ..obs.trace import get_tracer
 from ..timeseries.transforms import DAY, calendar_phases
-from .features import (FeatureSpec, bucket_n, edge_pad, fleet_hourly_series,
-                       make_device_rollout, recursive_forecast)
-
-TRAINING_NOT_PORTED = ("training is not ported yet: it arrives with the "
-                       "ANN training slice (fleet_train, _fleet_fit, "
-                       "_fleet_window_predict, FleetRuntime.fleet_xy)")
+from .features import (FeatureSpec, bucket_n, design_matrix, edge_pad,
+                       fleet_hourly_series, make_device_rollout,
+                       recursive_forecast)
 
 
 class _LRUCache:
@@ -116,6 +117,112 @@ def stack_versions(model_objects):
     return stacked, mu, sd
 
 
+def to_device(a, device) -> torch.Tensor:
+    """``a`` (numpy array or tensor) as an f32 tensor on ``device``."""
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def to_host(a) -> np.ndarray:
+    """``a`` (numpy array or tensor) as a numpy array of its dtype."""
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def fit_adam(params: Dict[str, torch.Tensor], loss_fn, epochs: int,
+             lr: float) -> Dict[str, torch.Tensor]:
+    """Full-batch Adam from ``params`` for ``epochs`` steps on
+    ``loss_fn(params)``, in the JAX package's arithmetic (β 0.9 / 0.999,
+    ε 1e-8, bias-corrected, the step count in f32 from 1):
+
+        m = 0.9 m + 0.1 g;  v = 0.999 v + 0.001 g²
+        p = p − lr · (m / (1 − 0.9^t)) / (√(v / (1 − 0.999^t)) + 1e-8)
+
+    Written as tensor ops rather than ``torch.optim.Adam``, whose
+    rounding order differs. Stacked params with a loss that sums
+    per-instance means give each instance its own Adam path. Products
+    stay f32 (PyTorch leaves TF32 off for matmuls by default)."""
+    names = list(params)
+    ps = [params[k].detach().clone().requires_grad_(True) for k in names]
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    one, b1, b2 = np.float32(1.0), np.float32(0.9), np.float32(0.999)
+    for i in range(epochs):
+        grads = torch.autograd.grad(loss_fn(dict(zip(names, ps))), ps)
+        t = np.float32(i + 1)
+        bc1, bc2 = float(one - b1 ** t), float(one - b2 ** t)
+        with torch.no_grad():
+            for p, m, v, g in zip(ps, ms, vs, grads):
+                m.mul_(0.9).add_(g * 0.1)
+                v.mul_(0.999).add_((g * 0.001).mul_(g))
+                denom = (v / bc2).sqrt_().add_(1e-8)
+                p.sub_((m / bc1).mul_(lr).div_(denom))
+    return {k: p.detach() for k, p in zip(names, ps)}
+
+
+def numpy_params(model_object: dict, kind: str,
+                 names) -> Dict[str, np.ndarray]:
+    """The params of a version of ``kind`` in the persisted numpy layout,
+    as numpy arrays. Raises ``ValueError`` on another kind or other
+    parameter names."""
+    if model_object.get("kind") != kind:
+        raise ValueError(f"not a {kind} version: "
+                         f"kind={model_object.get('kind')!r}")
+    p = model_object["params"]
+    if set(p) != set(names):
+        raise ValueError(f"{kind} params must be {sorted(names)}, "
+                         f"got {sorted(p)}")
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
+def device_version(model_object: dict, params: Dict[str, np.ndarray],
+                   n_features: int, device) -> dict:
+    """The port's model object for a persisted-layout version whose
+    ``params`` the caller has checked: floating arrays become f32 tensors
+    and integer arrays int64 tensors on ``device``. Raises ``ValueError``
+    when ``mu``/``sd`` are not ``(n_features,)`` or ``resid_q`` is not
+    ``(2,)``."""
+    mu, sd = np.asarray(model_object["mu"]), np.asarray(model_object["sd"])
+    if mu.shape != (n_features,) or sd.shape != (n_features,):
+        raise ValueError(f"mu {mu.shape} / sd {sd.shape} must be "
+                         f"({n_features},)")
+    resid_q = np.asarray(model_object["resid_q"], np.float64)
+    if resid_q.shape != (2,):
+        raise ValueError(f"resid_q must be (2,), got {resid_q.shape}")
+
+    def dev(a):
+        a = np.asarray(a)
+        a = a.astype(np.int64 if a.dtype.kind in "iu" else np.float32)
+        return torch.tensor(a, device=device)
+
+    return {"kind": model_object["kind"],
+            "params": {k: dev(v) for k, v in params.items()},
+            "mu": dev(mu), "sd": dev(sd),
+            "y_scale": float(model_object["y_scale"]), "resid_q": resid_q}
+
+
+def version_to_numpy(model_object: dict) -> dict:
+    """The persisted numpy layout of a port model object, the inverse of
+    the ``*_version_from_numpy`` converters: every tensor becomes a numpy
+    array of its dtype, a 0-d ``params["y_scale"]`` a float. Raises
+    ``ValueError`` on anything else."""
+    p = model_object.get("params") if isinstance(model_object, dict) \
+        else None
+    if not isinstance(p, dict) or not all(
+            torch.is_tensor(v) for v in (*p.values(), model_object.get("mu"),
+                                          model_object.get("sd"))):
+        raise ValueError("not a port model object: params, mu and sd must "
+                         "be tensors")
+    resid_q = np.asarray(model_object.get("resid_q"), np.float64)
+    if resid_q.shape != (2,):
+        raise ValueError(f"resid_q must be (2,), got {resid_q.shape}")
+    params = {k: v.detach().cpu().numpy() for k, v in p.items()}
+    if "y_scale" in params and params["y_scale"].ndim == 0:
+        params["y_scale"] = float(params["y_scale"])
+    return {"kind": model_object["kind"], "params": params,
+            "mu": model_object["mu"].cpu().numpy(),
+            "sd": model_object["sd"].cpu().numpy(),
+            "y_scale": float(model_object["y_scale"]), "resid_q": resid_q}
+
+
 class ForecastModelBase(ModelInterface):
     DEFAULTS = {"train_window_days": 28, "horizon": 24}
     #: the fleet hooks accept a ``runtime=`` kwarg (FleetRuntime): the
@@ -130,10 +237,27 @@ class ForecastModelBase(ModelInterface):
         return self._loaded
 
     def transform(self):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        spec, times, target, temps, now = self._loaded
+        X, y = design_matrix(spec, times, target, temps)
+        mu, sd = X.mean(0), X.std(0) + 1e-8
+        self._xy = ((X - mu) / sd, y, mu, sd)
+        return self._xy
 
     def train(self) -> dict:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        self.load()
+        X, y, mu, sd = self.transform()
+        # stable across processes (hash() is salted)
+        rng = np.random.default_rng(zlib.crc32(self.model_id.encode()))
+        device = self.system.device
+        params = self._fit(X, y, rng)
+        # one-step residuals over the training window feed the q10/q90
+        # prediction band persisted with every forecast (X is standardized)
+        yhat = self._predict(params, to_device(X, device))
+        resid = y - np.asarray(yhat, np.float64)
+        return {"kind": self.KIND, "params": params,
+                "mu": to_device(mu, device), "sd": to_device(sd, device),
+                "y_scale": float(np.abs(y).max() + 1e-6),
+                "resid_q": np.quantile(resid, BAND_QUANTILES)}
 
     def score(self, model_object):
         self.load()
@@ -210,9 +334,73 @@ class ForecastModelBase(ModelInterface):
                 "run each poll's jobs separately")
 
     @classmethod
+    def _fleet_xy(cls, instances) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray, np.ndarray]:
+        cls.fleet_load(instances)
+        Xs, ys, mus, sds = [], [], [], []
+        for inst in instances:
+            X, y, mu, sd = inst.transform()
+            Xs.append(X), ys.append(y), mus.append(mu), sds.append(sd)
+        return (np.stack(Xs), np.stack(ys), np.stack(mus), np.stack(sds))
+
+    @classmethod
     def fleet_train(cls, instances: List[ModelInterface], *, mesh=None,
                     runtime=None):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        """Train a bin: one stacked fit on the system's device. The
+        design comes from the runtime (a cold build answers with the host
+        f64 design, a warm state assembles on the device) or, without
+        one, from ``_fleet_xy``. Returns one model object per instance;
+        their params are rows of the stacked device tensors, which the
+        runtime keeps as the train->score handoff."""
+        if mesh is not None:
+            raise NotImplementedError("sharding a bin across cards is not "
+                                      "ported; the executor passes mesh=None")
+        state = loaded = None
+        if runtime is not None:
+            loaded = runtime.fleet_xy(cls, instances)
+        if loaded is None:               # cold / runtime opted out
+            X, y, mu, sd = cls._fleet_xy(instances)
+        else:                            # device-resident incremental path
+            X, y, mu, sd, state = loaded
+        rng = np.random.default_rng(12345)
+        # jobs in a bin share user_params_key, so the first instance's
+        # merged params speak for the whole bin
+        up = {**cls.DEFAULTS, **instances[0].user_params}
+        device = instances[0].system.device
+        params = cls._fleet_fit(X, y, rng, up, device)    # stacked, on device
+        y_h = to_host(y)
+        ymax = np.abs(y_h).max(axis=1)
+        yhat = cls._fleet_window_predict(params, X)
+        resid = y_h.astype(np.float64) - yhat
+        rq = np.quantile(resid, BAND_QUANTILES, axis=1).T      # (N, 2)
+        mu, sd = to_device(mu, device), to_device(sd, device)
+        out = [{"kind": cls.KIND,
+                "params": {k: v[i] for k, v in params.items()},
+                "mu": mu[i], "sd": sd[i], "y_scale": float(ymax[i] + 1e-6),
+                "resid_q": rq[i]} for i in range(len(instances))]
+        if state is not None:
+            runtime.note_trained(state, params, mu, sd, out)
+        return out
+
+    @classmethod
+    def _fleet_predict(cls, stacked, X) -> np.ndarray:
+        """One step of the host rollout (``rollout="host"``): the device
+        predictor's values for X (N, F), on the host."""
+        return cls._fleet_predict_traced(stacked, X).cpu().numpy()
+
+    @classmethod
+    def _fleet_window_predict(cls, stacked, X) -> np.ndarray:
+        """One-step predictions over each instance's full standardized
+        training design: ``X (N, T, F) -> (N, T)`` float64. Feeds the
+        per-instance training-residual quantiles behind prediction bands.
+        The default loops instances through ``_predict`` (none of the
+        built-in predictors touch ``self``); each forecaster overrides
+        with a batched path."""
+        X = to_device(X, next(iter(stacked.values())).device)
+        return np.stack([
+            np.asarray(cls._predict(cls, {k: v[i] for k, v in
+                                          stacked.items()}, X[i]),
+                       np.float64) for i in range(X.shape[0])])
 
     @classmethod
     def _attach_bands(cls, model_objects, results):

@@ -3,8 +3,8 @@
 
   * ``ssd_chunked``    — the chunked decomposition the TPU kernel computes
                          (dense (chunk x chunk) / (chunk x N) products and
-                         an n_chunks-long state recurrence); the op's plain
-                         route.
+                         an n_chunks-long state recurrence), in float64;
+                         the op's plain route.
   * ``ssd_sequential`` — the literal per-timestep recurrence (ground truth
                          for the tests).
   * ``ssd_decode_step`` — one token, the decode path.
@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 _F32 = torch.float32
+_F64 = torch.float64
 
 
 def _expand_groups(m, H):
@@ -61,7 +62,12 @@ def ssd_sequential(x, dt, A, Bm, Cm, D, init_state=None):
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, init_state=None, *, chunk: int = 64):
     """Chunked SSD: intra-chunk dense products + inter-chunk state
-    recurrence, the decomposition of the reference's ``ssd_chunked``."""
+    recurrence, the decomposition of the reference's ``ssd_chunked``.
+
+    Computed in float64, y cast back to ``x.dtype`` and the state to f32:
+    the decays are exp of differences of cumulative sums of dt * A, and
+    at strong decay (dt |A| of a few units) those differences of large
+    sums lose f32 digits the per-token recurrence keeps."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     if S % chunk:
@@ -69,11 +75,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, init_state=None, *, chunk: int = 64):
                          f"chunk {chunk}")
     nc = S // chunk
 
-    xf = x.to(_F32).reshape(B, nc, chunk, H, P)
-    dtf = dt.to(_F32).reshape(B, nc, chunk, H)
-    Bf = _expand_groups(Bm.to(_F32), H).reshape(B, nc, chunk, H, N)
-    Cf = _expand_groups(Cm.to(_F32), H).reshape(B, nc, chunk, H, N)
-    Af = A.to(_F32)
+    xf = x.to(_F64).reshape(B, nc, chunk, H, P)
+    dtf = dt.to(_F64).reshape(B, nc, chunk, H)
+    Bf = _expand_groups(Bm.to(_F64), H).reshape(B, nc, chunk, H, N)
+    Cf = _expand_groups(Cm.to(_F64), H).reshape(B, nc, chunk, H, N)
+    Af = A.to(_F64)
 
     # cumulative log-decay within each chunk: l[t] = sum_{u<=t} dt_u * A
     seg = dtf * Af[None, None, None, :]              # (B,nc,c,H)
@@ -86,7 +92,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, init_state=None, *, chunk: int = 64):
     causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                    device=x.device))
     L = torch.where(causal[None, None, :, :, None], torch.exp(rel),
-                    torch.zeros((), dtype=_F32, device=x.device))
+                    torch.zeros((), dtype=_F64, device=x.device))
 
     # y_intra[t] = sum_{u<=t} L[t,u] * (C_t . B_u) * dt_u * x_u
     CB = torch.einsum("bcthn,bcuhn->bctuh", Cf, Bf)
@@ -98,7 +104,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, init_state=None, *, chunk: int = 64):
     SB = torch.einsum("bcuh,bcuhp,bcuhn->bchpn", decay_to_end * dtf, xf, Bf)
 
     # inter-chunk recurrence over nc chunks; keep the state BEFORE each
-    state = _init(init_state, B, H, P, N, x.device)
+    state = _init(init_state, B, H, P, N, x.device).to(_F64)
     chunk_decay = torch.exp(total)                   # (B,nc,H)
     prev_states = []
     for c in range(nc):
@@ -110,8 +116,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, init_state=None, *, chunk: int = 64):
     y_inter = torch.einsum("bcthn,bchpn,bcth->bcthp", Cf, prev,
                            torch.exp(cum))
     y = (y_intra + y_inter).reshape(B, S, H, P)
-    y = y + D.to(_F32)[None, None, :, None] * x.to(_F32)
-    return y.to(x.dtype), state
+    y = y + D.to(_F64)[None, None, :, None] * x.to(_F64)
+    return y.to(x.dtype), state.to(_F32)
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm, D):

@@ -4,8 +4,8 @@ the CUDA kernel is held against.
 
   * ``wkv6_chunked``     — the chunked form the TPU kernel computes, with
                            the EXACT masked decay exp(cum_excl[t] - cum[u])
-                           (u < t) per (chunk, chunk, K) tile; the op's
-                           plain route.
+                           (u < t) per (chunk, chunk, K) tile, in float64;
+                           the op's plain route.
   * ``wkv6_sequential``  — the literal per-timestep recurrence (ground
                            truth for the tests).
   * ``wkv6_decode_step`` — one token, the decode path.
@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 _F32 = torch.float32
+_F64 = torch.float64
 
 
 def _init(init_state, B, H, K, V, device):
@@ -54,20 +55,26 @@ def wkv6_chunked(r, k, v, w, u, init_state=None, *, chunk: int = 32):
                  + diag(u_bonus) k_t v_t^T)
     with D_{a:b} = prod_{i=a}^{b-1} diag(w_i) built from cumsum(log w):
     D_{u+1:t} = exp(cum_excl[t] - cum[u]), whose exponent is <= 0 wherever
-    the mask keeps it, so no decay overflows and nothing is clamped."""
+    the mask keeps it, so no decay overflows and nothing is clamped.
+
+    Computed in float64, y cast back to ``r.dtype`` and the state to f32:
+    at strong decay (w near 1e-30, log w near -69) the cumulative sums
+    reach thousands, and their differences lose f32 digits the per-token
+    recurrence keeps. A decay that underflows float64 stands for a
+    product smaller still."""
     B, S, H, K = r.shape
     V = v.shape[-1]
     if S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"chunk {chunk}")
-    uf = u.to(_F32)
+    uf = u.to(_F64)
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                 device=r.device), diagonal=-1)   # u < t
-    zero = torch.zeros((), dtype=_F32, device=r.device)
-    state = _init(init_state, B, H, K, V, r.device)
+    zero = torch.zeros((), dtype=_F64, device=r.device)
+    state = _init(init_state, B, H, K, V, r.device).to(_F64)
     ys = []
     for c0 in range(0, S, chunk):
-        rc, kc, vc, wc = (t[:, c0:c0 + chunk].to(_F32) for t in (r, k, v, w))
+        rc, kc, vc, wc = (t[:, c0:c0 + chunk].to(_F64) for t in (r, k, v, w))
         logw = torch.log(torch.clamp(wc, min=1e-38))
         cum = torch.cumsum(logw, dim=1)              # (B,c,H,K) inclusive
         cum_excl = cum - logw
@@ -87,7 +94,7 @@ def wkv6_chunked(r, k, v, w, u, init_state=None, *, chunk: int = 32):
         k_tail = kc * torch.exp(total[:, None] - cum)            # (B,c,H,K)
         state = torch.exp(total)[..., None] * state \
             + torch.einsum("buhk,buhv->bhkv", k_tail, vc)
-    return torch.cat(ys, 1).to(r.dtype), state
+    return torch.cat(ys, 1).to(r.dtype), state.to(_F32)
 
 
 def wkv6_decode_step(state, r, k, v, w, u):

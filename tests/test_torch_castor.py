@@ -1,13 +1,17 @@
 """The port's ``Castor`` against the JAX package's, end to end: one small
 site, the same JAX-trained ANN versions in both, three hourly fleet score
 ticks; persisted forecasts and bands must agree and the port's later ticks
-must run on the warm runtime. Also: the port never loads JAX or ``repro``,
-and the CPU rehearsal of ``chip_smoke.py``'s phases."""
+must run on the warm runtime. Then the whole forecast flow: a tick that
+trains, scores and detects, held to the JAX Castor's persisted versions,
+forecasts and detection records. Also: the port never loads JAX or
+``repro``, ``snapshot()``/``stats()`` keep the reference's schema, and the
+CPU rehearsal of ``chip_smoke.py``'s phases."""
 import importlib.util
 import os
 import subprocess
 import sys
 import textwrap
+import types
 from pathlib import Path
 
 import numpy as np
@@ -17,14 +21,17 @@ import torch
 from repro.core import Castor as JaxCastor
 from repro.core import Schedule as JaxSchedule
 from repro.forecast import ANNForecaster as JaxANN
+from repro.forecast.anomaly import BandAnomalyDetector as JaxDetector
 from repro.testing import FLEET_ATOL, FLEET_RTOL
 from repro.timeseries.ingest import SiteSpec as JaxSiteSpec
 from repro.timeseries.ingest import build_site as jax_build_site
 from repro_torch.core import Castor, Schedule
 from repro_torch.forecast import ANNForecaster, ann_version_from_numpy
+from repro_torch.forecast.anomaly import BandAnomalyDetector
 from repro_torch.kernels.fleet_mlp import ops
 from repro_torch.timeseries.ingest import SiteSpec, build_site
 from repro_torch.timeseries.transforms import DAY, HOUR
+from test_torch_train import assert_versions_close, jax_initial_weights
 
 torch.set_num_threads(1)
 
@@ -121,15 +128,165 @@ def test_local_executor_matches_fleet(run):
             np.testing.assert_allclose(a, b, rtol=FLEET_RTOL, atol=FLEET_ATOL)
 
 
-def test_train_job_fails_naming_the_training_slice():
-    c, deps = _system(Castor(device="cpu"), build_site, SiteSpec, Schedule,
-                      ANNForecaster)
-    c.deploy_for_all(package="ann", signal="ENERGY_LOAD", name_prefix="tr",
-                     kind="PROSUMER", train=Schedule(NOW, DAY),
-                     user_params=UP)
-    res = [r for r in c.tick(NOW) if r.job.task == "train"]
-    assert len(res) == len(deps)
-    assert all(not r.ok and "training slice" in r.error for r in res)
+def test_train_jobs_succeed_and_hand_off_to_scoring():
+    """Train jobs run in the port: the versions persist in the port's
+    layout, and the same tick's score bin takes the train handoff."""
+    c = Castor(device="cpu")
+    build_site(c, SiteSpec("C", n_prosumers=3, n_feeders=1,
+                           n_substations=1, seed=9), t0=0.0, t1=NOW)
+    c.publish("ann", "1.0", ANNForecaster)
+    deps = c.deploy_for_all(package="ann", signal="ENERGY_LOAD",
+                            name_prefix="tr", kind="PROSUMER",
+                            train=Schedule(NOW, DAY),
+                            score=Schedule(NOW, HOUR), user_params=UP)
+    res = c.tick(NOW)
+    assert sorted(r.job.task for r in res) == ["score"] * 3 + ["train"] * 3
+    assert all(r.ok for r in res), [r.error for r in res if not r.ok]
+    for d in deps:
+        mo = c.versions.get(d.name).params
+        assert mo["kind"] == "ANN" and mo["mu"].dtype == torch.float32
+        assert c.predictions.latest(d.signal, d.entity) is not None
+    assert c.fleet_executor().runtime.handoffs == 1
+    assert [s["runtime"] for s in c.fleet_executor().last_bin_stats] == \
+        ["cold", "warm"]                  # train, then the score bin
+
+
+MINUTE = 60.0
+N_DETECT = 5
+
+
+def _flow(castor, build, spec_cls, schedule_cls, ann, detector):
+    """A forecast fleet that trains and scores at NOW, and a minutely
+    detection fleet over the same contexts from NOW + MINUTE."""
+    build(castor, spec_cls("D", n_prosumers=3, n_feeders=1,
+                           n_substations=1, seed=11),
+          t0=0.0, t1=NOW)
+    castor.publish("ann", "1.0", ann)
+    castor.publish("anom", "1.0", detector)
+    deps = castor.deploy_for_all(package="ann", signal="ENERGY_LOAD",
+                                 name_prefix="ann", kind="PROSUMER",
+                                 train=schedule_cls(NOW, DAY),
+                                 score=schedule_cls(NOW, HOUR),
+                                 user_params=UP)
+    castor.deploy_detections(package="anom", signal="ENERGY_LOAD",
+                             name_prefix="d", kind="PROSUMER",
+                             detect=schedule_cls(NOW + MINUTE, MINUTE))
+    return deps
+
+
+def _live_feed(jc, deps, rng):
+    """Minutely readings around the JAX Castor's NOW forecast (the same
+    arrays go to both systems), one sensor spiked far outside its band
+    from the window's midpoint on."""
+    t = NOW + MINUTE * np.arange(1, N_DETECT + 1)
+    feed = {}
+    for i, d in enumerate(deps):
+        fc = jc.best_forecast(d.signal, d.entity)
+        v = np.interp(t, fc.times, fc.values) + rng.normal(0.0, 0.01, t.shape)
+        if i == 0:
+            v[N_DETECT // 2:] += 25.0
+        feed[jc.graph.context(d.signal, d.entity).ts_id] = (t, v)
+    return feed
+
+
+@pytest.fixture(scope="module")
+def flow():
+    """Both systems after one train + score tick and N_DETECT minutely
+    detect ticks, from the same initial weights and the same live feed."""
+    jc, tc = JaxCastor(), Castor(device="cpu")
+    deps = _flow(jc, jax_build_site, JaxSiteSpec, JaxSchedule, JaxANN,
+                 JaxDetector)
+    _flow(tc, build_site, SiteSpec, Schedule, ANNForecaster,
+          BandAnomalyDetector)
+    results = []
+    with jax_initial_weights(fleet=True):
+        for c in (jc, tc):
+            results.append(c.tick(NOW))
+    feed = _live_feed(jc, deps, np.random.default_rng(12))
+    for c in (jc, tc):
+        for ts_id, (t, v) in feed.items():
+            c.ingest(ts_id, t, v)
+    for k in range(1, N_DETECT + 1):
+        for c in (jc, tc):
+            results.append(c.tick(NOW + k * MINUTE))
+    for res in results:
+        assert res and all(r.ok for r in res), \
+            [r.error for r in res if not r.ok]
+    return jc, tc, deps
+
+
+def test_train_score_detect_tick_matches_jax(flow):
+    jc, tc, deps = flow
+    for d in deps:
+        (want,), (got,) = (c.versions.history(d.name) for c in (jc, tc))
+        assert got.trained_at == want.trained_at == NOW
+        assert_versions_close(got.params, want.params, "ANN")
+        (want,), (got,) = (c.predictions.history(d.name) for c in (jc, tc))
+        np.testing.assert_array_equal(got.times, want.times)
+        for a, b in ((got.values, want.values), (got.lower, want.lower),
+                     (got.upper, want.upper)):
+            np.testing.assert_allclose(a, b, rtol=FLEET_RTOL,
+                                       atol=FLEET_ATOL)
+        want, got = (c.detections.history(f"d-{d.entity}")
+                     for c in (jc, tc))
+        assert len(got) == len(want) == N_DETECT
+        for g, w in zip(got, want):
+            assert (g.scheduled_at, g.n_readings, g.band_misses,
+                    g.model_version, g.derived_signal) == \
+                (w.scheduled_at, w.n_readings, w.band_misses,
+                 w.model_version, w.derived_signal)
+            assert g.score == pytest.approx(w.score, rel=FLEET_RTOL,
+                                            abs=FLEET_ATOL)
+    spiked = tc.detections.history(f"d-{deps[0].entity}")
+    assert spiked[-1].score > 1.0 and spiked[-1].n_anomalies == 1
+    assert tc.stats()["detection"]["records"] == \
+        jc.stats()["detection"]["records"] == 3 * N_DETECT
+
+
+def _detect_bin(c, cls, deps, now):
+    insts = [cls(context=c.graph.context(d.signal, d.entity), task="detect",
+                 model_id=f"d-{d.entity}", model_version=None,
+                 user_params={"now": now}, system=c) for d in deps]
+    return insts
+
+
+def test_detection_records_bitwise_given_the_same_bands(flow):
+    """The copied detector: given the JAX Castor's bands, the port's
+    ``fleet_detect`` and per-sensor ``detect`` give records bitwise equal
+    to the JAX package's ``fleet_detect`` over the same readings."""
+    jc, tc, deps = flow
+    now = NOW + N_DETECT * MINUTE
+    bands = [jc.predictions.latest(d.signal, d.entity, at=now) for d in deps]
+    want = JaxDetector.fleet_detect(_detect_bin(jc, JaxDetector, deps, now),
+                                    bands)
+    insts = _detect_bin(tc, BandAnomalyDetector, deps, now)
+    got = BandAnomalyDetector.fleet_detect(insts, bands)
+    single = [inst.detect(fc) for inst, fc in zip(insts, bands)]
+    assert [vars(r) for r in got] == [vars(r) for r in want] \
+        == [vars(r) for r in single]
+    assert any(r.score > 0 for r in got)
+
+
+def test_snapshot_and_stats_keep_the_reference_schema(flow, tmp_path):
+    jc, tc, _ = flow
+
+    def schema(d):
+        return {k: schema(v) if isinstance(v, dict) else type(v).__name__
+                for k, v in d.items()}
+
+    assert schema(tc.stats()) == schema(jc.stats())
+    got, want = tc.snapshot(), jc.snapshot()
+    assert set(got) == set(want) == {"stats", "metrics", "trace"}
+    assert schema(got["stats"]) == schema(want["stats"])
+    assert set(got["trace"]) == set(want["trace"])
+    assert {k for k in got["metrics"] if not k.startswith("wal.")} <= \
+        set(want["metrics"])
+    for name in ("store.points", "runtime.cold_loads", "exec.bin_seconds"):
+        assert name in got["metrics"]
+    path = tc.dump_trace(tmp_path / "trace.json")
+    events = __import__("json").loads(Path(path).read_text())["traceEvents"]
+    assert {"castor.tick", "exec.bin", "exec.phase.train",
+            "exec.phase.detect"} <= {e["name"] for e in events}
 
 
 def test_cuda_device_without_card_raises():
@@ -140,35 +297,41 @@ def test_cuda_device_without_card_raises():
 
 
 def test_port_never_loads_jax_or_repro():
+    """A train + score tick of the four forecasters and a detect tick
+    (and a version converted from numpy) load neither JAX nor ``repro``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         from repro_torch.core import Castor, Schedule
-        from repro_torch.forecast import ANNForecaster, ann_version_from_numpy
+        from repro_torch.forecast import PAPER_MODELS, ann_version_from_numpy
+        from repro_torch.forecast.anomaly import BandAnomalyDetector
         from repro_torch.timeseries.ingest import SiteSpec, build_site
         from repro_torch.timeseries.transforms import DAY, HOUR
         c = Castor(device="cpu")
         build_site(c, SiteSpec("S", n_prosumers=2, n_feeders=1,
                                n_substations=1, seed=1), t0=0.0, t1=30 * DAY)
-        c.publish("ann", "1.0", ANNForecaster)
-        deps = c.deploy_for_all(package="ann", signal="ENERGY_LOAD",
-                                name_prefix="a", kind="PROSUMER",
-                                score=Schedule(29 * DAY, HOUR),
-                                user_params={"hidden": 4, "horizon": 3,
-                                             "train_window_days": 7})
-        rng = np.random.default_rng(0)
+        for kind, cls in PAPER_MODELS.items():
+            c.publish(kind, "1.0", cls)
+            c.deploy_for_all(package=kind, signal="ENERGY_LOAD",
+                             name_prefix=kind, kind="PROSUMER",
+                             train=Schedule(29 * DAY, DAY),
+                             score=Schedule(29 * DAY, HOUR),
+                             user_params={"hidden": 4, "epochs": 3,
+                                          "horizon": 3,
+                                          "train_window_days": 7})
+        c.publish("anom", "1.0", BandAnomalyDetector)
+        c.deploy_detections(package="anom", signal="ENERGY_LOAD",
+                            name_prefix="d", kind="PROSUMER",
+                            detect=Schedule(29 * DAY + 60, 60))
+        res = c.tick(29 * DAY) + c.tick(29 * DAY + 60)
+        assert len(res) == 18 and all(r.ok for r in res), res
         sizes = [54, 4, 4, 4, 4, 1]
-        for d in deps:
-            p = {f"w{i}": rng.normal(size=sizes[i:i + 2]) for i in range(5)}
-            p.update({f"b{i}": np.zeros(sizes[i + 1]) for i in range(5)})
-            p["y_scale"] = 5.0
-            mo = {"kind": "ANN", "params": p, "mu": np.zeros(54),
-                  "sd": np.ones(54), "y_scale": 4.0,
-                  "resid_q": np.array([-0.5, 0.5])}
-            c.versions.save(d.name, ann_version_from_numpy(mo, "cpu"),
-                            trained_at=0.0)
-        res = c.tick(29 * DAY)
-        assert len(res) == 2 and all(r.ok for r in res), res
+        p = {f"w{i}": np.zeros(sizes[i:i + 2]) for i in range(5)}
+        p.update({f"b{i}": np.zeros(sizes[i + 1]) for i in range(5)})
+        ann_version_from_numpy({"kind": "ANN", "params": {**p, "y_scale": 5.0},
+                                "mu": np.zeros(54), "sd": np.ones(54),
+                                "y_scale": 4.0, "resid_q": np.zeros(2)},
+                               "cpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
@@ -191,17 +354,36 @@ def _chip_smoke():
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """chip_smoke.py's kernel and path phases at a tiny size through the
-    plain versions: the same checks the card run makes."""
+    """chip_smoke.py's kernel, training and flow phases at a tiny size
+    through the plain versions: the same checks the card run makes. The
+    flow's runtime modes, bin by bin and tick by tick, are the JAX
+    package's for the same deployments and tick sequence."""
     smoke = _chip_smoke()
     cases = [("scoring", 8, 1, 54, 32, 5, "float32")] + [
         c for c in smoke.KERNEL_CASES if c[0] != "scoring" and c[1] <= 16]
     rec = smoke.kernel_phase("cpu", cases, time_it=False)
     assert rec["max_abs_err"] == 0.0 and rec["bound_by"] == "bytes"
-    path = smoke.path_phase("cpu", n_prosumers=4, hidden=16)
-    assert path["launches"] == 24 * 3
-    assert [t["runtime"] for t in path["ticks"]] == \
-        [["cold"], ["warm"], ["warm"]]
+    assert set(smoke.train_parity("cpu")) == {"LR", "GAM", "ANN", "LSTM"}
+    flow = smoke.forecast_flow("cpu", n_prosumers=4, hidden=16,
+                               sub_width=8, epochs=80)
+    assert flow["launches"] == 24 * 2 * 3       # ANN fleet + substation
+    assert flow["mape_median"] < 30.0
+    from repro.core import ModelDeployment as JaxDeployment
+    from repro.forecast import EnergyFromCurrentModel as JaxXform
+    from repro.forecast import PAPER_MODELS as JAX_MODELS
+    from repro.timeseries.ingest import ingest_current_feed
+    jm = types.SimpleNamespace(
+        Castor=JaxCastor, ModelDeployment=JaxDeployment,
+        Schedule=JaxSchedule, PAPER_MODELS=JAX_MODELS,
+        EnergyFromCurrentModel=JaxXform, BandAnomalyDetector=JaxDetector,
+        SiteSpec=JaxSiteSpec, build_site=jax_build_site,
+        ingest_current_feed=ingest_current_feed)
+    jc = JaxCastor()
+    built = smoke.build_flow(jc, jm, n_prosumers=4, hidden=16, sub_width=8,
+                             epochs=2, seed=11)
+    ticks = smoke.flow_ticks(jc, 3, 5, built["fleet"], jm, 11)
+    assert all(r.ok for t in ticks for r in t["results"])
+    assert smoke.tick_modes(ticks) == flow["modes"]
 
 
 def test_chip_smoke_refuses_to_run_without_card_or_repo(tmp_path):

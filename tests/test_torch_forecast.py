@@ -13,7 +13,6 @@ from repro.timeseries.ingest import SiteSpec as JaxSiteSpec
 from repro.timeseries.ingest import build_site as jax_build_site
 from repro_torch.core import Castor
 from repro_torch.forecast import ANNForecaster, ann_version_from_numpy
-from repro_torch.forecast.base import TRAINING_NOT_PORTED
 from repro_torch.kernels.fleet_mlp import ops
 from repro_torch.timeseries.ingest import SiteSpec, build_site
 from repro_torch.timeseries.transforms import DAY
@@ -135,11 +134,25 @@ def test_version_layout_is_checked(versions, bad):
         ann_version_from_numpy(mo, "cpu")
 
 
-def test_training_names_its_slice(systems):
+def test_training_returns_scorable_device_versions(systems):
+    """Training runs in the port: ``fleet_train`` and ``train()`` return
+    model objects in the port's layout (f32 tensors on the system's
+    device, ``resid_q`` float64), which the fleet path scores through
+    ``fleet_mlp``."""
     _, tc = systems
     insts = _instances(tc, ANNForecaster)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ANNForecaster.fleet_train(insts)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        insts[0].train()
-    assert "training slice" in TRAINING_NOT_PORTED
+    mos = ANNForecaster.fleet_train(insts) + [insts[0].train()]
+    for mo in mos:
+        assert mo["kind"] == "ANN"
+        for t in (*mo["params"].values(), mo["mu"], mo["sd"]):
+            assert t.dtype == torch.float32 and t.device == tc.device
+            assert bool(torch.isfinite(t).all())
+        assert mo["params"]["w1"].shape == (HP["hidden"], HP["hidden"])
+        assert mo["resid_q"].dtype == np.float64
+        assert mo["resid_q"][0] < 0 < mo["resid_q"][1]
+    before = ops.invocation_count()
+    got = ANNForecaster.fleet_score(insts + insts[:1], mos)
+    assert ops.invocation_count() - before == 24
+    for _, vals, lo, hi in got:
+        assert np.isfinite(vals).all() and (lo < vals).all() \
+            and (vals < hi).all()

@@ -353,25 +353,32 @@ def _wkv64(r, k, v, w, u):
 
 
 def test_plain_chunked_forms_lose_f32_digits_at_strong_decay():
-    """A finding of this file's strong-decay cases: the chunked plain forms
-    (the CPU route, the chip smoke's usual yardstick, and the Pallas
-    kernels' own form) take exp of differences of large cumulative decays
-    in f32 and miss a float64 recurrence by more than the f32 tolerances
-    (SSD at dt up to 5: 3e-5; WKV at w down to 1e-30: 2e-4), while the
-    f32 per-token recurrences stay well inside them. Kernels are held
-    against the per-token recurrences at those decays."""
+    """At strong decay the chunked forms take exp of differences of large
+    cumulative decays; in f32 (the Pallas kernels' own form) those lose
+    digits and missed a float64 recurrence by more than the f32
+    tolerances (SSD at dt up to 5: 3e-5; WKV at w down to 1e-30: 2e-4).
+    The plain chunked forms (the CPU route and the chip smoke's usual
+    yardstick) compute in float64 and cast back, so they now stay inside
+    those tolerances, as the f32 per-token recurrences do; the kernels are
+    held against the per-token recurrences at those decays as well."""
     from repro_torch.kernels.mamba2_scan.ref import ssd_chunked
     from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked
     arrs = _ssd_inputs(25, 1, 256, 4, 64, 64, (1.0, 5.0))
-    want = _ssd64(*arrs)[0]
+    want, want_state = _ssd64(*arrs)
     ts = [torch.tensor(a) for a in arrs]
-    assert _rel(ssd_chunked(*ts, chunk=64)[0], want) > SSD_STATE_TOL
+    y, state = ssd_chunked(*ts, chunk=64)
+    assert y.dtype == state.dtype == torch.float32
+    assert _rel(y, want) <= SSD_STATE_TOL
+    assert _rel(state, want_state) <= SSD_STATE_TOL
     assert _rel(ssd_sequential(*ts)[0], want) <= SSD_STATE_TOL
     arrs = list(_wkv_inputs(26, 1, 128, 2, 64, (0.5, 0.5)))
     rng = np.random.default_rng(26)
     arrs[3] = np.exp(rng.uniform(np.log(1e-30), np.log(0.999),
                                  arrs[3].shape)).astype(np.float32)
-    want = _wkv64(*arrs)[0]
+    want, want_state = _wkv64(*arrs)
     ts = [torch.tensor(a) for a in arrs]
-    assert _rel(wkv6_chunked(*ts, chunk=32)[0], want) > WKV_STATE_TOL
+    y, state = wkv6_chunked(*ts, chunk=32)
+    assert y.dtype == state.dtype == torch.float32
+    assert _rel(y, want) <= WKV_STATE_TOL
+    assert _rel(state, want_state) <= WKV_STATE_TOL
     assert _rel(wkv6_sequential(*ts)[0], want) <= WKV_STATE_TOL
