@@ -59,25 +59,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prints the train tick's wall, the ANN train bin's ``exec.bin`` span,
    the fit's device time and epochs/s, the peak device memory and the
    substation models' train walls.
-4. prefill path: qwen3-1.7b at full width (28 layers, bf16 parameters
+4. durable serverless flow: the same flow on ``Castor.open(<tmpdir>,
+   device="cuda")`` (a journal over a ``FilesystemStorage`` with fsync),
+   every tick through ``tick(executor="serverless")`` (4 inline workers
+   sharing the card): A, 3 hourly and 5 minutely ticks with each tick's
+   wall, ``journal.commit`` span, journal records / segments /
+   auto-flushes / snapshots / bytes, invocations (cold, warm,
+   speculative) and ``fleet_mlp`` launches; every job ok, the LR fleet's
+   and the substation LR / GAM forecasts equal to step 3's, the ANN and
+   LSTM fits under the training-MAPE bound. B, after tick 2 the log is
+   copied, its last segment torn mid-frame and ``Castor.open``'d on the
+   card, the packages published again and the hourly ticks driven again:
+   the stores bitwise equal to A's after its hourly ticks (recovery
+   seconds, bytes replayed). C, a ``ProcessBackend`` of 2 spawned workers,
+   each building the same flow at 64 prosumers (widths and epochs full)
+   on its own CUDA context: 2 ticks through the storage-mediated wire,
+   every job ok, the workers' device and ``fleet_mlp`` launches from their
+   own spans, forecasts equal to an in-process inline run at rtol 2e-3 /
+   atol 1e-3, the shipped-back ANN versions on the parent's card scoring
+   there through ``fleet_mlp``; cold starts, per-invocation walls and the
+   bucket's bytes.
+5. prefill path: qwen3-1.7b at full width (28 layers, bf16 parameters
    from a seeded generator), ``forward(mode="prefill")`` on 4 prompts of
    1024 tokens: 28 ``flash_attention`` launches, finite logits, caches
    (28, 4, 1024, 8, 128), and the same forward timed again warm; then
    one 128-token prompt's prefill logits held against ``decode_step`` fed
    the same tokens one at a time.
-5. serve path: ``ServeEngine`` on the same parameters, 8 slots of 2048
+6. serve path: ``ServeEngine`` on the same parameters, 8 slots of 2048
    positions, 16 seeded requests (prompts of 16-96 tokens, 32 new tokens
    each, greedy): every request done, 28 ``decode_attention`` launches per
    engine decode call; tokens/s, step time, time to first token, peak
    device memory; a profiler window of a few decode calls.
-6. zamba2-2.7b at full width (54 Mamba2 blocks, the shared attention
-   block once per 6-block period), as 4-5: prefill of 4 x 1024 tokens with
+7. zamba2-2.7b at full width (54 Mamba2 blocks, the shared attention
+   block once per 6-block period), as 5-6: prefill of 4 x 1024 tokens with
    54 ``ssd_scan`` and 9 ``flash_attention`` launches, a 128-token
    prompt's logits and final ``ssd`` states held against token-by-token
    decode, and ``ServeEngine`` with 4 slots x 512 positions and 8 requests
    (prompts 16-64, 16 new tokens): 9 ``decode_attention`` launches per
    decode call.
-7. rwkv6-7b at full width (32 blocks), the same way: 32 ``wkv6_scan``
+8. rwkv6-7b at full width (32 blocks), the same way: 32 ``wkv6_scan``
    launches per prefill, the ``wkv`` states held, the same engine run
    (its decode runs no kernel: the recurrences are plain, as in the
    reference).
@@ -376,10 +396,7 @@ def build_flow(c, m, *, n_prosumers: int, hidden: int, sub_width: int,
     m.ingest_current_feed(c, "SITE_SUB_0", t0=T0 - 5 * DAY, t1=T0)
     train, score = m.Schedule(T0, 7 * DAY), m.Schedule(T0, HOUR)
     fit = {} if epochs is None else {"epochs": epochs}
-    c.publish("ann", "1.0", m.PAPER_MODELS["ANN"])
-    for kind, cls in m.PAPER_MODELS.items():
-        c.publish(f"castor-{kind.lower()}", "1.0", cls)
-    c.publish("castor-xform", "1.0", m.EnergyFromCurrentModel)
+    publish_flow(c, m)
     fleet = c.deploy_for_all(package="ann", signal="ENERGY_LOAD",
                              name_prefix="ann", kind="PROSUMER", train=train,
                              score=score, user_params={
@@ -404,6 +421,55 @@ def build_flow(c, m, *, n_prosumers: int, hidden: int, sub_width: int,
         score=m.Schedule(T0, DAY), user_params={"window_days": 5}))
     return {"readings": info["readings"], "fleet": fleet,
             "lr_fleet": lr_fleet}
+
+
+def publish_flow(c, m) -> None:
+    """The flow's implementations. They are code, not journaled data: a
+    system recovered by ``Castor.open`` publishes them again."""
+    c.publish("ann", "1.0", m.PAPER_MODELS["ANN"])
+    for kind, cls in m.PAPER_MODELS.items():
+        c.publish(f"castor-{kind.lower()}", "1.0", cls)
+    c.publish("castor-xform", "1.0", m.EnergyFromCurrentModel)
+
+
+def flow_system(n_prosumers: int, hidden: int, sub_width: int, epochs,
+                seed: int, device: str):
+    """A fresh system holding the flow's site and deployments
+    (``build_flow``) on ``device``: the factory a spawned serverless worker
+    builds its replica with (module-level, so a ``functools.partial`` of
+    it pickles by reference)."""
+    m = flow_modules()
+    c = m.Castor(device=device)
+    build_flow(c, m, n_prosumers=n_prosumers, hidden=hidden,
+               sub_width=sub_width, epochs=epochs, seed=seed)
+    return c
+
+
+def flow_forecasts(c, names) -> dict:
+    """Every persisted forecast of the named deployments as
+    ``{name: [(created_at, values, lower, upper), ...]}`` (host arrays)."""
+    return {n: [(f.created_at, f.values, f.lower, f.upper)
+                for f in c.predictions.history(n)] for n in names}
+
+
+def fleet_train_mape(c, names, now: float):
+    """One-step training MAPE (%) of the named deployments' versions at
+    ``now`` (one class; the flow's sanity check of what a fit learned),
+    computed on the system's device from the versions as persisted."""
+    import numpy as np
+    from repro_torch.forecast.base import stack_versions
+    from repro_torch.timeseries.transforms import mape
+    deps = [c.deployments.get(n) for n in names]
+    cls = c.registry.get(deps[0].package, deps[0].version)
+    up = {**cls.DEFAULTS, **deps[0].user_params, "now": now}
+    insts = [cls(context=c.graph.context(d.signal, d.entity), task="train",
+                 model_id=d.name, model_version=None, user_params=up,
+                 system=c) for d in deps]
+    X, y, _, _ = cls._fleet_xy(insts)
+    stacked, _, _ = stack_versions([c.versions.get(d.name, at=now).params
+                                    for d in deps])
+    yhat = cls._fleet_window_predict(stacked, X)
+    return np.asarray([mape(y[i], yhat[i]) for i in range(len(deps))])
 
 
 def live_feed(c, m, fleet, t_start: float, n_minutes: int, seed: int):
@@ -471,14 +537,13 @@ def forecast_flow(device: str, *, n_prosumers: int = 512, hidden: int = 512,
                   seed: int = 11) -> dict:
     """Drive the forecast flow through ``Castor.tick`` (train -> score ->
     detect) and check what it did. Returns the runtime modes per tick,
-    the ``fleet_mlp`` launch total and the fleet's median training
-    MAPE."""
+    the ``fleet_mlp`` launch total, the fleet's median training MAPE and
+    the persisted forecasts of both fleets and the substation models."""
     import numpy as np
     import torch
-    from repro_torch.forecast import ANNForecaster, ann, lstm
+    from repro_torch.forecast import ann, lstm
     from repro_torch.forecast.anomaly import BandAnomalyDetector
     from repro_torch.kernels.fleet_mlp import ops
-    from repro_torch.timeseries.transforms import mape
     cuda = device != "cpu"
 
     def sync():
@@ -653,13 +718,7 @@ def forecast_flow(device: str, *, n_prosumers: int = 512, hidden: int = 512,
           f"substation train bins {sorted(sub_walls)}")
 
     # ---- the full-width fleet learned something ----
-    up = {**ANNForecaster.DEFAULTS, **fleet[0].user_params, "now": T0}
-    insts = [ANNForecaster(context=c.graph.context(d.signal, d.entity),
-                           task="train", model_id=d.name, model_version=None,
-                           user_params=up, system=c) for d in fleet]
-    X, y, _, _ = ANNForecaster._fleet_xy(insts)
-    yhat = ANNForecaster._fleet_window_predict(stacked, X)
-    mapes = np.asarray([mape(y[i], yhat[i]) for i in range(len(fleet))])
+    mapes = fleet_train_mape(c, [d.name for d in fleet], T0)
     med = float(np.median(mapes))
     print(f"train check: ANN fleet one-step training MAPE median "
           f"{med:.2f} % (min {mapes.min():.2f}, max {mapes.max():.2f}; "
@@ -735,8 +794,421 @@ def forecast_flow(device: str, *, n_prosumers: int = 512, hidden: int = 512,
     print(f"flow cut: none ({n_prosumers} prosumers, hidden {hidden}, "
           f"epochs {n_epochs}, {n_ticks} hourly + {n_minutes} minutely "
           f"ticks)")
+    names = [d.name for d in fleet + built["lr_fleet"]] + [
+        f"{k}-sub" for k in m.PAPER_MODELS]
     return {"modes": tick_modes(ticks), "launches": launches,
-            "mape_median": med}
+            "mape_median": med, "forecasts": flow_forecasts(c, names)}
+
+
+def _serverless_counts(c) -> dict:
+    """The serverless monitor's lifetime counters (zeros before the
+    system's first serverless tick)."""
+    sv = c.stats().get("serverless", {})
+    return {k: sv.get(k, 0) for k in ("invocations", "cold_starts",
+                                      "warm_starts", "speculative")}
+
+
+JOURNAL_KEYS = ("records", "segments", "auto_flushes", "snapshots",
+                "bytes_written")
+
+
+def tear_last_segment(storage) -> str:
+    """Cut the newest WAL segment of ``storage`` to its first half, as a
+    crash in the middle of its write leaves it (``CrashingStorage``'s torn
+    put); checks that the cut fell inside a frame. Returns a description."""
+    from repro_torch.durability.wal import decode_records, split_frames
+    key = storage.list("wal/")[-1]
+    data = storage.get(key)
+    frames = split_frames(data)
+    torn = data[:len(data) // 2]
+    kept, _valid, clean = decode_records(torn)
+    check(not clean and len(kept) < len(frames),
+          f"tearing {key} at {len(torn)} B did not fall inside a frame")
+    storage.put(key, torn)
+    return (f"{key} torn at {len(torn)} of {len(data)} B: {len(kept)} of "
+            f"{len(frames)} records left")
+
+
+def _compare(got: dict, want: dict, names, tol: bool) -> tuple:
+    """Max |diff| of the named deployments' forecasts and bands (and
+    whether all are bitwise equal); with ``tol`` each is held to
+    FLEET_RTOL/ATOL."""
+    import numpy as np
+    worst, bitwise = 0.0, True
+    for n in names:
+        g, w = got[n], want[n]
+        check([x[0] for x in g] == [x[0] for x in w],
+              f"{n}: forecasts at {[x[0] for x in g]} != "
+              f"{[x[0] for x in w]}")
+        for fg, fw in zip(g, w):
+            for a, b in zip(fg[1:], fw[1:]):
+                if a is None and b is None:
+                    continue
+                check(a is not None and b is not None
+                      and bool(np.isfinite(a).all()),
+                      f"{n}: a band or a forecast is missing or not finite")
+                if tol:
+                    np.testing.assert_allclose(a, b, **FC_TOL,
+                                               err_msg=f"{n} at {fg[0]}")
+                worst = max(worst, float(np.max(np.abs(a - b))))
+                bitwise &= a.tobytes() == b.tobytes()
+    return worst, bitwise
+
+
+def journal_breakdown(c, spans, name: str) -> None:
+    """Where the train tick's journal time went: the largest bins (their
+    versions' appends run inside them), the flush and fsync spans, and
+    the codec alone on one of ``name``'s versions (the best of 3 runs:
+    encode = the D2H copy, base64, JSON and crc32; decode the reverse,
+    to numpy)."""
+    from repro_torch.durability.wal import decode_records, encode_record
+    bins = sorted((sp.duration, (sp.args or {}).get("jobs"))
+                  for sp in spans if sp.name == "exec.bin")[::-1][:4]
+    print("serverless tick 1 largest bins (exec.bin span, s): " + ", ".join(
+        f"{jobs} jobs {secs:.3f}" for secs, jobs in bins))
+    for span in ("journal.flush", "journal.fsync"):
+        d = [sp.duration for sp in spans if sp.name == span]
+        print(f"serverless tick 1 {span}: {len(d)} spans, {sum(d):.3f} s "
+              f"in all, largest {max(d, default=0.0):.4f} s")
+    mv = c.versions.get(name)
+    rec = {"model_id": mv.model_id, "trained_at": mv.trained_at,
+           "params": mv.params, "metadata": mv.metadata}
+    enc = dec = float("inf")
+    for _ in range(3):
+        t = time.perf_counter()
+        frame = encode_record("mv", rec)
+        enc = min(enc, time.perf_counter() - t)
+        t = time.perf_counter()
+        decode_records(frame)
+        dec = min(dec, time.perf_counter() - t)
+    print(f"codec: one ANN version's mv record {len(frame)} B: encode "
+          f"{enc * 1e3:.1f} ms ({len(frame) / enc / 1e6:.0f} MB/s), decode "
+          f"{dec * 1e3:.1f} ms ({len(frame) / dec / 1e6:.0f} MB/s)")
+
+
+def durable_flow(device: str, ref: dict, wal_dir: str, *, n_prosumers: int,
+                 hidden: int, sub_width: int, epochs, n_ticks: int,
+                 n_minutes: int, seed: int) -> dict:
+    """Phase A: the forecast flow of ``forecast_flow`` on a durable system
+    (``Castor.open(wal_dir)``: a ``FilesystemStorage`` with fsync), every
+    tick through ``tick(executor="serverless")`` (the inline backend: 4
+    warm workers sharing the system and its card). Prints each tick's
+    wall, its ``journal.commit`` span, what the journal wrote and what the
+    invoker did; holds the closed-form forecasts to ``ref`` (the fleet
+    executor's run of the same flow) and the fits to the flow's sanity
+    bound. After tick 2 it copies the log and tears its last segment (what
+    phase B recovers from); after the hourly ticks it snapshots the stores
+    (what B must reach)."""
+    import numpy as np
+    import torch
+    from repro_torch.durability.chaos import clone_to_memory
+    from repro_torch.kernels.fleet_mlp import ops
+    from repro_torch.testing import snapshot_stores
+    cuda = device != "cpu"
+    m = flow_modules()
+    t = time.perf_counter()
+    c = m.Castor.open(wal_dir, device=device)
+    built = build_flow(c, m, n_prosumers=n_prosumers, hidden=hidden,
+                       sub_width=sub_width, epochs=epochs, seed=seed)
+    c.journal.commit()
+    c.journal.barrier()
+    js = c.journal.stats()
+    print(f"durable setup: Castor.open({device!r}) over a FilesystemStorage "
+          f"(fsync on); the flow's site journaled in {js['records']} "
+          f"records, {js['segments']} segments ({js['auto_flushes']} "
+          f"auto-flushes), {js['bytes_written']} B, "
+          f"{time.perf_counter() - t:.1f} s")
+    fleet = built["fleet"]
+    n_deps = 2 * n_prosumers + 4
+    hourly = [T0 + k * HOUR for k in range(n_ticks)]
+    times = hourly + [hourly[-1] + MINUTE * (j + 1) for j in range(n_minutes)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torn = ref_snapshot = clone = None
+    walls = []
+    for k, now in enumerate(times):
+        if k == n_ticks:
+            ref_snapshot = snapshot_stores(c)
+            live_feed(c, m, fleet, hourly[-1], n_minutes, seed)
+        c.tracer.clear()
+        j0, s0, l0 = c.journal.stats(), _serverless_counts(c), \
+            ops.invocation_count()
+        t = time.perf_counter()
+        results = c.tick(now, executor="serverless")
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        t = time.perf_counter()
+        c.journal.barrier()            # the pipelined segment write lands
+        drain = time.perf_counter() - t
+        j1, s1 = c.journal.stats(), _serverless_counts(c)
+        spans = c.tracer.spans()
+        commit = sum(sp.duration for sp in spans
+                     if sp.name == "journal.commit")
+        fsync = [sp.duration for sp in spans if sp.name == "journal.fsync"]
+        errors = [r.error for r in results if not r.ok]
+        check(not errors, f"serverless tick {k + 1}: {len(errors)} failed "
+                          f"jobs, first: {errors[:1]}")
+        want = (2 * (n_deps + 1) if k == 0 else n_deps if k < n_ticks
+                else n_prosumers)
+        check(len(results) == want,
+              f"serverless tick {k + 1}: {len(results)} jobs, not {want}")
+        walls.append(secs)
+        print(f"serverless tick {k + 1} (T0 + {now - T0:.0f} s): {secs:.3f} "
+              f"s wall, jobs {len(results)}/{len(results)} ok; "
+              f"journal.commit span {commit:.3f} s, write drained "
+              f"{drain:.3f} s after the tick; journal +" + ", +".join(
+                  f"{j1[key] - j0[key]} {key}" for key in JOURNAL_KEYS)
+              + f", fsync spans {len(fsync)} ({sum(fsync):.3f} s); "
+              f"invocations +{s1['invocations'] - s0['invocations']} (cold "
+              f"+{s1['cold_starts'] - s0['cold_starts']}, warm "
+              f"+{s1['warm_starts'] - s0['warm_starts']}, speculative "
+              f"+{s1['speculative'] - s0['speculative']}); fleet_mlp "
+              f"launches +{ops.invocation_count() - l0}")
+        if k == 0:
+            journal_breakdown(c, spans, fleet[0].name)
+        if k == 1:                     # after tick 2's commit: the "crash"
+            clone = clone_to_memory(c.journal.storage)
+            torn = tear_last_segment(clone)
+    launches = counts()["fleet_mlp"]
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    check(launches >= HORIZON * 2 * n_ticks and launches % HORIZON == 0,
+          f"{launches} fleet_mlp launches over {n_ticks} hourly ticks")
+    js = c.journal.stats()
+    sv = c.stats()["serverless"]
+    print(f"durable flow: journal {js['records']} records, "
+          f"{js['segments']} segments ({js['auto_flushes']} auto-flushes), "
+          f"{js['snapshots']} snapshots, {js['bytes_written']} B written; "
+          f"{sv['invocations']} invocations ({sv['cold_starts']} cold, "
+          f"{sv['warm_starts']} warm, {sv['speculative']} speculative, "
+          f"{sv['retries']} retries), per worker {sv['per_worker']}; "
+          f"fleet_mlp launches {launches}"
+          + (f"; peak device memory {peak} B" if cuda else ""))
+
+    # ---- against the fleet executor's run of the same flow ----
+    names = list(ref["forecasts"])
+    got = flow_forecasts(c, names)
+    exact = [n for n in names if n.startswith("fleet-lr")
+             or n in ("LR-sub", "GAM-sub")]
+    worst, bitwise = _compare(got, ref["forecasts"], exact, tol=True)
+    print(f"durable check: LR fleet and substation LR/GAM forecasts and "
+          f"bands equal the fleet executor's (max |diff| {worst:.3e}, "
+          f"bitwise {bitwise}; rtol 2e-3, atol 1e-3)")
+    fits = [n for n in names if n not in exact]
+    worst, bitwise = _compare(got, ref["forecasts"], fits, tol=False)
+    mapes = fleet_train_mape(c, [d.name for d in fleet], T0)
+    subs = {k: float(fleet_train_mape(c, [f"{k}-sub"], T0)[0])
+            for k in ("ANN", "LSTM")}
+    med = float(np.median(mapes))
+    print(f"durable check: ANN fleet one-step training MAPE median "
+          f"{med:.2f} % (bound 30 %); substation ANN {subs['ANN']:.2f} %, "
+          f"LSTM {subs['LSTM']:.2f} %; the ANN and LSTM forecasts against "
+          f"the fleet executor's: max |diff| {worst:.3e}, bitwise {bitwise}")
+    check(med < 30.0 and bool(np.isfinite([*mapes, *subs.values()]).all()),
+          f"training MAPE median {med}, substation {subs}")
+    det = c.stats()["detection"]
+    check(det["records"] == n_minutes * n_prosumers,
+          f"{det['records']} detection records")
+    c.close()
+    return {"walls": walls, "launches": launches, "clone": clone,
+            "torn": torn, "ref_snapshot": ref_snapshot, "hourly": hourly,
+            "journal": js, "peak": peak}
+
+
+def recover_flow(device: str, storage, torn: str, ref_snapshot,
+                 hourly) -> dict:
+    """Phase B: ``Castor.open`` of the copy of phase A's log taken after
+    tick 2 and torn mid-frame, the flow's packages published again, the
+    hourly ticks driven again: the stores must equal the uninterrupted
+    run's after its hourly ticks, bitwise."""
+    import torch
+    from repro_torch.testing import assert_stores_bitwise_equal
+    m = flow_modules()
+    nbytes = sum(len(storage.get(k)) for k in storage.list())
+    print(f"recovery: {torn}")
+    t = time.perf_counter()
+    r = m.Castor.open(storage=storage, device=device)
+    secs = time.perf_counter() - t
+    st = r._recovery_stats
+    print(f"recovery: Castor.open({device!r}) {secs:.3f} s, {nbytes} B "
+          f"replayed ({st['records']} records: snapshot {st['snapshot']}, "
+          f"{st['segments_replayed']} segments, {st['torn_segments']} torn)")
+    check(st["torn_segments"] == 1, f"recovery stats {st}")
+    publish_flow(r, m)
+    reset_counts()
+    for now in hourly:
+        t = time.perf_counter()
+        res = r.tick(now, executor="serverless")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        errors = [x.error for x in res if not x.ok]
+        check(not errors, f"recovered tick at T0 + {now - T0:.0f} s: "
+                          f"{errors[:1]}")
+        print(f"recovered tick (T0 + {now - T0:.0f} s): {len(res)} jobs ok "
+              f"in {time.perf_counter() - t:.3f} s")
+    launches = counts()["fleet_mlp"]
+    assert_stores_bitwise_equal(ref_snapshot, r, context="recovered flow")
+    last = sum(1 for fcs in ref_snapshot["forecasts"].values()
+               for fc in fcs if fc[0] == hourly[-1])
+    print(f"recovery check: every version, forecast and band bitwise equal "
+          f"to the uninterrupted run's ({last} forecasts of the last hourly "
+          f"tick among them); fleet_mlp launches {launches}")
+    r.close()
+    return {"seconds": secs, "bytes": nbytes, "launches": launches}
+
+
+def process_flow(device: str, *, n_prosumers: int, hidden: int,
+                 sub_width: int, epochs, seed: int, n_workers: int = 2,
+                 n_ticks: int = 2) -> dict:
+    """Phase C: the flow's first ``n_ticks`` ticks through a
+    ``ServerlessExecutor`` over a ``ProcessBackend``: ``n_workers`` spawned
+    workers, each building the same seeded flow (``flow_system``) on
+    ``device``, payloads and results through a shared filesystem bucket.
+    The workers' forecasts must equal an in-process inline run's; the
+    versions they ship back must land on the parent's device and score
+    there through ``fleet_mlp``."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.forecast import ANNForecaster
+    from repro_torch.serverless import ProcessBackend, ServerlessExecutor
+    factory = functools.partial(flow_system, n_prosumers, hidden, sub_width,
+                                epochs, seed, device)
+    print(f"cut: spawned-worker flow at {n_prosumers} prosumers (the flow's "
+          f"instance count cut for the smoke's time; widths full: ANN "
+          f"{hidden}, substation ANN/LSTM {sub_width}; epochs "
+          f"{'DEFAULTS' if epochs is None else epochs}), {n_ticks} ticks")
+    parent = factory()
+    names = [d.name for d in parent.deployments.all()]
+    times = [T0 + k * HOUR for k in range(n_ticks)]
+    ex = ServerlessExecutor(parent, backend=ProcessBackend(
+        factory, n_workers=n_workers, spawn_timeout_s=600.0,
+        invoke_timeout_s=1200.0), speculative=False)
+    mark = parent.tracer.mark()
+    try:
+        for now in times:
+            t = time.perf_counter()
+            res = ex.run(parent.scheduler.poll(now))
+            errors = [r.error for r in res if not r.ok]
+            check(bool(res) and not errors,
+                  f"process tick at T0 + {now - T0:.0f} s: {len(errors)} "
+                  f"failed, {errors[:1]}")
+            print(f"process tick (T0 + {now - T0:.0f} s): {len(res)} jobs ok "
+                  f"in {time.perf_counter() - t:.3f} s")
+        stats = ex.stats()
+        records = list(ex.monitor.records)
+        spans = [sp for sp in parent.tracer.export_since(mark)
+                 if sp["name"] == "worker.execute"]
+    finally:
+        ex.close()
+    for rec in records:
+        print(f"invocation {rec['invocation_id']} on {rec['worker']}: "
+              f"{rec['jobs']} jobs in {rec['bins']} bins, "
+              f"{'cold' if rec['cold'] else 'warm'}, queue "
+              f"{rec['queue_s']:.3f} s (a cold one includes the spawn), "
+              f"exec {rec['exec_s']:.3f} s")
+    for w in sorted({rec["worker"] for rec in records}):
+        cold = [rec["queue_s"] for rec in records
+                if rec["worker"] == w and rec["cold"]]
+        print(f"cold start {w}: {cold[0]:.3f} s from the invocation's "
+              f"enqueue to the spawned worker's pickup")
+    st = stats["storage"]
+    print(f"bucket: payloads {st['bytes_in']} B in, results {st['bytes_out']}"
+          f" B out ({st['puts']} puts, {st['gets']} gets)")
+    # the workers ran on the card: their own spans say where, and how many
+    # fleet_mlp launches their process made
+    children = {}
+    for sp in spans:
+        a = sp["args"]
+        w = children.setdefault(a["worker"], {"devices": set(),
+                                              "launches": 0})
+        w["devices"].add(a["device"])
+        w["launches"] = max(w["launches"], a["fleet_mlp_launches"])
+    for w, info in sorted(children.items()):
+        print(f"worker {w}: device {sorted(info['devices'])}, fleet_mlp "
+              f"launches in its process {info['launches']}")
+    child_launches = sum(info["launches"] for info in children.values())
+    check(len(children) == n_workers and all(
+        info["devices"] == {str(torch.device(device))}
+        for info in children.values()), f"worker devices {children}")
+    check(child_launches == HORIZON * 2 * n_ticks,
+          f"{child_launches} fleet_mlp launches in the workers")
+
+    # ---- the same deployments in process, inline ----
+    inline = factory()
+    for now in times:
+        res = inline.tick(now, executor="serverless")
+        check(all(r.ok for r in res), "inline tick failed")
+    got, want = flow_forecasts(parent, names), flow_forecasts(inline, names)
+    out = {}
+    for kind, sel in (("LR", lambda n: n.startswith("fleet-lr")
+                       or n in ("LR-sub", "GAM-sub")),
+                      ("ANN", lambda n: n.startswith("ann")
+                       or n == "ANN-sub"),
+                      ("LSTM", lambda n: n == "LSTM-sub")):
+        worst, bitwise = _compare(got, want, [n for n in names if sel(n)],
+                                  tol=True)
+        out[kind] = worst
+        print(f"process check: {kind} forecasts and bands from the spawned "
+              f"workers against the inline run: max |diff| {worst:.3e}, "
+              f"bitwise {bitwise} (rtol 2e-3, atol 1e-3)")
+
+    # ---- shipped-back versions score on the parent's card ----
+    fleet = [d for d in parent.deployments.all() if d.package == "ann"]
+    now = times[-1]
+    mvs = [parent.versions.get(d.name, at=now) for d in fleet]
+    check(all(mv.params["params"]["w0"].device.type
+              == torch.device(device).type for mv in mvs),
+          "a shipped-back version is not on the parent's device")
+    insts = [ANNForecaster(context=parent.graph.context(d.signal, d.entity),
+                           task="score", model_id=d.name,
+                           model_version=mv.version, system=parent,
+                           user_params={**d.user_params, "now": now})
+             for d, mv in zip(fleet, mvs)]
+    reset_counts()
+    scored = ANNForecaster.fleet_score(insts, [mv.params for mv in mvs])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    parent_launches = counts()["fleet_mlp"]
+    check(parent_launches == HORIZON,
+          f"{parent_launches} fleet_mlp launches scoring in the parent")
+    worst = 0.0
+    for d, (_t, vals, _lo, _hi) in zip(fleet, scored):
+        fc = parent.predictions.latest(d.signal, d.entity, at=now)
+        np.testing.assert_allclose(vals, fc.values, **FC_TOL)
+        worst = max(worst, float(np.max(np.abs(vals - fc.values))))
+    print(f"process check: the {len(fleet)} ANN versions shipped back sit on "
+          f"the parent's {device}; scored there ({parent_launches} fleet_mlp "
+          f"launches) they give the workers' forecasts (max |diff| "
+          f"{worst:.3e})")
+    return {"child_launches": child_launches, "diffs": out,
+            "storage": st, "records": records}
+
+
+def durable_serverless_flow(device: str, ref: dict, *,
+                            n_prosumers: int = 512, hidden: int = 512,
+                            sub_width: int = 512, epochs=None,
+                            n_ticks: int = 3, n_minutes: int = 5,
+                            seed: int = 11,
+                            process_prosumers: int = 64) -> dict:
+    """Durability and the serverless executor on the forecast flow: A (a
+    durable system, inline serverless ticks, the journal at full width),
+    B (crash after tick 2, tear, recover, catch up: bitwise), C (spawned
+    workers on ``device``). ``ref`` is ``forecast_flow``'s result for the
+    same flow."""
+    import tempfile
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="castor-wal-") as wal_dir:
+        a = durable_flow(device, ref, wal_dir, n_prosumers=n_prosumers,
+                         hidden=hidden, sub_width=sub_width, epochs=epochs,
+                         n_ticks=n_ticks, n_minutes=n_minutes, seed=seed)
+    b = recover_flow(device, a.pop("clone"), a.pop("torn"),
+                     a.pop("ref_snapshot"), a["hourly"])
+    c = process_flow(device, n_prosumers=process_prosumers, hidden=hidden,
+                     sub_width=sub_width, epochs=epochs, seed=seed)
+    print(f"durable serverless flow: {time.perf_counter() - t:.1f} s in all")
+    return {"durable": a, "recovery": b, "process": c}
 
 
 def train_parity(device: str, *, seed: int = 5) -> dict:
@@ -1567,6 +2039,7 @@ def main() -> int:
                "wkv6_scan": wkv_phase("cuda", time_it=True)}
     train_parity("cuda")
     fleet_path = forecast_flow("cuda")
+    durable_serverless_flow("cuda", fleet_path)
     qwen = lm_path("qwen3-1.7b", "cuda")
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)

@@ -7,7 +7,10 @@ scheduler, executors and lineage into the paper's workflow (Fig. 1):
 ``device`` (default ``"cuda"``) is where fleet scoring runs: the executor's
 runtime state, the stacked model versions and the kernels all live there.
 Asking for ``"cuda"`` without a card raises; the CPU runs only when asked
-for, as the tests do.
+for, as the tests do. ``Castor.open`` makes a system durable (a journal of
+every system-of-record mutation, recovered bitwise); the device is not
+journaled, so a log written on a card recovers on the CPU and the other
+way round.
 """
 from __future__ import annotations
 
@@ -40,6 +43,96 @@ class Castor:
         self.detections = DetectionStore(self.store, self.graph)
         self.weather = WeatherService(seed=weather_seed)
         self.scheduler = ModelScheduler(self.deployments, self.registry)
+        self.journal = None            # durability.Journal when open()'d
+        self._durable_storage = None   # backend owned by open(path=...)
+
+    # ---------------- durability (WAL + recovery) ----------------
+    @classmethod
+    def open(cls, path: Optional[str] = None, *, storage=None,
+             device="cuda", weather_seed: int = 7, fsync: bool = True,
+             snapshot_every: int = 64,
+             max_buffer_bytes: int = 4 << 20,
+             retain_segments: bool = False,
+             pipelined_commit: bool = True) -> "Castor":
+        """Open a DURABLE Castor on ``device``: recover state from
+        ``path`` (a WAL+snapshot directory; created empty if absent) or any
+        ``StorageBackend`` via ``storage=``, then journal every
+        system-of-record mutation from here on. Records group-commit as
+        one fsync'd segment per ``tick`` (plus a ``max_buffer_bytes``
+        overflow flush), and every ``snapshot_every`` flushed segments the
+        log compacts into a full-state snapshot.
+
+        Recovery replays snapshot-then-WAL into bitwise-equal stores and
+        re-arms the calendar queue; a torn/corrupt WAL tail (crash
+        mid-write) is dropped at the first bad checksum, and the
+        boundary-stamped catch-up machinery re-fires anything the lost
+        suffix contained. Recovered model versions land on ``device``
+        (the journal holds their numpy image, not where they lay). Model
+        *implementations* are code, not data — re-``publish`` packages
+        after opening, then ``deploy_for_all``/``tick`` as usual.
+
+        ``pipelined_commit`` (default on) hands each segment put to a
+        writer thread so tick k's fsync overlaps tick k+1's compute; at
+        most one write is ever in flight and segments land in order, so
+        a crash still loses only a suffix of recent work. ``close()``
+        (and ``Journal.barrier()``) block until the last write lands."""
+        from ..durability.journal import (Journal, load_records, meta_of,
+                                          replay_records)
+        owned = None
+        if storage is None:
+            if path is None:
+                raise ValueError("Castor.open needs a path or a storage=")
+            from ..serverless.storage import FilesystemStorage
+            storage = owned = FilesystemStorage(root=path, fsync=fsync)
+        records, rec_stats = load_records(storage)
+        meta = meta_of(records)
+        if meta is not None:
+            weather_seed = int(meta.get("weather_seed", weather_seed))
+        c = cls(device=device, weather_seed=weather_seed)
+        replay_records(c, records)     # journal-less: replay re-journals
+        journal = Journal(storage, castor=c,          # nothing
+                          snapshot_every=snapshot_every,
+                          max_buffer_bytes=max_buffer_bytes,
+                          retain_segments=retain_segments,
+                          pipelined=pipelined_commit)
+        journal.start_at(rec_stats["next_seq"])
+        c._recovery_stats = rec_stats
+        c._durable_storage = owned
+        c._attach_journal(journal)
+        if meta is None:               # first open: persist the seed
+            journal.append("meta", {"format": 1,
+                                    "weather_seed": weather_seed})
+        return c
+
+    def _attach_journal(self, journal) -> None:
+        """Point every system of record at the journal. Hooks fire inside
+        the stores' own locks; the journal's lock nests strictly inside
+        and never calls back out, so lock order is acyclic."""
+        self.journal = journal
+        for store in (self.store, self.versions, self.predictions,
+                      self.detections, self.deployments, self.graph):
+            store.journal = journal
+
+    def _detach_journal(self) -> None:
+        self.journal = None
+        for store in (self.store, self.versions, self.predictions,
+                      self.detections, self.deployments, self.graph):
+            store.journal = None
+
+    def _commit_tick(self) -> None:
+        """Group-commit one tick's records: the scheduler's watermark/
+        retry delta journals as ONE atomic record AFTER the tick's
+        effects (so a torn tail can only under-report progress, never
+        drop effects a watermark already covers), then the whole buffer
+        flushes as one segment — one storage put / fsync per tick, not
+        per record."""
+        j = self.journal
+        if j is None:
+            return
+        delta = self.scheduler.drain_dirty()
+        if delta is not None:
+            j.append("sched", delta)
+        j.commit()
 
     # ---------------- (1)/(2) data + semantics ----------------
     def ingest(self, ts_id: str, times, values) -> int:
@@ -88,21 +181,38 @@ class Castor:
         protocol (see core/executor.py): "fleet" (megabatched on the
         system's device; its ``FleetRuntime`` persists across ticks so
         consecutive polls pay O(delta) instead of O(history) — see
-        core/runtime.py) or "local" (the paper-faithful stateless pool,
-        built per call)."""
+        core/runtime.py), "serverless" (the invocation pipeline in
+        serverless/; its warm workers share this system and its card, and
+        persist across ticks), or "local" (the paper-faithful stateless
+        pool, built per call). A durable system group-commits the tick's
+        records at its end, also after an empty poll and when the
+        executor raised."""
         tracer = self.tracer
         with tracer.span("castor.tick", now=now, executor=executor):
             jobs = self.scheduler.poll(now)
             if not jobs:
+                with tracer.span("journal.commit"):
+                    self._commit_tick()    # flush buffered ingest records
                 return []
             if executor == "fleet":
                 ex = self.fleet_executor(max_parallel=max_parallel)
+            elif executor == "serverless":
+                # honored on FIRST construction (the executor is cached)
+                ex = self.serverless_executor(max_in_flight=max_parallel)
             elif executor == "local":
                 ex = LocalPoolExecutor(self, max_parallel=max_parallel)
             else:
                 raise ValueError(f"unknown executor {executor!r} "
-                                 "(expected fleet | local)")
-            return ex.run(jobs)
+                                 "(expected fleet | serverless | local)")
+            try:
+                return ex.run(jobs)
+            finally:
+                # the group-commit point: effects first, then the
+                # scheduler delta, one segment put — even when the
+                # executor raised (any persisted effects plus
+                # ``mark_failed`` retry stamps)
+                with tracer.span("journal.commit"):
+                    self._commit_tick()
 
     def fleet_executor(self, *, max_parallel: int = 16) -> FleetExecutor:
         """The system's long-lived fleet executor (steady-state runtime
@@ -113,6 +223,18 @@ class Castor:
                 self, max_parallel=max_parallel))
             self._fleet_ex = cached = (max_parallel, ex)
         return cached[1]
+
+    def serverless_executor(self, **kw):
+        """The system's long-lived serverless executor (warm-container
+        affinity lives here — its workers' FleetRuntimes stay warm across
+        ticks). Keyword args configure only the FIRST construction;
+        rebuild explicitly via ``serverless.ServerlessExecutor`` for
+        custom backends (a ``ProcessBackend`` of spawned workers)."""
+        ex = getattr(self, "_serverless_ex", None)
+        if ex is None:
+            from ..serverless import ServerlessExecutor
+            ex = self._serverless_ex = ServerlessExecutor(self, **kw)
+        return ex
 
     def run_until(self, t0: float, t1: float, step: float,
                   executor: str = "fleet") -> List[JobResult]:
@@ -205,6 +327,12 @@ class Castor:
             m.gauge("runtime.cold_loads").set(rt.cold_loads)
             m.gauge("runtime.warm_loads").set(rt.warm_loads)
             m.gauge("runtime.invalidations").set(rt.invalidations)
+        if self.journal is not None:
+            js = self.journal.stats()
+            m.gauge("wal.records").set(js["records"])
+            m.gauge("wal.segments").set(js["segments"])
+            m.gauge("wal.snapshots").set(js["snapshots"])
+            m.gauge("wal.bytes_written").set(js["bytes_written"])
 
     def snapshot(self) -> dict:
         """The unified observability snapshot: ``{"stats": <the exact
@@ -217,18 +345,62 @@ class Castor:
 
     def stats(self) -> dict:
         st = self.store.stats()
-        return {**self.graph.stats(),
-                "points": st["points"],
-                "segments": st["segments"],
-                "store_reads": st["reads"],
-                "store_read_many": st["read_many"],
-                "deployments": len(self.deployments),
-                "deployments_by_flow": self.deployments.flow_counts(),
-                "deployment_revision": self.deployments.revision,
-                "model_versions": self.versions.count(),
-                "forecasts": self.predictions.count(),
-                "detection": self.detections.stats(),
-                "scheduler": self.scheduler.stats()}
+        out = {**self.graph.stats(),
+               "points": st["points"],
+               "segments": st["segments"],
+               "store_reads": st["reads"],
+               "store_read_many": st["read_many"],
+               "deployments": len(self.deployments),
+               "deployments_by_flow": self.deployments.flow_counts(),
+               "deployment_revision": self.deployments.revision,
+               "model_versions": self.versions.count(),
+               "forecasts": self.predictions.count(),
+               "detection": self.detections.stats(),
+               "scheduler": self.scheduler.stats()}
+        sv = getattr(self, "_serverless_ex", None)
+        if sv is not None:
+            # per-invocation cold/warm-start + queue/execution latency
+            # telemetry from the serverless monitor, plus elastic-pool /
+            # chaos / storage sub-summaries when the executor was built
+            # with those features
+            out["serverless"] = sv.stats()
+        if self.journal is not None:
+            # WAL telemetry: records/segments/snapshots written, bytes,
+            # group-commit overflow flushes (durability/journal.py)
+            out["durability"] = self.journal.stats()
+        return out
+
+    def close(self) -> None:
+        """Release long-lived execution resources: flush+close the
+        durability journal (any buffered WAL records and the scheduler's
+        undrained delta fsync BEFORE the storage backend — possibly an
+        owned tempdir — is released), then the cached serverless
+        executor's backend (spawned worker processes, owned storage
+        buckets). Idempotent: double-close and ``__exit__`` after an
+        explicit ``close()`` are no-ops; the in-memory stores stay
+        usable."""
+        j = getattr(self, "journal", None)
+        if j is not None:
+            delta = self.scheduler.drain_dirty()
+            if delta is not None:
+                j.append("sched", delta)
+            j.close()
+            self._detach_journal()     # journal=None: re-close is a no-op
+        owned = getattr(self, "_durable_storage", None)
+        if owned is not None:
+            self._durable_storage = None
+            owned.close()
+        sv = getattr(self, "_serverless_ex", None)
+        if sv is not None:
+            self._serverless_ex = None
+            sv.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 MINUTE = 60.0

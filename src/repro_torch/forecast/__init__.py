@@ -1,4 +1,5 @@
-from .base import ForecastModelBase, version_to_numpy  # noqa: F401
+from .base import (ForecastModelBase, version_from_numpy,  # noqa: F401
+                   version_to_numpy)
 from .linear import LinearForecaster, lr_version_from_numpy  # noqa: F401
 from .gam import GAMForecaster, gam_version_from_numpy  # noqa: F401
 from .ann import ANNForecaster, ann_version_from_numpy  # noqa: F401

@@ -12,8 +12,8 @@ A model object here is ``{"kind", "params": {name: tensor}, "mu", "sd"
 (f32 tensors (F,)), "y_scale" (float), "resid_q" (numpy f64 (2,))}`` with
 every tensor on the system's device, so scoring never re-uploads a
 version. Versions in the persisted numpy layout cross through the
-``*_version_from_numpy`` converters and back through
-``version_to_numpy``.
+``*_version_from_numpy`` converters (``version_from_numpy`` picks one by
+kind) and back through ``version_to_numpy``.
 
 user_params (Listing 2): train_window_days, horizon, frequency, target_lags,
 weather_lags, plus model-specific extras (hidden, epochs, lr, ...).
@@ -202,7 +202,8 @@ def device_version(model_object: dict, params: Dict[str, np.ndarray],
 def version_to_numpy(model_object: dict) -> dict:
     """The persisted numpy layout of a port model object, the inverse of
     the ``*_version_from_numpy`` converters: every tensor becomes a numpy
-    array of its dtype, a 0-d ``params["y_scale"]`` a float. Raises
+    array of its dtype and shape (a 0-d ``params["y_scale"]`` a 0-d
+    array), the image the journal and the serverless wire encode. Raises
     ``ValueError`` on anything else."""
     p = model_object.get("params") if isinstance(model_object, dict) \
         else None
@@ -215,12 +216,28 @@ def version_to_numpy(model_object: dict) -> dict:
     if resid_q.shape != (2,):
         raise ValueError(f"resid_q must be (2,), got {resid_q.shape}")
     params = {k: v.detach().cpu().numpy() for k, v in p.items()}
-    if "y_scale" in params and params["y_scale"].ndim == 0:
-        params["y_scale"] = float(params["y_scale"])
     return {"kind": model_object["kind"], "params": params,
             "mu": model_object["mu"].cpu().numpy(),
             "sd": model_object["sd"].cpu().numpy(),
             "y_scale": float(model_object["y_scale"]), "resid_q": resid_q}
+
+
+def version_from_numpy(model_object, device):
+    """A decoded model object (the journal's ``mv`` records, the versions a
+    serverless payload or result carries) as the model object a system on
+    ``device`` holds: a forecaster's version (kind LR, GAM, ANN or LSTM)
+    through its kind's converter onto ``device``; any other object, which
+    holds no tensors (a detector's ``{"kind": ...}``, a transform model's
+    ``config``, a plain array pytree), unchanged."""
+    from .ann import ann_version_from_numpy
+    from .gam import gam_version_from_numpy
+    from .linear import lr_version_from_numpy
+    from .lstm import lstm_version_from_numpy
+    convert = {"LR": lr_version_from_numpy, "GAM": gam_version_from_numpy,
+               "ANN": ann_version_from_numpy,
+               "LSTM": lstm_version_from_numpy}.get(
+        model_object.get("kind") if isinstance(model_object, dict) else None)
+    return model_object if convert is None else convert(model_object, device)
 
 
 class ForecastModelBase(ModelInterface):

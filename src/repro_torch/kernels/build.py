@@ -5,11 +5,15 @@ the port.
 A source compiles at first use with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/lib<name>_<key>.so`` at the repository root, where the
 key hashes the source and the flags, so an edited source never loads a
-stale library. Nothing is built or loaded when this module is imported.
+stale library. Several processes compiling one library (spawned
+serverless workers) take turns under a file lock: the first compiles, the
+others load its result. Nothing is built or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -46,18 +50,24 @@ def build(source: Path, name: str) -> Tuple[Path, str]:
         return lib, ""
     nvcc = _nvcc(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{source.name}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)     # atomic: a reader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with open(BUILD_DIR / f".lib{name}_{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if lib.exists():                   # another process built it
+            return lib, ""
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
+                                   str(source)], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                                   f"{source.name}:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            os.replace(tmp, lib)   # atomic: a reader never sees half a file
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return lib, proc.stdout + proc.stderr
 
 

@@ -324,9 +324,12 @@ class Tracer:
                     "evicted": self.finished - len(self.buf)}
 
     def clear(self) -> None:
+        """Drop every buffered span and restart the sequence, so a
+        ``mark()`` taken after a clear is the last span's ``seq``."""
         with self._lock:
             self.buf.clear()
             self.finished = 0
+            self._seq = itertools.count(1).__next__
 
 
 NULL_TRACER = Tracer(capacity=1, enabled=False)

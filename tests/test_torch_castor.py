@@ -7,7 +7,6 @@ forecasts and detection records. Also: the port never loads JAX or
 ``repro``, ``snapshot()``/``stats()`` keep the reference's schema, and the
 CPU rehearsal of ``chip_smoke.py``'s phases."""
 import importlib.util
-import os
 import subprocess
 import sys
 import textwrap
@@ -30,6 +29,7 @@ from repro_torch.forecast import ANNForecaster, ann_version_from_numpy
 from repro_torch.forecast.anomaly import BandAnomalyDetector
 from repro_torch.kernels.fleet_mlp import ops
 from repro_torch.timeseries.ingest import SiteSpec, build_site
+from repro_torch.testing import subprocess_env
 from repro_torch.timeseries.transforms import DAY, HOUR
 from test_torch_train import assert_versions_close, jax_initial_weights
 
@@ -298,7 +298,8 @@ def test_cuda_device_without_card_raises():
 
 def test_port_never_loads_jax_or_repro():
     """A train + score tick of the four forecasters and a detect tick
-    (and a version converted from numpy) load neither JAX nor ``repro``."""
+    (and a version converted from numpy), then a durable serverless train
+    + score tick recovered from its log, load neither JAX nor ``repro``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -332,14 +333,33 @@ def test_port_never_loads_jax_or_repro():
                                 "mu": np.zeros(54), "sd": np.ones(54),
                                 "y_scale": 4.0, "resid_q": np.zeros(2)},
                                "cpu")
+        from repro_torch.serverless import InMemoryStorage
+        storage = InMemoryStorage()
+        with Castor.open(storage=storage, device="cpu") as d:
+            build_site(d, SiteSpec("D", n_prosumers=2, n_feeders=1,
+                                   n_substations=1, seed=2),
+                       t0=0.0, t1=30 * DAY)
+            for kind in ("LR", "ANN"):
+                d.publish(kind, "1.0", PAPER_MODELS[kind])
+                d.deploy_for_all(package=kind, signal="ENERGY_LOAD",
+                                 name_prefix=kind, kind="PROSUMER",
+                                 train=Schedule(29 * DAY, DAY),
+                                 score=Schedule(29 * DAY, HOUR),
+                                 user_params={"hidden": 4, "epochs": 3,
+                                              "horizon": 3,
+                                              "train_window_days": 7})
+            res = d.tick(29 * DAY, executor="serverless")
+            assert len(res) == 8 and all(r.ok for r in res), res
+        r = Castor.open(storage=storage, device="cpu")
+        assert r.versions.count() == 4 and r.predictions.count() == 4
+        r.close()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
         assert not bad, bad
     """)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT / "src")
-    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env=subprocess_env(ROOT / "src"), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
