@@ -22,7 +22,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    D 80, causal; engine B 4, S 512, group 1, D 80), timed there too.
    ``flash_attention`` runs its wgmma route on bf16 and its CUDA-core
    route on f32; ``decode_attention`` is two launches per call (split-KV
-   partial pass and combine). ``ssd_scan`` at the
+   partial pass and combine). ``flash_attention``'s backward (preprocess,
+   dK/dV and dQ launches, CUDA cores, both dtypes) at the qwen3-1.7b
+   training shape (B 4, S 1024, H 16, KV 8, D 128, bf16, causal) and the
+   forward's test shapes: dq, dk, dv against the plain backward on the
+   same inputs, both forward routes' row log-sum-exp against the plain
+   one; timed beside forward + backward under autograd of the port's op
+   and of ``scaled_dot_product_attention``. ``ssd_scan`` at the
    zamba2-2.7b prefill shape (B 4, S 1024, H 80, P = N = 64, bf16) and
    ``wkv6_scan`` at the rwkv6-7b prefill shape (B 4, S 1024, H 64,
    K = V = 64, bf16, w in f32), both also at the unit-test shapes in f32
@@ -101,8 +107,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launches per prefill, the ``wkv`` states held, the same engine run
    (its decode runs no kernel: the recurrences are plain, as in the
    reference).
+9. LM training parity: one f32 ``make_train_step`` of qwen3-1.7b at full
+   width cut to 2 layers (B 1 x S 256) on the card and on the CPU from the
+   same params: loss, grad norm, every gradient leaf and the updated
+   params within ``LM_PARITY_TOL``; 2 ``flash_attention`` backwards.
+10. LM training path: qwen3-1.7b at full width (28 layers, f32 master
+   params from a seeded generator, bf16 compute, remat), 8 AdamW steps on
+   ``SyntheticTokenStream(vocab, 4, 1024)``: every loss finite and the
+   last below the first, 56 ``flash_attention`` forwards and 28 backwards
+   a step and no other kernel; step time, tokens/s, peak device memory, a
+   profiler window over one more step.
+11. launcher: ``repro_torch.launch.train`` on qwen3-1.7b's smoke config,
+   12 steps, checkpoints every 4, a failure injected at step 6: one
+   failure handled, one restore, the final checkpoint restored equal.
+12. guard: ``decode_attention``, ``fleet_mlp``, ``ssd_scan`` and
+   ``wkv6_scan`` refuse CUDA tensors that require grad (no backward yet).
 
-Each model is freed before the next is drawn.
+Each model is freed before the next is drawn. The ``kernels`` line has six
+rows: the five kernels and ``flash_attention_backward`` (its launches are
+the training path's backward calls).
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -214,6 +237,9 @@ WKV_CASES = [WKV_PATH_CASE] + [
 
 KERNEL_NAMES = ("fleet_mlp", "flash_attention", "decode_attention",
                 "ssd_scan", "wkv6_scan")
+# every launch count the smoke reads: the five kernels' forwards and
+# flash_attention's backward (a backward call is three launches)
+COUNT_NAMES = KERNEL_NAMES + ("flash_attention_backward",)
 DAY, HOUR = 86400.0, 3600.0
 HORIZON = 24
 # tracer spans summed per tick: the tick, the scheduler poll, the train
@@ -1295,9 +1321,18 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """Every kernel's launch count, by name."""
-    return {name: ops.invocation_count()
-            for name, ops in _kernel_ops().items()}
+    """Every kernel's launch count, by name (``COUNT_NAMES``)."""
+    ops = _kernel_ops()
+    n = {name: mod.invocation_count() for name, mod in ops.items()}
+    n["flash_attention_backward"] = \
+        ops["flash_attention"].backward_invocation_count()
+    return n
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / (1 + |want|), the kernels' error metric."""
+    want = want.float()
+    return float(((got.float() - want).abs() / (1 + want.abs())).max())
 
 
 def _agree(label, got, want, dtype, tol=ATTN_TOL) -> dict:
@@ -1306,7 +1341,7 @@ def _agree(label, got, want, dtype, tol=ATTN_TOL) -> dict:
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{label}: kernel gave {tuple(got.shape)} {got.dtype}")
     diff = (got.float() - want.float()).abs()
-    rel = float((diff / (1 + want.float().abs())).max())
+    rel = _rel_err(got, want)
     ok = rel <= tol[dtype] and bool(torch.isfinite(got.float()).all())
     print(f"{label} {dtype}: rel_err={rel:.3e} max_abs_err="
           f"{float(diff.max()):.3e} tol={tol[dtype]:.0e} "
@@ -1641,7 +1676,7 @@ def forward_launches(cfg) -> dict:
     attention block and per application of the shared block, one scan per
     recurrent block, nothing else."""
     per = cfg.num_periods
-    n = {name: 0 for name in KERNEL_NAMES}
+    n = {name: 0 for name in COUNT_NAMES}
     n["flash_attention"] = per * (cfg.pattern.count("attn")
                                   + int(cfg.shared_attn_every_period))
     n["ssd_scan"] = per * cfg.pattern.count("mamba2")
@@ -1821,7 +1856,7 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     # decode runs one decode_attention per attention application and no
     # other kernel (the recurrences decode through their plain versions)
     per_call = forward_launches(cfg)["flash_attention"]
-    want = {name: 0 for name in KERNEL_NAMES}
+    want = {name: 0 for name in COUNT_NAMES}
     want["decode_attention"] = per_call * eng.decode_calls
     check(launches == want,
           f"serve: kernel launches {launches} for {eng.decode_calls} decode "
@@ -1958,6 +1993,495 @@ def build_all() -> None:
               f"f32 {dec.smem_bytes(2, D, torch.float32)} B")
 
 
+# ------------------------------------------------------------ LM training
+
+# the backward's cases: the qwen3-1.7b training shape (its first), then
+# the forward's test shapes in both dtypes, causal and full
+FLASH_BWD_PATH_CASE = ("train", 4, 1024, 1024, 16, 8, 128, "bfloat16", True)
+FLASH_BWD_CASES = [FLASH_BWD_PATH_CASE] + [
+    c for c in FLASH_CASES if c[0].startswith("test")]
+# the forward's lse against the plain one, on |got - ref| / (1 + |ref|):
+# f32 sums in another order; the bf16 route's exponentials run on the
+# special-function unit (ex2.approx, about 2 ulp)
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# card against CPU, one f32 train step of qwen3-1.7b at full width cut to
+# 2 layers: the loss, as tests/test_torch_lm_train.py pins it against the
+# JAX package (the same f32 sums in other orders); the grad norm and each
+# gradient leaf (max |diff| over the leaf's max |ref|), the f32 attention
+# kernels (tests/test_kernels.py's 2e-5) and cuBLAS against MKL between
+# them. The params after AdamW's first step are held to what those
+# gradient differences allow, element by element (``_update_excess``).
+LM_PARITY_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4,
+                 "update_excess": 0.0}
+
+
+def _update_excess(p_new, p_ref, g, g_ref, p0, lr: float, eps: float):
+    """How far the card's first AdamW update exceeds what its gradient
+    differences allow, the most over every element (<= 0 when it does
+    not). The first step moves a weight by lr * (u + wd * p) with u =
+    g / (|g| + eps) (the bias corrections cancel; the clip scale is 1 when
+    the norm is under the clip, and scales both sides alike otherwise):
+    u has slope at most 1 / eps and range (-1, 1), so two gradients
+    |dg| apart move a weight at most lr * min(2, |dg| / eps) apart, plus
+    the f32 rounding of p - lr * delta (4 ulp of |p| + 2 lr, which bounds
+    both p and the result)."""
+    from repro_torch.arch.params import tree_leaves
+    worst = float("-inf")
+    for a, b, ga, gb, p in zip(*(tree_leaves(t) for t in
+                                 (p_new, p_ref, g, g_ref, p0))):
+        dg = (ga.cpu() - gb).abs()
+        allow = lr * (dg / eps).clamp(max=2.0) \
+            + 4 * 2.0 ** -23 * (p.abs() + 2 * lr)
+        worst = max(worst, float(((a.cpu() - b).abs() - allow).max()))
+    return worst
+
+
+def flash_backward_bound(q, k, causal: bool) -> dict:
+    """q, k, v, the output and its gradient and lse read once, dq, dk, dv
+    written once, against the five products of the visible (query, key)
+    pairs (dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q and the
+    recomputed S = Q K^T: 2 D operations each) over the bf16 tensor-core
+    rate: 2.5 times the forward's operations."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    off = Skv - Sq
+    pairs = sum(min(Skv, t + off + 1) for t in range(Sq)) if causal \
+        else Sq * Skv
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+        + B * H * Sq * 4
+    return _bound(B * H * pairs * 10 * D, nbytes, BF16_FLOP_PER_S)
+
+
+def _flash_with_lse(q, k, v, causal):
+    """The forward with its lse: the kernel's on a CUDA tensor, the plain
+    version's on a CPU one (the CPU rehearsal)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    if q.is_cuda:
+        return fa_kernel.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    return attention_reference(q, k, v, causal=causal, return_lse=True)
+
+
+def _flash_backward(q, k, v, out, do, lse, causal):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import \
+        attention_backward_reference
+    if q.is_cuda:
+        return fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                                       causal)
+    return attention_backward_reference(q, k, v, out, lse, do, causal)
+
+
+def _planted_faults(name, inputs, want, causal: bool, dtype: str) -> None:
+    """The backward's check must fail a wrong kernel at the path shape:
+    the plain backward with the output gradient of the last q tile
+    (``BLOCK_Q`` rows) zeroed, so dK and dV lose that tile, and with that
+    of the last head of every GQA group zeroed, so dK and dV lose that
+    head, must each miss ``ATTN_TOL`` in dK and in dV."""
+    from repro_torch.kernels.flash_attention.kernel import BLOCK_Q
+    from repro_torch.kernels.flash_attention.ref import \
+        attention_backward_reference
+    q, k, v, out, lse, do = inputs
+    G = q.shape[2] // k.shape[2]
+    late, head = do.clone(), do.clone()
+    late[:, -BLOCK_Q:] = 0
+    head[:, :, G - 1::G] = 0
+    for fault, d in (("the last q tile", late),
+                     ("the last head of each GQA group", head)):
+        bad = attention_backward_reference(q, k, v, out, lse, d, causal)
+        rel = [_rel_err(a, b) for a, b in zip(bad[1:], want[1:])]
+        print(f"{name}: planted fault, dK/dV without {fault}: rel_err dk "
+              f"{rel[0]:.3e} dv {rel[1]:.3e}, caught (> "
+              f"{ATTN_TOL[dtype]:.0e})")
+        check(min(rel) > ATTN_TOL[dtype],
+              f"{name}: the check misses dK/dV without {fault}: {rel}")
+
+
+def flash_backward_phase(device: str, cases=FLASH_BWD_CASES, *,
+                         time_it: bool) -> dict:
+    """The forward's lse (both routes) and the backward kernels against
+    the plain backward on the same inputs (q, k, v, the kernel's output
+    and lse, a seeded output gradient) for every case; at the path shape
+    the reference gradients' magnitudes, the planted faults the check
+    must catch (``_planted_faults``), the gradients through
+    ``flash_attention`` under autograd equal to the wrapper's bitwise,
+    and the times: the backward alone (eager and graph replay), the plain
+    backward, ``scaled_dot_product_attention``'s backward alone
+    (``library_ms``), and forward + backward under autograd of the port's
+    op and of SDPA (``fwd_bwd_ms``, ``library_fwd_bwd_ms``). Returns the
+    path case's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_reference)
+    record = None
+    for seed, (label, B, Sq, Skv, H, KV, D, dtype, causal) in \
+            enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(300 + seed)
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, s, n, D, generator=g,
+                                   device=device).to(dt)
+                       for s, n in ((Sq, H), (Skv, KV), (Skv, KV), (Sq, H)))
+        name = (f"flash_attention_backward {label:7s} B={B} Sq={Sq} "
+                f"Skv={Skv} H={H} KV={KV} D={D} causal={causal}")
+        out, lse = _flash_with_lse(q, k, v, causal)
+        _, want_lse = attention_reference(q, k, v, causal=causal,
+                                          return_lse=True)
+        _agree(f"{name} lse", lse, want_lse, dtype, LSE_TOL)
+        check(torch.equal(out, flash_attention(q, k, v, causal=causal)),
+              f"{name}: the output with lse differs from the output without")
+        got = _flash_backward(q, k, v, out, do, lse, causal)
+        want = attention_backward_reference(q, k, v, out, lse, do, causal)
+        errs = [_agree(f"{name} {part}", a, b, dtype)
+                for part, a, b in zip(("dq", "dk", "dv"), got, want)]
+        rec = {"max_abs_err": max(e["max_abs_err"] for e in errs),
+               "rel_err": max(e["rel_err"] for e in errs)}
+        if label != FLASH_BWD_PATH_CASE[0]:
+            continue
+        print(f"{name}: |ref| median / max " + ", ".join(
+            f"{part} {float(b.float().abs().median()):.3e} / "
+            f"{float(b.float().abs().max()):.3e}"
+            for part, b in zip(("dq", "dk", "dv"), want)))
+        _planted_faults(name, (q, k, v, out, lse, do), want, causal, dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        op = torch.autograd.grad(flash_attention(*leaves, causal=causal),
+                                 leaves, do)
+        check(all(torch.equal(a, b) for a, b in zip(op, got)),
+              f"{name}: gradients through the op differ from the wrapper's")
+        rec.update(flash_backward_bound(q, k, causal))
+        if time_it:
+            sets = _input_sets((q, k, v, out, do, lse), rec["bytes"])
+            kern = lambda *s: _flash_backward(*s, causal)      # noqa: E731
+            plain = lambda q, k, v, o, do, lse: \
+                attention_backward_reference(q, k, v, o, lse, do, causal)  # noqa: E731
+            grad_sets = [tuple(t.detach().clone().requires_grad_(True)
+                               for t in s[:3]) + (s[4],) for s in sets]
+            sdpa_sets = [tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                               for t in s[:3]) + (s[4].transpose(1, 2),)
+                         for s in sets]
+            # SDPA's backward alone: each set's forward kept with its graph
+            sdpa_bwd_sets = [(F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), q, k, v, do)
+                for q, k, v, do in sdpa_sets]
+
+            def port_fb(q, k, v, do):
+                return torch.autograd.grad(
+                    flash_attention(q, k, v, causal=causal), (q, k, v), do)
+
+            def sdpa_fb(q, k, v, do):
+                return torch.autograd.grad(F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True), (q, k, v),
+                    do)
+
+            def sdpa_b(out, q, k, v, do):
+                return torch.autograd.grad(out, (q, k, v), do,
+                                           retain_graph=True)
+
+            plain_ms = [_time_ms(plain, sets, 2)]
+            kern_ms = [_time_ms(kern, sets, 10)]
+            rec["library_ms"] = _time_ms(sdpa_b, sdpa_bwd_sets, 10)
+            rec["library_fwd_bwd_ms"] = _time_ms(sdpa_fb, sdpa_sets, 10)
+            rec["fwd_bwd_ms"] = _time_ms(port_fb, grad_sets, 10)
+            kern_ms.append(_time_ms(kern, sets, 10))
+            plain_ms.append(_time_ms(plain, sets, 2))
+            rec.update(ms=sum(kern_ms) / 2, plain_ms=sum(plain_ms) / 2,
+                       graph_ms=_time_ms(kern, sets, 10, graph=True),
+                       library_graph_ms=None)
+            print(f"flash_attention_backward {label} time: "
+                  f"{rec['ms']:.4f} ms/call eager, {rec['graph_ms']:.4f} ms "
+                  f"by CUDA graph replay, inputs cold in L2; bound "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                  f"({rec['bytes']} bytes, {rec['flops']} flop); plain "
+                  f"backward {rec['plain_ms']:.4f} ms; "
+                  f"scaled_dot_product_attention's backward "
+                  f"{rec['library_ms']:.4f} ms; forward + backward under "
+                  f"autograd: the port's flash_attention "
+                  f"{rec['fwd_bwd_ms']:.4f} ms, scaled_dot_product_attention "
+                  f"{rec['library_fwd_bwd_ms']:.4f} ms (eager)")
+        record = rec
+    return record
+
+
+def _move(tree, device):
+    from repro_torch.distributed.checkpoint import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
+                    layers: int = 2, batch: int = 1, seq: int = 256,
+                    seed: int = 21) -> dict:
+    """One f32 ``make_train_step`` of ``arch`` at full width cut to
+    ``layers`` layers, on ``device`` and on the CPU from the same params
+    (drawn on the CPU) and batch: the loss, the grad norm, every gradient
+    leaf (read through ``grad_hook``) and the updated params within
+    ``LM_PARITY_TOL``; on the device one ``flash_attention`` backward per
+    layer (and two forwards: the forward and the recompute). Returns the
+    errors."""
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import synthetic_lm_batch
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train parity: f32 matmuls must not run in TF32")
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    batch0 = synthetic_lm_batch(cfg.vocab_size, batch, seq, seed=seed,
+                                device="cpu")
+    out = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        p, b = _move(params, dev), _move(batch0, dev)
+        seen = []
+        step = make_train_step(cfg, grad_hook=lambda gr: seen.append(gr)
+                               or gr)
+        reset_counts()
+        t = time.perf_counter()
+        new, _, m = step(p, init_state(p), b)
+        loss = float(m["loss"])
+        secs = time.perf_counter() - t
+        out[dev] = (new, m, seen[0], counts(), loss, secs)
+        del p
+    (p_d, m_d, g_d, n_d, loss_d, s_d), (p_c, m_c, g_c, _, loss_c, s_c) = \
+        out[device], out["cpu"]
+    opt = AdamWConfig()
+    rel = {"loss": abs(loss_d - loss_c) / abs(loss_c),
+           "grad_norm": abs(float(m_d["grad_norm"]) - float(m_c["grad_norm"]))
+           / float(m_c["grad_norm"]),
+           "grad": max(float((a.cpu() - b).abs().max()
+                             / (b.abs().max() + 1e-30))
+                       for a, b in zip(tree_leaves(g_d), tree_leaves(g_c))),
+           "update_excess": _update_excess(p_d, p_c, g_d, g_c, params,
+                                           opt.lr, opt.eps)}
+    p_diff = max(float((a.cpu() - b).abs().max())
+                 for a, b in zip(tree_leaves(p_d), tree_leaves(p_c)))
+    print(f"train parity: {cfg.name} d={cfg.d_model} H={cfg.num_heads} "
+          f"KV={cfg.num_kv_heads} hd={cfg.head_dim} vocab={cfg.vocab_size}, "
+          f"{layers} layers, f32, B {batch} x S {seq}: {device} against cpu "
+          f"from the same params, loss {loss_d:.6f} / {loss_c:.6f} (rel "
+          f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
+          f"gradient leaf {rel['grad']:.2e} of its max, params max |diff| "
+          f"{p_diff:.2e} (excess over what the gradient differences allow "
+          f"{rel['update_excess']:.2e}); step {s_d:.3f} s on {device}, "
+          f"{s_c:.3f} s on cpu")
+    for key, tol in LM_PARITY_TOL.items():
+        check(rel[key] <= tol, f"train parity: {key} {rel[key]:.3e} > {tol}")
+    want = {name: 0 for name in COUNT_NAMES}
+    want["flash_attention"] = 2 * cfg.num_periods
+    want["flash_attention_backward"] = cfg.num_periods
+    check(device == "cpu" or n_d == want,
+          f"train parity: launches {n_d}, expected {want}")
+    print(f"train parity: launches " + ", ".join(
+        f"{k} {v}" for k, v in n_d.items() if v) + " ok")
+    return rel
+
+
+def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
+                  seq: int = 1024, steps: int = 8,
+                  profile: bool = True) -> dict:
+    """``arch`` at full width and depth: f32 master params from a seeded generator on the device, AdamW
+    defaults, ``steps`` steps of ``make_train_step`` (bf16 compute, remat)
+    on ``SyntheticTokenStream(vocab, batch, seq)``. Every loss finite, the
+    last below the first; per step two ``flash_attention`` forwards (the
+    forward and the recompute) and one backward per attention block, no
+    other kernel. Prints the step times, tokens/s and peak memory, then a
+    profiler window over one more step. The model is freed before
+    returning."""
+    import math
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticTokenStream
+    from repro_torch.train import init_state, make_train_step
+    cuda = device != "cpu"
+    cfg = get_config(arch)
+    t = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    opt_state = init_state(params)
+    step = make_train_step(cfg)
+    stream = SyntheticTokenStream(cfg.vocab_size, batch, seq, device=device)
+    batches = [stream.next() for _ in range(steps + 1)]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    n_params = M.param_count(cfg)
+    print(f"train setup: {cfg.name} {n_params} parameters (f32 masters, "
+          f"{cfg.dtype} compute), AdamW state "
+          f"{4 * 4 * n_params} B with the gradients, drawn in "
+          f"{time.perf_counter() - t:.1f} s")
+    attn = cfg.num_periods * (cfg.pattern.count("attn")
+                              + int(cfg.shared_attn_every_period))
+    per_step = {name: 0 for name in COUNT_NAMES}
+    per_step["flash_attention"] = 2 * attn
+    per_step["flash_attention_backward"] = attn
+    losses, walls = [], []
+    reset_counts()
+    for i, b in enumerate(batches[:steps]):
+        before = counts()
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        losses.append(float(m["loss"]))        # waits for the step
+        walls.append(time.perf_counter() - t)
+        after = counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == per_step, f"train step {i}: launches {got}, expected "
+                               f"{per_step}")
+        print(f"train step {i}: loss {losses[-1]:.4f} grad norm "
+              f"{float(m['grad_norm']):.4f} in {walls[-1]:.3f} s")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    warm = walls[1:] or walls
+    step_s = sum(warm) / len(warm)
+    print(f"train: {cfg.name} {steps} steps of {batch} x {seq} tokens, "
+          f"first {walls[0]:.3f} s, then {step_s:.3f} s a step "
+          f"({batch * seq / step_s:.1f} tokens/s), peak device memory "
+          + (f"{peak} B" if cuda else "not measured (cpu)")
+          + "; launches " + ", ".join(f"{k} {v}" for k, v in
+                                      launches.items() if v))
+    check(all(math.isfinite(x) for x in losses),
+          f"train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"train: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    rec = {"launches": launches, "losses": losses, "step_s": step_s,
+           "first_step_s": walls[0], "tokens_per_s": batch * seq / step_s,
+           "peak_bytes": peak}
+    if profile and cuda:
+        rec["profile"] = profile_train_step(step, params, opt_state,
+                                            batches[steps], step_s)
+    del params, opt_state
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def profile_train_step(step, params, opt_state, batch, step_s: float,
+                       top: int = 10) -> dict:
+    """``torch.profiler`` over one more train step: the device's kernel
+    time by name and its sum over the unprofiled step wall (the busy
+    share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = step(params, opt_state, batch)
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+    del out
+    kern = sorted(((e.key, e.device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda kv: -kv[1])
+    dev_ms = sum(ms for _, ms in kern)
+    print("train profile: one step, device kernel time "
+          + (f"{dev_ms:.3f} ms, busy share {dev_ms / 1e3 / step_s:.3f} of "
+             f"the unprofiled step" if kern else
+             "not measured (the profiler saw no device activity)"))
+    for name, ms in kern[:top]:
+        print(f"train profile: {ms:.3f} ms {name[:100]}")
+    flash = {tag: sum(ms for n, ms in kern if tag in n)
+             for tag in ("flash_bwd", "flash_attention_sm90",
+                         "flash_attention_kernel")}
+    print("train profile: flash_attention kernels " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in flash.items()))
+    return {"device_ms": dev_ms if kern else None, "top": kern[:top],
+            "flash_ms": flash}
+
+
+def launcher_phase(device: str, *, steps: int = 12, every: int = 4,
+                   fail_at: int = 6) -> dict:
+    """``repro_torch.launch.train`` (its ``main``'s run) on qwen3-1.7b's
+    smoke config with a failure injected at step ``fail_at``: one failure
+    handled, one restore from the step-``every`` checkpoint, the final
+    checkpoint written and restored equal to the final state."""
+    import tempfile
+    import torch
+    from repro_torch.distributed.checkpoint import flatten, latest_step, restore
+    from repro_torch.launch import train as launch
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        losses, state, rep, ckpt = launch.run(
+            ["--arch", "qwen3-1.7b", "--smoke", "--steps", str(steps),
+             "--checkpoint-every", str(every), "--inject-failure-at",
+             str(fail_at), "--checkpoint-dir", td, "--device", device])
+        secs = time.perf_counter() - t
+        check((rep.failures_handled, rep.restores, rep.final_step)
+              == (1, 1, steps),
+              f"launcher: failures {rep.failures_handled}, restores "
+              f"{rep.restores}, final step {rep.final_step}")
+        redone = fail_at - (fail_at // every) * every
+        check(len(losses) == steps + redone,
+              f"launcher: {len(losses)} losses for {steps} steps")
+        check(latest_step(str(ckpt.root)) == steps,
+              f"launcher: latest checkpoint {latest_step(str(ckpt.root))}")
+        got, manifest = restore(ckpt.dir_for(steps), state)
+        same = all(torch.equal(a, b) for a, b in zip(flatten(got),
+                                                     flatten(state)))
+        check(same and manifest["step"] == steps,
+              "launcher: the final checkpoint does not restore the state")
+    print(f"launcher: {steps} steps, failure at {fail_at} handled, restored "
+          f"from step {(fail_at // every) * every}, final checkpoint at step "
+          f"{steps} restored equal on {device}, {secs:.1f} s ok")
+    return {"seconds": secs, "losses": losses}
+
+
+def guard_phase(device: str) -> None:
+    """The four forward-only kernels under autograd: on a card each
+    refuses the call (``NotImplementedError``, nothing counted); on the
+    CPU their plain versions differentiate."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.fleet_mlp import ops as fleet
+    from repro_torch.kernels.mamba2_scan import ops as ssd
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    g = torch.Generator(device=device).manual_seed(31)
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=g,
+                           device=device).requires_grad_(True)
+
+    def fixed(*shape, lo=0.0, hi=1.0):
+        return torch.rand(*shape, generator=g, device=device) * (hi - lo) + lo
+
+    calls = {
+        "decode_attention": lambda: dec.decode_attention(
+            leaf(2, 4, 64), leaf(2, 128, 2, 64), leaf(2, 128, 2, 64),
+            torch.tensor([5, 128], dtype=torch.int32, device=device)),
+        "fleet_mlp": lambda: fleet.fleet_mlp(
+            leaf(4, 2, 8), [leaf(4, 8, 16), leaf(4, 16, 1)],
+            [leaf(4, 16), leaf(4, 1)]),
+        "ssd_scan": lambda: ssd.ssd_scan(
+            leaf(1, 64, 2, 64), fixed(1, 64, 2, lo=1e-3, hi=0.1),
+            -fixed(2, lo=1.0, hi=2.0), leaf(1, 64, 1, 64),
+            leaf(1, 64, 1, 64), fixed(2))[0],
+        "wkv6_scan": lambda: wkv.wkv6_scan(
+            leaf(1, 64, 2, 64), leaf(1, 64, 2, 64), leaf(1, 64, 2, 64),
+            fixed(1, 64, 2, 64, lo=0.4, hi=0.999), leaf(2, 64))[0],
+    }
+    reset_counts()
+    for name, call in calls.items():
+        if device == "cpu":
+            call().sum().backward()
+            continue
+        try:
+            call()
+        except NotImplementedError as e:
+            check(name in str(e) and "Queue 1 item 4b" in str(e),
+                  f"guard: {name} raised {e}")
+        else:
+            check(False, f"guard: {name} returned a result under autograd "
+                         "on the card")
+    want = {n: (1 if device == "cpu" and n in calls else 0)
+            for n in COUNT_NAMES}
+    check(counts() == want, f"guard: launches {counts()}, expected {want}")
+    print(f"guard: {', '.join(calls)} on {device} under autograd: "
+          + ("refused (NotImplementedError), nothing launched ok"
+             if device != "cpu" else "the plain versions differentiate ok"))
+
+
 # where each kernel's TPU twin is defined (file:line of the function that
 # reaches pl.pallas_call)
 REPLACES = {
@@ -1966,28 +2490,35 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:53",
     "ssd_scan": "src/repro/kernels/mamba2_scan/kernel.py:63",
     "wkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:60",
+    # no Pallas kernel defines a VJP: the reference trains through
+    # jax.grad of attention_xla, whose backward XLA compiles
+    "flash_attention_backward": "src/repro/kernels/flash_attention/xla.py:14",
 }
-# the package directory of each kernel under src/repro_torch/kernels
-PACKAGE = {"ssd_scan": "mamba2_scan", "wkv6_scan": "rwkv6_scan"}
+# the source of each row under src/repro_torch/kernels
+SOURCE = {"fleet_mlp": "fleet_mlp/csrc/fleet_mlp.cu",
+          "flash_attention": "flash_attention/csrc/flash_attention.cu",
+          "decode_attention": "decode_attention/csrc/decode_attention.cu",
+          "ssd_scan": "mamba2_scan/csrc/ssd_scan.cu",
+          "wkv6_scan": "rwkv6_scan/csrc/wkv6_scan.cu",
+          "flash_attention_backward": "flash_attention/csrc/flash_attention.cu"}
 
 
 def kernel_line(records: dict, launches: dict) -> dict:
     """The ``{"kernels": [...]}`` record: for each kernel its timed path
     case (``records``) and its launches on its main path (``launches``)."""
     rows = []
-    for name in KERNEL_NAMES:
+    for name in COUNT_NAMES:
         rec = records[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{PACKAGE.get(name, name)}/"
-                      f"csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             **{key: rec.get(key) for key in
                ("library_ms", "graph_ms", "library_graph_ms", "f32_ms",
-                "f32_graph_ms")}})
+                "f32_graph_ms", "fwd_bwd_ms", "library_fwd_bwd_ms")}})
     return {"kernels": rows}
 
 
@@ -2036,19 +2567,27 @@ def main() -> int:
                "flash_attention": flash_phase("cuda", time_it=True),
                "decode_attention": decode_phase("cuda", time_it=True),
                "ssd_scan": ssd_phase("cuda", time_it=True),
-               "wkv6_scan": wkv_phase("cuda", time_it=True)}
+               "wkv6_scan": wkv_phase("cuda", time_it=True),
+               "flash_attention_backward":
+                   flash_backward_phase("cuda", time_it=True)}
     train_parity("cuda")
     fleet_path = forecast_flow("cuda")
     durable_serverless_flow("cuda", fleet_path)
     qwen = lm_path("qwen3-1.7b", "cuda")
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
+    lm_train_parity("cuda")
+    train = lm_train_path("cuda")
+    launcher_phase("cuda")
+    guard_phase("cuda")
     # each kernel's launches on the path of the slice that ported it
     launches = {"fleet_mlp": fleet_path["launches"],
                 "flash_attention": qwen["prefill"]["launches"]["flash_attention"],
                 "decode_attention": qwen["serve"]["launches"]["decode_attention"],
                 "ssd_scan": zamba["prefill"]["launches"]["ssd_scan"],
-                "wkv6_scan": rwkv["prefill"]["launches"]["wkv6_scan"]}
+                "wkv6_scan": rwkv["prefill"]["launches"]["wkv6_scan"],
+               "flash_attention_backward":
+                   train["launches"]["flash_attention_backward"]}
     print(f"smoke: {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(kernel_line(records, launches)))
     print(json.dumps({"ok": True, "device": {

@@ -7,28 +7,31 @@ Public surface:
     build_param_specs(cfg)            ParamSpec tree (init & counting)
     init_params(cfg, generator, ...)  materialised params on a device
     forward(cfg, params, batch, ...)  logits (train/prefill) or hidden
+    train_loss(cfg, params, batch)    scalar CE (sequence-chunked for long S)
     decode_state_specs(cfg, B, S)     TensorSpec tree of the decode state
     init_decode_state(cfg, B, S, ...) zeroed decode state on a device
     decode_step(cfg, params, state, batch)  (logits, state)
     param_count(cfg)                  exact parameter count
 
 The ``attn_moe`` block kind raises ``NotImplementedError`` naming the
-slice of ROADMAP.md that ports it. Training (``chunked_ce``,
-``train_loss``) waits for the training slice.
+slice of ROADMAP.md that ports it. Under autograd, ``forward`` in modes
+"train" and "hidden" recomputes each period in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scan body does. One card: the reference's shard hooks wait for the
+multi-GPU slice.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from . import layers, mamba2, rwkv6
 from .params import (ParamSpec, init_tree, param_count as _spec_count,
-                     stack_specs, tree_map)
-
-
+                     stack_specs, tree_leaves, tree_map)
 
 class TensorSpec(NamedTuple):
     shape: Tuple[int, ...]
@@ -130,9 +133,15 @@ def _unembed(cfg: ModelConfig, params, h):
     return h @ w
 
 
-def _period(blocks, i: int):
-    """Period ``i``'s parameters: views into the stacked leaves."""
-    return tree_map(lambda t: t[i], blocks)
+def _periods(blocks) -> list:
+    """Every period's parameters, views from one ``unbind`` of each stacked
+    leaf. Under autograd the unbind's backward stacks the periods'
+    gradients once; indexing each period (``t[i]``) would instead build a
+    zero-filled stack-sized gradient per period and sum them, work that
+    grows with the square of the depth."""
+    slices = tree_map(lambda t: t.unbind(0), blocks)
+    n = tree_leaves(blocks)[0].shape[0]
+    return [tree_map(lambda s: s[i], slices) for i in range(n)]
 
 
 # ------------------------------------------------------------------ forward
@@ -176,12 +185,30 @@ def _apply_shared(cfg, p, h, emb0, positions):
     return h, {"k": k, "v": v}
 
 
-def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
+def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache):
+    """One period: its blocks in pattern order, then Zamba2's shared block.
+    Returns (h, the period's caches or {})."""
+    caches = {}
+    for j, kind in enumerate(cfg.pattern):
+        h, cache = _apply_block(cfg, kind, p[f"pos{j}"], h, positions)
+        if want_cache:
+            caches[f"pos{j}"] = cache
+    if cfg.shared_attn_every_period:
+        h, sc = _apply_shared(cfg, shared_p, h, emb0, positions)
+        if want_cache:
+            caches["shared"] = sc
+    return h, caches
+
+
+def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
+            remat: bool = True):
     """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, {});
     "prefill" -> (last-token logits (B,V) f32, decode_state whose caches
     are the per-period caches stacked over periods: k/v (periods, B, S,
     KV, hd), Mamba2's conv/ssd and RWKV6's x_tm/x_cm/wkv states, Zamba2's
-    shared k/v); "hidden" -> (final hidden states, {})."""
+    shared k/v); "hidden" -> (final hidden states, {}). With ``remat``,
+    in modes "train" and "hidden" under autograd, each period keeps only
+    its input for the backward and is recomputed there."""
     _check_supported(cfg)
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -200,18 +227,18 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
     shared_p = params.get("shared")
 
     want_cache = mode == "prefill"
+    recompute = remat and mode in ("train", "hidden") \
+        and torch.is_grad_enabled()
     per_period = []
-    for i in range(cfg.num_periods):
-        p = _period(params["blocks"], i)
-        caches = {}
-        for j, kind in enumerate(cfg.pattern):
-            h, cache = _apply_block(cfg, kind, p[f"pos{j}"], h, positions)
-            if want_cache:
-                caches[f"pos{j}"] = cache
-        if cfg.shared_attn_every_period:
-            h, sc = _apply_shared(cfg, shared_p, h, emb0, positions)
-            if want_cache:
-                caches["shared"] = sc
+    for p in _periods(params["blocks"]):
+        if recompute:
+            h = checkpoint(
+                lambda h, p=p: _apply_period(cfg, p, h, positions, emb0,
+                                             shared_p, False)[0],
+                h, use_reentrant=False)
+            continue
+        h, caches = _apply_period(cfg, p, h, positions, emb0, shared_p,
+                                  want_cache)
         per_period.append(caches)
 
     h = layers.apply_norm(cfg, params["final_norm"], h)
@@ -226,6 +253,55 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
               for key, leaves in per_period[0].items()}
     lengths = torch.full((B,), S, dtype=torch.int32, device=device)
     return logits, {"caches": caches, "lengths": lengths}
+
+
+def _ce_from_logits(logits, labels):
+    """Summed next-token cross-entropy of f32 logits (..., V)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(lse - ll)
+
+
+def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int):
+    """Sequence-chunked mean cross-entropy: the (B, S, V) f32 logits are
+    never materialised. Each S/chunks slice computes its own logits and,
+    under autograd, recomputes them in the backward."""
+    B, S, _ = h.shape
+    csz = S // chunks
+
+    def one(hc, lc):
+        return _ce_from_logits(_unembed(cfg, params, hc).to(torch.float32),
+                               lc)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for ci in range(chunks):
+        hc = h[:, ci * csz:(ci + 1) * csz]
+        lc = labels[:, ci * csz:(ci + 1) * csz]
+        ce = checkpoint(one, hc, lc, use_reentrant=False) \
+            if torch.is_grad_enabled() else one(hc, lc)
+        total = total + ce
+    return total / (B * S)
+
+
+def train_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
+               loss_chunks: int = 0):
+    """Mean next-token cross-entropy of ``batch["labels"]``. Returns
+    (loss, {"loss", "ce"}). ``loss_chunks`` 0 chunks long sequences
+    (``max(1, min(16, S // 512))``); the count is lowered until it
+    divides S. More than one chunk goes through ``chunked_ce``."""
+    labels = batch["labels"]
+    S = labels.shape[1]
+    if loss_chunks == 0:
+        loss_chunks = max(1, min(16, S // 512))
+    while S % loss_chunks:
+        loss_chunks -= 1
+    if loss_chunks > 1:
+        h, _ = forward(cfg, params, batch, mode="hidden", remat=remat)
+        ce = chunked_ce(cfg, params, h, labels, chunks=loss_chunks)
+    else:
+        logits, _ = forward(cfg, params, batch, mode="train", remat=remat)
+        ce = _ce_from_logits(logits, labels) / labels.numel()
+    return ce, {"loss": ce, "ce": ce}
 
 
 # ------------------------------------------------------------------ decode
@@ -342,8 +418,7 @@ def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None):
     if "ln0" in params:
         h = layers.apply_norm(cfg, params["ln0"], h)
     emb0 = h
-    for layer in range(cfg.num_periods):
-        p = _period(params["blocks"], layer)
+    for layer, p in enumerate(_periods(params["blocks"])):
         for j, kind in enumerate(cfg.pattern):
             h = _decode_block(cfg, kind, p[f"pos{j}"], h, caches[f"pos{j}"],
                               layer, lengths, rows)

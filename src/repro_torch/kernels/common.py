@@ -6,7 +6,10 @@ A kernel's public op takes tensors and routes them by where they lie:
     cuda   the hand-written kernel — or the op raises
 
 Any other device raises. There is no switch that sends a CUDA tensor to
-the plain version: a card either runs the kernel or the call fails.
+the plain version: a card either runs the kernel or the call fails. A
+kernel without a backward kernel refuses, on a card, a call that autograd
+would record (``forbid_autograd``), rather than return a result that
+carries no gradient.
 """
 from __future__ import annotations
 
@@ -38,3 +41,17 @@ def resolve_device(device) -> torch.device:
                            "is available (pass device='cpu' to run on the "
                            "CPU)")
     return dev
+
+
+def forbid_autograd(name: str, roadmap_item: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when autograd would record a kernel
+    call: grad mode is on and one of ``tensors`` requires grad. Called by
+    the ops whose kernels have no backward yet, on their kernel route only
+    (their plain versions differentiate)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet, so its output "
+            f"would carry no gradient; the backward comes with "
+            f"{roadmap_item}. Call it under torch.no_grad() or on detached "
+            "tensors.")

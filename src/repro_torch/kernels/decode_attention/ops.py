@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import KERNEL, resolve
+from ..common import KERNEL, forbid_autograd, resolve
 from .kernel import decode_attention_cuda
 from .ref import decode_attention_reference
 
@@ -45,10 +45,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B,H,D), caches: (B,S,KV,D), lengths: (B,) -> (B,H,D) in
     ``q.dtype``; cache slots at and past ``lengths[b]`` are masked. CPU
     tensors take the plain version, CUDA tensors the kernel (or the call
-    raises); any other device raises."""
+    raises); any other device raises. On a card, a call that autograd
+    would record raises: the kernel has no backward."""
     global _invocations
     _check_shapes(q, k_cache, v_cache, lengths)
     if resolve(q, k_cache, v_cache, lengths) == KERNEL:
+        forbid_autograd("decode_attention", "ROADMAP.md Queue 1 item 4b",
+                        q, k_cache, v_cache)
         out = decode_attention_cuda(q, k_cache, v_cache, lengths)
     else:
         out = decode_attention_reference(q, k_cache, v_cache, lengths)

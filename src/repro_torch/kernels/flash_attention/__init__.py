@@ -1,1 +1,2 @@
-from .ops import flash_attention, invocation_count, reset_invocation_count  # noqa: F401
+from .ops import (backward_invocation_count, flash_attention,  # noqa: F401
+                  invocation_count, reset_invocation_count)

@@ -1,10 +1,14 @@
-// Blocked GQA attention with an online softmax, forward only, for Hopper
-// (sm_90a). q (B, Sq, H, D), k/v (B, Skv, KV, D), out (B, Sq, H, D), all
-// contiguous and of one type (f32 or bf16); scores, softmax and the output
-// sum in f32, rounded to the input type once at the end.
+// Blocked GQA attention with an online softmax for Hopper (sm_90a): the
+// forward and, for training, its backward. q (B, Sq, H, D), k/v (B, Skv,
+// KV, D), out (B, Sq, H, D), all contiguous and of one type (f32 or bf16);
+// scores, softmax and the output sum in f32, rounded to the input type once
+// at the end. On request the forward also writes each row's log-sum-exp of
+// the scaled scores, lse (B, H, Sq) in f32, which the backward reads.
 //
 // Replaces the TPU kernel in src/repro/kernels/flash_attention/kernel.py
-// (flash_attention_pallas and its body _kernel).
+// (flash_attention_pallas and its body _kernel); the backward replaces
+// what jax.grad compiles from src/repro/kernels/flash_attention/xla.py
+// (attention_xla), as the Pallas kernel defines no VJP.
 //
 // Semantics (both routes): query head h reads KV head h / G (G = H / KV),
 // the grouping of q.reshape(B, S, KV, G, D). With `causal`, key u is
@@ -84,6 +88,18 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// eight bf16 values (16 bytes) as f32
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    out[2 * j] = f.x;
+    out[2 * j + 1] = f.y;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -107,8 +123,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int Sq, int Skv, int H, int KV, int D, int causal,
-                           float scale) {
+                           float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                           int D, int causal, float scale) {
   extern __shared__ float smem[];
   const int ldq = D + 1;
   const int ldk = kBlockK + 1;
@@ -243,6 +259,9 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    // a row with no visible key gets +inf, so the backward's p is 0
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     T* ob = out + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
 #pragma unroll
     for (int oc = 0; oc < kOutCols; ++oc) {
@@ -259,8 +278,8 @@ size_t smem_bytes(int D) {
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int Sq, int Skv, int H, int KV, int D, int causal, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int Sq, int Skv, int H, int KV, int D, int causal, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
@@ -270,7 +289,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, KV, D, causal, scale);
+      static_cast<T*>(out), lse, Sq, Skv, H, KV, D, causal, scale);
   return cudaGetLastError();
 }
 
@@ -285,6 +304,7 @@ constexpr int kQAtomBytes = 64 * 64 * 2;        // q box: 64 rows x 64 bf16 colu
 constexpr int kKvAtomBytes = kWgBlockK * 64 * 2;  // k / v box: 128 rows x 64 columns
 constexpr int kConsumerThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -435,8 +455,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
                                 const __grid_constant__ CUtensorMap tm_v,
-                                __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KV,
-                                int D, int causal, float scale_log2) {
+                                __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                                int Skv, int H, int KV, int D, int causal, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles sit on 1024-byte boundaries of the shared window
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -639,6 +659,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    // log-sum-exp of the scaled scores: the running max is a raw score
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && row < Sq)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+          l[r] > 0.f ? (m[r] * scale_log2 + log2f(l[r])) * kLn2 : INFINITY;
   }
   // O goes out through this warpgroup's q tile (no longer read) in the
   // same 128-byte-swizzled atoms, so that the global stores are 16-byte
@@ -714,8 +739,8 @@ bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D, int h
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                        int Skv, int H, int KV, int D, int causal, float scale,
+cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int B, int Sq, int Skv, int H, int KV, int D, int causal, float scale,
                         cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -730,8 +755,782 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kWgBlockQ - 1) / kWgBlockQ, H, B);
-  kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv,
-                                             H, KV, D, causal, scale * kLog2e);
+  kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Sq,
+                                             Skv, H, KV, D, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward, f32 route: CUDA-core f32 FMAs on tiles staged as f32 in shared
+// memory, the f32 forward's 64 x 64 tiles and 256 threads (each thread a
+// 4 x 4 patch of a score tile and 4 rows x 8 columns of an output tile).
+// (The bf16 route, below, runs the same passes on the tensor cores.)
+//
+// With P = exp(scale * Q K^T - lse) (masked entries 0) and dO the output's
+// gradient:
+//   delta = rowsum(dO o O)                     (preprocess, per query row)
+//   dV    = P^T dO                              (dK/dV kernel)
+//   dS    = P o (dO V^T - delta)
+//   dK    = scale * dS^T Q                      (dK/dV kernel)
+//   dQ    = scale * dS K                        (dQ kernel)
+// dK and dV sum over the G query heads of their KV head inside one block,
+// and dQ over the key tiles inside another: every output element is summed
+// by one thread in a fixed order, so the gradients are deterministic (no
+// atomics). P is recomputed from q, k and lse in both kernels.
+//
+// What bounds it on this card: operations. Its products are 2.5x the
+// forward's (five S^2 D products against two; the recomputed Q K^T and
+// dO V^T make seven). The f32 route does them in f32 FMAs at a fraction
+// of the CUDA cores' rate (shared-memory loads: 16 for every 32 FMAs): f32
+// is held to 2e-5, which the tensor cores' TF32 cannot meet, and no model
+// path trains attention in f32 on the card. The bf16 route (the training
+// path) runs them on the tensor cores by mma.sync; wgmma, TMA and a
+// pipelined ring are later work.
+
+constexpr int kBwdLd = kBlockQ + 1;  // row stride of a transposed tile (keys or q rows)
+static_assert(kBlockQ == kBlockK, "the backward stages q and key tiles alike");
+
+// delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp per row
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                                float* __restrict__ delta, int B, int Sq, int H, int D) {
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  const long long r = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (r >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const size_t base = static_cast<size_t>(r) * D;  // rows of o are (b, t, h)
+  float acc = 0.f;
+  for (int d8 = 8 * lane; d8 < D; d8 += 8 * 32) {
+    float a[8], g[8];
+    load8(o + base + d8, a);
+    load8(dout + base + d8, g);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = fmaf(a[j], g[j], acc);
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % H);
+    const long long bt = r / H;
+    const int t = static_cast<int>(bt % Sq);
+    const int b = static_cast<int>(bt / Sq);
+    delta[(static_cast<size_t>(b) * H + h) * Sq + t] = acc;
+  }
+}
+
+// `rows` rows of a (seq, heads, D) slab from row r0 into shared memory,
+// zero past `limit`: row-major [row][D + 1], or transposed [d][kBwdLd]
+template <typename T, bool kTransposed>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, size_t row_stride, int r0,
+                                           int limit, int D) {
+  const int chunks = D / 8;
+  for (int i = threadIdx.x; i < kBlockQ * chunks; i += kThreads) {
+    const int r = i / chunks;
+    const int d8 = (i % chunks) * 8;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < limit) load8(src + static_cast<size_t>(r0 + r) * row_stride + d8, x);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (kTransposed)
+        dst[(d8 + j) * kBwdLd + r] = x[j];
+      else
+        dst[r * (D + 1) + d8 + j] = x[j];
+    }
+  }
+}
+
+// One block per (64-key tile, KV head, batch row): dK and dV of the tile,
+// summed over the G query heads of the KV head and the q tiles that the
+// causal mask lets see the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                          int D, int causal, float scale) {
+  extern __shared__ float smem[];
+  const int ldr = D + 1;
+  float* Ks = smem;                  // [kBlockK][ldr]
+  float* Vs = Ks + kBlockK * ldr;    // [kBlockK][ldr]
+  float* Qt = Vs + kBlockK * ldr;    // [D][kBwdLd], q rows as columns
+  float* dOt = Qt + D * kBwdLd;      // [D][kBwdLd]
+  float* Ps = dOt + D * kBwdLd;      // [kBlockK][kBwdLd], P^T of the pair of tiles
+  float* dSs = Ps + kBlockK * kBwdLd;  // [kBlockK][kBwdLd], dS^T
+  float* lse_s = dSs + kBlockK * kBwdLd;  // [kBlockQ]
+  float* delta_s = lse_s + kBlockQ;       // [kBlockQ]
+
+  const int k0 = blockIdx.x * kBlockK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int off = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // q columns tx + 16 j; output columns tx + 16 c
+  const int ty = tid / 16;  // keys ty + 16 i
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+
+  stage_tile<T, false>(Ks, k + static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D,
+                       kv_stride, k0, Skv, D);
+  stage_tile<T, false>(Vs, v + static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D,
+                       kv_stride, k0, Skv, D);
+
+  float dk_acc[kRows][kOutCols], dv_acc[kRows][kOutCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kOutCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  // the first q tile with a row that sees key k0: row t sees k0 when t >= k0 - off
+  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
+  const int first = causal && k0 - off > 0 ? (k0 - off) / kBlockQ : 0;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const size_t head = static_cast<size_t>(h) * D;
+    const T* qb = q + static_cast<size_t>(b) * Sq * q_stride + head;
+    const T* gb = dout + static_cast<size_t>(b) * Sq * q_stride + head;
+    const float* lse_b = lse + (static_cast<size_t>(b) * H + h) * Sq;
+    const float* delta_b = delta + (static_cast<size_t>(b) * H + h) * Sq;
+    for (int qt = first; qt < nq; ++qt) {
+      const int q0 = qt * kBlockQ;
+      __syncthreads();  // the previous pair's tiles are no longer read
+      stage_tile<T, true>(Qt, qb, q_stride, q0, Sq, D);
+      stage_tile<T, true>(dOt, gb, q_stride, q0, Sq, D);
+      for (int i = tid; i < kBlockQ; i += kThreads) {
+        const bool in = q0 + i < Sq;
+        lse_s[i] = in ? lse_b[q0 + i] : INFINITY;  // rows past Sq: p = 0
+        delta_s[i] = in ? delta_b[q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      float s[kRows][kRows], dp[kRows][kRows];  // [key][q row]
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float kk[kRows], vv[kRows], qq[kRows], gg[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          kk[i] = Ks[(ty + 16 * i) * ldr + d];
+          vv[i] = Vs[(ty + 16 * i) * ldr + d];
+          qq[i] = Qt[d * kBwdLd + tx + 16 * i];  // q row tx + 16 i
+          gg[i] = dOt[d * kBwdLd + tx + 16 * i];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            s[i][j] = fmaf(kk[i], qq[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], gg[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int key = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const int qi = tx + 16 * j;
+          const bool visible = key < Skv && (!causal || key <= q0 + qi + off);
+          const float p = visible ? expf(fmaf(s[i][j], scale, -lse_s[qi])) : 0.f;
+          Ps[(ty + 16 * i) * kBwdLd + qi] = p;
+          dSs[(ty + 16 * i) * kBwdLd + qi] = p * (dp[i][j] - delta_s[qi]);
+        }
+      }
+      __syncthreads();
+
+      for (int t = 0; t < kBlockQ; ++t) {
+        float p[kRows], ds[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          p[i] = Ps[(ty + 16 * i) * kBwdLd + t];
+          ds[i] = dSs[(ty + 16 * i) * kBwdLd + t];
+        }
+#pragma unroll
+        for (int c = 0; c < kOutCols; ++c) {
+          const int d = tx + 16 * c;
+          if (d < D) {
+            const float go = dOt[d * kBwdLd + t];
+            const float qv = Qt[d * kBwdLd + t];
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              dv_acc[i][c] = fmaf(p[i], go, dv_acc[i][c]);
+              dk_acc[i][c] = fmaf(ds[i], qv, dk_acc[i][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= Skv) continue;
+    const size_t at = (static_cast<size_t>(b) * Skv + key) * kv_stride + static_cast<size_t>(kvh) * D;
+#pragma unroll
+    for (int c = 0; c < kOutCols; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        dk[at + d] = from_f32<T>(dk_acc[i][c] * scale);
+        dv[at + d] = from_f32<T>(dv_acc[i][c]);
+      }
+    }
+  }
+}
+
+// One block per (64-row q tile, query head, batch row): dQ of the tile,
+// summed over the key tiles its rows see. The q tiles with the most keys
+// are launched first, as in the forward.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, int Sq, int Skv, int H, int KV, int D, int causal,
+                        float scale) {
+  extern __shared__ float smem[];
+  const int ldr = D + 1;
+  float* Qs = smem;                  // [kBlockQ][ldr]
+  float* dOs = Qs + kBlockQ * ldr;   // [kBlockQ][ldr]
+  float* Kt = dOs + kBlockQ * ldr;   // [D][kBwdLd], keys as columns
+  float* Vt = Kt + D * kBwdLd;       // [D][kBwdLd]
+  float* dSs = Vt + D * kBwdLd;      // [kBlockQ][kBwdLd]
+
+  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int off = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // keys tx + 16 j; output columns tx + 16 c
+  const int ty = tid / 16;  // q rows ty + 16 i
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t qoff = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
+  const T* kb = k + static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
+  const T* vb = v + static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
+
+  stage_tile<T, false>(Qs, q + qoff, q_stride, q0, Sq, D);
+  stage_tile<T, false>(dOs, dout + qoff, q_stride, q0, Sq, D);
+  float lse_r[kRows], delta_r[kRows], dq_acc[kRows][kOutCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + row;
+    lse_r[i] = row < Sq ? lse[at] : INFINITY;  // rows past Sq: p = 0
+    delta_r[i] = row < Sq ? delta[at] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kOutCols; ++c) dq_acc[i][c] = 0.f;
+  }
+
+  const int kv_end = causal ? min(Skv, q0 + kBlockQ + off) : Skv;
+  const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile's Kt / Vt / dSs are no longer read
+    stage_tile<T, true>(Kt, kb, kv_stride, k0, Skv, D);
+    stage_tile<T, true>(Vt, vb, kv_stride, k0, Skv, D);
+    __syncthreads();
+
+    float s[kRows][kCols], dp[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qq[kRows], gg[kRows], kk[kCols], vv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        qq[i] = Qs[(ty + 16 * i) * ldr + d];
+        gg[i] = dOs[(ty + 16 * i) * ldr + d];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        kk[j] = Kt[d * kBwdLd + tx + 16 * j];
+        vv[j] = Vt[d * kBwdLd + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          s[i][j] = fmaf(qq[i], kk[j], s[i][j]);
+          dp[i][j] = fmaf(gg[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const bool visible = key < Skv && (!causal || key <= row + off);
+        const float p = visible ? expf(fmaf(s[i][j], scale, -lse_r[i])) : 0.f;
+        dSs[(ty + 16 * i) * kBwdLd + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+      }
+    }
+    __syncthreads();
+
+    for (int c0 = 0; c0 < kBlockK; ++c0) {
+      float ds[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) ds[i] = dSs[(ty + 16 * i) * kBwdLd + c0];
+#pragma unroll
+      for (int c = 0; c < kOutCols; ++c) {
+        const int d = tx + 16 * c;
+        if (d < D) {
+          const float kv = Kt[d * kBwdLd + c0];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) dq_acc[i][c] = fmaf(ds[i], kv, dq_acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= Sq) continue;
+    T* out = dq + qoff + static_cast<size_t>(row) * q_stride;
+#pragma unroll
+    for (int c = 0; c < kOutCols; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) out[d] = from_f32<T>(dq_acc[i][c] * scale);
+    }
+  }
+}
+
+size_t bwd_dkdv_smem_bytes(int D) {
+  return sizeof(float) * (2 * static_cast<size_t>(kBlockK) * (D + 1) +
+                          2 * static_cast<size_t>(D) * kBwdLd +
+                          2 * static_cast<size_t>(kBlockK) * kBwdLd + 2 * kBlockQ);
+}
+
+size_t bwd_dq_smem_bytes(int D) {
+  return sizeof(float) * (2 * static_cast<size_t>(kBlockQ) * (D + 1) +
+                          2 * static_cast<size_t>(D) * kBwdLd +
+                          static_cast<size_t>(kBlockQ) * kBwdLd);
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                            void* dv, int B, int Sq, int Skv, int H, int KV, int D, int causal,
+                            float scale, cudaStream_t stream) {
+  const size_t smem_kv = bwd_dkdv_smem_bytes(D);
+  const size_t smem_q = bwd_dq_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* gp = static_cast<const T*>(dout);
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  const int warps = kThreads / 32;
+  flash_bwd_preprocess_kernel<T><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0,
+                                   stream>>>(static_cast<const T*>(o), gp, delta, B, Sq, H, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((Skv + kBlockK - 1) / kBlockK, KV, B);
+  flash_bwd_dkdv_kernel<T><<<grid_kv, kThreads, smem_kv, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, KV, D,
+      causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((Sq + kBlockQ - 1) / kBlockQ, H, B);
+  flash_bwd_dq_kernel<T><<<grid_q, kThreads, smem_q, stream>>>(qp, kp, vp, gp, lse, delta,
+                                                               static_cast<T*>(dq), Sq, Skv, H, KV,
+                                                               D, causal, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 route: the same three passes with the four S^2-sized
+// products of each kernel on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 accumulation). 4 warps a block, each warp 16 rows (keys
+// in dK/dV, q rows in dQ) against a 64-row tile of the other side; q, k,
+// v and dO are staged as bf16 in shared memory by cp.async (rows padded
+// to 272 bytes, so ldmatrix's eight row addresses fall in eight bank
+// groups; columns past D are zeros). P and dS are rounded to bf16 once, as
+// the A operands of dV += P^T dO, dK += dS^T Q and dQ += dS K (the dK/dV
+// kernel forms dS from the rounded P); scores, exponentials and the sums
+// stay f32. Deterministic as above: no atomics.
+
+constexpr int kTcThreads = 128;
+constexpr int kTcLd = kMaxHeadDim + 8;       // bf16 row stride of a staged tile
+constexpr int kTcTileElems = kBlockQ * kTcLd;
+constexpr int kTcSmemBytes = 4 * kTcTileElems * 2 + 2 * kBlockQ * 4;  // + lse, delta
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// ldmatrix lane addresses (lane l) in a staged tile:
+//  A operand, 16 x 16 at (r0, c0) of a tile stored [m][k]
+__device__ __forceinline__ int tc_a(int r0, int c0, int l) {
+  return (r0 + (l & 15)) * kTcLd + c0 + ((l >> 4) << 3);
+}
+//  B operands of two n8 tiles (n0 .. n0 + 15) at k0 of a tile stored [n][k]
+__device__ __forceinline__ int tc_b(int n0, int k0, int l) {
+  return (n0 + (l & 7) + ((l >> 4) << 3)) * kTcLd + k0 + (((l >> 3) & 1) << 3);
+}
+//  B operands of two n8 tiles at (k0, n0) of a tile stored [k][n] (.trans)
+__device__ __forceinline__ int tc_bt(int k0, int n0, int l) {
+  return (k0 + (l & 7) + (((l >> 3) & 1) << 3)) * kTcLd + n0 + ((l >> 4) << 3);
+}
+
+// rows r0 .. r0 + 63 of a (seq, heads, D) bf16 slab into a staged tile by
+// cp.async, zeros past `limit`; columns past D keep the zeros they hold
+__device__ __forceinline__ void tc_stage(__nv_bfloat16* tile, const __nv_bfloat16* src,
+                                         size_t row_stride, int r0, int limit, int D) {
+  const int chunks = D / 8;
+  for (int i = threadIdx.x; i < kBlockQ * chunks; i += kTcThreads) {
+    const int r = i / chunks;
+    const int c = (i % chunks) * 8;
+    const bool ok = r0 + r < limit;
+    cp_async16(tile + r * kTcLd + c, ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src,
+               ok);
+  }
+}
+
+__device__ __forceinline__ void tc_zero(unsigned char* smem, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += kTcThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// acc (16 rows x 64 columns, 8 n8 tiles) += A (16 x D, rows r0 of a tile
+// stored [row][d]) B^T (B: 64 x D, a tile stored [col][d])
+__device__ __forceinline__ void tc_scores(float (&acc)[8][4], const __nv_bfloat16* A, int r0,
+                                          const __nv_bfloat16* B, int ksteps, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kMaxHeadDim / 16; ++kk) {
+    if (kk < ksteps) {
+      uint32_t a[4];
+      ldsm_x4(a, A + tc_a(r0, 16 * kk, lane));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, B + tc_b(16 * jp, 16 * kk, lane));
+        mma_bf16(acc[2 * jp], a, bb[0], bb[1]);
+        mma_bf16(acc[2 * jp + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+}
+
+// acc (16 rows x D, 16 n8 tiles) += P (16 x 64, bf16 A fragments over the
+// 64 columns) B (64 x D, a tile stored [k][d])
+__device__ __forceinline__ void tc_accumulate(float (&acc)[16][4], const uint32_t (&p)[4][4],
+                                              const __nv_bfloat16* B, int npairs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < kMaxHeadDim / 16; ++np) {
+      if (np < npairs) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, B + tc_bt(16 * kk, 16 * np, lane));
+        mma_bf16(acc[2 * np], p[kk], bb[0], bb[1]);
+        mma_bf16(acc[2 * np + 1], p[kk], bb[2], bb[3]);
+      }
+    }
+}
+
+// 16 x 64 f32 accumulators as bf16 A fragments over the 64 columns: n8
+// tiles 2 kk and 2 kk + 1 are k-step kk
+__device__ __forceinline__ void tc_pack(uint32_t (&p)[4][4], const float (&acc)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
+    p[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
+    p[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
+    p[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+  }
+}
+
+// Element (j, i) of a 16 x 64 accumulator lies at row 8 (i / 2) + lane / 4
+// and column 8 j + 2 (lane % 4) + i % 2 of the warp's 16 x 64 piece.
+
+// One block per (64-key tile, KV head, batch row): dK and dV of the tile.
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+                             int Skv, int H, int KV, int D, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  __nv_bfloat16* Vs = Ks + kTcTileElems;
+  __nv_bfloat16* Qs = Vs + kTcTileElems;
+  __nv_bfloat16* Gs = Qs + kTcTileElems;  // dO
+  float* lse_s = reinterpret_cast<float*>(Gs + kTcTileElems);
+  float* delta_s = lse_s + kBlockQ;
+
+  const int k0 = blockIdx.x * kBlockK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int off = Skv - Sq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ksteps = (D + 15) / 16;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t kv_base = static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
+
+  tc_zero(smem_tc, 4 * kTcTileElems * 2);
+  __syncthreads();
+  tc_stage(Ks, k + kv_base, kv_stride, k0, Skv, D);
+  tc_stage(Vs, v + kv_base, kv_stride, k0, Skv, D);
+
+  float dk_acc[16][4], dv_acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+
+  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
+  const int first = causal && k0 - off > 0 ? (k0 - off) / kBlockQ : 0;
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
+    const float* lse_b = lse + (static_cast<size_t>(b) * H + h) * Sq;
+    const float* delta_b = delta + (static_cast<size_t>(b) * H + h) * Sq;
+    for (int qt = first; qt < nq; ++qt) {
+      const int q0 = qt * kBlockQ;
+      __syncthreads();  // the previous pair's Qs / Gs are no longer read
+      tc_stage(Qs, q + q_base, q_stride, q0, Sq, D);
+      tc_stage(Gs, dout + q_base, q_stride, q0, Sq, D);
+      for (int i = threadIdx.x; i < kBlockQ; i += kTcThreads) {
+        const bool in = q0 + i < Sq;
+        lse_s[i] = in ? lse_b[q0 + i] : INFINITY;  // rows past Sq: p = 0
+        delta_s[i] = in ? delta_b[q0 + i] : 0.f;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      float acc[8][4];
+      uint32_t pp[4][4];
+      tc_scores(acc, Ks, 16 * warp, Qs, ksteps, lane);  // S^T: keys x q rows
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = key0 + 8 * (i / 2);
+          const int ql = 8 * j + 2 * (lane % 4) + i % 2;
+          const bool visible = key < Skv && (!causal || key <= q0 + ql + off);
+          acc[j][i] = visible ? expf(fmaf(acc[j][i], scale, -lse_s[ql])) : 0.f;
+        }
+      tc_pack(pp, acc);                        // P^T as bf16
+      tc_accumulate(dv_acc, pp, Gs, ksteps, lane);  // dV += P^T dO
+      tc_scores(acc, Vs, 16 * warp, Gs, ksteps, lane);  // dP^T = V dO^T
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // pp[kk][r]: tile 2 kk + r / 2, elements 2 (r % 2) ..
+          const int j = 2 * kk + r / 2;
+          const int i0 = 2 * (r % 2);
+          const int ql = 8 * j + 2 * (lane % 4);
+          const float2 p = unpack_bf16(pp[kk][r]);
+          pp[kk][r] = pack_bf16(p.x * (acc[j][i0] - delta_s[ql]),
+                                p.y * (acc[j][i0 + 1] - delta_s[ql + 1]));
+        }
+      tc_accumulate(dk_acc, pp, Qs, ksteps, lane);  // dK += dS^T Q
+    }
+  }
+  cp_async_wait_all();  // no copy outlives the block, whatever the loops ran
+
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int d = 8 * j + 2 * (lane % 4);
+    if (d >= D) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key0 + 8 * hh;
+      if (key >= Skv) continue;
+      const size_t at = static_cast<size_t>(b) * Skv * kv_stride + key * kv_stride +
+                        static_cast<size_t>(kvh) * D + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dk_acc[j][2 * hh] * scale, dk_acc[j][2 * hh + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dv_acc[j][2 * hh], dv_acc[j][2 * hh + 1]);
+    }
+  }
+}
+
+// One block per (64-row q tile, query head, batch row): dQ of the tile.
+// The q tiles with the most keys are launched first.
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int KV, int D,
+                           int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  __nv_bfloat16* Gs = Qs + kTcTileElems;  // dO
+  __nv_bfloat16* Ks = Gs + kTcTileElems;
+  __nv_bfloat16* Vs = Ks + kTcTileElems;
+
+  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int off = Skv - Sq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ksteps = (D + 15) / 16;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
+  const size_t kv_base = static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
+
+  tc_zero(smem_tc, 4 * kTcTileElems * 2);
+  __syncthreads();
+  tc_stage(Qs, q + q_base, q_stride, q0, Sq, D);
+  tc_stage(Gs, dout + q_base, q_stride, q0, Sq, D);
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + row;
+    lse_r[hh] = row < Sq ? lse[at] : INFINITY;  // rows past Sq: p = 0
+    delta_r[hh] = row < Sq ? delta[at] : 0.f;
+  }
+  float dq_acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq_acc[j][i] = 0.f;
+
+  const int kv_end = causal ? min(Skv, q0 + kBlockQ + off) : Skv;
+  const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile's Ks / Vs are no longer read
+    tc_stage(Ks, k + kv_base, kv_stride, k0, Skv, D);
+    tc_stage(Vs, v + kv_base, kv_stride, k0, Skv, D);
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    tc_scores(s, Qs, 16 * warp, Ks, ksteps, lane);   // S = Q K^T
+    tc_scores(dp, Gs, 16 * warp, Vs, ksteps, lane);  // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hh = i / 2;
+        const int key = k0 + 8 * j + 2 * (lane % 4) + i % 2;
+        const bool visible = key < Skv && (!causal || key <= row0 + 8 * hh + off);
+        const float p = visible ? expf(fmaf(s[j][i], scale, -lse_r[hh])) : 0.f;
+        s[j][i] = p * (dp[j][i] - delta_r[hh]);
+      }
+    uint32_t ds[4][4];
+    tc_pack(ds, s);
+    tc_accumulate(dq_acc, ds, Ks, ksteps, lane);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int d = 8 * j + 2 * (lane % 4);
+    if (d >= D) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= Sq) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + static_cast<size_t>(row) * q_stride + d) =
+          __floats2bfloat162_rn(dq_acc[j][2 * hh] * scale, dq_acc[j][2 * hh + 1] * scale);
+    }
+  }
+}
+
+cudaError_t launch_backward_tc(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* delta, void* dq,
+                               void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
+                               int causal, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* gp = static_cast<const bf16*>(dout);
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  const int warps = kThreads / 32;
+  flash_bwd_preprocess_kernel<bf16><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads,
+                                      0, stream>>>(static_cast<const bf16*>(o), gp, delta, B, Sq,
+                                                   H, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((Skv + kBlockK - 1) / kBlockK, KV, B);
+  flash_bwd_dkdv_tc_kernel<<<grid_kv, kTcThreads, kTcSmemBytes, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, KV,
+      D, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((Sq + kBlockQ - 1) / kBlockQ, H, B);
+  flash_bwd_dq_tc_kernel<<<grid_q, kTcThreads, kTcSmemBytes, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dq), Sq, Skv, H, KV, D, causal, scale);
   return cudaGetLastError();
 }
 
@@ -741,7 +1540,8 @@ extern "C" {
 
 // Launch geometry, read by the wrapper to check it agrees: the f32 route's
 // {kBlockQ, kBlockK, kThreads}, the bf16 route's {kWgBlockQ, kWgBlockK,
-// kWgThreads, kStages}, then {kMaxHeadDim, kMaxSmemBytes}.
+// kWgThreads, kStages}, then {kMaxHeadDim, kMaxSmemBytes}, then the bf16
+// backward's {kTcThreads, kTcSmemBytes}.
 void flash_attention_config(int* cfg) {
   cfg[0] = kBlockQ;
   cfg[1] = kBlockK;
@@ -752,6 +1552,8 @@ void flash_attention_config(int* cfg) {
   cfg[6] = kStages;
   cfg[7] = kMaxHeadDim;
   cfg[8] = kMaxSmemBytes;
+  cfg[9] = kTcThreads;
+  cfg[10] = kTcSmemBytes;
 }
 
 const char* flash_attention_error_string(int err) {
@@ -760,10 +1562,11 @@ const char* flash_attention_error_string(int err) {
 
 // q (B, Sq, H, D); k, v (B, Skv, KV, D); out (B, Sq, H, D); all contiguous,
 // 16-byte aligned, of one type: dtype 0 = float32 (CUDA cores), 1 =
-// bfloat16 (wgmma + TMA). Launches on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorNotSupported if the driver
-// has no cuTensorMapEncodeTiled); does not synchronise.
-int flash_attention_forward(const void* q, const void* k, const void* v, void* out,
+// bfloat16 (wgmma + TMA). lse (B, H, Sq) f32 receives each row's
+// log-sum-exp of the scaled scores, or is null. Launches on `stream` and
+// returns cudaGetLastError() (0 on success; cudaErrorNotSupported if the
+// driver has no cuTensorMapEncodeTiled); does not synchronise.
+int flash_attention_forward(const void* q, const void* k, const void* v, void* out, float* lse,
                             int B, int Sq, int Skv, int H, int KV, int D, int causal,
                             float scale, int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || D < 8 || D % 8 != 0 ||
@@ -771,9 +1574,34 @@ int flash_attention_forward(const void* q, const void* k, const void* v, void* o
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && smem_bytes(D) <= static_cast<size_t>(kMaxSmemBytes))
-    return static_cast<int>(launch<float>(q, k, v, out, B, Sq, Skv, H, KV, D, causal, scale, st));
+    return static_cast<int>(launch<float>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, causal, scale, st));
   if (dtype == 1 && sm90_smem_bytes(D) <= static_cast<size_t>(kMaxSmemBytes))
-    return static_cast<int>(launch_sm90(q, k, v, out, B, Sq, Skv, H, KV, D, causal, scale, st));
+    return static_cast<int>(launch_sm90(q, k, v, out, lse, B, Sq, Skv, H, KV, D, causal, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradients of the forward above: q, k, v, out as there, dout (B, Sq,
+// H, D) the output's gradient, lse (B, H, Sq) the forward's; delta (B, H,
+// Sq) f32 is scratch; dq (B, Sq, H, D), dk and dv (B, Skv, KV, D) receive
+// the gradients in the inputs' type. Three launches on `stream`
+// (preprocess, dK/dV, dQ); returns the first non-zero cudaGetLastError();
+// does not synchronise.
+int flash_attention_backward(const void* q, const void* k, const void* v, const void* out,
+                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                             void* dv, int B, int Sq, int Skv, int H, int KV, int D, int causal,
+                             float scale, int dtype, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || D < 8 || D % 8 != 0 ||
+      D > kMaxHeadDim || (causal && Sq > Skv) ||
+      bwd_dkdv_smem_bytes(D) > static_cast<size_t>(kMaxSmemBytes) ||
+      bwd_dq_smem_bytes(D) > static_cast<size_t>(kMaxSmemBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_backward<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
+                                                   Sq, Skv, H, KV, D, causal, scale, st));
+  if (dtype == 1)
+    return static_cast<int>(launch_backward_tc(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
+                                               Skv, H, KV, D, causal, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

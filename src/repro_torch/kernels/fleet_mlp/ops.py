@@ -5,7 +5,7 @@ from typing import List
 
 import torch
 
-from ..common import KERNEL, resolve
+from ..common import KERNEL, forbid_autograd, resolve
 from .kernel import fleet_mlp_cuda
 from .ref import fleet_mlp_reference
 
@@ -47,10 +47,13 @@ def fleet_mlp(x: torch.Tensor, weights: List[torch.Tensor],
     """x: (N,b,F); weights/biases: per-layer stacks with leading N.
     Returns (N,b,O) in ``x.dtype``. ReLU between layers; final layer
     linear. CPU tensors take the plain version, CUDA tensors the kernel
-    (or the call raises); any other device raises."""
+    (or the call raises); any other device raises. On a card, a call
+    that autograd would record raises: the kernel has no backward."""
     global _invocations
     _check_layers(x, weights, biases)
     if resolve(x, *weights, *biases) == KERNEL:
+        forbid_autograd("fleet_mlp", "ROADMAP.md Queue 1 item 4b",
+                        x, *weights, *biases)
         out = fleet_mlp_cuda(x, weights, biases)
     else:
         out = fleet_mlp_reference(x, weights, biases)

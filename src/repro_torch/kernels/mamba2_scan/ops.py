@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import KERNEL, resolve
+from ..common import KERNEL, forbid_autograd, resolve
 from .kernel import ssd_scan_cuda
 from .ref import ssd_chunked
 
@@ -54,12 +54,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     multiple of ``min(chunk, S)``, as in the reference. CPU tensors take
     the plain version (which continues from ``init_state``), CUDA tensors
     the kernel (which starts from zero; an ``init_state`` raises); any
-    other device raises."""
+    other device raises. On a card, a call that autograd would record
+    raises: the kernel has no backward."""
     global _invocations
     _check_shapes(x, dt, A, Bm, Cm, D, init_state, chunk)
     chunk = min(chunk, x.shape[1])
     extra = () if init_state is None else (init_state,)
     if resolve(x, dt, A, Bm, Cm, D, *extra) == KERNEL:
+        forbid_autograd("ssd_scan", "ROADMAP.md Queue 1 item 4b",
+                        x, dt, A, Bm, Cm, D, *extra)
         out = ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state)
     else:
         out = ssd_chunked(x, dt, A, Bm, Cm, D, init_state, chunk=chunk)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import KERNEL, resolve
+from ..common import KERNEL, forbid_autograd, resolve
 from .kernel import wkv6_scan_cuda
 from .ref import wkv6_chunked
 
@@ -52,12 +52,15 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``min(chunk, S)``, as in the reference. CPU tensors take the plain
     version (which continues from ``init_state``), CUDA tensors the kernel
     (which starts from zero; an ``init_state`` raises); any other device
-    raises."""
+    raises. On a card, a call that autograd would record raises: the
+    kernel has no backward."""
     global _invocations
     _check_shapes(r, k, v, w, u, init_state, chunk)
     chunk = min(chunk, r.shape[1])
     extra = () if init_state is None else (init_state,)
     if resolve(r, k, v, w, u, *extra) == KERNEL:
+        forbid_autograd("wkv6_scan", "ROADMAP.md Queue 1 item 4b",
+                        r, k, v, w, u, *extra)
         out = wkv6_scan_cuda(r, k, v, w, u, init_state)
     else:
         out = wkv6_chunked(r, k, v, w, u, init_state, chunk=chunk)

@@ -1,0 +1,118 @@
+"""Train / serve step builders shared by the launcher and the tests.
+
+``make_train_step(cfg)`` -> f(params, opt_state, batch) -> (params,
+opt_state, metrics), with optional gradient accumulation (microbatching,
+summed in f32) and a gradient post-processing hook. The parameters are
+plain tensors that need not require grad: the step differentiates
+``train_loss`` with respect to fresh leaves that share their storage.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..arch import model as M
+from ..arch.params import cast_tree, tree_leaves
+from ..configs.base import ModelConfig
+from .optim import AdamWConfig, apply_update
+
+def _unflatten(like, leaves):
+    """A tree of ``like``'s structure from leaves in sorted-key order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
+def _check_moe(moe_path: str, moe_groups: int) -> None:
+    if moe_path != "dispatch" or moe_groups != 0:
+        raise NotImplementedError(
+            f"moe_path={moe_path!r}, moe_groups={moe_groups}: MoE routing "
+            "comes with the MoE slice (ROADMAP.md Queue 1 item 3)")
+
+
+def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
+                    remat: bool = True,
+                    moe_path: str = "dispatch", microbatches: int = 1,
+                    grad_hook: Optional[Callable] = None,
+                    moe_groups: int = 0, cast_params_bf16: bool = False):
+    """Returns train_step(params, opt_state, batch).
+
+    cast_params_bf16: cast the f32 master params to bf16 before the
+    forward; the gradients still flow to the f32 masters through the cast.
+    ``moe_path`` and ``moe_groups`` other than their defaults raise (the
+    MoE slice). One card: the reference's ``shard`` hook waits for the
+    multi-GPU slice."""
+    _check_moe(moe_path, moe_groups)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def single(params, batch):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        tree = _unflatten(params, live)
+        with torch.enable_grad():
+            if cast_params_bf16:
+                tree = cast_tree(tree, torch.bfloat16)
+            loss, metrics = M.train_loss(cfg, tree, batch, remat=remat)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def _micro(x, i: int):
+        # (B, ...) -> microbatch i of B/mb rows; M-RoPE positions (3, B, S)
+        # keep their leading 3
+        if x.dim() == 3 and x.shape[0] == 3:
+            n = x.shape[1] // microbatches
+            return x[:, i * n:(i + 1) * n]
+        n = x.shape[0] // microbatches
+        return x[i * n:(i + 1) * n]
+
+    def accumulated(params, batch):
+        acc, mets = None, []
+        for i in range(microbatches):
+            grads, metrics = single(params, {k: _micro(x, i)
+                                             for k, x in batch.items()})
+            grads = [g.to(torch.float32) for g in grads]
+            acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+            mets.append(metrics)
+        grads = [g / microbatches for g in acc]
+        metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
+                   for k in mets[0]}
+        return grads, metrics
+
+    def train_step(params, opt_state, batch):
+        if microbatches > 1:
+            grads, metrics = accumulated(params, batch)
+        else:
+            grads, metrics = single(params, batch)
+        grads = _unflatten(params, grads)
+        if grad_hook is not None:
+            grads = grad_hook(grads)
+        params, opt_state, opt_metrics = apply_update(params, grads,
+                                                      opt_state, opt)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, moe_path: str = "dispatch",
+                      moe_groups: int = 0):
+    _check_moe(moe_path, moe_groups)
+
+    def prefill(params, batch):
+        return M.forward(cfg, params, batch, mode="prefill", remat=False)
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, *, moe_path: str = "dispatch",
+                     moe_groups: int = 0):
+    _check_moe(moe_path, moe_groups)
+
+    def decode(params, state, batch):
+        return M.decode_step(cfg, params, state, batch)
+    return decode

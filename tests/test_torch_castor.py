@@ -299,7 +299,9 @@ def test_cuda_device_without_card_raises():
 def test_port_never_loads_jax_or_repro():
     """A train + score tick of the four forecasters and a detect tick
     (and a version converted from numpy), then a durable serverless train
-    + score tick recovered from its log, load neither JAX nor ``repro``."""
+    + score tick recovered from its log, then the LM training launcher
+    (``repro_torch.launch.train --smoke --device cpu --steps 2``) load
+    neither JAX nor ``repro``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -353,6 +355,13 @@ def test_port_never_loads_jax_or_repro():
         r = Castor.open(storage=storage, device="cpu")
         assert r.versions.count() == 4 and r.predictions.count() == 4
         r.close()
+        import tempfile
+        from repro_torch.launch import train as launch_train
+        with tempfile.TemporaryDirectory() as td:
+            losses = launch_train.main(["--smoke", "--device", "cpu",
+                                        "--steps", "2",
+                                        "--checkpoint-dir", td])
+        assert len(losses) == 2 and all(np.isfinite(losses)), losses
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
