@@ -23,12 +23,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``flash_attention`` runs its wgmma route on bf16 and its CUDA-core
    route on f32; ``decode_attention`` is two launches per call (split-KV
    partial pass and combine). ``flash_attention``'s backward (preprocess,
-   dK/dV and dQ launches, CUDA cores, both dtypes) at the qwen3-1.7b
-   training shape (B 4, S 1024, H 16, KV 8, D 128, bf16, causal) and the
-   forward's test shapes: dq, dk, dv against the plain backward on the
-   same inputs, both forward routes' row log-sum-exp against the plain
-   one; timed beside forward + backward under autograd of the port's op
-   and of ``scaled_dot_product_attention``. ``ssd_scan`` at the
+   dK/dV and dQ launches; bf16 on wgmma fed by TMA, f32 on CUDA cores) at
+   the qwen3-1.7b training shape (B 4, S 1024, H 16, KV 8, D 128, bf16,
+   causal), the forward's test shapes and the backward's own (Skv past a
+   128-key tile, G 4, D 16 and 80): dq, dk, dv against the plain backward
+   on the same inputs, both forward routes' row log-sum-exp against the
+   plain one; timed beside forward + backward under autograd of the port's
+   op and of ``scaled_dot_product_attention``, each also by the
+   profiler's device time (the build prints the bf16 backward kernels'
+   registers and spills). ``ssd_scan`` at the
    zamba2-2.7b prefill shape (B 4, S 1024, H 80, P = N = 64, bf16) and
    ``wkv6_scan`` at the rwkv6-7b prefill shape (B 4, S 1024, H 64,
    K = V = 64, bf16, w in f32), both also at the unit-test shapes in f32
@@ -1955,6 +1958,27 @@ def scan_routes(name: str, mod, log: str) -> None:
               f"registers, {spill} B spilled, {mem}")
 
 
+def backward_routes(log: str) -> None:
+    """Print the bf16 backward's kernels as ``ptxas`` built them (at one
+    and at two 64-column atoms of D): registers at entry (the consumer
+    warpgroups raise theirs with setmaxnreg), spills and shared memory."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    table = _ptxas_table(log)
+    for fn in ("flash_bwd_dkdv_sm90_kernel", "flash_bwd_dq_sm90_kernel"):
+        for atoms, D in ((1, 64), (2, 128)):
+            hits = [v for k, v in table.items() if f"{fn}ILi{atoms}E" in k]
+            check(len(hits) == 1, f"build: {fn}<{atoms}> not found once in "
+                                  "ptxas output")
+            regs, spill, _ = hits[0]
+            print(f"build: flash_attention backward route bfloat16 -> "
+                  f"{fn}<{atoms}>: {regs} registers at entry, consumers "
+                  f"raised to {fa.CONSUMER_REGS} and the producer lowered "
+                  f"to {fa.PRODUCER_REGS} by setmaxnreg, {spill} B spilled; "
+                  f"{fa.BWD_THREADS} threads, the larger backward block "
+                  f"{fa.backward_smem_bytes(D)} B of dynamic shared memory "
+                  f"at D {D}")
+
+
 def build_all() -> None:
     """One ``nvcc`` per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1984,6 +2008,8 @@ def build_all() -> None:
     logs = {name: log for name, (_, log, _) in built}
     for name, mod in (("ssd_scan", ssd), ("wkv6_scan", wkv)):
         scan_routes(name, mod, logs[name])
+    if logs["flash_attention"]:   # empty when the library was already built
+        backward_routes(logs["flash_attention"])
     import torch
     for D in (128, 80):
         print(f"build: dynamic shared memory per block at D {D}: "
@@ -1996,10 +2022,16 @@ def build_all() -> None:
 # ------------------------------------------------------------ LM training
 
 # the backward's cases: the qwen3-1.7b training shape (its first), then
-# the forward's test shapes in both dtypes, causal and full
+# the forward's test shapes and the backward's own (Skv past a 128-key
+# tile with Sq < Skv, G 4 at D 128, D 16 and D 80 over several tiles) in
+# both dtypes, causal and full
 FLASH_BWD_PATH_CASE = ("train", 4, 1024, 1024, 16, 8, 128, "bfloat16", True)
 FLASH_BWD_CASES = [FLASH_BWD_PATH_CASE] + [
-    c for c in FLASH_CASES if c[0].startswith("test")]
+    c for c in FLASH_CASES if c[0].startswith("test")] + [
+    (f"bwd{i}", *s, dt, causal) for dt in ("float32", "bfloat16")
+    for causal in (True, False)
+    for i, s in enumerate([(1, 200, 328, 8, 2, 64), (1, 256, 256, 8, 2, 128),
+                           (2, 192, 192, 4, 2, 16), (1, 160, 300, 6, 3, 80)])]
 # the forward's lse against the plain one, on |got - ref| / (1 + |ref|):
 # f32 sums in another order; the bf16 route's exponentials run on the
 # special-function unit (ex2.approx, about 2 ulp)
@@ -2097,6 +2129,27 @@ def _planted_faults(name, inputs, want, causal: bool, dtype: str) -> None:
               f"{name}: the check misses dK/dV without {fault}: {rel}")
 
 
+def _device_ms(fn, sets: list, calls: int = 6) -> tuple:
+    """Device time per call of ``fn(*sets[i % len(sets)])`` as
+    ``torch.profiler`` reads it: the sum of the kernels' (and memsets')
+    own times over ``calls`` calls, and that sum by kernel name (None and
+    {} where the profiler saw no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(2):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    by_name = {e.key: e.device_time_total / 1e3 / calls
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total}
+    return (sum(by_name.values()) if by_name else None), by_name
+
+
 def flash_backward_phase(device: str, cases=FLASH_BWD_CASES, *,
                          time_it: bool) -> dict:
     """The forward's lse (both routes) and the backward kernels against
@@ -2188,6 +2241,30 @@ def flash_backward_phase(device: str, cases=FLASH_BWD_CASES, *,
             rec.update(ms=sum(kern_ms) / 2, plain_ms=sum(plain_ms) / 2,
                        graph_ms=_time_ms(kern, sets, 10, graph=True),
                        library_graph_ms=None)
+            # the same calls' device time by the profiler: an eager time
+            # above it is the host's time to enqueue them (autograd's engine, the
+            # wrapper), not the card's
+            parts = {}
+            for key, fn, fsets in (("device_ms", kern, sets),
+                                   ("library_device_ms", sdpa_b,
+                                    sdpa_bwd_sets),
+                                   ("fwd_bwd_device_ms", port_fb, grad_sets),
+                                   ("library_fwd_bwd_device_ms", sdpa_fb,
+                                    sdpa_sets)):
+                rec[key], parts[key] = _device_ms(fn, fsets)
+            fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+            print(f"flash_attention_backward {label} device time by "
+                  f"torch.profiler (ms a call): the port's backward "
+                  f"{fmt(rec['device_ms'])}, scaled_dot_product_attention's "
+                  f"backward {fmt(rec['library_device_ms'])}; forward + "
+                  f"backward: the port {fmt(rec['fwd_bwd_device_ms'])}, "
+                  f"scaled_dot_product_attention "
+                  f"{fmt(rec['library_fwd_bwd_device_ms'])}")
+            for key in ("device_ms", "library_device_ms"):
+                for name, ms in sorted(parts[key].items(),
+                                       key=lambda kv: -kv[1]):
+                    print(f"flash_attention_backward {label} {key} part: "
+                          f"{ms:.4f} ms {name[:100]}")
             print(f"flash_attention_backward {label} time: "
                   f"{rec['ms']:.4f} ms/call eager, {rec['graph_ms']:.4f} ms "
                   f"by CUDA graph replay, inputs cold in L2; bound "
@@ -2518,7 +2595,9 @@ def kernel_line(records: dict, launches: dict) -> dict:
             "bound_by": rec["bound_by"],
             **{key: rec.get(key) for key in
                ("library_ms", "graph_ms", "library_graph_ms", "f32_ms",
-                "f32_graph_ms", "fwd_bwd_ms", "library_fwd_bwd_ms")}})
+                "f32_graph_ms", "fwd_bwd_ms", "library_fwd_bwd_ms",
+                "device_ms", "library_device_ms", "fwd_bwd_device_ms",
+                "library_fwd_bwd_device_ms")}})
     return {"kernels": rows}
 
 

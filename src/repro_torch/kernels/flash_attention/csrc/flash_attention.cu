@@ -60,6 +60,17 @@
 // output; f32 FMAs throughout. No model path runs attention in f32 on the
 // card.
 //
+// Backward (training), three launches a call: delta = rowsum(dO o O), then
+// dK/dV (one block per key tile and KV head, summing over the group's
+// query heads) and dQ (one block per q tile and head); no atomics, so the
+// gradients are bitwise deterministic. bf16 (the training path): wgmma fed
+// by TMA, one producer and two consumer warpgroups rebalanced by
+// setmaxnreg (24 / 240 registers), 128-key x 64-row tiles in dK/dV and
+// the forward's 128-row x 128-key tiles in dQ. Bound by operations: five
+// S^2 D products (2.5x the forward's), of which this design does seven
+// (dQ recomputes S and dP), so its own floor is 7/5 of the bound. f32:
+// CUDA cores, the f32 forward's 64 x 64 tiles. Details above each route.
+//
 // Plain C interface, loaded with ctypes (see ../kernel.py).
 
 #include <cuda.h>
@@ -326,13 +337,18 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // Wait until the phase of parity `parity` of `bar` has completed. A wait
-// that outlasts ~2^34 cycles (seconds) traps: a launch error, not a hung card.
+// that outlasts ~2^34 cycles (seconds) stores through a null pointer: the
+// launch fails (an illegal address) rather than hang the card. Not
+// __trap(): with a trap in their code, ptxas holds the backward's consumer
+// warpgroups to the block's 168 registers whatever setmaxnreg raises them
+// to, and they spill.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   const long long start = clock64();
   uint32_t done = 0;
   do {
-    if (clock64() - start > (1ll << 34)) __trap();
+    if (clock64() - start > (1ll << 34))
+      *reinterpret_cast<volatile int*>(0) = 1;
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -442,6 +458,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// The two consumer warpgroups take turns to start their products (named
+// barriers 1 and 2): warpgroup 0's first, then 1's, and so on, so that
+// one's softmax or exponentials run while the other's products are on the
+// tensor cores. Each takes `n_turns` turns (empty ones for the tiles it
+// skips); the first wait and the last arrival are left out so that the
+// barriers balance.
+struct Turns {
+  int wg, n_turns, turn = 0;
+  __device__ __forceinline__ void begin() {
+    if (!(wg == 0 && turn == 0)) named_sync(1 + wg);
+  }
+  __device__ __forceinline__ void end() {
+    if (!(wg == 1 && turn == n_turns - 1)) named_arrive(2 - wg);
+    ++turn;
+  }
+  __device__ __forceinline__ void skip() {  // a tile this warpgroup does not compute
+    begin(); end(); begin(); end();
+  }
+};
 
 // One block per (128 q rows, query head, batch row). Warps 0-3 and 4-7 are
 // the consumer warpgroups (q rows q0 .. q0 + 63 and q0 + 64 .. q0 + 127),
@@ -608,36 +644,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
   };
 
-  // The two warpgroups take turns to issue their products
-  // (named barriers 1 and 2): QK of warpgroup 0, QK of 1, PV of 0, PV of
-  // 1, ..., so one's softmax runs while the other's products are on the
-  // tensor cores. Each takes 2 turns per tile of the block (empty ones for
-  // the tiles it skips); the first and the last wait are left out so the
-  // barriers balance.
-  const int n_turns = 2 * n_tiles;
-  int turn = 0;
-  auto turn_begin = [&]() {
-    if (!(wg == 0 && turn == 0)) named_sync(1 + wg);
-  };
-  auto turn_end = [&]() {
-    if (!(wg == 1 && turn == n_turns - 1)) named_arrive(2 - wg);
-    ++turn;
-  };
-
+  // the warpgroups' turns: QK of warpgroup 0, QK of 1, PV of 0, PV of 1,
+  // ..., two for every tile of the block
+  Turns turns{wg, 2 * n_tiles};
   mbar_wait(qbar, 0);
   for (int t = 0; t < n_tiles_w; ++t) {
     mbar_wait(&full[t % kStages], (t / kStages) & 1);
-    turn_begin();
+    turns.begin();
     issue_scores(t);
-    turn_end();
+    turns.end();
     wg_wait_all();
     fence_regs(sc);
     softmax(t);
     rescale_and_pack();
-    turn_begin();
+    turns.begin();
     wg_fence();
     issue_pv(t);
-    turn_end();
+    turns.end();
     wg_wait_all();
 #pragma unroll
     for (int a = 0; a < NA; ++a) fence_regs(o[a]);
@@ -647,10 +670,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   for (int t = n_tiles_w; t < n_tiles; ++t) {
     mbar_wait(&full[t % kStages], (t / kStages) & 1);
     mbar_arrive(&empty[t % kStages]);
-    turn_begin();
-    turn_end();
-    turn_begin();
-    turn_end();
+    turns.skip();
   }
 
   float inv[2];
@@ -742,6 +762,14 @@ bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D, int h
 cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
                         int B, int Sq, int Skv, int H, int KV, int D, int causal, float scale,
                         cudaStream_t stream) {
+  // the runtime call first: it makes the card's primary context current on
+  // this thread, which cuTensorMapEncodeTiled below needs (a thread that has
+  // made no runtime call has none; autograd runs the backward on its own)
+  const size_t smem = sm90_smem_bytes(D);
+  auto kernel = D <= 64 ? flash_attention_sm90_kernel<1> : flash_attention_sm90_kernel<2>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -749,11 +777,6 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, 
       !encode_map(enc, &tk, k, D, KV, Skv, B, kWgBlockK) ||
       !encode_map(enc, &tv, v, D, KV, Skv, B, kWgBlockK))
     return cudaErrorInvalidValue;
-  const size_t smem = sm90_smem_bytes(D);
-  auto kernel = D <= 64 ? flash_attention_sm90_kernel<1> : flash_attention_sm90_kernel<2>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kWgBlockQ - 1) / kWgBlockQ, H, B);
   kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Sq,
                                              Skv, H, KV, D, causal, scale * kLog2e);
@@ -764,7 +787,7 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, 
 // Backward, f32 route: CUDA-core f32 FMAs on tiles staged as f32 in shared
 // memory, the f32 forward's 64 x 64 tiles and 256 threads (each thread a
 // 4 x 4 patch of a score tile and 4 rows x 8 columns of an output tile).
-// (The bf16 route, below, runs the same passes on the tensor cores.)
+// (The bf16 route, below, runs the same passes with wgmma and TMA.)
 //
 // With P = exp(scale * Q K^T - lse) (masked entries 0) and dO the output's
 // gradient:
@@ -784,39 +807,56 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* out, 
 // of the CUDA cores' rate (shared-memory loads: 16 for every 32 FMAs): f32
 // is held to 2e-5, which the tensor cores' TF32 cannot meet, and no model
 // path trains attention in f32 on the card. The bf16 route (the training
-// path) runs them on the tensor cores by mma.sync; wgmma, TMA and a
-// pipelined ring are later work.
+// path, at the end of this file) runs them on the tensor cores by wgmma.
 
 constexpr int kBwdLd = kBlockQ + 1;  // row stride of a transposed tile (keys or q rows)
 static_assert(kBlockQ == kBlockK, "the backward stages q and key tiles alike");
 
-// delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp per row
+// delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one half-warp per
+// row (b, h, t), t < rows_pad (16 lanes of 8 columns cover D <= 128);
+// rows past Sq get 0. With lse2 also lse2[b, h, t] = lse[b, h, t] * log2 e,
+// +inf past Sq: the bf16 route pads both to a multiple of kRowPad rows, so
+// that its producer copies whole tiles of them.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                                float* __restrict__ delta, int B, int Sq, int H, int D) {
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long r = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const size_t base = static_cast<size_t>(r) * D;  // rows of o are (b, t, h)
+                                const float* __restrict__ lse, float* __restrict__ delta,
+                                float* __restrict__ lse2, int B, int Sq, int rows_pad, int H,
+                                int D) {
+  const long long rows = static_cast<long long>(B) * H * rows_pad;
+  const long long r = static_cast<long long>(blockIdx.x) * (kThreads / 16) + threadIdx.x / 16;
+  const int lane = threadIdx.x % 16;
+  const int t = static_cast<int>(r % rows_pad);
+  const long long bh = r / rows_pad;
   float acc = 0.f;
-  for (int d8 = 8 * lane; d8 < D; d8 += 8 * 32) {
+  if (r < rows && t < Sq && 8 * lane < D) {
+    const size_t b = static_cast<size_t>(bh / H);
+    const size_t at = ((b * Sq + t) * H + bh % H) * D + 8 * lane;  // rows of o are (b, t, h)
     float a[8], g[8];
-    load8(o + base + d8, a);
-    load8(dout + base + d8, g);
+    load8(o + at, a);
+    load8(dout + at, g);
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc = fmaf(a[j], g[j], acc);
   }
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (lane == 0) {
-    const int h = static_cast<int>(r % H);
-    const long long bt = r / H;
-    const int t = static_cast<int>(bt % Sq);
-    const int b = static_cast<int>(bt / Sq);
-    delta[(static_cast<size_t>(b) * H + h) * Sq + t] = acc;
+  for (int s = 8; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (r < rows && lane == 0) {
+    delta[r] = acc;
+    if (lse2 != nullptr) lse2[r] = t < Sq ? lse[bh * Sq + t] * kLog2e : INFINITY;
   }
+}
+
+template <typename T>
+cudaError_t launch_preprocess(const void* o, const void* dout, const float* lse, float* delta,
+                              float* lse2, int B, int Sq, int rows_pad, int H, int D,
+                              cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * H * rows_pad;
+  const int per_block = kThreads / 16;
+  flash_bwd_preprocess_kernel<T><<<static_cast<unsigned>((rows + per_block - 1) / per_block),
+                                   kThreads, 0, stream>>>(static_cast<const T*>(o),
+                                                          static_cast<const T*>(dout), lse,
+                                                          delta, lse2, B, Sq, rows_pad, H, D);
+  return cudaGetLastError();
 }
 
 // `rows` rows of a (seq, heads, D) slab from row r0 into shared memory,
@@ -1134,11 +1174,7 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* gp = static_cast<const T*>(dout);
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const int warps = kThreads / 32;
-  flash_bwd_preprocess_kernel<T><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0,
-                                   stream>>>(static_cast<const T*>(o), gp, delta, B, Sq, H, D);
-  err = cudaGetLastError();
+  err = launch_preprocess<T>(o, dout, nullptr, delta, nullptr, B, Sq, Sq, H, D, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((Skv + kBlockK - 1) / kBlockK, KV, B);
   flash_bwd_dkdv_kernel<T><<<grid_kv, kThreads, smem_kv, stream>>>(
@@ -1154,383 +1190,569 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
 }
 
 // ---------------------------------------------------------------------------
-// Backward, bf16 route: the same three passes with the four S^2-sized
-// products of each kernel on the tensor cores (mma.sync m16n8k16, bf16
-// operands, f32 accumulation). 4 warps a block, each warp 16 rows (keys
-// in dK/dV, q rows in dQ) against a 64-row tile of the other side; q, k,
-// v and dO are staged as bf16 in shared memory by cp.async (rows padded
-// to 272 bytes, so ldmatrix's eight row addresses fall in eight bank
-// groups; columns past D are zeros). P and dS are rounded to bf16 once, as
-// the A operands of dV += P^T dO, dK += dS^T Q and dQ += dS K (the dK/dV
-// kernel forms dS from the rounded P); scores, exponentials and the sums
-// stay f32. Deterministic as above: no atomics.
+// Backward, bf16 route: wgmma fed by TMA, warp-specialised. The same three
+// passes as the f32 route (preprocess, dK/dV, dQ), each block three
+// warpgroups: warpgroup 2 the producer (one thread starts every TMA copy;
+// setmaxnreg lowers the warpgroup to kProducerRegs registers a thread),
+// warpgroups 0 and 1 the consumers (raised to kConsumerRegs: a dK/dV
+// thread holds dK and dV, 128 f32, beside S^T and dP^T, 64; a dQ thread
+// S, dP and dQ, 192). ptxas allots 168 registers a thread at entry, all
+// that 384 threads of one block per SM may have, and builds the consumer
+// code against 240: no spill at one or two atoms of D (chip_smoke.py
+// prints -Xptxas -v; at 168 both kernels spilled and serialised their
+// wgmma). The consumers' raise takes exactly what the producer gives
+// back, so the launch refuses a build that allots fewer (the raise would
+// wait forever). The two consumer warpgroups take turns to start their
+// products (Turns, as the forward), so one's exponentials overlap the other's
+// tensor-core work.
+//
+// dK/dV: one block per (128-key tile, KV head, batch row). K and V of the
+// tile arrive once by TMA and stay; the producer streams the 64-row q and
+// dO tiles of the G query heads, with their lse * log2 e and delta, into
+// a ring of kBwdKvStages stages. Consumer warpgroup w owns keys 64 w ..
+// 64 w + 63 of the tile; per q tile:
+//   S^T = K Q^T, dP^T = V dO^T        wgmma m64n64k16, both operands K-major
+//   P^T = 2^(S^T scale log2 e - lse log2 e)      (ex2.approx, f32)
+//   dS^T = P^T o (dP^T - delta)                  (f32, from the unrounded P)
+//   dV += P^T dO, dK += dS^T Q        wgmma m64n64k16 per 64 columns of D,
+//                                     A (P^T, dS^T as bf16) from registers,
+//                                     B with D contiguous (the forward's PV
+//                                     layout)
+// q tiles wholly above the diagonal are neither loaded nor computed; the
+// mask runs only on the tiles the diagonal crosses.
+//
+// dQ: one block per (128 q rows, query head, batch row), the forward's
+// geometry and order (the q tiles with the most keys first). q and dO
+// arrive once; the producer streams 128-key K and V tiles through a ring
+// of kBwdQStages stages. Consumer warpgroup w owns q rows 64 w .. 64 w +
+// 63; per key tile: S = Q K^T and dP = dO V^T (wgmma m64n128k16, the
+// forward's QK^T), dS = P o (dP - delta) as above, dQ += dS K (m64n64k16
+// per 64 columns of D, K as the transposed B).
+//
+// Roundings: P and dS are rounded to bf16 once each, as the A operands;
+// both kernels form dS from the unrounded f32 P, so dK and dQ read the
+// same bf16 dS. Scores, exponentials and the sums stay f32; the gradients
+// are rounded once on the way out (through shared memory, 16-byte
+// coalesced stores). Rows past Sq and keys past Skv arrive as zeros (TMA
+// fills them), their lse as +inf and delta as 0, so they add nothing.
+//
+// Products: seven S^2 D products where the bound counts five: the dQ
+// kernel recomputes S and dP, which the dK/dV kernel has formed. Fusing
+// dQ into the dK/dV kernel needs a sum across blocks: f32 atomics would
+// make the gradients differ run to run, and blocks that wait on each
+// other can hang (blocks run in no order). So the floor of this design is
+// 7/5 of the operations bound. No atomics: every gradient element is
+// summed in one block in a fixed order, so the results are bitwise
+// deterministic.
 
-constexpr int kTcThreads = 128;
-constexpr int kTcLd = kMaxHeadDim + 8;       // bf16 row stride of a staged tile
-constexpr int kTcTileElems = kBlockQ * kTcLd;
-constexpr int kTcSmemBytes = 4 * kTcTileElems * 2 + 2 * kBlockQ * 4;  // + lse, delta
+constexpr int kBwdThreads = 384;      // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int kBwdKeyTile = 128;      // keys of a dK/dV block
+constexpr int kBwdQTile = 64;         // q rows of a streamed q / dO tile
+constexpr int kBwdKvStages = 3;       // the dK/dV kernel's q / dO ring
+constexpr int kBwdQStages = 2;        // the dQ kernel's K / V ring
+constexpr int kRowPad = 64;           // lse * log2 e and delta rows padded to this
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global into shared memory, completing `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64): A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
-  return make_float2(__low2float(h), __high2float(h));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
-
-// ldmatrix lane addresses (lane l) in a staged tile:
-//  A operand, 16 x 16 at (r0, c0) of a tile stored [m][k]
-__device__ __forceinline__ int tc_a(int r0, int c0, int l) {
-  return (r0 + (l & 15)) * kTcLd + c0 + ((l >> 4) << 3);
-}
-//  B operands of two n8 tiles (n0 .. n0 + 15) at k0 of a tile stored [n][k]
-__device__ __forceinline__ int tc_b(int n0, int k0, int l) {
-  return (n0 + (l & 7) + ((l >> 4) << 3)) * kTcLd + k0 + (((l >> 3) & 1) << 3);
-}
-//  B operands of two n8 tiles at (k0, n0) of a tile stored [k][n] (.trans)
-__device__ __forceinline__ int tc_bt(int k0, int n0, int l) {
-  return (k0 + (l & 7) + (((l >> 3) & 1) << 3)) * kTcLd + n0 + ((l >> 4) << 3);
-}
-
-// rows r0 .. r0 + 63 of a (seq, heads, D) bf16 slab into a staged tile by
-// cp.async, zeros past `limit`; columns past D keep the zeros they hold
-__device__ __forceinline__ void tc_stage(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                         size_t row_stride, int r0, int limit, int D) {
-  const int chunks = D / 8;
-  for (int i = threadIdx.x; i < kBlockQ * chunks; i += kTcThreads) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    const bool ok = r0 + r < limit;
-    cp_async16(tile + r * kTcLd + c, ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src,
-               ok);
-  }
-}
-
-__device__ __forceinline__ void tc_zero(unsigned char* smem, int bytes) {
-  for (int i = threadIdx.x; i < bytes / 16; i += kTcThreads)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// acc (16 rows x 64 columns, 8 n8 tiles) += A (16 x D, rows r0 of a tile
-// stored [row][d]) B^T (B: 64 x D, a tile stored [col][d])
-__device__ __forceinline__ void tc_scores(float (&acc)[8][4], const __nv_bfloat16* A, int r0,
-                                          const __nv_bfloat16* B, int ksteps, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kMaxHeadDim / 16; ++kk) {
-    if (kk < ksteps) {
-      uint32_t a[4];
-      ldsm_x4(a, A + tc_a(r0, 16 * kk, lane));
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bb[4];
-        ldsm_x4(bb, B + tc_b(16 * jp, 16 * kk, lane));
-        mma_bf16(acc[2 * jp], a, bb[0], bb[1]);
-        mma_bf16(acc[2 * jp + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
-}
-
-// acc (16 rows x D, 16 n8 tiles) += P (16 x 64, bf16 A fragments over the
-// 64 columns) B (64 x D, a tile stored [k][d])
-__device__ __forceinline__ void tc_accumulate(float (&acc)[16][4], const uint32_t (&p)[4][4],
-                                              const __nv_bfloat16* B, int npairs, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < kMaxHeadDim / 16; ++np) {
-      if (np < npairs) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, B + tc_bt(16 * kk, 16 * np, lane));
-        mma_bf16(acc[2 * np], p[kk], bb[0], bb[1]);
-        mma_bf16(acc[2 * np + 1], p[kk], bb[2], bb[3]);
-      }
-    }
-}
-
-// 16 x 64 f32 accumulators as bf16 A fragments over the 64 columns: n8
-// tiles 2 kk and 2 kk + 1 are k-step kk
-__device__ __forceinline__ void tc_pack(uint32_t (&p)[4][4], const float (&acc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    p[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-    p[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-    p[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-    p[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-  }
-}
-
-// Element (j, i) of a 16 x 64 accumulator lies at row 8 (i / 2) + lane / 4
-// and column 8 j + 2 (lane % 4) + i % 2 of the warp's 16 x 64 piece.
-
-// One block per (64-key tile, KV head, batch row): dK and dV of the tile.
-__global__ void __launch_bounds__(kTcThreads)
-    flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-                             int Skv, int H, int KV, int D, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_tc);
-  __nv_bfloat16* Vs = Ks + kTcTileElems;
-  __nv_bfloat16* Qs = Vs + kTcTileElems;
-  __nv_bfloat16* Gs = Qs + kTcTileElems;  // dO
-  float* lse_s = reinterpret_cast<float*>(Gs + kTcTileElems);
-  float* delta_s = lse_s + kBlockQ;
-
-  const int k0 = blockIdx.x * kBlockK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / KV;
-  const int off = Skv - Sq;
-  const int warp = threadIdx.x / 32;
+// 64 rows of NA 64-column accumulators (element i of atom a at row r0 +
+// 8 ((i / 2) % 2), column 64 a + 8 (i / 4) + 2 (lane % 4) + i % 2, r0 =
+// 16 * (warp % 4) + lane / 4), times `scale`, as bf16 into a warpgroup's
+// 128-byte-swizzled rows (atom a at tile + a * atom_bytes; row r at byte
+// r * 128), then from there to global rows row0 .. row0 + 63 below `limit`
+// (row stride `row_stride` elements) in 16-byte coalesced stores. `bar` is
+// a named barrier over the warpgroup's 128 threads.
+template <int NA>
+__device__ __forceinline__ void store_rows(const float (&acc)[NA][32], float scale,
+                                           unsigned char* tile, int atom_bytes,
+                                           __nv_bfloat16* out, size_t row_stride, int row0,
+                                           int limit, int D, int bar) {
   const int lane = threadIdx.x % 32;
-  const int ksteps = (D + 15) / 16;
-  const size_t q_stride = static_cast<size_t>(H) * D;
-  const size_t kv_stride = static_cast<size_t>(KV) * D;
-  const size_t kv_base = static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
-
-  tc_zero(smem_tc, 4 * kTcTileElems * 2);
-  __syncthreads();
-  tc_stage(Ks, k + kv_base, kv_stride, k0, Skv, D);
-  tc_stage(Vs, v + kv_base, kv_stride, k0, Skv, D);
-
-  float dk_acc[16][4], dv_acc[16][4];
+  const int lrow = 16 * ((threadIdx.x / 32) % 4) + lane / 4;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
-
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  const int first = causal && k0 - off > 0 ? (k0 - off) / kBlockQ : 0;
-  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
-    const float* lse_b = lse + (static_cast<size_t>(b) * H + h) * Sq;
-    const float* delta_b = delta + (static_cast<size_t>(b) * H + h) * Sq;
-    for (int qt = first; qt < nq; ++qt) {
-      const int q0 = qt * kBlockQ;
-      __syncthreads();  // the previous pair's Qs / Gs are no longer read
-      tc_stage(Qs, q + q_base, q_stride, q0, Sq, D);
-      tc_stage(Gs, dout + q_base, q_stride, q0, Sq, D);
-      for (int i = threadIdx.x; i < kBlockQ; i += kTcThreads) {
-        const bool in = q0 + i < Sq;
-        lse_s[i] = in ? lse_b[q0 + i] : INFINITY;  // rows past Sq: p = 0
-        delta_s[i] = in ? delta_b[q0 + i] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-
-      float acc[8][4];
-      uint32_t pp[4][4];
-      tc_scores(acc, Ks, 16 * warp, Qs, ksteps, lane);  // S^T: keys x q rows
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = key0 + 8 * (i / 2);
-          const int ql = 8 * j + 2 * (lane % 4) + i % 2;
-          const bool visible = key < Skv && (!causal || key <= q0 + ql + off);
-          acc[j][i] = visible ? expf(fmaf(acc[j][i], scale, -lse_s[ql])) : 0.f;
-        }
-      tc_pack(pp, acc);                        // P^T as bf16
-      tc_accumulate(dv_acc, pp, Gs, ksteps, lane);  // dV += P^T dO
-      tc_scores(acc, Vs, 16 * warp, Gs, ksteps, lane);  // dP^T = V dO^T
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {  // pp[kk][r]: tile 2 kk + r / 2, elements 2 (r % 2) ..
-          const int j = 2 * kk + r / 2;
-          const int i0 = 2 * (r % 2);
-          const int ql = 8 * j + 2 * (lane % 4);
-          const float2 p = unpack_bf16(pp[kk][r]);
-          pp[kk][r] = pack_bf16(p.x * (acc[j][i0] - delta_s[ql]),
-                                p.y * (acc[j][i0 + 1] - delta_s[ql + 1]));
-        }
-      tc_accumulate(dk_acc, pp, Qs, ksteps, lane);  // dK += dS^T Q
-    }
-  }
-  cp_async_wait_all();  // no copy outlives the block, whatever the loops ran
-
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int d = 8 * j + 2 * (lane % 4);
-    if (d >= D) continue;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int key = key0 + 8 * hh;
-      if (key >= Skv) continue;
-      const size_t at = static_cast<size_t>(b) * Skv * kv_stride + key * kv_stride +
-                        static_cast<size_t>(kvh) * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dk_acc[j][2 * hh] * scale, dk_acc[j][2 * hh + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dv_acc[j][2 * hh], dv_acc[j][2 * hh + 1]);
-    }
-  }
-}
-
-// One block per (64-row q tile, query head, batch row): dQ of the tile.
-// The q tiles with the most keys are launched first.
-__global__ void __launch_bounds__(kTcThreads)
-    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int KV, int D,
-                           int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);
-  __nv_bfloat16* Gs = Qs + kTcTileElems;  // dO
-  __nv_bfloat16* Ks = Gs + kTcTileElems;
-  __nv_bfloat16* Vs = Ks + kTcTileElems;
-
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int off = Skv - Sq;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int ksteps = (D + 15) / 16;
-  const size_t q_stride = static_cast<size_t>(H) * D;
-  const size_t kv_stride = static_cast<size_t>(KV) * D;
-  const size_t q_base = static_cast<size_t>(b) * Sq * q_stride + static_cast<size_t>(h) * D;
-  const size_t kv_base = static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
-
-  tc_zero(smem_tc, 4 * kTcTileElems * 2);
-  __syncthreads();
-  tc_stage(Qs, q + q_base, q_stride, q0, Sq, D);
-  tc_stage(Gs, dout + q_base, q_stride, q0, Sq, D);
-
-  const int row0 = q0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + 8 * hh;
-    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + row;
-    lse_r[hh] = row < Sq ? lse[at] : INFINITY;  // rows past Sq: p = 0
-    delta_r[hh] = row < Sq ? delta[at] : 0.f;
-  }
-  float dq_acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq_acc[j][i] = 0.f;
-
-  const int kv_end = causal ? min(Skv, q0 + kBlockQ + off) : Skv;
-  const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's Ks / Vs are no longer read
-    tc_stage(Ks, k + kv_base, kv_stride, k0, Skv, D);
-    tc_stage(Vs, v + kv_base, kv_stride, k0, Skv, D);
-    cp_async_wait_all();
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    tc_scores(s, Qs, 16 * warp, Ks, ksteps, lane);   // S = Q K^T
-    tc_scores(dp, Gs, 16 * warp, Vs, ksteps, lane);  // dP = dO V^T
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int hh = i / 2;
-        const int key = k0 + 8 * j + 2 * (lane % 4) + i % 2;
-        const bool visible = key < Skv && (!causal || key <= row0 + 8 * hh + off);
-        const float p = visible ? expf(fmaf(s[j][i], scale, -lse_r[hh])) : 0.f;
-        s[j][i] = p * (dp[j][i] - delta_r[hh]);
+      for (int r = 0; r < 2; ++r) {
+        const int row = lrow + 8 * r;
+        *reinterpret_cast<__nv_bfloat162*>(tile + a * atom_bytes + row * 128 +
+                                           16 * (j ^ (row % 8)) + 4 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[a][4 * j + 2 * r] * scale, acc[a][4 * j + 2 * r + 1] * scale);
       }
-    uint32_t ds[4][4];
-    tc_pack(ds, s);
-    tc_accumulate(dq_acc, ds, Ks, ksteps, lane);  // dQ += dS K
-  }
-
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int d = 8 * j + 2 * (lane % 4);
-    if (d >= D) continue;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row0 + 8 * hh;
-      if (row >= Sq) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + static_cast<size_t>(row) * q_stride + d) =
-          __floats2bfloat162_rn(dq_acc[j][2 * hh] * scale, dq_acc[j][2 * hh + 1] * scale);
-    }
+  named_sync(bar, 128);
+  const int chunks = D / 8;
+  for (int i = threadIdx.x % 128; i < 64 * chunks; i += 128) {
+    const int row = i / chunks;
+    const int c = i % chunks;
+    if (row0 + row < limit)
+      *reinterpret_cast<uint4*>(out + (row0 + row) * row_stride + 8 * c) =
+          *reinterpret_cast<const uint4*>(tile + (c / 8) * atom_bytes + row * 128 +
+                                          16 * ((c % 8) ^ (row % 8)));
   }
 }
 
-cudaError_t launch_backward_tc(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, const float* lse, float* delta, void* dq,
-                               void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
-                               int causal, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+// 32 f32 accumulators as bf16 A fragments of four k16 steps: columns 16 kk
+// .. 16 kk + 15 are elements 8 kk .. 8 kk + 7
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// One block per (128-key tile, KV head, batch row); the key tiles with the
+// most q rows first (blockIdx.z = 0 is keys 0 .. 127). NA as in the
+// forward.
+template <int NA>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ lse2, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int Sq, int Skv, int H, int KV, int D, int causal, float scale,
+                               float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = base;                                  // [NA] 128-row atoms
+  unsigned char* Vs = Ks + NA * kKvAtomBytes;                // [NA]
+  unsigned char* Qs = Vs + NA * kKvAtomBytes;                // [kBwdKvStages][NA] 64-row atoms
+  unsigned char* Gs = Qs + kBwdKvStages * NA * kQAtomBytes;  // dO, the same
+  float* Ls = reinterpret_cast<float*>(Gs + kBwdKvStages * NA * kQAtomBytes);  // [stage][64]
+  float* Ds = Ls + kBwdKvStages * kBwdQTile;                                   // [stage][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + kBwdKvStages * kBwdQTile);
+  uint64_t* empty = full + kBwdKvStages;
+  uint64_t* kvbar = empty + kBwdKvStages;
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kBwdKeyTile;
+  const int G = H / KV;
+  const int off = Skv - Sq;
+  const int rows_pad = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  const int nq = (Sq + kBwdQTile - 1) / kBwdQTile;
+  // the first q tile with a row that sees key k0 (row t sees k0 when t >= k0 - off)
+  const int first = causal && k0 - off > 0 ? (k0 - off) / kBwdQTile : 0;
+  const int per_head = nq - first;
+  const int n_tiles = G * per_head;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdKvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer: K and V once, then the q / dO ring
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(kvbar, 2 * NA * kKvAtomBytes);
+      for (int a = 0; a < NA; ++a) {
+        tma_load(Ks + a * kKvAtomBytes, &tm_k, kvbar, 64 * a, kvh, k0, b);
+        tma_load(Vs + a * kKvAtomBytes, &tm_v, kvbar, 64 * a, kvh, k0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdKvStages;
+        const int h = kvh * G + t / per_head;
+        const int q0 = (first + t % per_head) * kBwdQTile;
+        if (t >= kBwdKvStages) mbar_wait(&empty[s], ((t / kBwdKvStages) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * NA * kQAtomBytes + 2 * kBwdQTile * 4);
+        for (int a = 0; a < NA; ++a) {
+          tma_load(Qs + (s * NA + a) * kQAtomBytes, &tm_q, &full[s], 64 * a, h, q0, b);
+          tma_load(Gs + (s * NA + a) * kQAtomBytes, &tm_do, &full[s], 64 * a, h, q0, b);
+        }
+        const size_t row = (static_cast<size_t>(b) * H + h) * rows_pad + q0;
+        bulk_load(Ls + s * kBwdQTile, lse2 + row, kBwdQTile * 4, &full[s]);
+        bulk_load(Ds + s * kBwdQTile, delta + row, kBwdQTile * 4, &full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int kw0 = k0 + 64 * wg;                      // this warpgroup's first key
+  const int first_w = causal && kw0 - off > 0 ? (kw0 - off) / kBwdQTile : 0;
+  const int key0 = kw0 + 16 * (warp % 4) + lane / 4;  // this thread's keys: key0, key0 + 8
+  const int c0 = 2 * (lane % 4);                     // its q columns: 8 j + c0, + 1
+  const int ksteps = (D + 15) / 16;                   // zero-filled columns add nothing
+  const uint32_t k_addr = smem_u32(Ks) + wg * 64 * 128;
+  const uint32_t v_addr = smem_u32(Vs) + wg * 64 * 128;
+
+  float dk_acc[NA][32], dv_acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
+  float st[32], dpt[32];  // S^T, then P^T; dP^T, then dS^T
+  uint32_t pa[4][4], da[4][4];
+
+  Turns turns{wg, 2 * n_tiles};
+  mbar_wait(kvbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kBwdKvStages;
+    const int qt = first + t % per_head;
+    mbar_wait(&full[s], (t / kBwdKvStages) & 1);
+    if (qt < first_w) {  // every row of the tile is above this warpgroup's keys
+      mbar_arrive(&empty[s]);
+      turns.skip();
+      continue;
+    }
+    const uint32_t q_addr = smem_u32(Qs + s * NA * kQAtomBytes);
+    const uint32_t g_addr = smem_u32(Gs + s * NA * kQAtomBytes);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    turns.begin();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      if (kk < ksteps) {  // 16 columns of D: atom kk / 4, 32 bytes into its rows
+        const uint32_t at = (kk / 4) * kKvAtomBytes + (kk % 4) * 32;
+        const uint32_t aq = (kk / 4) * kQAtomBytes + (kk % 4) * 32;
+        wgmma_ss64(st, sw128_desc(k_addr + at), sw128_desc(q_addr + aq));
+        wgmma_ss64(dpt, sw128_desc(v_addr + at), sw128_desc(g_addr + aq));
+      }
+    }
+    wg_commit();
+    turns.end();
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const int q0 = qt * kBwdQTile;
+    // keys past Skv are zeros and their rows are never stored; they are
+    // masked all the same, so that no non-finite value is formed
+    const bool edge = (causal && kw0 + 63 > q0 + off) || kw0 + 64 > Skv;
+    const float* ls = Ls + s * kBwdQTile;
+    const float* dl = Ds + s * kBwdQTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + c0);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        float p = exp2_approx(fmaf(st[i], scale_log2, -(e % 2 ? l2.y : l2.x)));
+        if (edge) {
+          const int key = key0 + 8 * (e / 2);
+          const int row = q0 + 8 * j + c0 + e % 2;
+          if (key >= Skv || (causal && key > row + off)) p = 0.f;
+        }
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - (e % 2 ? d2.y : d2.x));
+      }
+    }
+    pack_a(pa, st);
+    pack_a(da, dpt);
+    turns.begin();
+    wg_fence();
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 16 q rows: 16 rows of 128 bytes into the atom
+        wgmma_rs(dv_acc[a], pa[kk], sw128_desc(g_addr + a * kQAtomBytes + kk * 2048));
+        wgmma_rs(dk_acc[a], da[kk], sw128_desc(q_addr + a * kQAtomBytes + kk * 2048));
+      }
+    wg_commit();
+    turns.end();
+    wg_wait_all();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      fence_regs(dk_acc[a]);
+      fence_regs(dv_acc[a]);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  // out through this warpgroup's rows of the K and V tiles (no longer read)
+  const size_t row_stride = static_cast<size_t>(KV) * D;
+  const size_t at = static_cast<size_t>(b) * Skv * row_stride + static_cast<size_t>(kvh) * D;
+  store_rows<NA>(dk_acc, scale, Ks + wg * 64 * 128, kKvAtomBytes, dk + at, row_stride, kw0, Skv,
+                 D, 3 + wg);
+  store_rows<NA>(dv_acc, 1.f, Vs + wg * 64 * 128, kKvAtomBytes, dv + at, row_stride, kw0, Skv, D,
+                 3 + wg);
+}
+
+// One block per (128 q rows, query head, batch row): dQ of the rows. The
+// q tiles with the most keys first (blockIdx.z = 0 is the last tile).
+template <int NA>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse2, const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int KV, int D,
+                             int causal, float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;                                  // [2 warpgroups][NA] 64-row atoms
+  unsigned char* Gs = Qs + 2 * NA * kQAtomBytes;             // dO, the same
+  unsigned char* Ks = Gs + 2 * NA * kQAtomBytes;             // [kBwdQStages][NA] 128-row atoms
+  unsigned char* Vs = Ks + kBwdQStages * NA * kKvAtomBytes;  // the same
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kBwdQStages * NA * kKvAtomBytes);
+  uint64_t* empty = full + kBwdQStages;
+  uint64_t* qbar = empty + kBwdQStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = (Sq + kWgBlockQ - 1) / kWgBlockQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * kWgBlockQ;
+  const int kvh = h / (H / KV);
+  const int off = Skv - Sq;
+  const int rows_pad = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  // keys past the last visible one of the block's last row are never loaded
+  const int kv_end = causal ? min(Skv, q0 + kWgBlockQ + off) : Skv;
+  const int n_tiles = (kv_end + kWgBlockK - 1) / kWgBlockK;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdQStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer: q and dO once, then the K/V ring
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(qbar, 4 * NA * kQAtomBytes);
+      for (int w = 0; w < 2; ++w)
+        for (int a = 0; a < NA; ++a) {
+          tma_load(Qs + (w * NA + a) * kQAtomBytes, &tm_q, qbar, 64 * a, h, q0 + 64 * w, b);
+          tma_load(Gs + (w * NA + a) * kQAtomBytes, &tm_do, qbar, 64 * a, h, q0 + 64 * w, b);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdQStages;
+        if (t >= kBwdQStages) mbar_wait(&empty[s], ((t / kBwdQStages) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * NA * kKvAtomBytes);
+        for (int a = 0; a < NA; ++a) {
+          tma_load(Ks + (s * NA + a) * kKvAtomBytes, &tm_k, &full[s], 64 * a, kvh, t * kWgBlockK, b);
+          tma_load(Vs + (s * NA + a) * kKvAtomBytes, &tm_v, &full[s], 64 * a, kvh, t * kWgBlockK, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int qw0 = q0 + 64 * wg;                  // this warpgroup's first row
+  const int r0 = qw0 + 16 * (warp % 4) + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  // a warpgroup whose rows all lie past Sq has nothing to sum
+  const int kv_end_w = qw0 >= Sq ? 0 : causal ? min(Skv, qw0 + 64 + off) : Skv;
+  const int n_tiles_w = (kv_end_w + kWgBlockK - 1) / kWgBlockK;
+  const int ksteps = (D + 15) / 16;
+  const uint32_t q_addr = smem_u32(Qs + wg * NA * kQAtomBytes);
+  const uint32_t g_addr = smem_u32(Gs + wg * NA * kQAtomBytes);
+
+  float l2[2], dl[2];  // rows r0 and r0 + 8: lse * log2 e and delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const size_t at = (static_cast<size_t>(b) * H + h) * rows_pad + row;
+    l2[r] = row < Sq ? lse2[at] : INFINITY;
+    dl[r] = row < Sq ? delta[at] : 0.f;
+  }
+  float dq_acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[a][i] = 0.f;
+  float sc[64], dp[64];  // S, then P; dP, then dS
+  uint32_t da[8][4];
+
+  Turns turns{wg, 2 * n_tiles};
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles_w; ++t) {
+    const int s = t % kBwdQStages;
+    mbar_wait(&full[s], (t / kBwdQStages) & 1);
+    const uint32_t k_addr = smem_u32(Ks + s * NA * kKvAtomBytes);
+    const uint32_t v_addr = smem_u32(Vs + s * NA * kKvAtomBytes);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = dp[i] = 0.f;
+    turns.begin();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      if (kk < ksteps) {
+        const uint32_t aq = (kk / 4) * kQAtomBytes + (kk % 4) * 32;
+        const uint32_t at = (kk / 4) * kKvAtomBytes + (kk % 4) * 32;
+        wgmma_ss(sc, sw128_desc(q_addr + aq), sw128_desc(k_addr + at));
+        wgmma_ss(dp, sw128_desc(g_addr + aq), sw128_desc(v_addr + at));
+      }
+    }
+    wg_commit();
+    turns.end();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const int k0 = t * kWgBlockK;
+    const bool edge = k0 + kWgBlockK > Skv || (causal && k0 + kWgBlockK - 1 > qw0 + off);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i / 2) % 2;
+      float p = exp2_approx(fmaf(sc[i], scale_log2, -l2[r]));
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + c0 + i % 2;
+        if (key >= Skv || (causal && key > r0 + 8 * r + off)) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dl[r]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+    turns.begin();
+    wg_fence();
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)  // 16 keys: 16 rows of 128 bytes into the atom
+        wgmma_rs(dq_acc[a], da[kk], sw128_desc(k_addr + a * kKvAtomBytes + kk * 2048));
+    wg_commit();
+    turns.end();
+    wg_wait_all();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(dq_acc[a]);
+    mbar_arrive(&empty[s]);
+  }
+  // tiles this warpgroup's rows cannot see: released unread, in order
+  for (int t = n_tiles_w; t < n_tiles; ++t) {
+    mbar_wait(&full[t % kBwdQStages], (t / kBwdQStages) & 1);
+    mbar_arrive(&empty[t % kBwdQStages]);
+    turns.skip();
+  }
+
+  // out through this warpgroup's q tile (no longer read)
+  const size_t row_stride = static_cast<size_t>(H) * D;
+  store_rows<NA>(dq_acc, scale, Qs + wg * NA * kQAtomBytes, kQAtomBytes,
+                 dq + static_cast<size_t>(b) * Sq * row_stride + static_cast<size_t>(h) * D,
+                 row_stride, qw0, Sq, D, 3 + wg);
+}
+
+size_t bwd_dkdv_sm90_smem_bytes(int NA) {
+  // alignment slack, K and V, the ring's q, dO, lse and delta, the mbarriers
+  return 1024 + NA * 2 * kKvAtomBytes +
+         kBwdKvStages * (NA * 2 * kQAtomBytes + 2 * kBwdQTile * sizeof(float)) +
+         (2 * kBwdKvStages + 1) * sizeof(uint64_t);
+}
+
+size_t bwd_dq_sm90_smem_bytes(int NA) {
+  // alignment slack, q and dO of both warpgroups, the K/V ring, the mbarriers
+  return 1024 + NA * 4 * kQAtomBytes + kBwdQStages * NA * 2 * kKvAtomBytes +
+         (2 * kBwdQStages + 1) * sizeof(uint64_t);
+}
+
+// The larger of the two backward blocks' shared memory at head dim D
+size_t bwd_sm90_smem_bytes(int D) {
+  const int NA = D <= 64 ? 1 : 2;
+  const size_t a = bwd_dkdv_sm90_smem_bytes(NA);
+  const size_t c = bwd_dq_sm90_smem_bytes(NA);
+  return a > c ? a : c;
+}
+
+// Set a backward kernel's shared memory, and refuse (before any launch) a
+// build whose register allotment leaves the consumers' setmaxnreg.inc
+// short of what the producer's setmaxnreg.dec gives back
+template <typename Kernel>
+cudaError_t prepare_bwd(Kernel kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTcSmemBytes);
+  if (kBwdThreads * attr.numRegs < 128 * kProducerRegs + (kBwdThreads - 128) * kConsumerRegs)
+    return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+cudaError_t launch_backward_sm90(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, const float* lse, float* scratch, void* dq,
+                                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
+                                 int causal, float scale, cudaStream_t stream) {
+  // the runtime calls first: cuTensorMapEncodeTiled needs the context they
+  // make current on this thread (autograd calls from a thread of its own)
+  const int NA = D <= 64 ? 1 : 2;
+  auto dkdv = NA == 1 ? flash_bwd_dkdv_sm90_kernel<1> : flash_bwd_dkdv_sm90_kernel<2>;
+  auto dqk = NA == 1 ? flash_bwd_dq_sm90_kernel<1> : flash_bwd_dq_sm90_kernel<2>;
+  const size_t smem_kv = bwd_dkdv_sm90_smem_bytes(NA);
+  const size_t smem_q = bwd_dq_sm90_smem_bytes(NA);
+  cudaError_t err = prepare_bwd(dkdv, smem_kv);
   if (err != cudaSuccess) return err;
+  err = prepare_bwd(dqk, smem_q);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tg, tk, tv;
+  if (!encode_map(enc, &tq, q, D, H, Sq, B, kBwdQTile) ||
+      !encode_map(enc, &tg, dout, D, H, Sq, B, kBwdQTile) ||
+      !encode_map(enc, &tk, k, D, KV, Skv, B, kBwdKeyTile) ||
+      !encode_map(enc, &tv, v, D, KV, Skv, B, kBwdKeyTile))
+    return cudaErrorInvalidValue;
+
   using bf16 = __nv_bfloat16;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* gp = static_cast<const bf16*>(dout);
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const int warps = kThreads / 32;
-  flash_bwd_preprocess_kernel<bf16><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads,
-                                      0, stream>>>(static_cast<const bf16*>(o), gp, delta, B, Sq,
-                                                   H, D);
+  const int rows_pad = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  float* delta = scratch;
+  float* lse2 = scratch + static_cast<size_t>(B) * H * rows_pad;
+  err = launch_preprocess<bf16>(o, dout, lse, delta, lse2, B, Sq, rows_pad, H, D, stream);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * kLog2e;
+  dkdv<<<dim3(KV, B, (Skv + kBwdKeyTile - 1) / kBwdKeyTile), kBwdThreads, smem_kv, stream>>>(
+      tq, tk, tv, tg, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, KV,
+      D, causal, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((Skv + kBlockK - 1) / kBlockK, KV, B);
-  flash_bwd_dkdv_tc_kernel<<<grid_kv, kTcThreads, kTcSmemBytes, stream>>>(
-      qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, KV,
-      D, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_bwd_dq_tc_kernel<<<grid_q, kTcThreads, kTcSmemBytes, stream>>>(
-      qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dq), Sq, Skv, H, KV, D, causal, scale);
+  dqk<<<dim3(H, B, (Sq + kWgBlockQ - 1) / kWgBlockQ), kBwdThreads, smem_q, stream>>>(
+      tq, tk, tv, tg, lse2, delta, static_cast<bf16*>(dq), Sq, Skv, H, KV, D, causal, scale,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -1541,7 +1763,8 @@ extern "C" {
 // Launch geometry, read by the wrapper to check it agrees: the f32 route's
 // {kBlockQ, kBlockK, kThreads}, the bf16 route's {kWgBlockQ, kWgBlockK,
 // kWgThreads, kStages}, then {kMaxHeadDim, kMaxSmemBytes}, then the bf16
-// backward's {kTcThreads, kTcSmemBytes}.
+// backward's {kBwdThreads, kProducerRegs, kConsumerRegs, kBwdKvStages,
+// kBwdQStages} and its shared memory at kMaxHeadDim.
 void flash_attention_config(int* cfg) {
   cfg[0] = kBlockQ;
   cfg[1] = kBlockK;
@@ -1552,8 +1775,12 @@ void flash_attention_config(int* cfg) {
   cfg[6] = kStages;
   cfg[7] = kMaxHeadDim;
   cfg[8] = kMaxSmemBytes;
-  cfg[9] = kTcThreads;
-  cfg[10] = kTcSmemBytes;
+  cfg[9] = kBwdThreads;
+  cfg[10] = kProducerRegs;
+  cfg[11] = kConsumerRegs;
+  cfg[12] = kBwdKvStages;
+  cfg[13] = kBwdQStages;
+  cfg[14] = static_cast<int>(bwd_sm90_smem_bytes(kMaxHeadDim));
 }
 
 const char* flash_attention_error_string(int err) {
@@ -1581,27 +1808,28 @@ int flash_attention_forward(const void* q, const void* k, const void* v, void* o
 }
 
 // The gradients of the forward above: q, k, v, out as there, dout (B, Sq,
-// H, D) the output's gradient, lse (B, H, Sq) the forward's; delta (B, H,
-// Sq) f32 is scratch; dq (B, Sq, H, D), dk and dv (B, Skv, KV, D) receive
-// the gradients in the inputs' type. Three launches on `stream`
-// (preprocess, dK/dV, dQ); returns the first non-zero cudaGetLastError();
-// does not synchronise.
+// H, D) the output's gradient, lse (B, H, Sq) the forward's; scratch is f32
+// of 2 B H ceil(Sq / 64) * 64 elements (delta, and for bf16 lse * log2 e,
+// padded); dq (B, Sq, H, D), dk and dv (B, Skv, KV, D) receive the
+// gradients in the inputs' type. Three launches on `stream` (preprocess,
+// dK/dV, dQ); returns the first non-zero CUDA error (bf16:
+// cudaErrorInvalidConfiguration, and no launch, where the build's register
+// allotment cannot feed the consumers' setmaxnreg); does not synchronise.
 int flash_attention_backward(const void* q, const void* k, const void* v, const void* out,
-                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                             void* dv, int B, int Sq, int Skv, int H, int KV, int D, int causal,
-                             float scale, int dtype, void* stream) {
+                             const void* dout, const float* lse, float* scratch, void* dq,
+                             void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D,
+                             int causal, float scale, int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || D < 8 || D % 8 != 0 ||
-      D > kMaxHeadDim || (causal && Sq > Skv) ||
-      bwd_dkdv_smem_bytes(D) > static_cast<size_t>(kMaxSmemBytes) ||
-      bwd_dq_smem_bytes(D) > static_cast<size_t>(kMaxSmemBytes))
+      D > kMaxHeadDim || (causal && Sq > Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch_backward<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
-                                                   Sq, Skv, H, KV, D, causal, scale, st));
-  if (dtype == 1)
-    return static_cast<int>(launch_backward_tc(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
-                                               Skv, H, KV, D, causal, scale, st));
+  const auto fits = [](size_t bytes) { return bytes <= static_cast<size_t>(kMaxSmemBytes); };
+  if (dtype == 0 && fits(bwd_dkdv_smem_bytes(D)) && fits(bwd_dq_smem_bytes(D)))
+    return static_cast<int>(launch_backward<float>(q, k, v, out, dout, lse, scratch, dq, dk, dv,
+                                                   B, Sq, Skv, H, KV, D, causal, scale, st));
+  if (dtype == 1 && fits(bwd_sm90_smem_bytes(D)))
+    return static_cast<int>(launch_backward_sm90(q, k, v, out, dout, lse, scratch, dq, dk, dv, B,
+                                                 Sq, Skv, H, KV, D, causal, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

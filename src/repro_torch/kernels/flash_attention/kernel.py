@@ -10,11 +10,13 @@
 
 Both are launches of ``flash_attention``, and both write each row's
 log-sum-exp ``lse`` (B, H, Sq) f32 when asked. The backward is three
-launches: ``delta = rowsum(dO * O)``, then dK/dV (one block per 64-key
-tile and KV head, over the group's query heads) and dQ (one block per
-64-row q tile and head), without atomics: for bf16 on the tensor cores
-(``mma.sync`` m16n8k16, 4 warps of 16 rows), for f32 in CUDA-core FMAs
-(256 threads).
+launches: ``delta = rowsum(dO * O)``, then dK/dV (one block per key tile
+and KV head, over the group's query heads) and dQ (one block per q tile
+and head), without atomics. For bf16 on the tensor cores: wgmma fed by
+TMA, a producer warpgroup and two consumer warpgroups (setmaxnreg),
+128-key tiles against a ring of 64-row q / dO tiles in dK/dV, 128 q rows
+against a ring of 128-key K / V tiles in dQ. For f32 in CUDA-core FMAs
+(64-row tiles, 256 threads).
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -36,10 +38,6 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BLOCK_Q = 64
 BLOCK_K = 64
 THREADS = 256
-# the bf16 backward: 4 warps; q, k, v, dO tiles of 64 rows staged as bf16
-# with rows padded to MAX_HEAD_DIM + 8 columns, and a tile's lse and delta
-TC_THREADS = 128
-TC_SMEM_BYTES = 4 * 64 * (128 + 8) * 2 + 2 * 64 * 4
 # the bf16 route: two consumer warpgroups of 64 q rows and a producer warp
 WG_BLOCK_Q = 128
 WG_BLOCK_K = 128
@@ -49,6 +47,17 @@ Q_ATOM_BYTES = 64 * 64 * 2              # q box: 64 rows of 64 bf16 columns
 KV_ATOM_BYTES = WG_BLOCK_K * 64 * 2     # k / v box: 128 rows of 64 columns
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232448
+# the bf16 backward: two consumer warpgroups and a producer warpgroup, whose
+# registers a thread setmaxnreg moves to CONSUMER_REGS and PRODUCER_REGS;
+# the dK/dV kernel's ring of 64-row q / dO tiles (with their lse and
+# delta), the dQ kernel's ring of 128-key K / V tiles; lse and delta rows
+# padded to a multiple of ROW_PAD
+BWD_THREADS = 384
+PRODUCER_REGS = 24
+CONSUMER_REGS = 240
+BWD_KV_STAGES = 3
+BWD_Q_STAGES = 2
+ROW_PAD = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,10 +79,12 @@ def _bind(lib, path) -> None:
     lib.flash_attention_config.restype = None
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
-    cfg = (i * 11)()
+    cfg = (i * 15)()
     lib.flash_attention_config(cfg)
     want = (BLOCK_Q, BLOCK_K, THREADS, WG_BLOCK_Q, WG_BLOCK_K, WG_THREADS,
-            STAGES, MAX_HEAD_DIM, MAX_SMEM_BYTES, TC_THREADS, TC_SMEM_BYTES)
+            STAGES, MAX_HEAD_DIM, MAX_SMEM_BYTES, BWD_THREADS, PRODUCER_REGS,
+            CONSUMER_REGS, BWD_KV_STAGES, BWD_Q_STAGES,
+            backward_smem_bytes(MAX_HEAD_DIM))
     if tuple(cfg) != want:
         raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
                            f"!= the wrapper's {want}")
@@ -103,11 +114,23 @@ def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
 def backward_smem_bytes(head_dim: int,
                         dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of the larger backward block of ``dtype``'s
-    route (dK/dV). bf16: ``TC_SMEM_BYTES`` at every head dim. f32: the k
-    and v tiles (padded rows), the transposed q and dO tiles, the P^T and
-    dS^T tiles (padded rows) and the tile's lse and delta, all f32."""
+    route. bf16, in 64-column atoms as the forward: the dK/dV block's
+    128-key K and V tiles and ``BWD_KV_STAGES`` stages of 64-row q and dO
+    tiles with their 64 lse and delta values; the dQ block's 128 q rows of
+    q and dO and ``BWD_Q_STAGES`` stages of 128-key K and V tiles; each
+    with 1024 bytes of alignment slack and 2 * stages + 1 mbarriers. f32
+    (dK/dV): the k and v tiles (padded rows), the transposed q and dO
+    tiles, the P^T and dS^T tiles (padded rows) and the tile's lse and
+    delta, all f32."""
     if dtype == torch.bfloat16:
-        return TC_SMEM_BYTES
+        atoms = 1 if head_dim <= 64 else 2
+        dkdv = 1024 + atoms * 2 * KV_ATOM_BYTES \
+            + BWD_KV_STAGES * (atoms * 2 * Q_ATOM_BYTES + 2 * 64 * 4) \
+            + 8 * (2 * BWD_KV_STAGES + 1)
+        dq = 1024 + atoms * 4 * Q_ATOM_BYTES \
+            + BWD_Q_STAGES * atoms * 2 * KV_ATOM_BYTES \
+            + 8 * (2 * BWD_Q_STAGES + 1)
+        return max(dkdv, dq)
     ld = BLOCK_Q + 1
     return 4 * (2 * BLOCK_K * (head_dim + 1) + 2 * head_dim * ld
                 + 2 * BLOCK_K * ld + 2 * BLOCK_Q)
@@ -190,12 +213,14 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse, causal: bool):
     check_launch(D, q.dtype)
     lib = _library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # delta and (bf16) lse * log2 e, each (B, H, Sq padded to ROW_PAD)
+    scratch = torch.empty(2 * B * H * (-(-Sq // ROW_PAD) * ROW_PAD),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D, int(causal),
             D ** -0.5, code, stream)
     _build.check_error(lib, "flash_attention", err)

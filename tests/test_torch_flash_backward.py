@@ -154,7 +154,7 @@ def test_backward_wrapper_checks_before_any_build():
                 <= fa_kernel.MAX_SMEM_BYTES
             fa_kernel.check_launch(d, dt)
     assert fa_kernel.backward_smem_bytes(128, torch.float32) == 166400
-    assert fa_kernel.backward_smem_bytes(128) == 70144
+    assert fa_kernel.backward_smem_bytes(128) == 197672
     q = torch.zeros(1, 8, 2, 16)
     kv = torch.zeros(1, 8, 1, 16)
     lse = torch.zeros(1, 2, 8)
@@ -202,11 +202,15 @@ def test_guarded_kernels_still_differentiate_on_cpu():
         assert t.grad is not None and torch.isfinite(t.grad).all()
 
 
-def _bf16_kernel_model(q, k, v, o, lse, do):
-    """The bf16 backward kernels' arithmetic in plain PyTorch (causal,
-    Sq = Skv): f32 products of the bf16 inputs, P and dS each rounded
-    once to bf16 as operands, the results rounded to bf16."""
-    from repro_torch.kernels.flash_attention.ref import _group, _ungroup
+def _bf16_kernel_model(q, k, v, o, lse, do, causal):
+    """The bf16 backward kernels' arithmetic in plain PyTorch (Sq = Skv):
+    f32 products of the bf16 inputs; P in f32, rounded once to bf16 as the
+    operand of dV = P^T dO; dS = P o (dP - delta) formed from the
+    UNROUNDED f32 P and rounded once to bf16, the one operand of both
+    dQ = dS K (the dQ kernel) and dK = dS^T Q (the dK/dV kernel); the
+    results rounded to bf16."""
+    from repro_torch.kernels.flash_attention.ref import (_group, _ungroup,
+                                                         _visible)
     B, S, H, D = q.shape
     KV = k.shape[2]
     bf, f32, scale = torch.bfloat16, torch.float32, D ** -0.5
@@ -214,41 +218,65 @@ def _bf16_kernel_model(q, k, v, o, lse, do):
     kg, vg = (t.to(f32).permute(0, 2, 1, 3) for t in (k, v))
     s = torch.einsum("bkgqd,bkud->bkgqu", qg, kg) * scale
     p = torch.exp(s - lse.reshape(B, KV, H // KV, S, 1))
-    p = torch.tril(p).to(bf).to(f32)
+    if causal:
+        p = torch.where(_visible(S, S, 0, q.device), p, 0.0)
     delta = torch.sum(dog * og, dim=-1, keepdim=True)
     dp = torch.einsum("bkgqd,bkud->bkgqu", dog, vg)
     ds = (p * (dp - delta)).to(bf).to(f32)
     dq = torch.einsum("bkgqu,bkud->bkgqd", ds, kg) * scale
     dk = torch.einsum("bkgqu,bkgqd->bkud", ds, qg) * scale
-    dv = torch.einsum("bkgqu,bkgqd->bkud", p, dog)
+    dv = torch.einsum("bkgqu,bkgqd->bkud", p.to(bf).to(f32), dog)
     return (_ungroup(dq).to(bf), dk.permute(0, 2, 1, 3).to(bf),
             dv.permute(0, 2, 1, 3).to(bf))
 
 
-def test_backward_check_catches_planted_faults():
+# (H, KV): groups of 1, 2 and 4 query heads per KV head
+FAULT_GROUPS = [(2, 2), (4, 2), (8, 2)]
+
+
+@pytest.mark.parametrize("causal", [True, False],
+                         ids=["causal", "full"])
+@pytest.mark.parametrize("heads", FAULT_GROUPS,
+                         ids=[f"G{h // kv}" for h, kv in FAULT_GROUPS])
+def test_backward_check_catches_planted_faults(causal, heads):
     """chip_smoke.py holds the bf16 backward to |got - ref| / (1 + |ref|)
     <= 2e-2, where most gradient entries at S 1024 lie well below 1. At
-    S 1024, D 128, G 2 the kernels' own roundings (modelled) stay under
-    it in dq, dk and dv, while dK/dV without the last 64-row q tile, or
-    without one head of each GQA group (the smoke's planted faults: that
-    tile's or head's output gradient zeroed), miss it five times over."""
+    S 1024, D 128, causal and full, groups 1, 2 and 4, the kernels' own
+    roundings (modelled) stay under it in dq, dk and dv, while dK/dV
+    without the last 64-row q tile, or without the last head of each GQA
+    group (the smoke's planted faults: that tile's or head's output
+    gradient zeroed), miss it five times over."""
     from repro_torch.kernels.flash_attention.kernel import BLOCK_Q
+    H, KV = heads
+    G = H // KV
     rng = np.random.default_rng(18)
     q, k, v, do = (torch.tensor(rng.normal(size=(1, 1024, n, 128)),
                                 dtype=torch.float32).to(torch.bfloat16)
-                   for n in (4, 2, 2, 4))
-    o, lse = attention_reference(q, k, v, causal=True, return_lse=True)
-    want = attention_backward_reference(q, k, v, o, lse, do, True)
+                   for n in (H, KV, KV, H))
+    o, lse = attention_reference(q, k, v, causal=causal, return_lse=True)
+    want = attention_backward_reference(q, k, v, o, lse, do, causal)
 
     def rel(got, ref):
         ref = ref.float()
         return float(((got.float() - ref).abs() / (1 + ref.abs())).max())
 
-    model = _bf16_kernel_model(q, k, v, o, lse, do)
+    model = _bf16_kernel_model(q, k, v, o, lse, do, causal)
     assert max(rel(a, b) for a, b in zip(model, want)) <= 2e-2
     late, head = do.clone(), do.clone()
     late[:, -BLOCK_Q:] = 0
-    head[:, :, 1::2] = 0
+    head[:, :, G - 1::G] = 0
     for d in (late, head):
-        bad = attention_backward_reference(q, k, v, o, lse, d, True)
+        bad = attention_backward_reference(q, k, v, o, lse, d, causal)
         assert min(rel(a, b) for a, b in zip(bad[1:], want[1:])) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("head_dim", range(8, 129, 8))
+def test_bf16_backward_smem_fits_every_head_dim(head_dim):
+    """The bf16 backward's larger block (dQ: 128 q rows of q and dO and a
+    two-stage ring of 128-key K and V tiles, in one 64-column atom up to
+    D 64 and two above) fits a block's shared memory at every head dim
+    the forward's bf16 route takes."""
+    need = fa_kernel.backward_smem_bytes(head_dim)
+    assert need <= fa_kernel.MAX_SMEM_BYTES
+    assert need == (99368 if head_dim <= 64 else 197672)
+    fa_kernel.check_launch(head_dim, torch.bfloat16)

@@ -1,11 +1,14 @@
 """The hand-written CUDA ``flash_attention`` backward on the card, against
 the plain backward (``attention_backward_reference``) on the same inputs
 and the forward's own ``lse``: both dtypes, causal and full, Sq < Skv,
-groups 1 and 2, head dims 16 to 128, ragged lengths and the training
-shape (qwen3-1.7b, B 4, S 1024, H 16, KV 8, D 128). Also the ``lse`` both
-forward routes write, the backward's determinism (two runs bitwise
-equal), the Function's counts and the four forward-only kernels' refusal
-under autograd. Imports no JAX, so it runs on a machine with a card:
+groups 1, 2 and 4, head dims 16 to 128 (one atom, a partial second
+atom), ragged lengths, Skv past a 128-key tile with Sq < Skv, and the
+training shape (qwen3-1.7b, B 4, S 1024, H 16, KV 8, D 128). Also the
+``lse`` both forward routes write, the backward's determinism (three runs
+bitwise equal at the training shape), its three launches a call (nothing
+falls back to the plain backward), the Function's counts and the four
+forward-only kernels' refusal under autograd. Imports no JAX, so it runs
+on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_flash_backward_gpu.py
 """
@@ -36,8 +39,13 @@ LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 SHAPES = [
     (1, 128, 128, 4, 4, 32), (2, 64, 64, 4, 2, 16), (1, 96, 96, 4, 2, 80),
     (1, 64, 256, 4, 2, 32), (2, 37, 200, 4, 1, 80), (1, 100, 100, 16, 8, 128),
+    (1, 200, 328, 8, 2, 64),           # Skv past a 128-key tile, Sq < Skv
+    (1, 256, 256, 8, 2, 128),          # G = 4
+    (2, 192, 192, 4, 2, 16),           # D 16: part of one 64-column atom
+    (1, 160, 300, 6, 3, 80),           # D 80: a partial second atom
     (4, 1024, 1024, 16, 8, 128),       # qwen3-1.7b training
 ]
+TRAIN_SHAPE = SHAPES[-1]
 
 
 @pytest.fixture
@@ -98,12 +106,52 @@ def test_forward_lse_on_card(cuda_device, dtype, causal, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_is_deterministic(cuda_device, dtype):
-    q, k, v, do = _inputs(cuda_device, (2, 300, 300, 8, 2, 128), dtype, 13)
+    """Three calls at the training shape, bitwise equal: every gradient
+    element is summed in one block in a fixed order (no atomics)."""
+    q, k, v, do = _inputs(cuda_device, TRAIN_SHAPE, dtype, 13)
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, True, with_lse=True)
-    a = fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse, True)
-    b = fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse, True)
+    first = fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                                    True)
+    for _ in range(2):
+        again = fa_kernel.flash_attention_backward_cuda(q, k, v, out, do,
+                                                        lse, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_backward_is_three_launches(cuda_device, causal):
+    """A bf16 backward call is three kernel launches on the current
+    stream, the preprocess and the two wgmma kernels, and nothing else (no
+    plain backward behind it), as ``torch.profiler`` counts them over
+    three calls. The window opens on one marker kernel (an in-place add):
+    after an earlier profiler run in the process the window's first
+    kernel can go unrecorded, so the count starts past it."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = _inputs(cuda_device, (2, 256, 256, 8, 4, 128), "bfloat16",
+                          16)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse, causal)
+    marker = torch.zeros(1, device=cuda_device)
     torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                                    causal)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if "flash_bwd" in n]
+    others = [n for n in names if "flash_bwd" not in n]
+    assert len(others) <= 1 and all("add" in n for n in others), others
+    assert len(kernels) == 3 * calls, kernels
+    for fn in ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_sm90_kernel",
+               "flash_bwd_dq_sm90_kernel"):
+        assert sum(fn in n for n in kernels) == calls, (fn, kernels)
 
 
 @pytest.mark.gpu
@@ -122,6 +170,40 @@ def test_op_gradient_through_kernels(cuda_device, dtype):
     want = attention_backward_reference(q, k, v, out.detach(), lse, do, True)
     for t, w in zip(leaves, want):
         _close(t.grad, w, TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_bf16_kernels_from_a_fresh_thread(cuda_device, head_dim):
+    """The bf16 routes encode TMA maps with cuTensorMapEncodeTiled, which
+    needs a current context; autograd runs the backward on a thread of
+    its own. A thread that has made no CUDA call yet runs the forward and
+    the backward, and gets the main thread's gradients."""
+    import threading
+    q, k, v, do = _inputs(cuda_device, (2, 200, 200, 8, 4, head_dim),
+                          "bfloat16", 17)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, True, with_lse=True)
+    want = fa_kernel.flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                                   True)
+    got = {}
+
+    def run():
+        try:
+            o2, l2 = fa_kernel.flash_attention_cuda(q, k, v, True,
+                                                    with_lse=True)
+            got["grads"] = fa_kernel.flash_attention_backward_cuda(
+                q, k, v, o2, do, l2, True)
+            torch.cuda.synchronize()
+        except Exception as e:      # re-raised on the test's thread
+            got["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "error" in got:
+        raise got["error"]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
 
 
 @pytest.mark.gpu
