@@ -46,7 +46,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``scaled_dot_product_attention``'s, on rotating copies of its inputs
    that keep them cold in L2: eager calls (``ms``, the host's issue time
    where that is longer), and the kernel's and the library's calls
-   replayed from a CUDA graph (device time).
+   replayed from a CUDA graph (device time). The scans' backward kernels
+   (one per-token kernel on CUDA cores for both dtypes, then a launch that
+   sums its partials) at the zamba2-2.7b and rwkv6-7b training shapes in
+   bf16 and f32 and at the forwards' test, strong and extreme decay cases
+   in both dtypes, half of them with a final-state gradient: every
+   gradient against the plain backward (float64) at ``SCAN_BWD_TOL``; at
+   the bf16 training shapes two calls bitwise equal, the op's autograd
+   gradients equal to the wrapper's, two planted faults caught (the decay
+   dropped, dy one token late), and the times (eager, graph replay,
+   profiler device time, the plain backward's).
 3. training parity: for each of LR, GAM, ANN and LSTM a small bin (3
    prosumers at the JAX package's test sizes) trained on the card and on
    the CPU from the same initial weights: params within rtol 5e-2 / atol
@@ -119,16 +128,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``SyntheticTokenStream(vocab, 4, 1024)``: every loss finite and the
    last below the first, 56 ``flash_attention`` forwards and 28 backwards
    a step and no other kernel; step time, tokens/s, peak device memory, a
-   profiler window over one more step.
+   profiler window over one more step. Then the recurrent families the
+   same way: the parity at one zamba2-2.7b period (6 Mamba2 blocks and
+   the shared block, B 1 x S 256) and two rwkv6-7b layers (B 1 x S 128),
+   and the path at full width, zamba2-2.7b at full depth (9 periods, 54
+   layers) and rwkv6-7b cut to 8 of 32 layers (``RECURRENT_TRAIN_LAYERS``,
+   the most that stay under 72 GB): per
+   step 12 ``ssd_scan`` forwards, 6 backwards, 2 ``flash_attention``
+   forwards and 1 backward a period; 2 ``wkv6_scan`` forwards and 1
+   backward a layer; peak device memory under 72 GB.
 11. launcher: ``repro_torch.launch.train`` on qwen3-1.7b's smoke config,
    12 steps, checkpoints every 4, a failure injected at step 6: one
    failure handled, one restore, the final checkpoint restored equal.
-12. guard: ``decode_attention``, ``fleet_mlp``, ``ssd_scan`` and
-   ``wkv6_scan`` refuse CUDA tensors that require grad (no backward yet).
+12. guard: ``decode_attention`` and ``fleet_mlp`` refuse CUDA tensors
+   that require grad (no training path differentiates them); ``ssd_scan``
+   and ``wkv6_scan`` record a gradient for every input on the card.
 
-Each model is freed before the next is drawn. The ``kernels`` line has six
-rows: the five kernels and ``flash_attention_backward`` (its launches are
-the training path's backward calls).
+Each model is freed before the next is drawn. The ``kernels`` line has
+eight rows: the five kernels and the three backwards (their launches are
+the training paths' backward calls: qwen3-1.7b's for
+``flash_attention_backward``, zamba2-2.7b's and rwkv6-7b's for the
+scans').
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -136,6 +156,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -240,9 +261,12 @@ WKV_CASES = [WKV_PATH_CASE] + [
 
 KERNEL_NAMES = ("fleet_mlp", "flash_attention", "decode_attention",
                 "ssd_scan", "wkv6_scan")
-# every launch count the smoke reads: the five kernels' forwards and
-# flash_attention's backward (a backward call is three launches)
-COUNT_NAMES = KERNEL_NAMES + ("flash_attention_backward",)
+# the kernels with a backward, each counted as ``<name>_backward``
+BACKWARD_NAMES = ("flash_attention", "ssd_scan", "wkv6_scan")
+# every launch count the smoke reads: the five kernels' forwards and the
+# three backwards (a flash_attention backward call is three launches, a
+# scan's two: the backward and the sum of its partials)
+COUNT_NAMES = KERNEL_NAMES + tuple(f"{n}_backward" for n in BACKWARD_NAMES)
 DAY, HOUR = 86400.0, 3600.0
 HORIZON = 24
 # tracer spans summed per tick: the tick, the scheduler poll, the train
@@ -1327,8 +1351,8 @@ def counts() -> dict:
     """Every kernel's launch count, by name (``COUNT_NAMES``)."""
     ops = _kernel_ops()
     n = {name: mod.invocation_count() for name, mod in ops.items()}
-    n["flash_attention_backward"] = \
-        ops["flash_attention"].backward_invocation_count()
+    for name in BACKWARD_NAMES:
+        n[f"{name}_backward"] = ops[name].backward_invocation_count()
     return n
 
 
@@ -1687,6 +1711,17 @@ def forward_launches(cfg) -> dict:
     return n
 
 
+def train_launches(cfg) -> dict:
+    """Kernel launches of one training step with remat: each forward
+    kernel twice (the forward and the period's recompute), each backward
+    once, nothing else."""
+    fwd = forward_launches(cfg)
+    n = {name: 2 * fwd[name] for name in COUNT_NAMES}
+    for name in BACKWARD_NAMES:
+        n[f"{name}_backward"] = fwd[name]
+    return n
+
+
 def _rel_l2(got, want) -> float:
     import torch
     return float(torch.linalg.vector_norm((got - want).float())
@@ -1956,6 +1991,16 @@ def scan_routes(name: str, mod, log: str) -> None:
             f"{smem} B static shared memory a block"
         print(f"build: {name} route {str(dtype)[6:]} -> {route}: {regs} "
               f"registers, {spill} B spilled, {mem}")
+    fn = mod.BACKWARD_ROUTE.split()[0]
+    hits = sorted((k, v) for k, v in table.items() if fn + "I" in k)
+    check(len(hits) == 2, f"build: {fn} not found twice in ptxas output")
+    for key, (regs, spill, _) in hits:
+        blocks = min(mod.SM_SMEM_BYTES // (mod.BWD_SMEM_BYTES + 1024),
+                     65536 // (regs * mod.BWD_THREADS))
+        print(f"build: {name} backward {'bfloat16' if 'bfloat16' in key else 'float32'}"
+              f" -> {mod.BACKWARD_ROUTE}: {regs} registers, {spill} B "
+              f"spilled, {mod.BWD_SMEM_BYTES} B dynamic shared memory a "
+              f"block, {blocks} blocks an SM")
 
 
 def backward_routes(log: str) -> None:
@@ -2007,7 +2052,8 @@ def build_all() -> None:
     print(f"build: all kernels in {time.perf_counter() - t:.2f} s")
     logs = {name: log for name, (_, log, _) in built}
     for name, mod in (("ssd_scan", ssd), ("wkv6_scan", wkv)):
-        scan_routes(name, mod, logs[name])
+        if logs[name]:   # empty when the library was already built
+            scan_routes(name, mod, logs[name])
     if logs["flash_attention"]:   # empty when the library was already built
         backward_routes(logs["flash_attention"])
     import torch
@@ -2045,26 +2091,66 @@ LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 # gradient differences allow, element by element (``_update_excess``).
 LM_PARITY_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4,
                  "update_excess": 0.0}
+# the recurrent families' training runs, at full width: the parity's depth
+# (one period of zamba2-2.7b: six Mamba2 blocks and the shared block; two
+# rwkv6-7b layers) and the path's. f32 masters, AdamW's two moments and
+# the eager update's copies take about 28-31 B a parameter, so the path
+# keeps the most whole periods whose peak stays under TRAIN_PEAK_BYTES:
+# all nine of zamba2-2.7b's (2.49e9 parameters; 64.27e9 B at 48 layers,
+# 70.97e9 B at 54 in a 3-step run of ``lm_train_path`` on an H100) and 8
+# of rwkv6-7b's 32 layers (2.30e9 of 7.58e9 parameters, 69.75e9 B; 9
+# layers ran out of the card's 80 GB)
+RECURRENT_PARITY = {"zamba2-2.7b": dict(layers=6, seq=256),
+                    "rwkv6-7b": dict(layers=2, seq=128)}
+# the recurrent families' parity tolerances, from ``parity_rounding_gaps``
+# on the CPU at the parity's shapes (worst gradient leaf of its max):
+# the scans as f32 per-token recurrences move zamba2-2.7b's by 2.4e-6 and
+# rwkv6-7b's by 1.3e-4 (tm/wr); summing the same f32 step in another order
+# (one thread against eight) by 7.2e-6 and 2.5e-4 (cm/wv). rwkv6-7b's
+# leaves are that sensitive to rounding at its init; a first card run,
+# checked at 5e-4 (set from its scans' gap alone), read 7.87e-4. Its leaf
+# tolerance is 2e-3, eight times the summation-order gap: the card sums
+# every GEMM in cuBLAS's order. Leaves that amplify rounding cannot show
+# which kernel rounds; ``scan_calls`` checks the scan kernels themselves
+# at the step's own inputs (``SCAN_CALL_TOL``). The rest as LM_PARITY_TOL
+RECURRENT_PARITY_TOL = {
+    "zamba2-2.7b": LM_PARITY_TOL,
+    "rwkv6-7b": {**LM_PARITY_TOL, "grad": 2e-3}}
+# every scan call of the parity's step on the card, its output and its
+# gradients against the plain versions on the same inputs and output
+# gradient, as max |got - ref| / max |ref| per tensor (the step's
+# gradients are far below 1, so 1 + |ref| would hide any error): f32 sums
+# over up to 4,096 products and S tokens, each term no larger than the
+# largest result, err by a few hundred f32 ulps (2^-24 each) at most;
+# 1e-4 is 1,700 of them, and a dropped decay or a token's offset moves a
+# gradient by O(1)
+SCAN_CALL_TOL = 1e-4
+RECURRENT_TRAIN_LAYERS = {"zamba2-2.7b": 54, "rwkv6-7b": 8}
+TRAIN_PEAK_BYTES = 72e9
 
 
-def _update_excess(p_new, p_ref, g, g_ref, p0, lr: float, eps: float):
+def _update_excess(p_new, p_ref, g, g_ref, p0, opt, norms) -> float:
     """How far the card's first AdamW update exceeds what its gradient
     differences allow, the most over every element (<= 0 when it does
     not). The first step moves a weight by lr * (u + wd * p) with u =
-    g / (|g| + eps) (the bias corrections cancel; the clip scale is 1 when
-    the norm is under the clip, and scales both sides alike otherwise):
-    u has slope at most 1 / eps and range (-1, 1), so two gradients
-    |dg| apart move a weight at most lr * min(2, |dg| / eps) apart, plus
-    the f32 rounding of p - lr * delta (4 ulp of |p| + 2 lr, which bounds
-    both p and the result)."""
+    g / (|g| + eps / s) (the bias corrections cancel), s = min(1, clip /
+    (|grad| + 1e-9)) the clip scale of each side's global norm (``norms``:
+    the card's, the CPU's). u has slope at most 1 / eps in g and 1 / (4 e)
+    in e = eps / s, and range (-1, 1), so two gradients |dg| apart, with
+    scales s_a and s_b, move a weight at most lr * min(2, |dg| / eps +
+    |s_a - s_b| / (4 min(s_a, s_b))) apart, plus the f32 rounding of p -
+    lr * delta (4 ulp of |p| + 2 lr, which bounds both p and the result).
+    Evaluated in float64, so that the check's own roundings do not count."""
     from repro_torch.arch.params import tree_leaves
+    sa, sb = (min(1.0, opt.grad_clip / (float(n) + 1e-9)) for n in norms)
+    clip = abs(sa - sb) / (4 * min(sa, sb))
     worst = float("-inf")
     for a, b, ga, gb, p in zip(*(tree_leaves(t) for t in
                                  (p_new, p_ref, g, g_ref, p0))):
-        dg = (ga.cpu() - gb).abs()
-        allow = lr * (dg / eps).clamp(max=2.0) \
-            + 4 * 2.0 ** -23 * (p.abs() + 2 * lr)
-        worst = max(worst, float(((a.cpu() - b).abs() - allow).max()))
+        a, b, ga, gb, p = (t.cpu().double() for t in (a, b, ga, gb, p))
+        allow = opt.lr * ((ga - gb).abs() / opt.eps + clip).clamp(max=2.0) \
+            + 4 * 2.0 ** -23 * (p.abs() + 2 * opt.lr)
+        worst = max(worst, float(((a - b).abs() - allow).max()))
     return worst
 
 
@@ -2280,6 +2366,208 @@ def flash_backward_phase(device: str, cases=FLASH_BWD_CASES, *,
     return record
 
 
+# ------------------------------------------------------ the scans' backwards
+
+# the scan backwards' cases: the zamba2-2.7b / rwkv6-7b training shapes in
+# bf16 (the first, timed) and f32, then the forward phases' test, strong
+# (SSD) and aggressive / extreme (WKV) cases in both dtypes; every other
+# case also carries a final-state gradient
+SSD_BWD_PATH_CASE = ("train", 4, 1024, 80, 64, 64, "bfloat16", 64,
+                     (1e-3, 0.1))
+SSD_BWD_CASES = [SSD_BWD_PATH_CASE,
+                 ("train32", *SSD_BWD_PATH_CASE[1:6], "float32",
+                  *SSD_BWD_PATH_CASE[7:])] + SSD_CASES[1:]
+WKV_BWD_PATH_CASE = ("train", 4, 1024, 64, 64, "bfloat16", 0.4, 32)
+WKV_BWD_CASES = [WKV_BWD_PATH_CASE,
+                 ("train32", *WKV_BWD_PATH_CASE[1:5], "float32",
+                  *WKV_BWD_PATH_CASE[6:])] + WKV_CASES[1:]
+# the backward kernels against the plain backwards (float64 from the same
+# inputs), on |got - ref| / (1 + |ref|). In f32 the kernels sum in f32
+# over up to S tokens, and SSD's ddt_t = x_t . g_t + A a_t <dS_t, S_{t-1}>
+# adds two dot products over the whole (P, N) state (4,096 products at
+# the path shape) that nearly cancel at some tokens, leaving their f32
+# rounding (about 1e-4 of terms of size 10^2) against a small |ref|: the
+# card read 2.0e-4 there at the zamba2-2.7b training shape (a CPU
+# emulation of the kernels' code, one head of S 1024, 2.3e-5). bf16
+# outputs are rounded once from f32 and keep ~3 significant digits, as
+# the forwards'; gradients the kernels return in f32 take the f32 one
+SCAN_BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def _ssd_backward(x, dt, A, Bm, Cm, D, dy, d_final=None):
+    """The backward kernel's gradients on a CUDA tensor, the plain
+    backward's on a CPU one (the CPU rehearsal)."""
+    import math
+    from repro_torch.kernels.mamba2_scan import kernel as ssd_kernel
+    from repro_torch.kernels.mamba2_scan.ref import ssd_backward_reference
+    if x.is_cuda:
+        return ssd_kernel.ssd_scan_backward_cuda(x, dt, A, Bm, Cm, D, dy,
+                                                 d_final)
+    return ssd_backward_reference(x, dt, A, Bm, Cm, D, dy, None, d_final,
+                                  chunk=math.gcd(64, x.shape[1]))[:6]
+
+
+def _wkv_backward(r, k, v, w, u, dy, d_final=None):
+    import math
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_backward_reference
+    if r.is_cuda:
+        return wkv_kernel.wkv6_scan_backward_cuda(r, k, v, w, u, dy, d_final)
+    return wkv6_backward_reference(r, k, v, w, u, dy, None, d_final,
+                                   chunk=math.gcd(32, r.shape[1]))[:5]
+
+
+def scan_backward_bound(inputs: tuple, grads: tuple, fwd_flops: int) -> dict:
+    """Each input and the output's gradient read once and each gradient
+    written once over HBM, against the chunked form's products of the
+    backward, three times the forward's (the forward's recomputed, the
+    adjoint's within and across chunks, and the gradients' read-outs of
+    both), over the bf16 tensor-core rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs + grads)
+    return _bound(3 * fwd_flops, nbytes, BF16_FLOP_PER_S)
+
+
+def _scan_faults(name, plain, inputs, want, dtype, decay_index,
+                 no_decay) -> None:
+    """The backward's check must fail a wrong kernel at the path shape:
+    the plain backward with the decay dropped (every token's decay 1) and
+    with the output gradient one token late must each miss
+    ``SCAN_BWD_TOL`` in some gradient."""
+    import torch
+    args = list(inputs)
+    late = torch.roll(args[-1], 1, dims=1)
+    late[:, 0] = 0
+    dropped = list(args)
+    dropped[decay_index] = no_decay(args[decay_index])
+    for fault, bad_args in (("the decay dropped", dropped),
+                            ("dy one token late", args[:-1] + [late])):
+        bad = plain(*bad_args)
+        rel = max(_rel_err(a, b) for a, b in zip(bad, want))
+        print(f"{name}: planted fault, {fault}: worst gradient rel_err "
+              f"{rel:.3e}, caught (> {SCAN_BWD_TOL[dtype]:.0e})")
+        check(rel > SCAN_BWD_TOL[dtype],
+              f"{name}: the check misses the backward with {fault}: {rel}")
+
+
+def _scan_backward_case(name, dtype, inputs, d_final, backward, plain, op,
+                        parts, bound, time_it: bool, path: bool,
+                        decay_index, no_decay) -> dict:
+    """One scan backward case: the kernel's gradients against the plain
+    backward's; at the path shape also two calls bitwise equal, the
+    gradients through the op under autograd equal to the wrapper's, the
+    planted faults, and the times. Returns the case's record."""
+    import torch
+    got = backward(*inputs, d_final)
+    want = plain(*inputs, d_final)
+    errs = [_agree(f"{name} {part}", a, b,
+                   "float32" if b.dtype == torch.float32 else dtype,
+                   SCAN_BWD_TOL)
+            for part, a, b in zip(parts, got, want)]
+    rec = {"max_abs_err": max(e["max_abs_err"] for e in errs),
+           "rel_err": max(e["rel_err"] for e in errs)}
+    if not path:
+        return rec
+    again = backward(*inputs, d_final)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two calls differ")
+    leaves = [t.clone().requires_grad_(True) for t in inputs[:-1]]
+    y, _ = op(*leaves)
+    through = torch.autograd.grad(y, leaves, inputs[-1])
+    check(all(torch.equal(a, b) for a, b in zip(through, got)),
+          f"{name}: gradients through the op differ from the wrapper's")
+    print(f"{name}: two calls bitwise equal, the op's autograd gradients "
+          f"equal to the wrapper's; |ref| median / max " + ", ".join(
+              f"{part} {float(b.float().abs().median()):.3e} / "
+              f"{float(b.float().abs().max()):.3e}"
+              for part, b in zip(parts, want)))
+    _scan_faults(name, lambda *a: plain(*a, None), inputs, want, dtype,
+                 decay_index, no_decay)
+    rec.update(bound(got))
+    if time_it:
+        sets = _input_sets(inputs, rec["bytes"])
+        _timed(rec, sets, backward, lambda *a: plain(*a, None), None, 10)
+        rec["device_ms"], by_name = _device_ms(backward, sets)
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+        print(f"{name} device time by torch.profiler: "
+              f"{fmt(rec['device_ms'])} ms a call")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            print(f"{name} device part: {ms:.4f} ms {kname[:100]}")
+        print(f"{name} time: " + _times(
+            rec, "no single PyTorch call computes the backward"))
+    return rec
+
+
+def scan_backward_phase(device: str, ssd_cases=SSD_BWD_CASES,
+                        wkv_cases=WKV_BWD_CASES, *, time_it: bool) -> dict:
+    """Both scans' backward kernels against their plain backwards on the
+    same inputs and a seeded output gradient (and final-state gradient on
+    every other case), each gradient at ``SCAN_BWD_TOL``; at the bf16
+    path shapes also the checks and times of ``_scan_backward_case``.
+    Returns the path cases' records by row name."""
+    import torch
+    from repro_torch.kernels.mamba2_scan.ops import ssd_scan
+    from repro_torch.kernels.mamba2_scan.ref import (ssd_backward_reference,
+                                                     ssd_chunked)
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import (wkv6_backward_reference,
+                                                    wkv6_chunked)
+    records = {}
+    for seed, (label, B, S, H, P, N, dtype, chunk, dt_range) in \
+            enumerate(ssd_cases):
+        g = torch.Generator(device=device).manual_seed(500 + seed)
+        dt_ = getattr(torch, dtype)
+        x = torch.randn(B, S, H, P, generator=g, device=device).to(dt_)
+        dt = _uniform(g, *dt_range, (B, S, H), device)
+        A = -_uniform(g, 0.5, 2.0, (H,), device)
+        Bm, Cm = (torch.randn(B, S, 1, N, generator=g, device=device).to(dt_)
+                  for _ in range(2))
+        D = torch.randn(H, generator=g, device=device)
+        dy = torch.randn(B, S, H, P, generator=g, device=device).to(dt_)
+        d_final = torch.randn(B, H, P, N, generator=g, device=device) \
+            if seed % 2 else None
+        path = label == SSD_BWD_PATH_CASE[0]
+        name = (f"ssd_scan_backward {label:7s} B={B} S={S} H={H} P={P} "
+                f"N={N} dt=U{dt_range} final-state grad "
+                f"{'yes' if d_final is not None else 'no'}")
+        rec = _scan_backward_case(
+            name, dtype, (x, dt, A, Bm, Cm, D, dy), d_final, _ssd_backward,
+            lambda *a: ssd_backward_reference(*a[:7], None, a[7],
+                                              chunk=chunk)[:6],
+            lambda *a: ssd_scan(*a, chunk=chunk),
+            ("dx", "ddt", "dA", "dBm", "dCm", "dD"),
+            lambda grads: scan_backward_bound(
+                (x, dt, A, Bm, Cm, D, dy), grads,
+                ssd_bound(x, dt, Bm, D, chunk)["flops"]),
+            time_it, path, 2, torch.zeros_like)
+        if path:
+            records["ssd_scan_backward"] = rec
+    for seed, (label, B, S, H, K, dtype, wmin, chunk) in \
+            enumerate(wkv_cases):
+        g = torch.Generator(device=device).manual_seed(600 + seed)
+        dt_ = getattr(torch, dtype)
+        r, k, v, dy = (torch.randn(B, S, H, K, generator=g,
+                                   device=device).to(dt_) for _ in range(4))
+        w = _decays(g, wmin, (B, S, H, K), device)
+        u = torch.randn(H, K, generator=g, device=device)
+        d_final = torch.randn(B, H, K, K, generator=g, device=device) \
+            if seed % 2 else None
+        path = label == WKV_BWD_PATH_CASE[0]
+        name = (f"wkv6_scan_backward {label:7s} B={B} S={S} H={H} K={K} "
+                f"wmin={wmin} final-state grad "
+                f"{'yes' if d_final is not None else 'no'}")
+        rec = _scan_backward_case(
+            name, dtype, (r, k, v, w, u, dy), d_final, _wkv_backward,
+            lambda *a: wkv6_backward_reference(*a[:6], None, a[6],
+                                               chunk=chunk)[:5],
+            lambda *a: wkv6_scan(*a, chunk=chunk),
+            ("dr", "dk", "dv", "dw", "du"),
+            lambda grads: scan_backward_bound(
+                (r, k, v, w, u, dy), grads, wkv_bound(r, w, u, chunk)["flops"]),
+            time_it, path, 3, torch.ones_like)
+        if path:
+            records["wkv6_scan_backward"] = rec
+    return records
+
 def _move(tree, device):
     from repro_torch.distributed.checkpoint import tree_map
     return tree_map(lambda t: t.to(device), tree)
@@ -2287,13 +2575,15 @@ def _move(tree, device):
 
 def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
                     layers: int = 2, batch: int = 1, seq: int = 256,
-                    seed: int = 21) -> dict:
+                    seed: int = 21, tol=LM_PARITY_TOL) -> dict:
     """One f32 ``make_train_step`` of ``arch`` at full width cut to
     ``layers`` layers, on ``device`` and on the CPU from the same params
     (drawn on the CPU) and batch: the loss, the grad norm, every gradient
     leaf (read through ``grad_hook``) and the updated params within
-    ``LM_PARITY_TOL``; on the device one ``flash_attention`` backward per
-    layer (and two forwards: the forward and the recompute). Returns the
+    ``tol``; on the device the launches of ``train_launches``
+    (each kernel's backward once, its forward twice). Where the model has
+    scans, every scan call of the device's step is held to its plain
+    version at its own inputs (``_check_scan_calls``). Returns the
     errors."""
     import torch
     from repro_torch.arch import model as M
@@ -2316,22 +2606,27 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
                                or gr)
         reset_counts()
         t = time.perf_counter()
-        new, _, m = step(p, init_state(p), b)
-        loss = float(m["loss"])
+        with _recorded_scans() as calls:
+            new, _, m = step(p, init_state(p), b)
+            loss = float(m["loss"])
         secs = time.perf_counter() - t
+        if dev == device:
+            device_calls = calls
         out[dev] = (new, m, seen[0], counts(), loss, secs)
         del p
     (p_d, m_d, g_d, n_d, loss_d, s_d), (p_c, m_c, g_c, _, loss_c, s_c) = \
         out[device], out["cpu"]
     opt = AdamWConfig()
+    gaps = _leaf_gaps(g_d, g_c)
+    worst = max(gaps, key=gaps.get)
     rel = {"loss": abs(loss_d - loss_c) / abs(loss_c),
            "grad_norm": abs(float(m_d["grad_norm"]) - float(m_c["grad_norm"]))
            / float(m_c["grad_norm"]),
-           "grad": max(float((a.cpu() - b).abs().max()
-                             / (b.abs().max() + 1e-30))
-                       for a, b in zip(tree_leaves(g_d), tree_leaves(g_c))),
-           "update_excess": _update_excess(p_d, p_c, g_d, g_c, params,
-                                           opt.lr, opt.eps)}
+           "grad": gaps[worst],
+           "update_excess": _update_excess(
+               p_d, p_c, g_d, g_c, params, opt,
+               (m_d["grad_norm"], m_c["grad_norm"]))}
+    scans = any(kind in cfg.pattern for kind in ("mamba2", "rwkv6"))
     p_diff = max(float((a.cpu() - b).abs().max())
                  for a, b in zip(tree_leaves(p_d), tree_leaves(p_c)))
     print(f"train parity: {cfg.name} d={cfg.d_model} H={cfg.num_heads} "
@@ -2339,15 +2634,17 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
           f"{layers} layers, f32, B {batch} x S {seq}: {device} against cpu "
           f"from the same params, loss {loss_d:.6f} / {loss_c:.6f} (rel "
           f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
-          f"gradient leaf {rel['grad']:.2e} of its max, params max |diff| "
+          f"gradient leaf {rel['grad']:.2e} of its max ({worst}), params max "
+          f"|diff| "
           f"{p_diff:.2e} (excess over what the gradient differences allow "
           f"{rel['update_excess']:.2e}); step {s_d:.3f} s on {device}, "
           f"{s_c:.3f} s on cpu")
-    for key, tol in LM_PARITY_TOL.items():
-        check(rel[key] <= tol, f"train parity: {key} {rel[key]:.3e} > {tol}")
-    want = {name: 0 for name in COUNT_NAMES}
-    want["flash_attention"] = 2 * cfg.num_periods
-    want["flash_attention_backward"] = cfg.num_periods
+    if scans:
+        _check_scan_calls(cfg.name, device, device_calls)
+    for key, bound in tol.items():
+        check(rel[key] <= bound,
+              f"train parity: {key} {rel[key]:.3e} > {bound}")
+    want = train_launches(cfg)
     check(device == "cpu" or n_d == want,
           f"train parity: launches {n_d}, expected {want}")
     print(f"train parity: launches " + ", ".join(
@@ -2355,17 +2652,171 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
     return rel
 
 
+def _leaf_paths(tree, pre: str = "") -> list:
+    """Each leaf's path in ``tree_leaves`` order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _leaf_paths(tree[k],
+                                                             f"{pre}/{k}")]
+    return [pre]
+
+
+def _leaf_gaps(got, want) -> dict:
+    """max |got - want| / max |want| per gradient leaf, by path."""
+    from repro_torch.arch.params import tree_leaves
+    return {path: float((a.cpu() - b.cpu()).abs().max()
+                        / (b.cpu().abs().max() + 1e-30))
+            for path, a, b in zip(_leaf_paths(want), tree_leaves(got),
+                                  tree_leaves(want))}
+
+
+@contextlib.contextmanager
+def _recorded_scans():
+    """Record every scan call while the block runs: its op, inputs, chunk
+    and output, and the output's gradient once autograd hands it over
+    (under remat only the recomputed call's output gets one)."""
+    from repro_torch.kernels.mamba2_scan import ops as ssd
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    calls = []
+
+    def recorder(name, fn):
+        def apply(*args):
+            y, final = fn(*args)
+            if y.requires_grad:
+                call = {"name": name, "inputs": [
+                    a.detach() for a in args[:-3]], "chunk": args[-2],
+                    "y": y.detach()}
+                y.register_hook(lambda g: call.update(dy=g.detach()))
+                calls.append(call)
+            return y, final
+        return staticmethod(apply)
+
+    saved = ssd._SSDScan.apply, wkv._WKV6Scan.apply
+    ssd._SSDScan.apply = recorder("ssd_scan", saved[0])
+    wkv._WKV6Scan.apply = recorder("wkv6_scan", saved[1])
+    try:
+        yield calls
+    finally:
+        ssd._SSDScan.apply, wkv._WKV6Scan.apply = saved
+
+
+def _check_scan_calls(label: str, device: str, calls: list) -> float:
+    """Each recorded scan call that got an output gradient: the kernels'
+    output and gradients (the wrappers' on a card, the plain versions on
+    the CPU) against the plain versions on the same inputs, as max |got -
+    ref| / max |ref| per tensor, within ``SCAN_CALL_TOL``. Returns the
+    worst."""
+    from repro_torch.kernels.mamba2_scan.ref import (ssd_backward_reference,
+                                                     ssd_chunked)
+    from repro_torch.kernels.rwkv6_scan.ref import (wkv6_backward_reference,
+                                                    wkv6_chunked)
+    plain = {"ssd_scan": (ssd_chunked, ssd_backward_reference,
+                          _ssd_backward),
+             "wkv6_scan": (wkv6_chunked, wkv6_backward_reference,
+                           _wkv_backward)}
+    worst, n = 0.0, 0
+    for call in calls:
+        if "dy" not in call:
+            continue
+        forward, backward, kernel = plain[call["name"]]
+        args, dy = call["inputs"], call["dy"].contiguous()
+        want = (forward(*args, chunk=call["chunk"])[0],
+                *backward(*args, dy, chunk=call["chunk"])[:len(args)])
+        got = (call["y"], *kernel(*args, dy))
+        for a, b in zip(got, want):
+            worst = max(worst, float((a.float() - b.float()).abs().max()
+                                     / (b.float().abs().max() + 1e-30)))
+        n += 1
+    print(f"train parity: {label} on {device}, {n} scan calls of the step "
+          f"against their plain versions at their own inputs: output and "
+          f"gradients within {worst:.2e} of the largest (tol "
+          f"{SCAN_CALL_TOL:.0e})")
+    check(n > 0 and worst <= SCAN_CALL_TOL,
+          f"train parity: {label} scan calls {worst:.3e} (of {n})")
+    return worst
+
+
+def parity_rounding_gaps(arch: str, *, layers: int, batch: int = 1,
+                         seq: int = 256, seed: int = 21) -> dict:
+    """On the CPU, how far rounding alone moves what ``lm_train_parity``
+    compares: one f32 ``train_loss`` of ``arch`` at full width cut to
+    ``layers`` layers and its gradient, from the same params and batch,
+    three ways: as the CPU route runs it (plain scans in float64, the
+    default thread count); with the scans as f32 per-token recurrences
+    under autograd (the arithmetic of the kernels' f32 route), ``scans``;
+    and on one thread (the same f32 arithmetic summed in another order),
+    ``threads``. Each gap is the loss, grad-norm and worst-leaf difference
+    as the parity reads them, with the worst leaf's path. Run once to set
+    RECURRENT_PARITY_TOL: ``python3 -c "import chip_smoke as s;
+    print(s.parity_rounding_gaps('rwkv6-7b', layers=2, seq=128))"`` with
+    ``src`` on the path."""
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import synthetic_lm_batch
+    from repro_torch.kernels.mamba2_scan import ops as ssd
+    from repro_torch.kernels.mamba2_scan.ref import ssd_sequential
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_sequential
+    from repro_torch.train.step import _unflatten
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    batch0 = synthetic_lm_batch(cfg.vocab_size, batch, seq, seed=seed,
+                                device="cpu")
+
+    def value_and_grad():
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = M.train_loss(cfg, _unflatten(params, live), batch0)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        return float(loss.detach()), _unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(live, grads)])
+
+    def gap(got, want):
+        norm = [float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                     for g in tree_leaves(gs))))
+                for gs in (got[1], want[1])]
+        gaps = _leaf_gaps(got[1], want[1])
+        worst = max(gaps, key=gaps.get)
+        return {"loss": abs(got[0] - want[0]) / abs(want[0]),
+                "grad_norm": abs(norm[0] - norm[1]) / norm[1],
+                "grad": gaps[worst], "worst_leaf": worst}
+
+    base = value_and_grad()
+    originals = (ssd._SSDScan.apply, wkv._WKV6Scan.apply)
+    ssd._SSDScan.apply = staticmethod(
+        lambda x, dt, A, Bm, Cm, D, s0, chunk, kernel:
+        ssd_sequential(x, dt, A, Bm, Cm, D, s0))
+    wkv._WKV6Scan.apply = staticmethod(
+        lambda r, k, v, w, u, s0, chunk, kernel:
+        wkv6_sequential(r, k, v, w, u, s0))
+    try:
+        scans = value_and_grad()
+    finally:
+        ssd._SSDScan.apply, wkv._WKV6Scan.apply = originals
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = value_and_grad()
+    finally:
+        torch.set_num_threads(threads)
+    return {"scans": gap(scans, base), "threads": gap(one, base)}
+
+
 def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
-                  seq: int = 1024, steps: int = 8,
+                  seq: int = 1024, steps: int = 8, layers: int = 0,
                   profile: bool = True) -> dict:
-    """``arch`` at full width and depth: f32 master params from a seeded generator on the device, AdamW
-    defaults, ``steps`` steps of ``make_train_step`` (bf16 compute, remat)
-    on ``SyntheticTokenStream(vocab, batch, seq)``. Every loss finite, the
-    last below the first; per step two ``flash_attention`` forwards (the
-    forward and the recompute) and one backward per attention block, no
-    other kernel. Prints the step times, tokens/s and peak memory, then a
-    profiler window over one more step. The model is freed before
-    returning."""
+    """``arch`` at full width, at full depth or cut to ``layers`` layers
+    (whole periods): f32 master params from a seeded generator on the
+    device, AdamW defaults, ``steps`` steps of ``make_train_step`` (bf16
+    compute, remat) on ``SyntheticTokenStream(vocab, batch, seq)``. Every
+    loss finite, the last below the first; per step the launches of
+    ``train_launches`` (each kernel's forward twice, the forward and the
+    recompute, its backward once), no other kernel; on a card the peak
+    device memory under ``TRAIN_PEAK_BYTES``. Prints the step times,
+    tokens/s and peak memory, then a profiler window over one more step.
+    The model is freed before returning."""
     import math
     import torch
     from repro_torch.arch import model as M
@@ -2373,7 +2824,12 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
     from repro_torch.data.synthetic import SyntheticTokenStream
     from repro_torch.train import init_state, make_train_step
     cuda = device != "cpu"
+    if cuda:   # what earlier phases left cached, so that it cannot fragment
+        torch.cuda.empty_cache()
     cfg = get_config(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
@@ -2385,15 +2841,11 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     n_params = M.param_count(cfg)
-    print(f"train setup: {cfg.name} {n_params} parameters (f32 masters, "
-          f"{cfg.dtype} compute), AdamW state "
-          f"{4 * 4 * n_params} B with the gradients, drawn in "
+    print(f"train setup: {cfg.name} {cfg.num_layers} of {full} layers, "
+          f"{n_params} parameters (f32 masters, {cfg.dtype} compute), "
+          f"AdamW state {4 * 4 * n_params} B with the gradients, drawn in "
           f"{time.perf_counter() - t:.1f} s")
-    attn = cfg.num_periods * (cfg.pattern.count("attn")
-                              + int(cfg.shared_attn_every_period))
-    per_step = {name: 0 for name in COUNT_NAMES}
-    per_step["flash_attention"] = 2 * attn
-    per_step["flash_attention_backward"] = attn
+    per_step = train_launches(cfg)
     losses, walls = [], []
     reset_counts()
     for i, b in enumerate(batches[:steps]):
@@ -2412,7 +2864,8 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
     peak = torch.cuda.max_memory_allocated() if cuda else None
     warm = walls[1:] or walls
     step_s = sum(warm) / len(warm)
-    print(f"train: {cfg.name} {steps} steps of {batch} x {seq} tokens, "
+    print(f"train: {cfg.name} ({cfg.num_layers} layers) {steps} steps of "
+          f"{batch} x {seq} tokens, "
           f"first {walls[0]:.3f} s, then {step_s:.3f} s a step "
           f"({batch * seq / step_s:.1f} tokens/s), peak device memory "
           + (f"{peak} B" if cuda else "not measured (cpu)")
@@ -2422,6 +2875,8 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
           f"train: a loss is not finite: {losses}")
     check(losses[-1] < losses[0],
           f"train: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(peak is None or peak < TRAIN_PEAK_BYTES,
+          f"train: peak device memory {peak} B >= {TRAIN_PEAK_BYTES} B")
     rec = {"launches": launches, "losses": losses, "step_s": step_s,
            "first_step_s": walls[0], "tokens_per_s": batch * seq / step_s,
            "peak_bytes": peak}
@@ -2459,13 +2914,15 @@ def profile_train_step(step, params, opt_state, batch, step_s: float,
              "not measured (the profiler saw no device activity)"))
     for name, ms in kern[:top]:
         print(f"train profile: {ms:.3f} ms {name[:100]}")
-    flash = {tag: sum(ms for n, ms in kern if tag in n)
-             for tag in ("flash_bwd", "flash_attention_sm90",
-                         "flash_attention_kernel")}
-    print("train profile: flash_attention kernels " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in flash.items()))
+    ours = {tag: sum(ms for n, ms in kern if tag in n)
+            for tag in ("flash_bwd", "flash_attention_sm90",
+                        "flash_attention_kernel", "ssd_scan_bwd",
+                        "ssd_scan_tc", "wkv6_scan_bwd", "wkv6_scan_tc",
+                        "sum_mid")}
+    print("train profile: the port's kernels " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ours.items() if v))
     return {"device_ms": dev_ms if kern else None, "top": kern[:top],
-            "flash_ms": flash}
+            "kernel_ms": ours}
 
 
 def launcher_phase(device: str, *, steps: int = 12, every: int = 4,
@@ -2506,9 +2963,11 @@ def launcher_phase(device: str, *, steps: int = 12, every: int = 4,
 
 
 def guard_phase(device: str) -> None:
-    """The four forward-only kernels under autograd: on a card each
-    refuses the call (``NotImplementedError``, nothing counted); on the
-    CPU their plain versions differentiate."""
+    """The kernels under autograd. ``decode_attention`` and ``fleet_mlp``
+    (forward only): on a card each refuses the call (``NotImplementedError``,
+    nothing counted); on the CPU their plain versions differentiate.
+    ``ssd_scan`` and ``wkv6_scan`` record a gradient on both: a finite
+    gradient for every leaf, one forward and one backward counted each."""
     import torch
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.fleet_mlp import ops as fleet
@@ -2516,47 +2975,58 @@ def guard_phase(device: str) -> None:
     from repro_torch.kernels.rwkv6_scan import ops as wkv
     g = torch.Generator(device=device).manual_seed(31)
 
-    def leaf(*shape):
-        return torch.randn(*shape, generator=g,
-                           device=device).requires_grad_(True)
+    def leaf(*shape, lo=None, hi=None):
+        t = torch.randn(*shape, generator=g, device=device) if lo is None \
+            else torch.rand(*shape, generator=g, device=device) * (hi - lo) + lo
+        return t.requires_grad_(True)
 
-    def fixed(*shape, lo=0.0, hi=1.0):
-        return torch.rand(*shape, generator=g, device=device) * (hi - lo) + lo
-
-    calls = {
+    refused = {
         "decode_attention": lambda: dec.decode_attention(
             leaf(2, 4, 64), leaf(2, 128, 2, 64), leaf(2, 128, 2, 64),
             torch.tensor([5, 128], dtype=torch.int32, device=device)),
         "fleet_mlp": lambda: fleet.fleet_mlp(
             leaf(4, 2, 8), [leaf(4, 8, 16), leaf(4, 16, 1)],
             [leaf(4, 16), leaf(4, 1)]),
-        "ssd_scan": lambda: ssd.ssd_scan(
-            leaf(1, 64, 2, 64), fixed(1, 64, 2, lo=1e-3, hi=0.1),
-            -fixed(2, lo=1.0, hi=2.0), leaf(1, 64, 1, 64),
-            leaf(1, 64, 1, 64), fixed(2))[0],
-        "wkv6_scan": lambda: wkv.wkv6_scan(
-            leaf(1, 64, 2, 64), leaf(1, 64, 2, 64), leaf(1, 64, 2, 64),
-            fixed(1, 64, 2, 64, lo=0.4, hi=0.999), leaf(2, 64))[0],
+    }
+    trained = {
+        "ssd_scan": lambda: (leaf(1, 64, 2, 64), leaf(1, 64, 2, lo=1e-3, hi=0.1),
+                             leaf(2, lo=-2.0, hi=-1.0), leaf(1, 64, 1, 64),
+                             leaf(1, 64, 1, 64), leaf(2)),
+        "wkv6_scan": lambda: (leaf(1, 64, 2, 64), leaf(1, 64, 2, 64),
+                              leaf(1, 64, 2, 64),
+                              leaf(1, 64, 2, 64, lo=0.4, hi=0.999), leaf(2, 64)),
     }
     reset_counts()
-    for name, call in calls.items():
+    for name, call in refused.items():
         if device == "cpu":
             call().sum().backward()
             continue
         try:
             call()
         except NotImplementedError as e:
-            check(name in str(e) and "Queue 1 item 4b" in str(e),
+            check(name in str(e) and "no training path" in str(e),
                   f"guard: {name} raised {e}")
         else:
             check(False, f"guard: {name} returned a result under autograd "
                          "on the card")
-    want = {n: (1 if device == "cpu" and n in calls else 0)
-            for n in COUNT_NAMES}
+    for name, op in (("ssd_scan", ssd.ssd_scan), ("wkv6_scan", wkv.wkv6_scan)):
+        leaves = trained[name]()
+        y, final = op(*leaves)
+        (y.float().sum() + final.sum()).backward()
+        check(all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                  for t in leaves), f"guard: {name} left a leaf without a "
+                                    "finite gradient")
+    want = {n: 0 for n in COUNT_NAMES}
+    for n in trained:
+        want[n] = want[f"{n}_backward"] = 1
+    for n in refused:
+        want[n] = int(device == "cpu")
     check(counts() == want, f"guard: launches {counts()}, expected {want}")
-    print(f"guard: {', '.join(calls)} on {device} under autograd: "
-          + ("refused (NotImplementedError), nothing launched ok"
-             if device != "cpu" else "the plain versions differentiate ok"))
+    print(f"guard: {', '.join(refused)} on {device} under autograd: "
+          + ("refused (NotImplementedError), nothing launched"
+             if device != "cpu" else "the plain versions differentiate")
+          + f"; {', '.join(trained)} record a gradient for every input "
+          "(one forward and one backward each) ok")
 
 
 # where each kernel's TPU twin is defined (file:line of the function that
@@ -2568,8 +3038,11 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/mamba2_scan/kernel.py:63",
     "wkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:60",
     # no Pallas kernel defines a VJP: the reference trains through
-    # jax.grad of attention_xla, whose backward XLA compiles
+    # jax.grad of attention_xla and of the scans' chunked forms, whose
+    # backwards XLA compiles
     "flash_attention_backward": "src/repro/kernels/flash_attention/xla.py:14",
+    "ssd_scan_backward": "src/repro/kernels/mamba2_scan/ref.py:60",
+    "wkv6_scan_backward": "src/repro/kernels/rwkv6_scan/ref.py:37",
 }
 # the source of each row under src/repro_torch/kernels
 SOURCE = {"fleet_mlp": "fleet_mlp/csrc/fleet_mlp.cu",
@@ -2577,7 +3050,9 @@ SOURCE = {"fleet_mlp": "fleet_mlp/csrc/fleet_mlp.cu",
           "decode_attention": "decode_attention/csrc/decode_attention.cu",
           "ssd_scan": "mamba2_scan/csrc/ssd_scan.cu",
           "wkv6_scan": "rwkv6_scan/csrc/wkv6_scan.cu",
-          "flash_attention_backward": "flash_attention/csrc/flash_attention.cu"}
+          "flash_attention_backward": "flash_attention/csrc/flash_attention.cu",
+          "ssd_scan_backward": "mamba2_scan/csrc/ssd_scan.cu",
+          "wkv6_scan_backward": "rwkv6_scan/csrc/wkv6_scan.cu"}
 
 
 def kernel_line(records: dict, launches: dict) -> dict:
@@ -2648,7 +3123,8 @@ def main() -> int:
                "ssd_scan": ssd_phase("cuda", time_it=True),
                "wkv6_scan": wkv_phase("cuda", time_it=True),
                "flash_attention_backward":
-                   flash_backward_phase("cuda", time_it=True)}
+                   flash_backward_phase("cuda", time_it=True),
+               **scan_backward_phase("cuda", time_it=True)}
     train_parity("cuda")
     fleet_path = forecast_flow("cuda")
     durable_serverless_flow("cuda", fleet_path)
@@ -2657,6 +3133,10 @@ def main() -> int:
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
+    for arch, kw in RECURRENT_PARITY.items():
+        lm_train_parity("cuda", arch, tol=RECURRENT_PARITY_TOL[arch], **kw)
+    recurrent = {arch: lm_train_path("cuda", arch, layers=layers)
+                 for arch, layers in RECURRENT_TRAIN_LAYERS.items()}
     launcher_phase("cuda")
     guard_phase("cuda")
     # each kernel's launches on the path of the slice that ported it
@@ -2665,8 +3145,12 @@ def main() -> int:
                 "decode_attention": qwen["serve"]["launches"]["decode_attention"],
                 "ssd_scan": zamba["prefill"]["launches"]["ssd_scan"],
                 "wkv6_scan": rwkv["prefill"]["launches"]["wkv6_scan"],
-               "flash_attention_backward":
-                   train["launches"]["flash_attention_backward"]}
+                "flash_attention_backward":
+                    train["launches"]["flash_attention_backward"],
+                "ssd_scan_backward":
+                    recurrent["zamba2-2.7b"]["launches"]["ssd_scan_backward"],
+                "wkv6_scan_backward":
+                    recurrent["rwkv6-7b"]["launches"]["wkv6_scan_backward"]}
     print(f"smoke: {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(kernel_line(records, launches)))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ A kernel's public op takes tensors and routes them by where they lie:
 
 Any other device raises. There is no switch that sends a CUDA tensor to
 the plain version: a card either runs the kernel or the call fails. A
-kernel without a backward kernel refuses, on a card, a call that autograd
-would record (``forbid_autograd``), rather than return a result that
-carries no gradient.
+kernel without a backward kernel (``decode_attention`` and ``fleet_mlp``,
+which serve and score and which no training path differentiates)
+refuses, on a card, a call that autograd would record
+(``forbid_autograd``), rather than return a result that carries no
+gradient.
 """
 from __future__ import annotations
 
@@ -43,15 +45,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def forbid_autograd(name: str, roadmap_item: str, *tensors) -> None:
+def forbid_autograd(name: str, *tensors) -> None:
     """Raise ``NotImplementedError`` when autograd would record a kernel
     call: grad mode is on and one of ``tensors`` requires grad. Called by
-    the ops whose kernels have no backward yet, on their kernel route only
+    the ops whose kernels have no backward, on their kernel route only
     (their plain versions differentiate)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet, so its output "
-            f"would carry no gradient; the backward comes with "
-            f"{roadmap_item}. Call it under torch.no_grad() or on detached "
-            "tensors.")
+            f"{name}: the CUDA kernel has no backward, so its output would "
+            f"carry no gradient; no training path of the JAX package "
+            f"differentiates it (serving and forecast scoring only). Call "
+            f"it under torch.no_grad() or on detached tensors.")

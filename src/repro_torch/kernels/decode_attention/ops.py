@@ -50,8 +50,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     global _invocations
     _check_shapes(q, k_cache, v_cache, lengths)
     if resolve(q, k_cache, v_cache, lengths) == KERNEL:
-        forbid_autograd("decode_attention", "ROADMAP.md Queue 1 item 4b",
-                        q, k_cache, v_cache)
+        forbid_autograd("decode_attention", q, k_cache, v_cache)
         out = decode_attention_cuda(q, k_cache, v_cache, lengths)
     else:
         out = decode_attention_reference(q, k_cache, v_cache, lengths)

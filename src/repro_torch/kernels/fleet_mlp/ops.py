@@ -52,8 +52,7 @@ def fleet_mlp(x: torch.Tensor, weights: List[torch.Tensor],
     global _invocations
     _check_layers(x, weights, biases)
     if resolve(x, *weights, *biases) == KERNEL:
-        forbid_autograd("fleet_mlp", "ROADMAP.md Queue 1 item 4b",
-                        x, *weights, *biases)
+        forbid_autograd("fleet_mlp", x, *weights, *biases)
         out = fleet_mlp_cuda(x, weights, biases)
     else:
         out = fleet_mlp_reference(x, weights, biases)

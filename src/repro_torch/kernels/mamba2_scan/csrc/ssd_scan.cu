@@ -1,7 +1,8 @@
-// Mamba2 SSD scan (selective state-space recurrence), forward only, for
-// Hopper (sm_90a). x (B, S, H, P), Bm / Cm (B, S, 1, N) and y (B, S, H, P)
-// of one type (f32 or bf16); dt (B, S, H), A (H,), D (H,) and the final
-// state (B, H, P, N) in f32; all contiguous. The state and every sum are
+// Mamba2 SSD scan (selective state-space recurrence) and its gradient, for
+// Hopper (sm_90a); the backward is described where it begins. Forward:
+// x (B, S, H, P), Bm / Cm (B, S, 1, N) and y (B, S, H, P) of one type (f32
+// or bf16); dt (B, S, H), A (H,), D (H,) and the final state (B, H, P, N)
+// in f32; all contiguous. The state and every sum are
 // f32; y is rounded to the input type once.
 //
 // Replaces the TPU kernel in src/repro/kernels/mamba2_scan/kernel.py
@@ -610,13 +611,383 @@ cudaError_t launch_bf16(const void* x, const void* dt, const void* A, const void
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the backward
+//
+// Given dy (B, S, H, P) in the input type and optionally the gradient of
+// the final state dF (B, H, P, N) f32: dx (input type), ddt (B, S, H) f32,
+// and through a second, summing launch dA, dD (H,) f32 and dBm, dCm
+// (B, S, 1, N) in the input type. One route for both types: the per-token
+// recurrence on CUDA cores, every sum in f32.
+//
+// Replaces what the reference trains through: jax.grad of ssd_chunked
+// (src/repro/kernels/mamba2_scan/ref.py), which XLA differentiates (no
+// Pallas kernel of the reference defines a VJP).
+//
+// Per (b, h), with the adjoint dS_t = dy_t C_t^T + a_{t+1} dS_{t+1}
+// (dS_T adds dF), g_t = dS_t B_t:
+//     dx_t = dt_t g_t + D dy_t          ddt_t = x_t . g_t + A a_t <dS_t, S_{t-1}>
+//     dB_t = dt_t dS_t^T x_t            dC_t = S_t^T dy_t
+//     dA = sum dt_t a_t <dS_t, S_{t-1}> dD = sum dy_t . x_t
+// dB and dC sum over heads and dA, dD over batch rows afterwards, from f32
+// partials in a fixed order (no atomics: the result is the same bitwise
+// from call to call).
+//
+// What bounds it on this card: bytes, as the forward. At the zamba2-2.7b
+// training shape (B 4, S 1024, H 80, P = N = 64, bf16) it must read x, dt,
+// B, C, dy and write dx, ddt, dB, dC once, about 131 MB, 0.039 ms at
+// 3.35 TB/s. This first design is far from that (3.26 ms on an NVIDIA
+// H100 80GB HBM3 at 700 W, 84 times the bound): every token costs each
+// thread about 70 state FMAs on CUDA cores (1.3 G state elements a sweep)
+// and two sums over the 64 rows of the state, with 2 blocks of 8 warps an
+// SM (128 registers a thread). A chunked tensor-core design, like the
+// forward's bf16 route, is the way to the bound.
+//
+// Design: one block of 256 threads per (head, batch row); thread (p, q)
+// holds 16 entries of row p of the state and of its adjoint in registers
+// (columns 4 (q + 4 g) + e, padded to 64 with zeros). A first sweep runs
+// the recurrence and saves the state before every 16-token chunk to a
+// scratch buffer (B, H, ceil(S / 16), P, 64). The reverse sweep takes the
+// chunks last to first: it stages the chunk's inputs in shared memory,
+// steps the saved state 8 tokens on to a second copy, and for each token t
+// (last to first) recomputes S_{t-1} from the nearer of the two in at most
+// 7 steps, so the state and its adjoint meet at the same token without a
+// decay divided out or a cumulative sum of cancelling terms. g sums over
+// the 4 threads of a row, <dS, S_{t-1}> over the warp, and dB, dC over the
+// 64 rows: a reduce-scatter within the warp (14 shuffles for 16 columns)
+// into per-warp rows of shared memory, summed over the 8 warps once the
+// chunk is done, when dx, ddt and the per-warp dA, dD sums are written.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdChunk = 16;                  // tokens between saved states
+constexpr int kBwdHalf = kBwdChunk / 2;        // the second copy's token
+constexpr int kCols = 64;                      // state columns, zero-padded
+constexpr int kBwdRow = kBwdChunk * kCols;     // one staged (token, column) tile
+// the backward's dynamic shared memory, in floats: x, dy, B, C staged as
+// f32 tiles, dt and the decays, g, the per-warp <dS, S_{t-1}>, and the
+// per-warp partial sums of dC and dB
+constexpr int kBwdX = 0;
+constexpr int kBwdDy = kBwdX + kBwdRow;
+constexpr int kBwdB = kBwdDy + kBwdRow;
+constexpr int kBwdC = kBwdB + kBwdRow;
+constexpr int kBwdDt = kBwdC + kBwdRow;
+constexpr int kBwdDecay = kBwdDt + kBwdChunk;
+constexpr int kBwdG = kBwdDecay + kBwdChunk;
+constexpr int kBwdDl = kBwdG + kBwdRow;
+constexpr int kBwdRedC = kBwdDl + kBwdChunk * kBwdWarps;
+constexpr int kBwdRedB = kBwdRedC + kBwdChunk * kBwdWarps * kCols;
+constexpr int kBwdSmemBytes = (kBwdRedB + kBwdChunk * kBwdWarps * kCols) * 4;   // 86,656
+
+// dst[t][c] = src[base + t * stride + c] as f32 for t < nt and c < width,
+// zero elsewhere in the (kBwdChunk, kCols) tile
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, size_t base, size_t stride,
+                                           int nt, int width) {
+  for (int i = threadIdx.x; i < kBwdRow; i += kBwdThreads) {
+    const int t = i / kCols;
+    const int c = i % kCols;
+    dst[i] = t < nt && c < width ? to_f32(src[base + t * stride + c]) : 0.f;
+  }
+}
+
+// v summed over the 8 rows of the warp (lanes that differ in bits 2..4) by
+// a reduce-scatter: the lane keeps the sums of v[i0] and v[i0 + 1], i0 = 8
+// bit4 + 4 bit3 + 2 bit2, which are columns n0, n0 + 1 of its row's layout
+// (returned through n0)
+__device__ __forceinline__ float2 rows_sum16(const float (&v)[16], int lane, int& n0) {
+  const bool h1 = lane & 16, h2 = lane & 8, h3 = lane & 4;
+  float a[8], b[4], c[2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    a[i] = (h1 ? v[8 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, h1 ? v[i] : v[8 + i], 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    b[i] = (h2 ? a[4 + i] : a[i]) + __shfl_xor_sync(0xffffffffu, h2 ? a[i] : a[4 + i], 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c[i] = (h3 ? b[2 + i] : b[i]) + __shfl_xor_sync(0xffffffffu, h3 ? b[i] : b[2 + i], 4);
+  const int g = 2 * h1 + h2;
+  n0 = 4 * ((lane & 3) + 4 * g) + 2 * h3;
+  return make_float2(c[0], c[1]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// one token of the recurrence on this thread's 16 entries of row p
+__device__ __forceinline__ void ssd_step(float (&s)[16], const float* sm, int t, int p, int q) {
+  const float a = sm[kBwdDecay + t];
+  const float dtx = sm[kBwdDt + t] * sm[kBwdX + t * kCols + p];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float4 bv = *reinterpret_cast<const float4*>(sm + kBwdB + t * kCols + 4 * (q + 4 * g));
+    s[4 * g] = fmaf(a, s[4 * g], dtx * bv.x);
+    s[4 * g + 1] = fmaf(a, s[4 * g + 1], dtx * bv.y);
+    s[4 * g + 2] = fmaf(a, s[4 * g + 2], dtx * bv.z);
+    s[4 * g + 3] = fmaf(a, s[4 * g + 3], dtx * bv.w);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                        const float* __restrict__ A, const T* __restrict__ Bm,
+                        const T* __restrict__ Cm, const float* __restrict__ D,
+                        const T* __restrict__ dy, const float* __restrict__ dfinal,
+                        T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ ck,
+                        float* __restrict__ db_part, float* __restrict__ dc_part,
+                        float* __restrict__ da_part, float* __restrict__ dd_part, int S, int H,
+                        int P, int N) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float warp_acc[2][kBwdWarps];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int p = tid / 4;
+  const int q = tid % 4;
+  const float a_h = A[h];
+  const float d_h = D[h];
+  const int nck = (S + kBwdChunk - 1) / kBwdChunk;
+  float* ck_bh = ck + (static_cast<size_t>(b) * H + h) * nck * kCols * kCols;
+  const size_t tok = static_cast<size_t>(H) * P;   // x / dy stride per token
+
+  // sweep 1: the state before every chunk
+  float s[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.f;
+  for (int c = 0; c < nck; ++c) {
+    const int t0 = c * kBwdChunk;
+    const int nt = min(kBwdChunk, S - t0);
+    float* out = ck_bh + (static_cast<size_t>(c) * kCols + p) * kCols;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      *reinterpret_cast<float4*>(out + 4 * (q + 4 * g)) =
+          make_float4(s[4 * g], s[4 * g + 1], s[4 * g + 2], s[4 * g + 3]);
+    const size_t row0 = static_cast<size_t>(b) * S + t0;
+    stage_tile(sm + kBwdX, x, (row0 * H + h) * P, tok, nt, P);
+    stage_tile(sm + kBwdB, Bm, row0 * N, N, nt, N);
+    if (tid < kBwdChunk) {
+      const float d = tid < nt ? dt[(row0 + tid) * H + h] : 0.f;
+      sm[kBwdDt + tid] = d;
+      sm[kBwdDecay + tid] = expf(d * a_h);
+    }
+    __syncthreads();
+    for (int t = 0; t < nt; ++t) ssd_step(s, sm, t, p, q);
+    __syncthreads();
+  }
+
+  // sweep 2, chunks last to first
+  float ds[16];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int n0 = 4 * (q + 4 * g);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (dfinal != nullptr && p < P && n0 < N)
+      v = *reinterpret_cast<const float4*>(dfinal + ((static_cast<size_t>(b) * H + h) * P + p) * N +
+                                           n0);
+    ds[4 * g] = v.x;
+    ds[4 * g + 1] = v.y;
+    ds[4 * g + 2] = v.z;
+    ds[4 * g + 3] = v.w;
+  }
+  float da_acc = 0.f, dd_acc = 0.f;   // lane 0 of each warp: its tokens' sums
+  for (int c = nck - 1; c >= 0; --c) {
+    const int t0 = c * kBwdChunk;
+    const int nt = min(kBwdChunk, S - t0);
+    const size_t row0 = static_cast<size_t>(b) * S + t0;
+    stage_tile(sm + kBwdX, x, (row0 * H + h) * P, tok, nt, P);
+    stage_tile(sm + kBwdDy, dy, (row0 * H + h) * P, tok, nt, P);
+    stage_tile(sm + kBwdB, Bm, row0 * N, N, nt, N);
+    stage_tile(sm + kBwdC, Cm, row0 * N, N, nt, N);
+    if (tid < kBwdChunk) {
+      const float d = tid < nt ? dt[(row0 + tid) * H + h] : 0.f;
+      sm[kBwdDt + tid] = d;
+      sm[kBwdDecay + tid] = expf(d * a_h);
+    }
+    float s0[16], s8[16];
+    const float* in = ck_bh + (static_cast<size_t>(c) * kCols + p) * kCols;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(in + 4 * (q + 4 * g));
+      s0[4 * g] = v.x;
+      s0[4 * g + 1] = v.y;
+      s0[4 * g + 2] = v.z;
+      s0[4 * g + 3] = v.w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s8[i] = s0[i];
+    for (int t = 0; t < min(kBwdHalf, nt); ++t) ssd_step(s8, sm, t, p, q);
+
+    for (int t = nt - 1; t >= 0; --t) {
+      // S_{t-1}: the nearer saved copy stepped on to token t - 1
+      const bool late = t >= kBwdHalf;
+      float sp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sp[i] = late ? s8[i] : s0[i];
+      for (int j = late ? kBwdHalf : 0; j < t; ++j) ssd_step(sp, sm, j, p, q);
+
+      const float dyp = sm[kBwdDy + t * kCols + p];
+      const float xp = sm[kBwdX + t * kCols + p];
+      const float at = sm[kBwdDecay + t];
+      const float dtx = sm[kBwdDt + t] * xp;
+      float gsum = 0.f, dl = 0.f, v[16];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int n0 = 4 * (q + 4 * g);
+        const float4 bv = *reinterpret_cast<const float4*>(sm + kBwdB + t * kCols + n0);
+        const float4 cv = *reinterpret_cast<const float4*>(sm + kBwdC + t * kCols + n0);
+        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+        const float cc[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * g + e;
+          ds[i] = fmaf(dyp, cc[e], ds[i]);                 // dS_t
+          dl = fmaf(ds[i], sp[i], dl);
+          gsum = fmaf(ds[i], bb[e], gsum);
+          v[i] = fmaf(at, sp[i], dtx * bb[e]) * dyp;       // S_t dy_t
+        }
+      }
+      gsum += __shfl_xor_sync(0xffffffffu, gsum, 1);
+      gsum += __shfl_xor_sync(0xffffffffu, gsum, 2);
+      if (q == 0) sm[kBwdG + t * kCols + p] = gsum;
+      dl = warp_sum(dl);
+      if (lane == 0) sm[kBwdDl + t * kBwdWarps + w] = at * dl;
+      int n0;
+      float2 r = rows_sum16(v, lane, n0);
+      *reinterpret_cast<float2*>(sm + kBwdRedC + (t * kBwdWarps + w) * kCols + n0) = r;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = ds[i] * xp;        // dS_t x_t
+      r = rows_sum16(v, lane, n0);
+      *reinterpret_cast<float2*>(sm + kBwdRedB + (t * kBwdWarps + w) * kCols + n0) = r;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ds[i] *= at;              // a_t dS_t
+    }
+    __syncthreads();
+
+    for (int i = tid; i < nt * kCols; i += kBwdThreads) {
+      const int t = i / kCols;
+      const int n = i % kCols;
+      if (n < N) {
+        float sc = 0.f, sb = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBwdWarps; ++j) {
+          sc += sm[kBwdRedC + (t * kBwdWarps + j) * kCols + n];
+          sb += sm[kBwdRedB + (t * kBwdWarps + j) * kCols + n];
+        }
+        const size_t at = ((row0 + t) * H + h) * N + n;
+        dc_part[at] = sc;
+        db_part[at] = sm[kBwdDt + t] * sb;
+      }
+      if (n < P)
+        dx[((row0 + t) * H + h) * P + n] = from_f32<T>(
+            fmaf(sm[kBwdDt + t], sm[kBwdG + t * kCols + n], d_h * sm[kBwdDy + t * kCols + n]));
+    }
+    for (int t = w; t < nt; t += kBwdWarps) {
+      const float* xr = sm + kBwdX + t * kCols;
+      const float xg = warp_sum(xr[lane] * sm[kBwdG + t * kCols + lane] +
+                                xr[lane + 32] * sm[kBwdG + t * kCols + lane + 32]);
+      const float xdy = warp_sum(xr[lane] * sm[kBwdDy + t * kCols + lane] +
+                                 xr[lane + 32] * sm[kBwdDy + t * kCols + lane + 32]);
+      if (lane == 0) {
+        float dla = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBwdWarps; ++j) dla += sm[kBwdDl + t * kBwdWarps + j];
+        ddt[(row0 + t) * H + h] = fmaf(a_h, dla, xg);
+        da_acc = fmaf(sm[kBwdDt + t], dla, da_acc);
+        dd_acc += xdy;
+      }
+    }
+    __syncthreads();   // the next chunk restages every tile
+  }
+  if (lane == 0) {
+    warp_acc[0][w] = da_acc;
+    warp_acc[1][w] = dd_acc;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float da = 0.f, dd = 0.f;
+    for (int j = 0; j < kBwdWarps; ++j) {
+      da += warp_acc[0][j];
+      dd += warp_acc[1][j];
+    }
+    da_part[static_cast<size_t>(b) * H + h] = da;
+    dd_part[static_cast<size_t>(b) * H + h] = dd;
+  }
+}
+
+// out[o][n] = sum over m of in[o][m][n], m in order (the partials' fixed
+// order, so the sum is the same bitwise from call to call)
+template <typename T>
+__global__ void sum_mid_kernel(const float* __restrict__ in, T* __restrict__ out, int outer,
+                               int mid, int inner) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(outer) * inner) return;
+  const size_t o = i / inner;
+  const float* src = in + o * mid * inner + i % inner;
+  float acc = 0.f;
+  for (int m = 0; m < mid; ++m) acc += src[static_cast<size_t>(m) * inner];
+  out[i] = from_f32<T>(acc);
+}
+
+template <typename T>
+cudaError_t launch_sum(const float* in, void* out, int outer, int mid, int inner,
+                       cudaStream_t stream) {
+  const size_t n = static_cast<size_t>(outer) * inner;
+  sum_mid_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      in, static_cast<T*>(out), outer, mid, inner);
+  return cudaGetLastError();
+}
+
+// floats of the backward's scratch: the saved states (B, H, chunks, 64,
+// 64), the per-head partials of dB and dC (B, S, H, N) and the per-row
+// partials of dA and dD (B, H)
+size_t backward_work_floats(int B, int S, int H, int N) {
+  const size_t nck = (S + kBwdChunk - 1) / kBwdChunk;
+  return static_cast<size_t>(B) * H * nck * kCols * kCols +
+         2 * static_cast<size_t>(B) * S * H * N + 2 * static_cast<size_t>(B) * H;
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* x, const void* dt, const void* A, const void* Bm,
+                            const void* Cm, const void* D, const void* dy, const void* dfinal,
+                            void* dx, void* ddt, void* dA, void* dBm, void* dCm, void* dD,
+                            void* work, int B, int S, int H, int P, int N, cudaStream_t stream) {
+  const size_t nck = (S + kBwdChunk - 1) / kBwdChunk;
+  float* ck = static_cast<float*>(work);
+  float* db_part = ck + static_cast<size_t>(B) * H * nck * kCols * kCols;
+  float* dc_part = db_part + static_cast<size_t>(B) * S * H * N;
+  float* da_part = dc_part + static_cast<size_t>(B) * S * H * N;
+  float* dd_part = da_part + static_cast<size_t>(B) * H;
+  auto kernel = ssd_scan_bwd_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kBwdThreads, kBwdSmemBytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const float*>(D),
+      static_cast<const T*>(dy), static_cast<const float*>(dfinal), static_cast<T*>(dx),
+      static_cast<float*>(ddt), ck, db_part, dc_part, da_part, dd_part, S, H, P, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_sum<T>(db_part, dBm, B * S, H, N, stream)) != cudaSuccess) return err;
+  if ((err = launch_sum<T>(dc_part, dCm, B * S, H, N, stream)) != cudaSuccess) return err;
+  if ((err = launch_sum<float>(da_part, dA, 1, B, H, stream)) != cudaSuccess) return err;
+  return launch_sum<float>(dd_part, dD, 1, B, H, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch geometry, read by the wrapper to check it agrees: f32 route
 // {kThreads, kLanesPerRow, kMaxP, kMaxN, kTokens}, then bf16 route
-// {kTcThreads, kTcChunk, kTcSmemBytes}.
+// {kTcThreads, kTcChunk, kTcSmemBytes}, then the backward {kBwdThreads,
+// kBwdChunk, kBwdSmemBytes}.
 void ssd_scan_config(int* cfg) {
   cfg[0] = kThreads;
   cfg[1] = kLanesPerRow;
@@ -626,6 +997,9 @@ void ssd_scan_config(int* cfg) {
   cfg[5] = kTcThreads;
   cfg[6] = kTcChunk;
   cfg[7] = kTcSmemBytes;
+  cfg[8] = kBwdThreads;
+  cfg[9] = kBwdChunk;
+  cfg[10] = kBwdSmemBytes;
 }
 
 const char* ssd_scan_error_string(int err) {
@@ -649,6 +1023,35 @@ int ssd_scan_forward(const void* x, const void* dt, const void* A, const void* B
     return static_cast<int>(launch_f32(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, N, st));
   if (dtype == 1)
     return static_cast<int>(launch_bf16(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, N, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Floats of the scratch buffer ssd_scan_backward takes as `work`.
+size_t ssd_scan_backward_work(int B, int S, int H, int N) {
+  return backward_work_floats(B, S, H, N);
+}
+
+// The gradient: x, Bm, Cm, dy and dx, dBm, dCm (B, S, 1, N) of one type
+// (dtype 0 = float32, 1 = bfloat16); dt, A, D, ddt (B, S, H), dA, dD (H,)
+// and dfinal (B, H, P, N; null for none) float32; work a float32 buffer of
+// ssd_scan_backward_work floats; all contiguous on the card, 16-byte
+// aligned. Shapes as ssd_scan_forward takes them. Launches the backward
+// and the four sums on `stream`, returns cudaGetLastError() (0 on
+// success); does not synchronise.
+int ssd_scan_backward(const void* x, const void* dt, const void* A, const void* Bm,
+                      const void* Cm, const void* D, const void* dy, const void* dfinal,
+                      void* dx, void* ddt, void* dA, void* dBm, void* dCm, void* dD, void* work,
+                      int B, int S, int H, int P, int N, int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || P < 1 || P > kMaxP || N < 16 || N > kMaxN ||
+      N % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_backward<float>(x, dt, A, Bm, Cm, D, dy, dfinal, dx, ddt, dA,
+                                                   dBm, dCm, dD, work, B, S, H, P, N, st));
+  if (dtype == 1)
+    return static_cast<int>(launch_backward<bf16>(x, dt, A, Bm, Cm, D, dy, dfinal, dx, ddt, dA,
+                                                  dBm, dCm, dD, work, B, S, H, P, N, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,7 +1,9 @@
 """Builds and launches the hand-written CUDA ``ssd_scan`` kernel
 (``csrc/ssd_scan.cu``). Two routes, chosen by dtype alone: float32 takes
 the per-token recurrence on CUDA cores, bfloat16 the chunked scan on the
-tensor cores (``ROUTES``).
+tensor cores (``ROUTES``). The backward (``ssd_scan_backward_cuda``) is one
+per-token kernel on CUDA cores for both dtypes (``BACKWARD_ROUTE``), then
+a launch that sums its partials in a fixed order.
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -35,12 +37,23 @@ TC_STAGES = 2
 _TILE = TC_CHUNK * 64 * 2
 TC_SMEM_BYTES = TC_STAGES * (3 * _TILE + TC_CHUNK * 4) + 2 * _TILE \
     + 2 * (TC_THREADS // 32) * TC_CHUNK * 4
+# the backward: 256 threads, the state saved every BWD_CHUNK tokens, and
+# its dynamic shared memory: x, dy, B, C as f32 tiles (BWD_CHUNK x 64), dt
+# and the decays, g (BWD_CHUNK x 64), each warp's <dS, S_{t-1}> and each
+# warp's partial sums of dC and dB (BWD_CHUNK x 8 x 64 each)
+BWD_THREADS = 256
+BWD_CHUNK = 16
+_BWD_ROW = BWD_CHUNK * 64
+BWD_SMEM_BYTES = 4 * (5 * _BWD_ROW + 2 * BWD_CHUNK + BWD_CHUNK * 8
+                      + 2 * BWD_CHUNK * 8 * 64)
 MAX_SMEM_BYTES = 232448          # the most one block may hold
 SM_SMEM_BYTES = 233472           # an SM's shared memory, 1 KB kept per block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel function each dtype launches
 ROUTES = {torch.float32: "ssd_scan_kernel (per token, CUDA cores)",
           torch.bfloat16: "ssd_scan_tc_kernel (chunked, mma.sync tensor cores)"}
+#: the backward's kernel, for both dtypes
+BACKWARD_ROUTE = "ssd_scan_bwd_kernel (per token, CUDA cores)"
 
 
 def build():
@@ -56,12 +69,16 @@ def _bind(lib, path) -> None:
     lib.ssd_scan_forward.restype = i
     lib.ssd_scan_config.argtypes = [ctypes.POINTER(i)]
     lib.ssd_scan_config.restype = None
+    lib.ssd_scan_backward.argtypes = [p] * 15 + [i] * 6 + [p]
+    lib.ssd_scan_backward.restype = i
+    lib.ssd_scan_backward_work.argtypes = [i, i, i, i]
+    lib.ssd_scan_backward_work.restype = ctypes.c_size_t
     lib.ssd_scan_error_string.argtypes = [i]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    cfg = (i * 8)()
+    cfg = (i * 11)()
     lib.ssd_scan_config(cfg)
     want = (THREADS, LANES_PER_ROW, MAX_P, MAX_N, TOKENS, TC_THREADS,
-            TC_CHUNK, TC_SMEM_BYTES)
+            TC_CHUNK, TC_SMEM_BYTES, BWD_THREADS, BWD_CHUNK, BWD_SMEM_BYTES)
     if tuple(cfg) != want:
         raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
                            f"!= the wrapper's {want}")
@@ -88,11 +105,8 @@ def check_launch(P: int, N: int) -> None:
                          f"multiple of 16 up to {MAX_N}, got {N}")
 
 
-def ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state=None):
-    """Launch the kernel on the current stream of ``x``'s card and return
-    ``(y, final_state)`` without synchronising. Shapes are checked by
-    ``ops.ssd_scan``; this checks what the kernel itself needs, every
-    check before the library is built or loaded."""
+def _check_inputs(x, dt, A, Bm, Cm, D, init_state) -> None:
+    """What both kernels need of the forward's inputs."""
     if init_state is not None:
         raise ValueError("ssd_scan kernel starts from a zero state (prefill); "
                          "an init_state takes the plain version on the CPU")
@@ -115,9 +129,17 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state=None):
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("ssd_scan kernel takes contiguous tensors")
+    check_launch(x.shape[3], Bm.shape[3])
+
+
+def ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state=None):
+    """Launch the kernel on the current stream of ``x``'s card and return
+    ``(y, final_state)`` without synchronising. Shapes are checked by
+    ``ops.ssd_scan``; this checks what the kernel itself needs, every
+    check before the library is built or loaded."""
+    _check_inputs(x, dt, A, Bm, Cm, D, init_state)
     B, S, H, P = x.shape
     N = Bm.shape[3]
-    check_launch(P, N)
     lib = _library()
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
@@ -126,6 +148,52 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state=None):
         err = lib.ssd_scan_forward(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
-            B, S, H, P, N, code, stream)
+            B, S, H, P, N, _DTYPE_CODES[x.dtype], stream)
     _build.check_error(lib, "ssd_scan", err)
     return y, state
+
+
+def ssd_scan_backward_cuda(x, dt, A, Bm, Cm, D, dy, d_final_state=None):
+    """Launch the backward on the current stream of ``x``'s card and return
+    ``(dx, ddt, dA, dBm, dCm, dD)`` in the inputs' dtypes without
+    synchronising: the gradient of ``ssd_scan_cuda``'s ``(y,
+    final_state)`` given ``dy`` (x's shape and dtype) and
+    ``d_final_state`` ((B, H, P, N) f32, or None for none). Every check
+    before the library is built or loaded."""
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"ssd_scan backward takes dy like x {tuple(x.shape)} "
+                         f"{x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    extra = (dy,)
+    if d_final_state is not None:
+        if d_final_state.dtype != torch.float32 or \
+                tuple(d_final_state.shape) != (B, H, P, N):
+            raise ValueError(f"ssd_scan backward takes d_final_state "
+                             f"{(B, H, P, N)} float32, got "
+                             f"{tuple(d_final_state.shape)} "
+                             f"{d_final_state.dtype}")
+        extra += (d_final_state,)
+    _check_inputs(x, dt, A, Bm, Cm, D, None)
+    for t in extra:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("ssd_scan backward takes contiguous gradients on "
+                             "x's card")
+    lib = _library()
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    work = torch.empty(lib.ssd_scan_backward_work(B, S, H, N),
+                       dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_backward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), dy.data_ptr(),
+            None if d_final_state is None else d_final_state.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(),
+            dCm.data_ptr(), dD.data_ptr(), work.data_ptr(), B, S, H, P, N,
+            _DTYPE_CODES[x.dtype], stream)
+    _build.check_error(lib, "ssd_scan", err)
+    return dx, ddt, dA, dBm, dCm, dD

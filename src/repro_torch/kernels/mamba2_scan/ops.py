@@ -1,24 +1,35 @@
-"""Public entry point for the Mamba2 SSD scan."""
+"""Public entry point for the Mamba2 SSD scan, with its gradient:
+``ssd_scan`` is a ``torch.autograd.Function`` whose backward runs the
+backward kernel on a CUDA tensor and the plain backward on a CPU tensor."""
 from __future__ import annotations
 
 import torch
 
-from ..common import KERNEL, forbid_autograd, resolve
-from .kernel import ssd_scan_cuda
-from .ref import ssd_chunked
+from ..common import KERNEL, resolve
+from .kernel import ssd_scan_backward_cuda, ssd_scan_cuda
+from .ref import ssd_backward_reference, ssd_chunked
 
-#: Dispatch counter, one per call that ran. A CUDA tensor only ever reaches
-#: the kernel, so on a card each count is one kernel launch.
+#: Dispatch counters, one per call that ran. A CUDA tensor only ever reaches
+#: the kernels, so on a card each forward count is one kernel launch and
+#: each backward count one backward call (the backward kernel, then the
+#: launch that sums its partials).
 _invocations = 0
+_backward_invocations = 0
 
 
 def invocation_count() -> int:
     return _invocations
 
 
+def backward_invocation_count() -> int:
+    return _backward_invocations
+
+
 def reset_invocation_count() -> None:
-    global _invocations
+    """Both counts, forward and backward, to 0."""
+    global _invocations, _backward_invocations
     _invocations = 0
+    _backward_invocations = 0
 
 
 def _check_shapes(x, dt, A, Bm, Cm, D, init_state, chunk: int) -> None:
@@ -46,6 +57,42 @@ def _check_shapes(x, dt, A, Bm, Cm, D, init_state, chunk: int) -> None:
                          f"chunk {min(chunk, S)}")
 
 
+class _SSDScan(torch.autograd.Function):
+    """The kernel (``kernel``) or the plain version. Where an input needs
+    its gradient, the forward keeps the inputs; the backward is then the
+    kernel's or the plain one, given the gradients of y and of the final
+    state (either may be absent)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, init_state, chunk: int,
+                kernel: bool):
+        ctx.set_materialize_grads(False)
+        if any(ctx.needs_input_grad[:7]):
+            ctx.save_for_backward(x, dt, A, Bm, Cm, D, init_state)
+            ctx.chunk, ctx.kernel = chunk, kernel
+        if kernel:
+            return ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state)
+        return ssd_chunked(x, dt, A, Bm, Cm, D, init_state, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        global _backward_invocations
+        x, dt, A, Bm, Cm, D, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None \
+            else dy.to(x.dtype).contiguous()
+        if d_final is not None:
+            d_final = d_final.to(torch.float32).contiguous()
+        if ctx.kernel:
+            grads = ssd_scan_backward_cuda(x, dt, A, Bm, Cm, D, dy, d_final)
+            grads += (None,)
+        else:
+            grads = ssd_backward_reference(x, dt, A, Bm, Cm, D, dy,
+                                           init_state, d_final,
+                                           chunk=ctx.chunk)
+        _backward_invocations += 1
+        return (*grads, None, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
              init_state=None, *, chunk: int = 64):
@@ -54,17 +101,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     multiple of ``min(chunk, S)``, as in the reference. CPU tensors take
     the plain version (which continues from ``init_state``), CUDA tensors
     the kernel (which starts from zero; an ``init_state`` raises); any
-    other device raises. On a card, a call that autograd would record
-    raises: the kernel has no backward."""
+    other device raises. Where autograd records the call, y and the final
+    state carry the gradient of every input through the backward kernel
+    (CUDA) or the plain backward (CPU)."""
     global _invocations
     _check_shapes(x, dt, A, Bm, Cm, D, init_state, chunk)
     chunk = min(chunk, x.shape[1])
     extra = () if init_state is None else (init_state,)
-    if resolve(x, dt, A, Bm, Cm, D, *extra) == KERNEL:
-        forbid_autograd("ssd_scan", "ROADMAP.md Queue 1 item 4b",
-                        x, dt, A, Bm, Cm, D, *extra)
-        out = ssd_scan_cuda(x, dt, A, Bm, Cm, D, init_state)
-    else:
-        out = ssd_chunked(x, dt, A, Bm, Cm, D, init_state, chunk=chunk)
+    out = _SSDScan.apply(x, dt, A, Bm, Cm, D, init_state, chunk,
+                         resolve(x, dt, A, Bm, Cm, D, *extra) == KERNEL)
     _invocations += 1
     return out

@@ -132,3 +132,90 @@ def ssd_decode_step(state, x, dt, A, Bm, Cm, D):
     y = torch.einsum("bhpn,bhn->bhp", state, Cf) \
         + D.to(_F32)[None, :, None] * xf
     return y.to(x.dtype), state
+
+
+def ssd_backward_reference(x, dt, A, Bm, Cm, D, dy, init_state=None,
+                           d_final_state=None, *, chunk: int = 64):
+    """The gradient of ``ssd_chunked``'s ``(y, final_state)``: given ``dy``
+    (B, S, H, P) and ``d_final_state`` (B, H, P, N) or None, returns
+    ``(dx, ddt, dA, dBm, dCm, dD, d_init_state)`` in the inputs' dtypes
+    (``d_init_state`` None without an ``init_state``). The plain backward:
+    the CPU route of ``ops.ssd_scan`` under autograd and the yardstick the
+    CUDA backward kernel is held against.
+
+    Computed in float64, chunk by chunk, from the states themselves: a
+    forward sweep keeps the state before each chunk; a reverse sweep
+    carries the adjoint dS_t = dy_t C_t^T + a_{t+1} dS_{t+1} (dS_T adds
+    d_final_state) and, within each chunk, forms every token's state S_t,
+    the one before it and dS_t as (B, c, H, P, N) tensors. Then
+        dx_t = dt_t g_t + D dy_t,       g_t = dS_t B_t
+        dB_t = sum_h dt_t dS_t^T x_t,   dC_t = sum_h S_t^T dy_t
+        ddt_t = x_t . g_t + A a_t <dS_t, S_{t-1}>
+        dA = sum dt_t a_t <dS_t, S_{t-1}>,   dD = sum dy_t . x_t
+    with no decay divided out and no cumulative sum of cancelling terms,
+    so strong decay costs no digits."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    dev = x.device
+    xf, dyf, dtf = x.to(_F64), dy.to(_F64), dt.to(_F64)
+    Bf = _expand_groups(Bm.to(_F64), H)
+    Cf = _expand_groups(Cm.to(_F64), H)
+    Af, Df = A.to(_F64), D.to(_F64)
+    la = dtf * Af                                    # (B,S,H) log a_t
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=dev))
+    zero = torch.zeros((), dtype=_F64, device=dev)
+
+    def chunk_states(c0, s_in):
+        """S_t for every t of the chunk at c0, (B,c,H,P,N), from s_in."""
+        cum = torch.cumsum(la[:, c0:c0 + chunk], dim=1)          # (B,c,H)
+        rel = cum[:, :, None] - cum[:, None]                      # (B,t,s,H)
+        W = torch.where(causal[None, :, :, None], torch.exp(rel), zero)
+        dbx = dtf[:, c0:c0 + chunk, :, None] * xf[:, c0:c0 + chunk]
+        return (torch.exp(cum)[..., None, None] * s_in[:, None]
+                + torch.einsum("btsh,bshp,bshn->bthpn", W, dbx,
+                               Bf[:, c0:c0 + chunk]))
+
+    state = torch.zeros((B, H, P, N), dtype=_F64, device=dev) \
+        if init_state is None else init_state.to(_F64)
+    s_ins = []
+    for c0 in range(0, S, chunk):
+        s_ins.append(state)
+        state = chunk_states(c0, state)[:, -1]
+
+    carry = torch.zeros((B, H, P, N), dtype=_F64, device=dev) \
+        if d_final_state is None else d_final_state.to(_F64)
+    dx, ddt, dB, dC = (torch.empty(B, S, H, n, dtype=_F64, device=dev)
+                       for n in (P, 1, N, N))
+    dA = torch.zeros(H, dtype=_F64, device=dev)
+    for ci in reversed(range(len(s_ins))):
+        c0 = ci * chunk
+        sl = slice(c0, c0 + chunk)
+        st = chunk_states(c0, s_ins[ci])                          # S_t
+        prev = torch.cat([s_ins[ci][:, None], st[:, :-1]], 1)     # S_{t-1}
+        # dS_t = sum_{u>=t} exp(cum_u - cum_t) dy_u C_u^T
+        #        + exp(cum_e - cum_t) carry
+        cum = torch.cumsum(la[:, sl], dim=1)
+        rel = cum[:, None] - cum[:, :, None]                      # (B,t,u,H)
+        W = torch.where(causal.T[None, :, :, None], torch.exp(rel), zero)
+        dS = (torch.exp(cum[:, -1:] - cum)[..., None, None] * carry[:, None]
+              + torch.einsum("btuh,buhp,buhn->bthpn", W, dyf[:, sl],
+                             Cf[:, sl]))
+        g = torch.einsum("bthpn,bthn->bthp", dS, Bf[:, sl])
+        dx[:, sl] = dtf[:, sl, :, None] * g + Df[:, None] * dyf[:, sl]
+        dB[:, sl] = dtf[:, sl, :, None] * torch.einsum(
+            "bthpn,bthp->bthn", dS, xf[:, sl])
+        dC[:, sl] = torch.einsum("bthpn,bthp->bthn", st, dyf[:, sl])
+        dla = torch.exp(la[:, sl]) * torch.einsum("bthpn,bthpn->bth", dS,
+                                                  prev)
+        ddt[:, sl, :, 0] = torch.sum(xf[:, sl] * g, -1) + Af * dla
+        dA += torch.sum(dtf[:, sl] * dla, dim=(0, 1))
+        carry = torch.exp(la[:, c0])[..., None, None] * dS[:, 0]
+    dD = torch.einsum("bshp,bshp->h", dyf, xf)
+    group = lambda m: m.reshape(B, S, G, H // G, N).sum(3)   # noqa: E731
+    return (dx.to(x.dtype), ddt[..., 0].to(dt.dtype), dA.to(A.dtype),
+            group(dB).to(Bm.dtype), group(dC).to(Cm.dtype), dD.to(D.dtype),
+            None if init_state is None else carry.to(init_state.dtype))

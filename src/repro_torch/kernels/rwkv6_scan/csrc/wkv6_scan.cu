@@ -1,6 +1,7 @@
-// RWKV6 (Finch) WKV scan with a data-dependent per-channel decay, forward
-// only, for Hopper (sm_90a). r, k (B, S, H, K), v and y (B, S, H, V) of one
-// type (f32 or bf16); the decay w (B, S, H, K), the bonus u (H, K) and the
+// RWKV6 (Finch) WKV scan with a data-dependent per-channel decay, and its
+// gradient, for Hopper (sm_90a); the backward is described where it
+// begins. Forward: r, k (B, S, H, K), v and y (B, S, H, V) of one type (f32
+// or bf16); the decay w (B, S, H, K), the bonus u (H, K) and the
 // final state (B, H, K, V) in f32; all contiguous. The state and every sum
 // are f32; y is rounded to the input type once.
 //
@@ -752,13 +753,351 @@ cudaError_t launch_bf16(const void* r, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the backward
+//
+// Given dy (B, S, H, V) in the input type and optionally the gradient of
+// the final state dF (B, H, K, V) f32: dr, dk, dv (input type), dw (B, S,
+// H, K) f32, and through a second, summing launch du (H, K) f32. One route
+// for both types: the per-token recurrence on CUDA cores, every sum in f32.
+//
+// Replaces what the reference trains through: jax.grad of wkv6_chunked
+// (src/repro/kernels/rwkv6_scan/ref.py), which XLA differentiates (no
+// Pallas kernel of the reference defines a VJP).
+//
+// Per (b, h), with the adjoint of the state after token t, dS_{t-1} =
+// diag(w_t) dS_t + r_t dy_t^T (dS_T = dF), and p_t = v_t . dy_t:
+//     dr_t = S_{t-1} dy_t + u k_t p_t       dk_t = dS_t v_t + u r_t p_t
+//     dv_t = dS_t^T k_t + (r_t . u k_t) dy_t
+//     dw_t = rowsum(dS_t o S_{t-1})         du = sum r_t k_t p_t
+// dw comes straight from the product of the state and its adjoint: the
+// form d(log w) / w, a cumulative sum of cancelling terms divided by w,
+// loses every digit where w is near 1e-30. du sums over batch rows
+// afterwards, from f32 partials in a fixed order (no atomics).
+//
+// What bounds it on this card: bytes, as the forward. At the rwkv6-7b
+// training shape (B 4, S 1024, H 64, K = V = 64; r, k, v bf16, w f32) it
+// must read r, k, v, w, dy and write dr, dk, dv, dw once, about 369 MB,
+// 0.110 ms at 3.35 TB/s. This first design is far from that (1.90 ms on
+// an NVIDIA H100 80GB HBM3 at 700 W, 17 times the bound): every token
+// costs each thread about 70 state FMAs on CUDA cores and a sum over the
+// 64 rows of the state, with 2 blocks of 8 warps an SM. A chunked
+// tensor-core design, like the forward's bf16 route, is the way to the
+// bound.
+//
+// Design: one block of 256 threads per (head, batch row); thread (i, q)
+// holds 16 entries of row i of the state and of its adjoint in registers
+// (columns 4 (q + 4 g) + e, padded to 64 with zeros), so the sums over V
+// (dr, dk, dw) take two shuffles and only dv sums over rows. A first sweep
+// runs the recurrence and saves the state before every 16-token chunk to a
+// scratch buffer (B, H, ceil(S / 16), K, 64). The reverse sweep takes the
+// chunks last to first: it stages the chunk's inputs in shared memory,
+// steps the saved state 8 tokens on to a second copy, and for each token t
+// (last to first) recomputes S_{t-1} from the nearer of the two in at most
+// 7 steps. dv sums over the 64 rows by a reduce-scatter within the warp
+// (14 shuffles for 16 columns) into per-warp rows of shared memory, summed
+// over the 8 warps once the chunk is done, when every gradient of its
+// tokens is written.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdChunk = 16;                  // tokens between saved states
+constexpr int kBwdHalf = kBwdChunk / 2;        // the second copy's token
+constexpr int kCols = 64;                      // state columns, zero-padded
+constexpr int kBwdRow = kBwdChunk * kCols;     // one staged (token, column) tile
+// the backward's dynamic shared memory, in floats: r, k, v, w, dy staged
+// as f32 tiles, the three sums over V per (token, row), the per-token
+// v . dy and r . u k, and the per-warp partial sums of dv
+constexpr int kBwdR = 0;
+constexpr int kBwdK = kBwdR + kBwdRow;
+constexpr int kBwdV = kBwdK + kBwdRow;
+constexpr int kBwdW = kBwdV + kBwdRow;
+constexpr int kBwdDy = kBwdW + kBwdRow;
+constexpr int kBwdSy = kBwdDy + kBwdRow;       // S_{t-1} dy_t
+constexpr int kBwdSv = kBwdSy + kBwdRow;       // dS_t v_t
+constexpr int kBwdSs = kBwdSv + kBwdRow;       // rowsum(dS_t o S_{t-1})
+constexpr int kBwdScal = kBwdSs + kBwdRow;     // (v . dy, r . u k) per token
+constexpr int kBwdRed = kBwdScal + 2 * kBwdChunk;
+constexpr int kBwdSmemBytes = (kBwdRed + kBwdChunk * kBwdWarps * kCols) * 4;   // 65,664
+
+// dst[t][c] = src[base + t * stride + c] as f32 for t < nt and c < width,
+// zero elsewhere in the (kBwdChunk, kCols) tile
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, size_t base, size_t stride,
+                                           int nt, int width) {
+  for (int i = threadIdx.x; i < kBwdRow; i += kBwdThreads) {
+    const int t = i / kCols;
+    const int c = i % kCols;
+    dst[i] = t < nt && c < width ? to_f32(src[base + t * stride + c]) : 0.f;
+  }
+}
+
+// v summed over the 8 rows of the warp (lanes that differ in bits 2..4) by
+// a reduce-scatter: the lane keeps the sums of v[i0] and v[i0 + 1], i0 = 8
+// bit4 + 4 bit3 + 2 bit2, which are columns n0, n0 + 1 of its row's layout
+// (returned through n0)
+__device__ __forceinline__ float2 rows_sum16(const float (&v)[16], int lane, int& n0) {
+  const bool h1 = lane & 16, h2 = lane & 8, h3 = lane & 4;
+  float a[8], b[4], c[2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    a[i] = (h1 ? v[8 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, h1 ? v[i] : v[8 + i], 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    b[i] = (h2 ? a[4 + i] : a[i]) + __shfl_xor_sync(0xffffffffu, h2 ? a[i] : a[4 + i], 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c[i] = (h3 ? b[2 + i] : b[i]) + __shfl_xor_sync(0xffffffffu, h3 ? b[i] : b[2 + i], 4);
+  const int g = 2 * h1 + h2;
+  n0 = 4 * ((lane & 3) + 4 * g) + 2 * h3;
+  return make_float2(c[0], c[1]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// one token of the recurrence on this thread's 16 entries of row i
+__device__ __forceinline__ void wkv_step(float (&s)[16], const float* sm, int t, int i, int q) {
+  const float wt = sm[kBwdW + t * kCols + i];
+  const float kt = sm[kBwdK + t * kCols + i];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float4 vv = *reinterpret_cast<const float4*>(sm + kBwdV + t * kCols + 4 * (q + 4 * g));
+    s[4 * g] = fmaf(wt, s[4 * g], kt * vv.x);
+    s[4 * g + 1] = fmaf(wt, s[4 * g + 1], kt * vv.y);
+    s[4 * g + 2] = fmaf(wt, s[4 * g + 2], kt * vv.z);
+    s[4 * g + 3] = fmaf(wt, s[4 * g + 3], kt * vv.w);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    wkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ w,
+                         const float* __restrict__ u, const T* __restrict__ dy,
+                         const float* __restrict__ dfinal, T* __restrict__ dr,
+                         T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dw,
+                         float* __restrict__ ck, float* __restrict__ du_part, int S, int H,
+                         int K, int V) {
+  extern __shared__ __align__(16) float sm[];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wp = tid >> 5;
+  const int i = tid / 4;   // the state row (key channel) this thread holds
+  const int q = tid % 4;
+  const float* uh = u + static_cast<size_t>(h) * K;
+  const int nck = (S + kBwdChunk - 1) / kBwdChunk;
+  float* ck_bh = ck + (static_cast<size_t>(b) * H + h) * nck * kCols * kCols;
+  const size_t tok_k = static_cast<size_t>(H) * K;   // r / k / w stride per token
+  const size_t tok_v = static_cast<size_t>(H) * V;   // v / dy stride per token
+
+  // sweep 1: the state before every chunk
+  float s[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s[e] = 0.f;
+  for (int c = 0; c < nck; ++c) {
+    const int t0 = c * kBwdChunk;
+    const int nt = min(kBwdChunk, S - t0);
+    float* out = ck_bh + (static_cast<size_t>(c) * kCols + i) * kCols;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      *reinterpret_cast<float4*>(out + 4 * (q + 4 * g)) =
+          make_float4(s[4 * g], s[4 * g + 1], s[4 * g + 2], s[4 * g + 3]);
+    const size_t row0 = static_cast<size_t>(b) * S + t0;
+    stage_tile(sm + kBwdK, k, (row0 * H + h) * K, tok_k, nt, K);
+    stage_tile(sm + kBwdV, v, (row0 * H + h) * V, tok_v, nt, V);
+    stage_tile(sm + kBwdW, w, (row0 * H + h) * K, tok_k, nt, K);
+    __syncthreads();
+    for (int t = 0; t < nt; ++t) wkv_step(s, sm, t, i, q);
+    __syncthreads();
+  }
+
+  // sweep 2, chunks last to first
+  float ds[16];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * (q + 4 * g) + e;
+      ds[4 * g + e] = dfinal != nullptr && i < K && n < V
+                          ? dfinal[((static_cast<size_t>(b) * H + h) * K + i) * V + n]
+                          : 0.f;
+    }
+  }
+  float du_acc = 0.f;   // thread i < K: du[h][i] over this row's tokens
+  for (int c = nck - 1; c >= 0; --c) {
+    const int t0 = c * kBwdChunk;
+    const int nt = min(kBwdChunk, S - t0);
+    const size_t row0 = static_cast<size_t>(b) * S + t0;
+    stage_tile(sm + kBwdR, r, (row0 * H + h) * K, tok_k, nt, K);
+    stage_tile(sm + kBwdK, k, (row0 * H + h) * K, tok_k, nt, K);
+    stage_tile(sm + kBwdV, v, (row0 * H + h) * V, tok_v, nt, V);
+    stage_tile(sm + kBwdW, w, (row0 * H + h) * K, tok_k, nt, K);
+    stage_tile(sm + kBwdDy, dy, (row0 * H + h) * V, tok_v, nt, V);
+    float s0[16], s8[16];
+    const float* in = ck_bh + (static_cast<size_t>(c) * kCols + i) * kCols;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 x4 = *reinterpret_cast<const float4*>(in + 4 * (q + 4 * g));
+      s0[4 * g] = x4.x;
+      s0[4 * g + 1] = x4.y;
+      s0[4 * g + 2] = x4.z;
+      s0[4 * g + 3] = x4.w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s8[e] = s0[e];
+    for (int t = 0; t < min(kBwdHalf, nt); ++t) wkv_step(s8, sm, t, i, q);
+
+    for (int t = nt - 1; t >= 0; --t) {
+      // S_{t-1}: the nearer saved copy stepped on to token t - 1
+      const bool late = t >= kBwdHalf;
+      float sp[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sp[e] = late ? s8[e] : s0[e];
+      for (int j = late ? kBwdHalf : 0; j < t; ++j) wkv_step(sp, sm, j, i, q);
+
+      const float rt = sm[kBwdR + t * kCols + i];
+      const float kt = sm[kBwdK + t * kCols + i];
+      const float wt = sm[kBwdW + t * kCols + i];
+      float sy = 0.f, sv = 0.f, ss = 0.f, dyv[16], x[16];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int n0 = 4 * (q + 4 * g);
+        const float4 yv = *reinterpret_cast<const float4*>(sm + kBwdDy + t * kCols + n0);
+        const float4 vv = *reinterpret_cast<const float4*>(sm + kBwdV + t * kCols + n0);
+        const float yy[4] = {yv.x, yv.y, yv.z, yv.w};
+        const float vals[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * g + e;
+          dyv[j] = yy[e];
+          sy = fmaf(sp[j], yy[e], sy);
+          sv = fmaf(ds[j], vals[e], sv);
+          ss = fmaf(ds[j], sp[j], ss);
+          x[j] = ds[j] * kt;                                // dS_t^T k_t, this row
+        }
+      }
+      sy = quad_sum(sy);
+      sv = quad_sum(sv);
+      ss = quad_sum(ss);
+      if (q == 0) {
+        sm[kBwdSy + t * kCols + i] = sy;
+        sm[kBwdSv + t * kCols + i] = sv;
+        sm[kBwdSs + t * kCols + i] = ss;
+      }
+      int n0;
+      const float2 red = rows_sum16(x, lane, n0);
+      *reinterpret_cast<float2*>(sm + kBwdRed + (t * kBwdWarps + wp) * kCols + n0) = red;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) ds[j] = fmaf(wt, ds[j], rt * dyv[j]);   // dS_{t-1}
+    }
+    __syncthreads();
+
+    for (int t = wp; t < nt; t += kBwdWarps) {
+      const float* vr = sm + kBwdV + t * kCols;
+      const float* yr = sm + kBwdDy + t * kCols;
+      const float* rr = sm + kBwdR + t * kCols;
+      const float* kr = sm + kBwdK + t * kCols;
+      const float u0 = lane < K ? uh[lane] : 0.f;
+      const float u1 = lane + 32 < K ? uh[lane + 32] : 0.f;
+      const float vdy = warp_sum(vr[lane] * yr[lane] + vr[lane + 32] * yr[lane + 32]);
+      const float ruk = warp_sum(rr[lane] * u0 * kr[lane] + rr[lane + 32] * u1 * kr[lane + 32]);
+      if (lane == 0) {
+        sm[kBwdScal + 2 * t] = vdy;
+        sm[kBwdScal + 2 * t + 1] = ruk;
+      }
+    }
+    __syncthreads();
+
+    for (int e = tid; e < nt * kCols; e += kBwdThreads) {
+      const int t = e / kCols;
+      const int n = e % kCols;
+      const float vdy = sm[kBwdScal + 2 * t];
+      if (n < K) {
+        const size_t at = ((row0 + t) * H + h) * K + n;
+        const float uk = uh[n] * vdy;
+        dr[at] = from_f32<T>(fmaf(uk, sm[kBwdK + t * kCols + n], sm[kBwdSy + t * kCols + n]));
+        dk[at] = from_f32<T>(fmaf(uk, sm[kBwdR + t * kCols + n], sm[kBwdSv + t * kCols + n]));
+        dw[at] = sm[kBwdSs + t * kCols + n];
+      }
+      if (n < V) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBwdWarps; ++j) acc += sm[kBwdRed + (t * kBwdWarps + j) * kCols + n];
+        dv[((row0 + t) * H + h) * V + n] =
+            from_f32<T>(fmaf(sm[kBwdScal + 2 * t + 1], sm[kBwdDy + t * kCols + n], acc));
+      }
+    }
+    if (tid < K)
+      for (int t = nt - 1; t >= 0; --t)
+        du_acc = fmaf(sm[kBwdR + t * kCols + tid] * sm[kBwdK + t * kCols + tid],
+                      sm[kBwdScal + 2 * t], du_acc);
+    __syncthreads();   // the next chunk restages every tile
+  }
+  if (tid < K) du_part[(static_cast<size_t>(b) * H + h) * K + tid] = du_acc;
+}
+
+// out[o][n] = sum over m of in[o][m][n], m in order (the partials' fixed
+// order, so the sum is the same bitwise from call to call)
+__global__ void sum_mid_kernel(const float* __restrict__ in, float* __restrict__ out, int outer,
+                               int mid, int inner) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<size_t>(outer) * inner) return;
+  const size_t o = e / inner;
+  const float* src = in + o * mid * inner + e % inner;
+  float acc = 0.f;
+  for (int m = 0; m < mid; ++m) acc += src[static_cast<size_t>(m) * inner];
+  out[e] = acc;
+}
+
+// floats of the backward's scratch: the saved states (B, H, chunks, 64,
+// 64) and the per-row partials of du (B, H, K)
+size_t backward_work_floats(int B, int S, int H, int K) {
+  const size_t nck = (S + kBwdChunk - 1) / kBwdChunk;
+  return static_cast<size_t>(B) * H * nck * kCols * kCols + static_cast<size_t>(B) * H * K;
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* r, const void* k, const void* v, const void* w,
+                            const void* u, const void* dy, const void* dfinal, void* dr,
+                            void* dk, void* dv, void* dw, void* du, void* work, int B, int S,
+                            int H, int K, int V, cudaStream_t stream) {
+  const size_t nck = (S + kBwdChunk - 1) / kBwdChunk;
+  float* ck = static_cast<float*>(work);
+  float* du_part = ck + static_cast<size_t>(B) * H * nck * kCols * kCols;
+  auto kernel = wkv6_scan_bwd_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kBwdThreads, kBwdSmemBytes, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(w), static_cast<const float*>(u), static_cast<const T*>(dy),
+      static_cast<const float*>(dfinal), static_cast<T*>(dr), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<float*>(dw), ck, du_part, S, H, K, V);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n = H * K;
+  sum_mid_kernel<<<(n + 255) / 256, 256, 0, stream>>>(du_part, static_cast<float*>(du), 1, B, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch geometry, read by the wrapper to check it agrees: f32 route
 // {kThreads, kLanesPerCol, kMaxK, kMaxV, kTokens}, then bf16 route
-// {kTcThreads, kTcChunk, kTcSmemBytes}.
+// {kTcThreads, kTcChunk, kTcSmemBytes}, then the backward {kBwdThreads,
+// kBwdChunk, kBwdSmemBytes}.
 void wkv6_scan_config(int* cfg) {
   cfg[0] = kThreads;
   cfg[1] = kLanesPerCol;
@@ -768,6 +1107,9 @@ void wkv6_scan_config(int* cfg) {
   cfg[5] = kTcThreads;
   cfg[6] = kTcChunk;
   cfg[7] = kTcSmemBytes;
+  cfg[8] = kBwdThreads;
+  cfg[9] = kBwdChunk;
+  cfg[10] = kBwdSmemBytes;
 }
 
 const char* wkv6_scan_error_string(int err) {
@@ -790,6 +1132,35 @@ int wkv6_scan_forward(const void* r, const void* k, const void* v, const void* w
     return static_cast<int>(launch_f32(r, k, v, w, u, y, state, B, S, H, K, V, st));
   if (dtype == 1)
     return static_cast<int>(launch_bf16(r, k, v, w, u, y, state, B, S, H, K, V, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Floats of the scratch buffer wkv6_scan_backward takes as `work`.
+size_t wkv6_scan_backward_work(int B, int S, int H, int K) {
+  return backward_work_floats(B, S, H, K);
+}
+
+// The gradient: r, k, v, dy and dr, dk, dv of one type (dtype 0 = float32,
+// 1 = bfloat16); w, u, dw (B, S, H, K), du (H, K) and dfinal (B, H, K, V;
+// null for none) float32; work a float32 buffer of wkv6_scan_backward_work
+// floats; all contiguous on the card, work 16-byte aligned. Shapes as
+// wkv6_scan_forward takes them. Launches the backward and the sum over
+// batch rows on `stream`, returns cudaGetLastError() (0 on success); does
+// not synchronise.
+int wkv6_scan_backward(const void* r, const void* k, const void* v, const void* w,
+                       const void* u, const void* dy, const void* dfinal, void* dr, void* dk,
+                       void* dv, void* dw, void* du, void* work, int B, int S, int H, int K,
+                       int V, int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || K < 16 || K > kMaxK || K % 16 != 0 || V < 1 ||
+      V > kMaxV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_backward<float>(r, k, v, w, u, dy, dfinal, dr, dk, dv, dw, du,
+                                                   work, B, S, H, K, V, st));
+  if (dtype == 1)
+    return static_cast<int>(launch_backward<bf16>(r, k, v, w, u, dy, dfinal, dr, dk, dv, dw, du,
+                                                  work, B, S, H, K, V, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

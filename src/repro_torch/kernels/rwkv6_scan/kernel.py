@@ -1,7 +1,9 @@
 """Builds and launches the hand-written CUDA ``wkv6_scan`` kernel
 (``csrc/wkv6_scan.cu``). Two routes, chosen by dtype alone: float32 takes
 the per-token recurrence on CUDA cores, bfloat16 the chunked scan on the
-tensor cores (``ROUTES``).
+tensor cores (``ROUTES``). The backward (``wkv6_scan_backward_cuda``) is one
+per-token kernel on CUDA cores for both dtypes (``BACKWARD_ROUTE``), then
+a launch that sums its partials in a fixed order.
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -40,12 +42,22 @@ _TILE = TC_CHUNK * 64 * 2
 TC_SMEM_BYTES = TC_STAGES * (3 * _TILE + TC_CHUNK * 64 * 4) \
     + 4 * 64 * 4 + 2 * TC_CHUNK * 4 + 6 * 2 * _TILE + TC_CHUNK * 40 * 4 \
     + 2 * 64 * 64 * 2
+# the backward: 256 threads, the state saved every BWD_CHUNK tokens, and
+# its dynamic shared memory: r, k, v, w, dy as f32 tiles (BWD_CHUNK x 64),
+# three sums over V per (token, row), v . dy and r . u k per token, and
+# each warp's partial sums of dv (BWD_CHUNK x 8 x 64)
+BWD_THREADS = 256
+BWD_CHUNK = 16
+_BWD_ROW = BWD_CHUNK * 64
+BWD_SMEM_BYTES = 4 * (8 * _BWD_ROW + 2 * BWD_CHUNK + BWD_CHUNK * 8 * 64)
 MAX_SMEM_BYTES = 232448          # the most one block may hold
 SM_SMEM_BYTES = 233472           # an SM's shared memory, 1 KB kept per block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel function each dtype launches
 ROUTES = {torch.float32: "wkv6_scan_kernel (per token, CUDA cores)",
           torch.bfloat16: "wkv6_scan_tc_kernel (chunked, mma.sync tensor cores)"}
+#: the backward's kernel, for both dtypes
+BACKWARD_ROUTE = "wkv6_scan_bwd_kernel (per token, CUDA cores)"
 
 
 def build():
@@ -61,12 +73,16 @@ def _bind(lib, path) -> None:
     lib.wkv6_scan_forward.restype = i
     lib.wkv6_scan_config.argtypes = [ctypes.POINTER(i)]
     lib.wkv6_scan_config.restype = None
+    lib.wkv6_scan_backward.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.wkv6_scan_backward.restype = i
+    lib.wkv6_scan_backward_work.argtypes = [i, i, i, i]
+    lib.wkv6_scan_backward_work.restype = ctypes.c_size_t
     lib.wkv6_scan_error_string.argtypes = [i]
     lib.wkv6_scan_error_string.restype = ctypes.c_char_p
-    cfg = (i * 8)()
+    cfg = (i * 11)()
     lib.wkv6_scan_config(cfg)
     want = (THREADS, LANES_PER_COL, MAX_K, MAX_V, TOKENS, TC_THREADS,
-            TC_CHUNK, TC_SMEM_BYTES)
+            TC_CHUNK, TC_SMEM_BYTES, BWD_THREADS, BWD_CHUNK, BWD_SMEM_BYTES)
     if tuple(cfg) != want:
         raise RuntimeError(f"{path.name}: launch geometry {tuple(cfg)} "
                            f"!= the wrapper's {want}")
@@ -93,11 +109,8 @@ def check_launch(K: int, V: int) -> None:
                          f"head, got {V}")
 
 
-def wkv6_scan_cuda(r, k, v, w, u, init_state=None):
-    """Launch the kernel on the current stream of ``r``'s card and return
-    ``(y, final_state)`` without synchronising. Shapes are checked by
-    ``ops.wkv6_scan``; this checks what the kernel itself needs, every
-    check before the library is built or loaded."""
+def _check_inputs(r, k, v, w, u, init_state) -> None:
+    """What both kernels need of the forward's inputs."""
     if init_state is not None:
         raise ValueError("wkv6_scan kernel starts from a zero state "
                          "(prefill); an init_state takes the plain version "
@@ -117,9 +130,17 @@ def wkv6_scan_cuda(r, k, v, w, u, init_state=None):
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("wkv6_scan kernel takes contiguous tensors")
+    check_launch(r.shape[3], v.shape[3])
+
+
+def wkv6_scan_cuda(r, k, v, w, u, init_state=None):
+    """Launch the kernel on the current stream of ``r``'s card and return
+    ``(y, final_state)`` without synchronising. Shapes are checked by
+    ``ops.wkv6_scan``; this checks what the kernel itself needs, every
+    check before the library is built or loaded."""
+    _check_inputs(r, k, v, w, u, init_state)
     B, S, H, K = r.shape
     V = v.shape[3]
-    check_launch(K, V)
     lib = _library()
     y = torch.empty_like(v)
     state = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
@@ -128,6 +149,50 @@ def wkv6_scan_cuda(r, k, v, w, u, init_state=None):
         err = lib.wkv6_scan_forward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, K, V,
-            code, stream)
+            _DTYPE_CODES[r.dtype], stream)
     _build.check_error(lib, "wkv6_scan", err)
     return y, state
+
+
+def wkv6_scan_backward_cuda(r, k, v, w, u, dy, d_final_state=None):
+    """Launch the backward on the current stream of ``r``'s card and return
+    ``(dr, dk, dv, dw, du)`` in the inputs' dtypes without synchronising:
+    the gradient of ``wkv6_scan_cuda``'s ``(y, final_state)`` given ``dy``
+    (v's shape, r's dtype) and ``d_final_state`` ((B, H, K, V) f32, or
+    None for none). Every check before the library is built or loaded."""
+    if dy.dtype != r.dtype or dy.shape != v.shape:
+        raise ValueError(f"wkv6_scan backward takes dy like v "
+                         f"{tuple(v.shape)} in {r.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    B, S, H, K = r.shape
+    V = v.shape[3]
+    extra = (dy,)
+    if d_final_state is not None:
+        if d_final_state.dtype != torch.float32 or \
+                tuple(d_final_state.shape) != (B, H, K, V):
+            raise ValueError(f"wkv6_scan backward takes d_final_state "
+                             f"{(B, H, K, V)} float32, got "
+                             f"{tuple(d_final_state.shape)} "
+                             f"{d_final_state.dtype}")
+        extra += (d_final_state,)
+    _check_inputs(r, k, v, w, u, None)
+    for t in extra:
+        if t.device != r.device or not t.is_contiguous():
+            raise ValueError("wkv6_scan backward takes contiguous gradients "
+                             "on r's card")
+    lib = _library()
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dw, du = torch.empty_like(w), torch.empty_like(u)
+    work = torch.empty(lib.wkv6_scan_backward_work(B, S, H, K),
+                       dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wkv6_scan_backward(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), dy.data_ptr(),
+            None if d_final_state is None else d_final_state.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du.data_ptr(), work.data_ptr(), B, S, H, K, V,
+            _DTYPE_CODES[r.dtype], stream)
+    _build.check_error(lib, "wkv6_scan", err)
+    return dr, dk, dv, dw, du

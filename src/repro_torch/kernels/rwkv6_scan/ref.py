@@ -106,3 +106,94 @@ def wkv6_decode_step(state, r, k, v, w, u):
     y = torch.einsum("bhk,bhkv->bhv", rf, state + uf[None, :, :, None] * kv)
     state = wf[..., :, None] * state + kv
     return y.to(r.dtype), state
+
+
+def wkv6_backward_reference(r, k, v, w, u, dy, init_state=None,
+                            d_final_state=None, *, chunk: int = 32):
+    """The gradient of the WKV6 scan's ``(y, final_state)``: given ``dy``
+    (B, S, H, V) and ``d_final_state`` (B, H, K, V) or None, returns
+    ``(dr, dk, dv, dw, du, d_init_state)`` in the inputs' dtypes
+    (``d_init_state`` None without an ``init_state``). The plain backward:
+    the CPU route of ``ops.wkv6_scan`` under autograd and the yardstick the
+    CUDA backward kernel is held against.
+
+    Computed in float64, chunk by chunk, from the states themselves: a
+    forward sweep keeps the state before each chunk; a reverse sweep
+    carries the adjoint of the state after token t, dS_{t-1} = diag(w_t)
+    dS_t + r_t dy_t^T (dS_T = d_final_state), and within each chunk forms
+    every token's S_{t-1} and dS_t as (B, c, H, K, V) tensors. Then
+        dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)
+        dk_t = dS_t v_t + u r_t (v_t . dy_t)
+        dv_t = dS_t^T k_t + (r_t . u k_t) dy_t
+        dw_t = rowsum(dS_t o S_{t-1}),   du = sum r_t k_t (v_t . dy_t)
+    dw comes straight from the product, never as d(log w) / w: at w near
+    1e-30 a sum of cancelling terms divided by w would be noise."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    dev = r.device
+    rf, kf, vf, wf, dyf = (t.to(_F64) for t in (r, k, v, w, dy))
+    uf = u.to(_F64)
+    logw = torch.log(torch.clamp(wf, min=1e-300))
+    strict = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=dev), diagonal=-1)   # s < t
+    zero = torch.zeros((), dtype=_F64, device=dev)
+
+    def chunk_prev(c0, s_in):
+        """S_{t-1} for every t of the chunk at c0, (B,c,H,K,V), and the
+        state after the chunk."""
+        sl = slice(c0, c0 + chunk)
+        cum = torch.cumsum(logw[:, sl], dim=1)                    # (B,c,H,K)
+        excl = cum - logw[:, sl]
+        rel = excl[:, :, None] - cum[:, None]                     # (B,t,s,H,K)
+        W = torch.where(strict[None, :, :, None, None], torch.exp(rel), zero)
+        prev = (torch.exp(excl)[..., None] * s_in[:, None]
+                + torch.einsum("btshk,bshk,bshv->bthkv", W, kf[:, sl],
+                               vf[:, sl]))
+        last = wf[:, c0 + chunk - 1, ..., None] * prev[:, -1] \
+            + kf[:, c0 + chunk - 1, ..., None] * vf[:, c0 + chunk - 1, :, None]
+        return prev, last
+
+    state = torch.zeros((B, H, K, V), dtype=_F64, device=dev) \
+        if init_state is None else init_state.to(_F64)
+    s_ins = []
+    for c0 in range(0, S, chunk):
+        s_ins.append(state)
+        state = chunk_prev(c0, state)[1]
+
+    carry = torch.zeros((B, H, K, V), dtype=_F64, device=dev) \
+        if d_final_state is None else d_final_state.to(_F64)
+    dr, dk, dw = (torch.empty(B, S, H, K, dtype=_F64, device=dev)
+                  for _ in range(3))
+    dv = torch.empty(B, S, H, V, dtype=_F64, device=dev)
+    for ci in reversed(range(len(s_ins))):
+        c0 = ci * chunk
+        sl = slice(c0, c0 + chunk)
+        prev, _ = chunk_prev(c0, s_ins[ci])                       # S_{t-1}
+        # dS_t = sum_{tau>t} exp(excl_tau - cum_t) r_tau dy_tau^T
+        #        + exp(cum_e - cum_t) carry
+        cum = torch.cumsum(logw[:, sl], dim=1)
+        excl = cum - logw[:, sl]
+        rel = excl[:, None] - cum[:, :, None]                     # (B,t,tau,H,K)
+        W = torch.where(strict.T[None, :, :, None, None], torch.exp(rel),
+                        zero)
+        dS = (torch.exp(cum[:, -1:] - cum)[..., None] * carry[:, None]
+              + torch.einsum("btuhk,buhk,buhv->bthkv", W, rf[:, sl],
+                             dyf[:, sl]))
+        vdy = torch.sum(vf[:, sl] * dyf[:, sl], -1, keepdim=True)  # (B,c,H,1)
+        dr[:, sl] = torch.einsum("bthkv,bthv->bthk", prev, dyf[:, sl]) \
+            + uf * kf[:, sl] * vdy
+        dk[:, sl] = torch.einsum("bthkv,bthv->bthk", dS, vf[:, sl]) \
+            + uf * rf[:, sl] * vdy
+        dv[:, sl] = torch.einsum("bthkv,bthk->bthv", dS, kf[:, sl]) \
+            + torch.sum(rf[:, sl] * uf * kf[:, sl], -1, keepdim=True) \
+            * dyf[:, sl]
+        dw[:, sl] = torch.einsum("bthkv,bthkv->bthk", dS, prev)
+        carry = wf[:, c0, ..., None] * dS[:, 0] \
+            + rf[:, c0, ..., None] * dyf[:, c0, :, None]
+    du = torch.einsum("bshk,bshk,bshv,bshv->hk", rf, kf, vf, dyf)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype),
+            None if init_state is None else carry.to(init_state.dtype))

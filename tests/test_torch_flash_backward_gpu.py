@@ -6,7 +6,7 @@ atom), ragged lengths, Skv past a 128-key tile with Sq < Skv, and the
 training shape (qwen3-1.7b, B 4, S 1024, H 16, KV 8, D 128). Also the
 ``lse`` both forward routes write, the backward's determinism (three runs
 bitwise equal at the training shape), its three launches a call (nothing
-falls back to the plain backward), the Function's counts and the four
+falls back to the plain backward), the Function's counts and the two
 forward-only kernels' refusal under autograd. Imports no JAX, so it runs
 on a machine with a card:
 
@@ -21,8 +21,6 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (
     attention_backward_reference, attention_reference)
 from repro_torch.kernels.fleet_mlp import ops as fleet_ops
-from repro_torch.kernels.mamba2_scan import ops as ssd_ops
-from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
 # |got - ref| / (1 + |ref|): f32 at tests/test_kernels.py's attention
 # tolerance (sums in another order, CUDA-core FMAs); bf16 at the attention
@@ -221,14 +219,6 @@ def test_forward_only_kernels_refuse_autograd(cuda_device):
         "fleet_mlp": lambda: fleet_ops.fleet_mlp(
             leaf(4, 2, 8), [leaf(4, 8, 16), leaf(4, 16, 1)],
             [leaf(4, 16), leaf(4, 1)]),
-        "ssd_scan": lambda: ssd_ops.ssd_scan(
-            leaf(1, 64, 2, 64), torch.rand(1, 64, 2, device=cuda_device),
-            -torch.ones(2, device=cuda_device), leaf(1, 64, 1, 64),
-            leaf(1, 64, 1, 64), torch.ones(2, device=cuda_device)),
-        "wkv6_scan": lambda: wkv_ops.wkv6_scan(
-            leaf(1, 64, 2, 64), leaf(1, 64, 2, 64), leaf(1, 64, 2, 64),
-            torch.full((1, 64, 2, 64), 0.9, device=cuda_device),
-            torch.zeros(2, 64, device=cuda_device)),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=name):

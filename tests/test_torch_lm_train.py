@@ -333,6 +333,61 @@ def test_chip_smoke_train_rehearsal_on_cpu():
     smoke.guard_phase("cpu")
 
 
+@pytest.mark.parametrize("arch,layers", [("zamba2-2.7b-smoke", 6),
+                                         ("rwkv6-7b-smoke", 2)])
+def test_chip_smoke_recurrent_train_rehearsal_on_cpu(arch, layers):
+    """chip_smoke.py's recurrent training phases at a tiny size through
+    the plain versions: the parity (one zamba2 period, two rwkv6 layers),
+    the path cut to whole periods with its launches per step (each scan
+    forward twice, its backward once; zamba2's shared block's attention
+    likewise), and the rounding-gap model behind the parity tolerance."""
+    smoke = _chip_smoke()
+    full = smoke.RECURRENT_PARITY_TOL[arch.removesuffix("-smoke")]
+    err = smoke.lm_train_parity("cpu", arch, layers=layers, seq=32, tol=full)
+    assert max(err[k] for k in ("loss", "grad_norm", "grad")) == 0
+    cfg = get_config(arch)
+    cut = cfg.period_len * (cfg.num_periods - 1) if cfg.num_periods > 1 \
+        else cfg.num_layers
+    train = smoke.lm_train_path("cpu", arch, batch=2, seq=32, steps=3,
+                                layers=cut, profile=False)
+    periods = cut // cfg.period_len
+    want = {n: 0 for n in smoke.COUNT_NAMES}
+    for kind, name in (("mamba2", "ssd_scan"), ("rwkv6", "wkv6_scan")):
+        per = periods * cfg.pattern.count(kind)
+        want[name], want[f"{name}_backward"] = 3 * 2 * per, 3 * per
+    if cfg.shared_attn_every_period:
+        want["flash_attention"] = 3 * 2 * periods
+        want["flash_attention_backward"] = 3 * periods
+    assert train["launches"] == want
+    gaps = smoke.parity_rounding_gaps(arch, layers=layers, seq=32)
+    assert set(gaps) == {"scans", "threads"}
+    for gap in gaps.values():
+        assert set(gap) == {"loss", "grad_norm", "grad", "worst_leaf"}
+        assert gap["grad"] < full["grad"] and gap["loss"] < full["loss"]
+
+
+def test_chip_smoke_update_excess_accounts_for_the_clip_scale():
+    """Two sides whose global norms differ by 6e-6 (a few large gradients
+    apart) both clip: elements near |g| = eps / s, equal on both sides,
+    move apart through the clip scale alone. The parity's bound allows
+    that and nothing more; without its clip term they exceed it."""
+    from repro_torch.train.optim import AdamWConfig, apply_update, init_state
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    p = {"w": torch.randn(100000, generator=gen)}
+    g = torch.rand(100000, generator=gen) * 2e-6
+    g[:10] = 30.0
+    other = g.clone()
+    other[:10] *= 1 + 6e-6
+    opt = AdamWConfig()
+    (pa, _, ma), (pb, _, mb) = (apply_update(p, {"w": x}, init_state(p), opt)
+                                for x in (g, other))
+    norms = (ma["grad_norm"], mb["grad_norm"])
+    args = (pa, pb, {"w": g}, {"w": other}, p, opt)
+    assert smoke._update_excess(*args, norms) <= 0
+    assert smoke._update_excess(*args, norms[:1] * 2) > 0
+
+
 def test_chip_smoke_backward_bound():
     """The backward's bound: five products of the visible pairs (2.5x the
     forward's operations), each of q, k, v, the output, its gradient and

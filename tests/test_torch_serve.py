@@ -295,25 +295,31 @@ def test_chip_smoke_scan_bounds():
 
 def test_chip_smoke_kernel_line_lists_five_kernels():
     """The five Pallas kernels' rows, each replacing the function that
-    reaches pl.pallas_call, then flash_attention's backward, which replaces
-    what jax.grad compiles from attention_xla (no Pallas kernel defines a
-    VJP)."""
+    reaches pl.pallas_call, then the three backwards, each replacing what
+    jax.grad compiles from the reference's XLA form (attention_xla,
+    ssd_chunked, wkv6_chunked: no Pallas kernel defines a VJP), in the
+    forward kernel's source."""
     smoke = _chip_smoke()
     rec = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
            "bound_by": "bytes"}
     line = smoke.kernel_line({n: rec for n in smoke.COUNT_NAMES},
                              {n: i for i, n in enumerate(smoke.COUNT_NAMES)})
     rows = line["kernels"]
-    assert [r["name"] for r in rows] == list(smoke.KERNEL_NAMES) + [
-        "flash_attention_backward"]
-    assert len(rows) == 6
+    backwards = {"flash_attention_backward": "def attention_xla(",
+                 "ssd_scan_backward": "def ssd_chunked(",
+                 "wkv6_scan_backward": "def wkv6_chunked("}
+    assert [r["name"] for r in rows] == list(smoke.KERNEL_NAMES) + list(
+        backwards)
+    assert len(rows) == 8
+    by_name = {r["name"]: r for r in rows}
     for r in rows:
         assert (ROOT / r["source"]).is_file()
         path, line_no = r["replaces"].split(":")
         text = (ROOT / path).read_text().splitlines()[int(line_no) - 1]
-        if r["name"] == "flash_attention_backward":
-            assert text.startswith("def attention_xla(")
-            assert r["source"] == rows[1]["source"]
+        if r["name"] in backwards:
+            assert text.startswith(backwards[r["name"]])
+            forward = r["name"].removesuffix("_backward")
+            assert r["source"] == by_name[forward]["source"]
         else:
             assert text.startswith("def ") and "_pallas(" in text
         assert r["library_ms"] is None and r["route"] == "cuda"
