@@ -1973,34 +1973,61 @@ def _ptxas_table(log: str) -> dict:
     return table
 
 
+# the mangled template arguments of each scan's bf16 forward as the path
+# takes it: 16-byte loads (kVec); for SSD also not the backward's state
+# sweep (kStates)
+TC_FORWARD_TAG = {"ssd_scan": "ILb1ELb0E", "wkv6_scan": "ILb1E"}
+
+
+def _ptxas_hit(table: dict, fn: str) -> tuple:
+    """The one ptxas entry whose mangled name holds ``fn``."""
+    hits = [v for k, v in table.items() if fn in k]
+    check(len(hits) == 1, f"build: {fn} not found once in ptxas output")
+    return hits[0]
+
+
 def scan_routes(name: str, mod, log: str) -> None:
     """Print each route of a scan kernel: the dtype, the kernel function it
     launches, its registers, spills and shared memory (the bf16 route's
-    16-byte-load instantiation, which the path shapes take)."""
+    16-byte-load instantiation, which the path shapes take); then the
+    backward's: SSD's per dtype (bf16: the state sweep and the chunked
+    reverse sweep), WKV's one kernel for both."""
     import torch
     table = _ptxas_table(log)
     for dtype, route in mod.ROUTES.items():
         fn = route.split()[0]
         tc = dtype == torch.bfloat16
-        hits = [v for k, v in table.items()
-                if fn + ("ILb1E" if tc else "I") in k]
-        check(len(hits) == 1, f"build: {fn} not found once in ptxas output")
-        regs, spill, smem = hits[0]
+        regs, spill, smem = _ptxas_hit(
+            table, fn + (TC_FORWARD_TAG[name] if tc else "I"))
         mem = (f"{mod.TC_SMEM_BYTES} B dynamic shared memory a block, "
                f"{mod.blocks_per_sm()} blocks an SM") if tc else \
             f"{smem} B static shared memory a block"
         print(f"build: {name} route {str(dtype)[6:]} -> {route}: {regs} "
               f"registers, {spill} B spilled, {mem}")
-    fn = mod.BACKWARD_ROUTE.split()[0]
-    hits = sorted((k, v) for k, v in table.items() if fn + "I" in k)
-    check(len(hits) == 2, f"build: {fn} not found twice in ptxas output")
-    for key, (regs, spill, _) in hits:
-        blocks = min(mod.SM_SMEM_BYTES // (mod.BWD_SMEM_BYTES + 1024),
-                     65536 // (regs * mod.BWD_THREADS))
-        print(f"build: {name} backward {'bfloat16' if 'bfloat16' in key else 'float32'}"
-              f" -> {mod.BACKWARD_ROUTE}: {regs} registers, {spill} B "
-              f"spilled, {mod.BWD_SMEM_BYTES} B dynamic shared memory a "
-              f"block, {blocks} blocks an SM")
+    if name == "ssd_scan":
+        per_token = ("ssd_scan_bwd_kernelIfE", mod.BWD_SMEM_BYTES,
+                     mod.BWD_THREADS)
+        launches = {torch.float32: [per_token], torch.bfloat16: [
+            ("ssd_scan_tc_kernelILb1ELb1E", mod.TC_SMEM_BYTES,
+             mod.TC_THREADS),
+            ("ssd_scan_bwd_tc_kernelILb1E", mod.BWD_TC_SMEM_BYTES,
+             mod.BWD_TC_THREADS)]}
+        routes = mod.BACKWARD_ROUTES
+    else:
+        launches = {dt: [(f"wkv6_scan_bwd_kernelI{tag}", mod.BWD_SMEM_BYTES,
+                          mod.BWD_THREADS)]
+                    for dt, tag in ((torch.float32, "fE"),
+                                    (torch.bfloat16, "13__nv_bfloat16E"))}
+        routes = {dt: mod.BACKWARD_ROUTE for dt in launches}
+    for dtype, kernels in launches.items():
+        for fn, smem, threads in kernels:
+            regs, spill, _ = _ptxas_hit(table, fn)
+            blocks = min(mod.SM_SMEM_BYTES // (smem + 1024),
+                         65536 // (regs * threads))
+            print(f"build: {name} backward {str(dtype)[6:]} -> "
+                  f"{routes[dtype]}: {fn}: {regs} registers, {spill} B "
+                  f"spilled, {smem} B dynamic shared memory a block, "
+                  f"{blocks} blocks an SM")
 
 
 def backward_routes(log: str) -> None:
@@ -2541,6 +2568,8 @@ def scan_backward_phase(device: str, ssd_cases=SSD_BWD_CASES,
             time_it, path, 2, torch.zeros_like)
         if path:
             records["ssd_scan_backward"] = rec
+            if x.is_cuda:
+                ssd_backward_build(B, S, H, N, x.dtype)
     for seed, (label, B, S, H, K, dtype, wmin, chunk) in \
             enumerate(wkv_cases):
         g = torch.Generator(device=device).manual_seed(600 + seed)
@@ -2567,6 +2596,26 @@ def scan_backward_phase(device: str, ssd_cases=SSD_BWD_CASES,
         if path:
             records["wkv6_scan_backward"] = rec
     return records
+
+def ssd_backward_build(B, S, H, N, dtype) -> None:
+    """Print the SSD backward's reverse sweep as the card built and
+    launches it (registers, spilled bytes and blocks an SM from the
+    runtime's attributes and occupancy calculator) and its scratch at
+    these shapes: the saved states and the whole buffer."""
+    from repro_torch.kernels.mamba2_scan import kernel as ssd_kernel
+    occ = ssd_kernel.backward_occupancy()
+    print(f"ssd_scan_backward build: ssd_scan_bwd_tc_kernel "
+          f"{occ['registers']} registers, {occ['spilled_bytes']} B spilled "
+          f"a thread, {occ['blocks_per_sm']} blocks an SM "
+          f"({ssd_kernel.BWD_TC_THREADS} threads, "
+          f"{ssd_kernel.BWD_TC_SMEM_BYTES} B of shared memory a block)")
+    print(f"ssd_scan_backward scratch: saved states "
+          f"{ssd_kernel.backward_states_bytes(B, S, H, dtype)} B "
+          f"({str(dtype)[6:]} route), the whole buffer "
+          f"{ssd_kernel.backward_work_bytes(B, S, H, N)} B")
+    check(occ["blocks_per_sm"] >= 2,
+          f"ssd_scan_backward: {occ['blocks_per_sm']} blocks an SM")
+
 
 def _move(tree, device):
     from repro_torch.distributed.checkpoint import tree_map
@@ -2914,11 +2963,17 @@ def profile_train_step(step, params, opt_state, batch, step_s: float,
              "not measured (the profiler saw no device activity)"))
     for name, ms in kern[:top]:
         print(f"train profile: {ms:.3f} ms {name[:100]}")
-    ours = {tag: sum(ms for n, ms in kern if tag in n)
-            for tag in ("flash_bwd", "flash_attention_sm90",
-                        "flash_attention_kernel", "ssd_scan_bwd",
-                        "ssd_scan_tc", "wkv6_scan_bwd", "wkv6_scan_tc",
-                        "sum_mid")}
+    tags = {"flash_bwd": "flash_bwd",
+            "flash_attention_sm90": "flash_attention_sm90",
+            "flash_attention_kernel": "flash_attention_kernel",
+            "ssd_scan_bwd": "ssd_scan_bwd",
+            "ssd_scan_tc (forward)": "ssd_scan_tc_kernel<true, false>",
+            "ssd_scan_tc (backward state sweep)":
+                "ssd_scan_tc_kernel<true, true>",
+            "wkv6_scan_bwd": "wkv6_scan_bwd", "wkv6_scan_tc": "wkv6_scan_tc",
+            "sum_mid": "sum_mid"}
+    ours = {label: sum(ms for n, ms in kern if tag in n)
+            for label, tag in tags.items()}
     print("train profile: the port's kernels " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in ours.items() if v))
     return {"device_ms": dev_ms if kern else None, "top": kern[:top],

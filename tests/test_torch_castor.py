@@ -21,6 +21,7 @@ from repro.core import Castor as JaxCastor
 from repro.core import Schedule as JaxSchedule
 from repro.forecast import ANNForecaster as JaxANN
 from repro.forecast.anomaly import BandAnomalyDetector as JaxDetector
+from repro.obs.metrics import get_metrics as jax_metrics
 from repro.testing import FLEET_ATOL, FLEET_RTOL
 from repro.timeseries.ingest import SiteSpec as JaxSiteSpec
 from repro.timeseries.ingest import build_site as jax_build_site
@@ -28,6 +29,7 @@ from repro_torch.core import Castor, Schedule
 from repro_torch.forecast import ANNForecaster, ann_version_from_numpy
 from repro_torch.forecast.anomaly import BandAnomalyDetector
 from repro_torch.kernels.fleet_mlp import ops
+from repro_torch.obs.metrics import get_metrics
 from repro_torch.timeseries.ingest import SiteSpec, build_site
 from repro_torch.testing import subprocess_env
 from repro_torch.timeseries.transforms import DAY, HOUR
@@ -192,7 +194,12 @@ def _live_feed(jc, deps, rng):
 @pytest.fixture(scope="module")
 def flow():
     """Both systems after one train + score tick and N_DETECT minutely
-    detect ticks, from the same initial weights and the same live feed."""
+    detect ticks, from the same initial weights and the same live feed.
+    Both metrics registries are process-global: they start empty, so
+    each holds this flow's metrics only, whatever ran before in the
+    process."""
+    jax_metrics().clear()
+    get_metrics().clear()
     jc, tc = JaxCastor(), Castor(device="cpu")
     deps = _flow(jc, jax_build_site, JaxSiteSpec, JaxSchedule, JaxANN,
                  JaxDetector)

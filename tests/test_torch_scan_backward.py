@@ -381,12 +381,24 @@ def _no_build(monkeypatch, module):
     ("dF_dtype", ValueError, "d_final_state"),
     ("cpu", ValueError, "CUDA tensors"),
     ("Cm_mixed", TypeError, "Cm in torch.float32"),
+    ("bf16_cpu", ValueError, "CUDA tensors"),
+    ("bf16_wide_P", ValueError, "1..64 channels per head"),
+    ("bf16_N_24", ValueError, "multiple of 16 up to 64"),
+    ("bf16_N_80", ValueError, "multiple of 16 up to 64"),
 ])
 def test_ssd_backward_wrapper_checks_before_build(monkeypatch, case, exc,
                                                   match):
+    """Both routes check before anything is built; the bf16 route (chunked,
+    tensor cores) takes the forward's geometry: P up to 64, N a multiple
+    of 16 up to 64."""
     _no_build(monkeypatch, ssd_kernel)
-    a = _ssd_arrays(12, 1, 32, 2, 8, 16)
+    P, N = {"bf16_wide_P": (65, 16), "bf16_N_24": (8, 24),
+            "bf16_N_80": (8, 80)}.get(case, (8, 16))
+    a = _ssd_arrays(12, 1, 32, 2, P, N)
     t = {n: torch.tensor(v) for n, v in a.items()}
+    if case.startswith("bf16"):
+        for n in ("x", "Bm", "Cm", "dy"):
+            t[n] = t[n].to(torch.bfloat16)
     dF = None
     if case == "x_half":
         t["x"], t["dy"] = t["x"].half(), t["dy"].half()
@@ -445,7 +457,9 @@ def test_wkv6_backward_wrapper_checks_before_build(monkeypatch, case, exc,
 def test_backward_sources_declare_the_wrappers_geometry():
     """The backward constants the wrappers check at load time are the
     sources' own (the check at load needs a card; this reads the text),
-    and the shared memory the wrappers reckon fits a block."""
+    the shared memory the wrappers reckon fits a block, and every kernel
+    a route names is in its source. SSD's bf16 route: 4 warps, 2 blocks
+    an SM."""
     import re
     for mod in (ssd_kernel, wkv_kernel):
         text = mod.SOURCE.read_text()
@@ -454,7 +468,18 @@ def test_backward_sources_declare_the_wrappers_geometry():
             assert re.search(rf"constexpr int {name} = {value};", text), name
         assert f"// {mod.BWD_SMEM_BYTES:,}" in text
         assert mod.BWD_SMEM_BYTES <= mod.MAX_SMEM_BYTES
-        assert mod.BACKWARD_ROUTE.split()[0] in text
+    assert wkv_kernel.BACKWARD_ROUTE.split()[0] in \
+        wkv_kernel.SOURCE.read_text()
+    text = ssd_kernel.SOURCE.read_text()
+    assert set(ssd_kernel.BACKWARD_ROUTES) == {torch.float32, torch.bfloat16}
+    for route in ssd_kernel.BACKWARD_ROUTES.values():
+        for fn in re.findall(r"ssd_scan_\w+_kernel", route):
+            assert f"{fn}(" in text, fn
+    assert re.search(rf"constexpr int kBwdTcThreads = "
+                     rf"{ssd_kernel.BWD_TC_THREADS};", text)
+    assert f"// {ssd_kernel.BWD_TC_SMEM_BYTES:,}" in text
+    assert ssd_kernel.BWD_TC_SMEM_BYTES <= ssd_kernel.MAX_SMEM_BYTES
+    assert ssd_kernel.blocks_per_sm(ssd_kernel.BWD_TC_SMEM_BYTES) == 2
 
 
 # ------------------------------------------------ the card's tolerance

@@ -36,9 +36,13 @@ from repro_torch.train import init_state, make_train_step
 # the f32 tolerance in either dtype.
 TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 
-# (B, S, H, P, N, chunk)
+# (B, S, H, P, N, chunk): the test shapes, a ragged S, the training shape,
+# then P 20 (not a multiple of 8: the bf16 route's element-wise loads), N
+# 48 and S 1000 (the bf16 route's last 64-token chunk ragged)
 SSD_SHAPES = [(2, 128, 3, 16, 16, 32), (1, 96, 1, 32, 16, 32),
-              (2, 100, 2, 64, 64, 50), (4, 1024, 80, 64, 64, 64)]
+              (2, 100, 2, 64, 64, 50), (4, 1024, 80, 64, 64, 64),
+              (1, 128, 2, 20, 32, 32), (1, 128, 2, 64, 48, 64),
+              (1, 1000, 2, 64, 64, 50)]
 # (B, S, H, K, chunk)
 WKV_SHAPES = [(2, 128, 3, 16, 32), (1, 64, 2, 32, 16), (2, 100, 2, 64, 50),
               (4, 1024, 64, 64, 32)]
