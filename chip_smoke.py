@@ -47,15 +47,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that keep them cold in L2: eager calls (``ms``, the host's issue time
    where that is longer), and the kernel's and the library's calls
    replayed from a CUDA graph (device time). The scans' backward kernels
-   (one per-token kernel on CUDA cores for both dtypes, then a launch that
-   sums its partials) at the zamba2-2.7b and rwkv6-7b training shapes in
+   (f32: one per-token kernel on CUDA cores; bf16: a state sweep, the
+   forward's kernel saving the state before each chunk, and a chunked
+   reverse sweep on the tensor cores; then launches that sum the
+   partials) at the zamba2-2.7b and rwkv6-7b training shapes in
    bf16 and f32 and at the forwards' test, strong and extreme decay cases
    in both dtypes, half of them with a final-state gradient: every
    gradient against the plain backward (float64) at ``SCAN_BWD_TOL``; at
    the bf16 training shapes two calls bitwise equal, the op's autograd
    gradients equal to the wrapper's, two planted faults caught (the decay
    dropped, dy one token late), and the times (eager, graph replay,
-   profiler device time, the plain backward's).
+   profiler device time by launch, the plain backward's); each bf16 reverse
+   sweep's registers, spills and blocks an SM as the card built it (2 or
+   more) and its scratch.
 3. training parity: for each of LR, GAM, ANN and LSTM a small bin (3
    prosumers at the JAX package's test sizes) trained on the card and on
    the CPU from the same initial weights: params within rtol 5e-2 / atol
@@ -1974,9 +1978,8 @@ def _ptxas_table(log: str) -> dict:
 
 
 # the mangled template arguments of each scan's bf16 forward as the path
-# takes it: 16-byte loads (kVec); for SSD also not the backward's state
-# sweep (kStates)
-TC_FORWARD_TAG = {"ssd_scan": "ILb1ELb0E", "wkv6_scan": "ILb1E"}
+# takes it: 16-byte loads (kVec), not the backward's state sweep (kStates)
+TC_FORWARD_TAG = {"ssd_scan": "ILb1ELb0E", "wkv6_scan": "ILb1ELb0E"}
 
 
 def _ptxas_hit(table: dict, fn: str) -> tuple:
@@ -1990,8 +1993,8 @@ def scan_routes(name: str, mod, log: str) -> None:
     """Print each route of a scan kernel: the dtype, the kernel function it
     launches, its registers, spills and shared memory (the bf16 route's
     16-byte-load instantiation, which the path shapes take); then the
-    backward's: SSD's per dtype (bf16: the state sweep and the chunked
-    reverse sweep), WKV's one kernel for both."""
+    backward's per dtype (bf16: the state sweep and the chunked reverse
+    sweep, which must hold 2 blocks an SM)."""
     import torch
     table = _ptxas_table(log)
     for dtype, route in mod.ROUTES.items():
@@ -2004,30 +2007,24 @@ def scan_routes(name: str, mod, log: str) -> None:
             f"{smem} B static shared memory a block"
         print(f"build: {name} route {str(dtype)[6:]} -> {route}: {regs} "
               f"registers, {spill} B spilled, {mem}")
-    if name == "ssd_scan":
-        per_token = ("ssd_scan_bwd_kernelIfE", mod.BWD_SMEM_BYTES,
-                     mod.BWD_THREADS)
-        launches = {torch.float32: [per_token], torch.bfloat16: [
-            ("ssd_scan_tc_kernelILb1ELb1E", mod.TC_SMEM_BYTES,
-             mod.TC_THREADS),
-            ("ssd_scan_bwd_tc_kernelILb1E", mod.BWD_TC_SMEM_BYTES,
-             mod.BWD_TC_THREADS)]}
-        routes = mod.BACKWARD_ROUTES
-    else:
-        launches = {dt: [(f"wkv6_scan_bwd_kernelI{tag}", mod.BWD_SMEM_BYTES,
-                          mod.BWD_THREADS)]
-                    for dt, tag in ((torch.float32, "fE"),
-                                    (torch.bfloat16, "13__nv_bfloat16E"))}
-        routes = {dt: mod.BACKWARD_ROUTE for dt in launches}
+    launches = {torch.float32: [(f"{name}_bwd_kernelIfE",
+                                 mod.BWD_SMEM_BYTES, mod.BWD_THREADS)],
+                torch.bfloat16: [
+                    (f"{name}_tc_kernelILb1ELb1E", mod.TC_SMEM_BYTES,
+                     mod.TC_THREADS),
+                    (f"{name}_bwd_tc_kernelILb1E", mod.BWD_TC_SMEM_BYTES,
+                     mod.BWD_TC_THREADS)]}
     for dtype, kernels in launches.items():
         for fn, smem, threads in kernels:
             regs, spill, _ = _ptxas_hit(table, fn)
             blocks = min(mod.SM_SMEM_BYTES // (smem + 1024),
                          65536 // (regs * threads))
             print(f"build: {name} backward {str(dtype)[6:]} -> "
-                  f"{routes[dtype]}: {fn}: {regs} registers, {spill} B "
-                  f"spilled, {smem} B dynamic shared memory a block, "
-                  f"{blocks} blocks an SM")
+                  f"{mod.BACKWARD_ROUTES[dtype]}: {fn}: {regs} registers, "
+                  f"{spill} B spilled, {smem} B dynamic shared memory a "
+                  f"block, {blocks} blocks an SM")
+            if "bwd_tc" in fn:
+                check(blocks >= 2, f"build: {fn}: {blocks} blocks an SM")
 
 
 def backward_routes(log: str) -> None:
@@ -2569,7 +2566,7 @@ def scan_backward_phase(device: str, ssd_cases=SSD_BWD_CASES,
         if path:
             records["ssd_scan_backward"] = rec
             if x.is_cuda:
-                ssd_backward_build(B, S, H, N, x.dtype)
+                scan_backward_build("ssd_scan", B, S, H, N, x.dtype)
     for seed, (label, B, S, H, K, dtype, wmin, chunk) in \
             enumerate(wkv_cases):
         g = torch.Generator(device=device).manual_seed(600 + seed)
@@ -2595,26 +2592,32 @@ def scan_backward_phase(device: str, ssd_cases=SSD_BWD_CASES,
             time_it, path, 3, torch.ones_like)
         if path:
             records["wkv6_scan_backward"] = rec
+            if r.is_cuda:
+                scan_backward_build("wkv6_scan", B, S, H, K, r.dtype)
     return records
 
-def ssd_backward_build(B, S, H, N, dtype) -> None:
-    """Print the SSD backward's reverse sweep as the card built and
-    launches it (registers, spilled bytes and blocks an SM from the
-    runtime's attributes and occupancy calculator) and its scratch at
-    these shapes: the saved states and the whole buffer."""
+def scan_backward_build(name: str, B, S, H, N, dtype) -> None:
+    """Print a scan backward's bf16 reverse sweep (``<name>_bwd_tc_kernel``)
+    as the card built and launches it (registers, spilled bytes and blocks
+    an SM from the runtime's attributes and occupancy calculator) and its
+    scratch at these shapes (N: SSD's state size, WKV's K): the saved
+    states and the whole buffer. It must hold 2 blocks an SM."""
     from repro_torch.kernels.mamba2_scan import kernel as ssd_kernel
-    occ = ssd_kernel.backward_occupancy()
-    print(f"ssd_scan_backward build: ssd_scan_bwd_tc_kernel "
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    mod = ssd_kernel if name == "ssd_scan" else wkv_kernel
+    occ = mod.backward_occupancy()
+    work = mod.backward_work_bytes(B, S, H, N) if mod is ssd_kernel else \
+        mod.backward_work_bytes(B, S, H, N, dtype)
+    print(f"{name}_backward build: {name}_bwd_tc_kernel "
           f"{occ['registers']} registers, {occ['spilled_bytes']} B spilled "
           f"a thread, {occ['blocks_per_sm']} blocks an SM "
-          f"({ssd_kernel.BWD_TC_THREADS} threads, "
-          f"{ssd_kernel.BWD_TC_SMEM_BYTES} B of shared memory a block)")
-    print(f"ssd_scan_backward scratch: saved states "
-          f"{ssd_kernel.backward_states_bytes(B, S, H, dtype)} B "
-          f"({str(dtype)[6:]} route), the whole buffer "
-          f"{ssd_kernel.backward_work_bytes(B, S, H, N)} B")
+          f"({mod.BWD_TC_THREADS} threads, "
+          f"{mod.BWD_TC_SMEM_BYTES} B of shared memory a block)")
+    print(f"{name}_backward scratch: saved states "
+          f"{mod.backward_states_bytes(B, S, H, dtype)} B "
+          f"({str(dtype)[6:]} route), the whole buffer {work} B")
     check(occ["blocks_per_sm"] >= 2,
-          f"ssd_scan_backward: {occ['blocks_per_sm']} blocks an SM")
+          f"{name}_backward: {occ['blocks_per_sm']} blocks an SM")
 
 
 def _move(tree, device):
@@ -2970,7 +2973,10 @@ def profile_train_step(step, params, opt_state, batch, step_s: float,
             "ssd_scan_tc (forward)": "ssd_scan_tc_kernel<true, false>",
             "ssd_scan_tc (backward state sweep)":
                 "ssd_scan_tc_kernel<true, true>",
-            "wkv6_scan_bwd": "wkv6_scan_bwd", "wkv6_scan_tc": "wkv6_scan_tc",
+            "wkv6_scan_bwd": "wkv6_scan_bwd",
+            "wkv6_scan_tc (forward)": "wkv6_scan_tc_kernel<true, false>",
+            "wkv6_scan_tc (backward state sweep)":
+                "wkv6_scan_tc_kernel<true, true>",
             "sum_mid": "sum_mid"}
     ours = {label: sum(ms for n, ms in kern if tag in n)
             for label, tag in tags.items()}

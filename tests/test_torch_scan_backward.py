@@ -458,28 +458,26 @@ def test_backward_sources_declare_the_wrappers_geometry():
     """The backward constants the wrappers check at load time are the
     sources' own (the check at load needs a card; this reads the text),
     the shared memory the wrappers reckon fits a block, and every kernel
-    a route names is in its source. SSD's bf16 route: 4 warps, 2 blocks
-    an SM."""
+    a route names is in its source. Both bf16 routes: 2 blocks an SM (SSD
+    4 warps, WKV 8)."""
     import re
-    for mod in (ssd_kernel, wkv_kernel):
+    for mod, fns in ((ssd_kernel, r"ssd_scan_\w+_kernel"),
+                     (wkv_kernel, r"wkv6_scan_\w+_kernel")):
         text = mod.SOURCE.read_text()
         for name, value in (("kBwdThreads", mod.BWD_THREADS),
-                            ("kBwdChunk", mod.BWD_CHUNK)):
+                            ("kBwdChunk", mod.BWD_CHUNK),
+                            ("kBwdTcThreads", mod.BWD_TC_THREADS)):
             assert re.search(rf"constexpr int {name} = {value};", text), name
         assert f"// {mod.BWD_SMEM_BYTES:,}" in text
-        assert mod.BWD_SMEM_BYTES <= mod.MAX_SMEM_BYTES
-    assert wkv_kernel.BACKWARD_ROUTE.split()[0] in \
-        wkv_kernel.SOURCE.read_text()
-    text = ssd_kernel.SOURCE.read_text()
-    assert set(ssd_kernel.BACKWARD_ROUTES) == {torch.float32, torch.bfloat16}
-    for route in ssd_kernel.BACKWARD_ROUTES.values():
-        for fn in re.findall(r"ssd_scan_\w+_kernel", route):
-            assert f"{fn}(" in text, fn
-    assert re.search(rf"constexpr int kBwdTcThreads = "
-                     rf"{ssd_kernel.BWD_TC_THREADS};", text)
-    assert f"// {ssd_kernel.BWD_TC_SMEM_BYTES:,}" in text
-    assert ssd_kernel.BWD_TC_SMEM_BYTES <= ssd_kernel.MAX_SMEM_BYTES
-    assert ssd_kernel.blocks_per_sm(ssd_kernel.BWD_TC_SMEM_BYTES) == 2
+        assert f"// {mod.BWD_TC_SMEM_BYTES:,}" in text
+        for smem in (mod.BWD_SMEM_BYTES, mod.BWD_TC_SMEM_BYTES):
+            assert smem <= mod.MAX_SMEM_BYTES
+        assert mod.blocks_per_sm(mod.BWD_TC_SMEM_BYTES) == 2
+        assert set(mod.BACKWARD_ROUTES) == {torch.float32, torch.bfloat16}
+        for route in mod.BACKWARD_ROUTES.values():
+            for fn in re.findall(fns, route):
+                assert f"{fn}(" in text, fn
+    assert wkv_kernel.BWD_TC_THREADS == 256 and ssd_kernel.BWD_TC_THREADS == 128
 
 
 # ------------------------------------------------ the card's tolerance

@@ -3,7 +3,8 @@ against their plain backwards (float64) on the card: every gradient, in
 f32 and bf16, at the unit-test shapes and the zamba2-2.7b / rwkv6-7b
 training shapes, at mild and strong decay (SSD dt |A| up to 10, WKV w down
 to 1e-30), with and without a final-state gradient; three calls bitwise
-equal, also from a fresh thread as autograd's engine calls a backward;
+equal, also from a fresh thread as autograd's engine calls a backward; the
+WKV bf16 route's three launches a call;
 the ops under autograd on the card (their gradients the wrapper's, one
 backward counted, an initial state refused); and one training step of the
 two recurrent smoke models on the card against the same step on the CPU.
@@ -43,9 +44,13 @@ SSD_SHAPES = [(2, 128, 3, 16, 16, 32), (1, 96, 1, 32, 16, 32),
               (2, 100, 2, 64, 64, 50), (4, 1024, 80, 64, 64, 64),
               (1, 128, 2, 20, 32, 32), (1, 128, 2, 64, 48, 64),
               (1, 1000, 2, 64, 64, 50)]
-# (B, S, H, K, chunk)
-WKV_SHAPES = [(2, 128, 3, 16, 32), (1, 64, 2, 32, 16), (2, 100, 2, 64, 50),
-              (4, 1024, 64, 64, 32)]
+# (B, S, H, K, V, chunk): the test shapes, a ragged S, the training shape,
+# then S 1000 (the bf16 route's last 32-token chunk ragged), K 48, and V 50
+# beside K 64 (the bf16 route's element-wise loads)
+WKV_SHAPES = [(2, 128, 3, 16, 16, 32), (1, 64, 2, 32, 32, 16),
+              (2, 100, 2, 64, 64, 50), (4, 1024, 64, 64, 64, 32),
+              (1, 1000, 2, 64, 64, 50), (1, 128, 2, 48, 48, 32),
+              (1, 128, 2, 64, 50, 64)]
 
 
 @pytest.fixture
@@ -75,18 +80,20 @@ def _ssd_inputs(dev, dtype, B, S, H, P, N, strong, seed=7):
     return (x, dt, A, Bm, Cm, D, dy), dF
 
 
-def _wkv_inputs(dev, dtype, B, S, H, K, wmin, seed=8):
+def _wkv_inputs(dev, dtype, B, S, H, K, V, wmin, seed=8):
     g = torch.Generator(device=dev).manual_seed(seed)
     dt_ = getattr(torch, dtype)
-    r, k, v, dy = (torch.randn(B, S, H, K, generator=g, device=dev).to(dt_)
-                   for _ in range(4))
+    r, k = (torch.randn(B, S, H, K, generator=g, device=dev).to(dt_)
+            for _ in range(2))
+    v, dy = (torch.randn(B, S, H, V, generator=g, device=dev).to(dt_)
+             for _ in range(2))
     w = torch.rand(B, S, H, K, generator=g, device=dev)
     if wmin >= 1e-6:
         w = w * (0.999 - wmin) + wmin
     else:
         w = torch.exp(w * (math.log(0.999) - math.log(wmin)) + math.log(wmin))
     u = torch.randn(H, K, generator=g, device=dev)
-    dF = torch.randn(B, H, K, K, generator=g, device=dev)
+    dF = torch.randn(B, H, K, V, generator=g, device=dev)
     return (r, k, v, w, u, dy), dF
 
 
@@ -162,11 +169,42 @@ def test_scan_backwards_are_deterministic_at_the_training_shapes(cuda_device,
         lambda: ssd_kernel.ssd_scan_backward_cuda(*inputs, dF))
     assert all(torch.equal(x, y) and torch.equal(x, z)
                for x, y, z in zip(a, b, c))
-    inputs, dF = _wkv_inputs(cuda_device, dtype, 4, 1024, 64, 64, 0.4)
+    inputs, dF = _wkv_inputs(cuda_device, dtype, 4, 1024, 64, 64, 64, 0.4)
     a, b, c = _three_calls(
         lambda: wkv_kernel.wkv6_scan_backward_cuda(*inputs, dF))
     assert all(torch.equal(x, y) and torch.equal(x, z)
                for x, y, z in zip(a, b, c))
+
+
+@pytest.mark.gpu
+def test_wkv6_backward_bf16_launches(cuda_device):
+    """One bf16 backward call is three launches, the state sweep, the
+    reverse sweep and the sum over batch rows, as ``torch.profiler`` counts
+    them over three calls. The window opens on one marker kernel (an
+    in-place add): after an earlier profiler run in the process the
+    window's first kernel can go unrecorded, so the count starts past
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+    inputs, dF = _wkv_inputs(cuda_device, "bfloat16", 2, 128, 3, 64, 64, 0.4)
+    wkv_kernel.wkv6_scan_backward_cuda(*inputs, dF)
+    marker = torch.zeros(1, device=cuda_device)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            wkv_kernel.wkv6_scan_backward_cuda(*inputs, dF)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if "wkv6_scan" in n or "sum_mid" in n]
+    others = [n for n in names if n not in kernels]
+    assert len(others) <= 1 and all("add" in n for n in others), others
+    assert len(kernels) == 3 * calls, kernels
+    for fn in ("wkv6_scan_tc_kernel<true, true>", "wkv6_scan_bwd_tc_kernel",
+               "sum_mid_kernel"):
+        assert sum(fn in n for n in kernels) == calls, (fn, kernels)
 
 
 @pytest.mark.gpu
@@ -186,7 +224,7 @@ def test_scan_ops_differentiate_on_card(cuda_device, dtype):
             ssd_ops.backward_invocation_count()) == (1, 1)
     with pytest.raises(ValueError, match="zero state"):
         ssd_ops.ssd_scan(*leaves, torch.zeros_like(dF))
-    inputs, dF = _wkv_inputs(cuda_device, dtype, 2, 128, 3, 64, 0.4)
+    inputs, dF = _wkv_inputs(cuda_device, dtype, 2, 128, 3, 64, 64, 0.4)
     leaves = [t.clone().requires_grad_(True) for t in inputs[:5]]
     wkv_ops.reset_invocation_count()
     y, final = wkv_ops.wkv6_scan(*leaves, chunk=32)

@@ -176,9 +176,16 @@ def test_wkv6_kernel_at_constant_decay_1e30(cuda_device, dtype):
 
 
 def _kernel_names(fn) -> set:
-    """The CUDA kernels ``fn`` launches, by name, from torch.profiler."""
+    """The CUDA kernels ``fn`` launches, by name, from torch.profiler. The
+    window opens on one marker kernel (an in-place add): after an earlier
+    profiler run in the process the window's first kernel can go
+    unrecorded, so ``fn``'s launches come after it."""
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return {e.key for e in prof.key_averages()}
