@@ -17,16 +17,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shape (B 4, S 1024, H 16, KV 8, D 128, bf16, causal) and the test
    shapes in both dtypes (D 80, non-causal, Sq < Skv, ragged).
    ``decode_attention`` at the engine shape (B 8, S 2048, H 16, KV 8,
-   D 128, bf16, seeded lengths) and the test shapes. Both attention
-   kernels also at zamba2-2.7b's shapes (prefill B 4, S 1024, H = KV = 32,
-   D 80, causal; engine B 4, S 512, group 1, D 80), timed there too.
+   D 128, bf16, seeded lengths) and the test shapes, GQA groups 5, 6, 7
+   and 9 at D 128 among them. Both attention kernels also at zamba2-2.7b's
+   shapes (prefill B 4, S 1024, H = KV = 32, D 80, causal; engine B 4,
+   S 512, group 1, D 80) and the MoE models' (dbrx-132b H 48, KV 8,
+   group 6; llama4-maverick H 40, KV 8, group 5; prefill B 4, S 1024,
+   engine B 4, S 512, D 128), timed there too.
    ``flash_attention`` runs its wgmma route on bf16 and its CUDA-core
    route on f32; ``decode_attention`` is two launches per call (split-KV
    partial pass and combine). ``flash_attention``'s backward (preprocess,
    dK/dV and dQ launches; bf16 on wgmma fed by TMA, f32 on CUDA cores) at
    the qwen3-1.7b training shape (B 4, S 1024, H 16, KV 8, D 128, bf16,
    causal), the forward's test shapes and the backward's own (Skv past a
-   128-key tile, G 4, D 16 and 80): dq, dk, dv against the plain backward
+   128-key tile, G 4, D 16 and 80) and dbrx-132b's attention at B 1, S
+   1024 (G 6): dq, dk, dv against the plain backward
    on the same inputs, both forward routes' row log-sum-exp against the
    plain one; timed beside forward + backward under autograd of the port's
    op and of ``scaled_dot_product_attention``, each also by the
@@ -147,6 +151,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. guard: ``decode_attention`` and ``fleet_mlp`` refuse CUDA tensors
    that require grad (no training path differentiates them); ``ssd_scan``
    and ``wkv6_scan`` record a gradient for every input on the card.
+13. MoE serving, after rwkv6-7b's serve path: dbrx-132b (16 experts,
+   top-4) at full width cut to 8 of 40 layers and llama4-maverick (128
+   experts, top-1 and a shared expert) to one of 24 periods, a dense and
+   an MoE layer (``MOE_LAYERS``; depth only, for memory), each as 5-6:
+   prefill of 4 x 1024 tokens with 8 / 2 ``flash_attention`` launches and
+   the share of expert choices its capacity dropped; the 128-token
+   prefill vs decode check with every layer's routes recorded on both
+   sides (entries and expert sets that differ, their gate margins, the
+   flips with none upstream apart) and decode routed as prefill held at
+   ``PREFILL_DECODE_TOL`` (logits and router logits); ``ServeEngine`` (4
+   slots x 512 positions, 8 requests) with 8 / 2 ``decode_attention``
+   launches a call; parameter counts, the decode call against the floor
+   its weight bytes set, peak device memory under 72 GB. Then one f32
+   ``make_train_step`` of each smoke config on the card against the CPU,
+   aux losses and routes included, within ``LM_PARITY_TOL``. Within 120 s.
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
@@ -201,18 +220,30 @@ FLASH_CASES = [FLASH_PATH_CASE] + [
     for causal in (True, False)
     for i, s in enumerate([(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 32),
                            (1, 128, 128, 8, 2, 64), (1, 96, 96, 4, 4, 80),
-                           (1, 64, 256, 4, 2, 32), (2, 37, 200, 4, 1, 80)])] + [
-    ("zamba2", 4, 1024, 1024, 32, 32, 80, "bfloat16", True)]
+                           (1, 64, 256, 4, 2, 32), (2, 37, 200, 4, 1, 80),
+                           # GQA groups 5, 6, 7 and 9 at D 128
+                           (1, 128, 128, 40, 8, 128), (2, 96, 160, 48, 8, 128),
+                           (1, 200, 200, 28, 4, 128), (2, 64, 64, 36, 4, 128)
+                           ])] + [
+    ("zamba2", 4, 1024, 1024, 32, 32, 80, "bfloat16", True),
+    ("dbrx", 4, 1024, 1024, 48, 8, 128, "bfloat16", True),
+    ("maverick", 4, 1024, 1024, 40, 8, 128, "bfloat16", True)]
 # the attention cases timed beside their plain version and SDPA: the path
-# shapes (qwen3-1.7b's, in the kernels line) and zamba2-2.7b's
-TIMED_LABELS = ("prefill", "serve", "zamba2")
+# shapes (qwen3-1.7b's, in the kernels line), zamba2-2.7b's and the MoE
+# models' (dbrx-132b at GQA group 6, llama4-maverick at group 5)
+TIMED_LABELS = ("prefill", "serve", "zamba2", "dbrx", "maverick")
 # (label, B, S, H, KV, D, dtype); the first is the engine shape
 DECODE_PATH_CASE = ("serve", 8, 2048, 16, 8, 128, "bfloat16")
 DECODE_CASES = [DECODE_PATH_CASE] + [
     (f"test{i}", *s, dt) for dt in ("float32", "bfloat16")
     for i, s in enumerate([(3, 256, 4, 2, 32), (2, 128, 8, 8, 64),
-                           (3, 200, 4, 4, 80), (2, 300, 28, 4, 128)])] + [
-    ("zamba2", 4, 512, 32, 32, 80, "bfloat16")]
+                           (3, 200, 4, 4, 80), (2, 300, 28, 4, 128),
+                           # GQA groups 5, 6 and 9 at D 128 (7 is the last)
+                           (2, 256, 40, 8, 128), (3, 300, 48, 8, 128),
+                           (2, 200, 36, 4, 128)])] + [
+    ("zamba2", 4, 512, 32, 32, 80, "bfloat16"),
+    ("dbrx", 4, 512, 48, 8, 128, "bfloat16"),
+    ("maverick", 4, 512, 40, 8, 128, "bfloat16")]
 # prefill vs token-by-token decode of the same 128 tokens, relative L2 of
 # the last logits: both run in bf16 but round in different places (GEMMs of
 # 128 rows against 1, the caches written by prefill against by decode), a
@@ -1685,13 +1716,16 @@ def wkv_phase(device: str, cases=WKV_CASES, *, time_it: bool) -> dict:
     return record
 
 
-def lm_params(arch: str, device: str, seed: int = 0):
-    """The config and its parameters, drawn on the device from a seeded
-    generator and stored in the config's compute dtype."""
+def lm_params(arch: str, device: str, seed: int = 0, layers: int = 0):
+    """The config (cut to ``layers`` layers where given) and its
+    parameters, drawn on the device from a seeded generator and stored in
+    the config's compute dtype."""
     import torch
     from repro_torch.arch import model as M
     from repro_torch.configs import get_config
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t = time.perf_counter()
     g = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(cfg, g, dtype=cfg.dtype, device=device)
@@ -1704,11 +1738,13 @@ def lm_params(arch: str, device: str, seed: int = 0):
 
 def forward_launches(cfg) -> dict:
     """Kernel launches of one ``forward``: one ``flash_attention`` per
-    attention block and per application of the shared block, one scan per
-    recurrent block, nothing else."""
+    attention block (dense or MoE) and per application of the shared
+    block, one scan per recurrent block, nothing else (the MoE blocks'
+    routing and expert GEMMs run no kernel of the port's)."""
     per = cfg.num_periods
     n = {name: 0 for name in COUNT_NAMES}
     n["flash_attention"] = per * (cfg.pattern.count("attn")
+                                  + cfg.pattern.count("attn_moe")
                                   + int(cfg.shared_attn_every_period))
     n["ssd_scan"] = per * cfg.pattern.count("mamba2")
     n["wkv6_scan"] = per * cfg.pattern.count("rwkv6")
@@ -1732,24 +1768,40 @@ def _rel_l2(got, want) -> float:
                  / torch.linalg.vector_norm(want.float()))
 
 
+def _decode_tokens(cfg, params, prompt, device):
+    """``decode_step`` fed ``prompt`` (1, n) one token at a time from a
+    zeroed state: (the last logits, the state)."""
+    import torch
+    from repro_torch.arch import model as M
+    with torch.no_grad():
+        state = M.init_decode_state(cfg, 1, prompt.shape[1], device=device)
+        for i in range(prompt.shape[1]):
+            logits, state = M.decode_step(cfg, params, state,
+                                          {"tokens": prompt[:, i:i + 1]})
+    return logits, state
+
+
 def prefill_phase(device: str, cfg, params, *, batch: int = 4,
                   seq: int = 1024, check_len: int = 128,
                   seed: int = 12) -> dict:
     """``forward(mode="prefill")`` on seeded prompts, then the decode
     cross-check: the last logits and, for the recurrent families, the
-    final scan states (``ssd`` / ``wkv`` of every layer). Returns the
-    path's record."""
+    final scan states (``ssd`` / ``wkv`` of every layer); for the MoE
+    models the share of expert choices the prefill's capacity dropped and
+    the routes of both sides (``moe_decode_check``). Returns the path's
+    record."""
     import torch
     from repro_torch.arch import model as M
     from repro_torch.arch.params import tree_leaves
     cuda = device != "cpu"
+    moe = "attn_moe" in cfg.pattern
     g = torch.Generator(device=device).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
                            device=device)
 
     reset_counts()
     t = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), _recorded_routes() as routes:
         logits, state = M.forward(cfg, params, {"tokens": tokens},
                                   mode="prefill")
     if cuda:
@@ -1773,6 +1825,7 @@ def prefill_phase(device: str, cfg, params, *, batch: int = 4,
     check(state["lengths"].tolist() == [seq] * batch,
           f"prefill: lengths {state['lengths'].tolist()}")
     del state, logits
+    dropped = dropped_share(cfg, routes) if moe else None
     # the same forward again, warm (allocator, cuBLAS and the kernel
     # libraries loaded): the wall that the kernels' speed moves
     t = time.perf_counter()
@@ -1787,24 +1840,27 @@ def prefill_phase(device: str, cfg, params, *, batch: int = 4,
     # the same prompt through both paths: prefill's last logits (and final
     # scan states) against decode_step fed the tokens one at a time
     prompt = tokens[:1, :check_len]
-    with torch.no_grad():
+    with torch.no_grad(), _recorded_routes() as pf_routes:
         pf_logits, pf_state = M.forward(cfg, params, {"tokens": prompt},
                                         mode="prefill")
-        dstate = M.init_decode_state(cfg, 1, check_len, device=device)
-        for i in range(check_len):
-            dec_logits, dstate = M.decode_step(
-                cfg, params, dstate, {"tokens": prompt[:, i:i + 1]})
+    with _recorded_routes() as dec_routes:
+        dec_logits, dstate = _decode_tokens(cfg, params, prompt, device)
     recurrent = [(key, n) for key, leaves in pf_state["caches"].items()
                  for n in leaves if n in ("ssd", "wkv")]
     tol = RECURRENT_DECODE_TOL if recurrent else PREFILL_DECODE_TOL
     rel = _rel_l2(dec_logits, pf_logits)
+    rec = {"seconds": secs, "warm_seconds": warm, "launches": launches,
+           "rel_l2": rel, "tol": tol}
+    if moe:
+        rec["dropped"] = dropped
+        rec.update(moe_decode_check(cfg, params, prompt, pf_logits,
+                                    pf_routes, dec_routes, rel, device))
+        return rec
     ok = rel <= tol
     print(f"prefill check: {check_len}-token prompt, prefill vs "
           f"token-by-token decode logits rel L2 {rel:.3e} (tol {tol:.1e}) "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"prefill and decode disagree: rel L2 {rel:.3e}")
-    rec = {"seconds": secs, "warm_seconds": warm, "launches": launches,
-           "rel_l2": rel, "tol": tol}
     if recurrent:
         cat = lambda st: torch.cat([st["caches"][key][n].flatten()  # noqa: E731
                                     for key, n in recurrent])
@@ -1818,6 +1874,170 @@ def prefill_phase(device: str, cfg, params, *, batch: int = 4,
         check(ok, f"prefill and decode states disagree: rel L2 "
                   f"{rec['state_rel_l2']:.3e}")
     return rec
+
+
+@contextlib.contextmanager
+def _recorded_routes(pinned=None):
+    """Record every MoE router call while the block runs: its expert
+    choices ``idx`` (B, S, k) and its router logits (B, S, E), on the
+    host. With ``pinned`` (one idx per call, in call order) each call
+    routes to those experts instead of its own, weighted by its own gates
+    renormalised over them, as ``_router`` weights its own choices."""
+    import torch
+    from repro_torch.arch import moe
+    calls = []
+    own = moe._router
+
+    def router(cfg, p, x):
+        w, idx, aux = own(cfg, p, x)
+        logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+        if pinned is not None:
+            idx = pinned[len(calls)].to(idx.device)
+            w = torch.gather(torch.softmax(logits, dim=-1), -1, idx)
+            w = w / torch.sum(w, -1, keepdim=True)
+        calls.append({"idx": idx.detach().cpu(),
+                      "logits": logits.detach().cpu()})
+        return w, idx, aux
+
+    moe._router = router
+    try:
+        yield calls
+    finally:
+        moe._router = own
+
+
+def dropped_share(cfg, routes: list, capacity_factor: float = 1.25) -> dict:
+    """The share of expert choices that the dispatch's capacity dropped,
+    from each MoE layer's recorded routes of one forward (the dispatch's
+    own geometry and first-come slots)."""
+    import torch
+    from repro_torch.arch import moe
+    shares, n_drop, n_all = [], 0, 0
+    for call in routes:
+        B, S, k = call["idx"].shape
+        G, Sg, C = moe.dispatch_geometry(cfg, B * S, capacity_factor)
+        slot = moe.dispatch_slots(call["idx"].reshape(G, Sg, k),
+                                  cfg.num_experts)
+        drop = int((slot >= C).sum())
+        shares.append(drop / slot.numel())
+        n_drop, n_all = n_drop + drop, n_all + slot.numel()
+    print(f"prefill routes: {cfg.name} {B} x {S} tokens in {G} groups of "
+          f"{Sg}, {C} slots a (group, expert) for {Sg * k} choices over "
+          f"{cfg.num_experts} experts: {n_drop} of {n_all} choices dropped "
+          f"(share {n_drop / n_all:.4e}; by layer {min(shares):.4e} to "
+          f"{max(shares):.4e}) over {len(routes)} MoE layers")
+    return {"dropped": n_drop, "choices": n_all, "share": n_drop / n_all,
+            "groups": G, "group_tokens": Sg, "capacity": C}
+
+
+def route_report(label: str, want: dict, got: dict) -> dict:
+    """Two runs' routes of the same (token, layer)s: ``want`` and ``got``
+    hold ``idx`` (N, k) and router ``logits`` (N, E) in one order. Prints
+    how many (token, layer, choice) entries and expert sets differ, the
+    smallest and largest margin among the differing entries (|gate of the
+    expert ``want`` chose - gate of the one ``got`` chose|, on ``want``'s
+    gates) and the router logits' rel L2. Returns them."""
+    import torch
+    diff = want["idx"] != got["idx"]
+    sets = (torch.sort(want["idx"], -1).values
+            != torch.sort(got["idx"], -1).values).any(-1)
+    gates = torch.softmax(want["logits"].double(), -1)
+    margin = (torch.gather(gates, -1, want["idx"])
+              - torch.gather(gates, -1, got["idx"])).abs()[diff]
+    rep = {"entries": want["idx"].numel(), "differ": int(diff.sum()),
+           "sets_differ": int(sets.sum()), "pairs": int(sets.numel()),
+           "min_margin": float(margin.min()) if margin.numel() else None,
+           "max_margin": float(margin.max()) if margin.numel() else None,
+           "logits_rel_l2": _rel_l2(got["logits"], want["logits"]),
+           "diff": diff, "margins": margin}
+    fmt = lambda x: "-" if x is None else f"{x:.3e}"  # noqa: E731
+    print(f"routes: {label}: {rep['differ']} of {rep['entries']} (token, "
+          f"layer, choice) entries differ, {rep['sets_differ']} of "
+          f"{rep['pairs']} (token, layer) expert sets; gate margin among "
+          f"the differing entries smallest {fmt(rep['min_margin'])}, "
+          f"largest {fmt(rep['max_margin'])}; router logits rel L2 "
+          f"{rep['logits_rel_l2']:.3e}")
+    return rep
+
+
+def _by_layer(calls: list, layers: int) -> dict:
+    """Decode's router calls, token-major (each token through every MoE
+    layer), as prefill's order: (layers x tokens) rows of idx and
+    logits."""
+    import torch
+    out = {}
+    for key in ("idx", "logits"):
+        rows = torch.stack([c[key][0, 0] for c in calls])     # (T*L, .)
+        out[key] = rows.reshape(-1, layers, rows.shape[-1]).transpose(
+            0, 1).reshape(-1, rows.shape[-1])
+    return out
+
+
+def _flat(calls: list) -> dict:
+    """Recorded calls' idx and logits as (rows, .) in call order."""
+    import torch
+    return {key: torch.cat([c[key].reshape(-1, c[key].shape[-1])
+                            for c in calls]) for key in ("idx", "logits")}
+
+
+def moe_decode_check(cfg, params, prompt, pf_logits, pf_routes, dec_routes,
+                     free_rel: float, device: str) -> dict:
+    """The MoE models' prefill vs decode check on one prompt. Routing is
+    discontinuous: where two experts' gates nearly tie, the bf16 rounding
+    that differs between prefill and decode (GEMMs of 128 rows against 1,
+    flash against decode attention) can pick the other expert, and a
+    flipped choice moves its token's MoE output by that choice's weight
+    times the difference of two experts' outputs, far past rounding. So
+    (1) the free decode's routes are reported against prefill's
+    (``route_report``) beside its logits' rel L2, and (2) decode is run
+    again with each (token, layer) routed to prefill's experts: its last
+    logits and every layer's router logits are then held at
+    ``PREFILL_DECODE_TOL``, the rounding check qwen3-1.7b's prefill gets."""
+    import torch
+    layers, T = len(pf_routes), prompt.shape[1]
+    pf = _flat(pf_routes)
+    free = route_report(f"{cfg.name} prefill vs token-by-token decode "
+                        f"({T} tokens x {layers} MoE layers)",
+                        pf, _by_layer(dec_routes, layers))
+    # a flip moves its token's state past rounding, and through attention
+    # every later token's: split the flips at (layer, token)s with no flip
+    # at an earlier layer and an earlier or the same token from the rest
+    flip = free.pop("diff").reshape(layers, T, -1)
+    margins = free.pop("margins")
+    at = flip.any(-1).int()
+    up = (torch.cumsum(at, 0) - at).cumsum(1) > 0       # (layers, T)
+    first = ~up[..., None].expand_as(flip)[flip]
+    free["first_flips"] = int(first.sum())
+    free["first_max_margin"] = float(margins[first].max()) \
+        if first.any() else None
+    fmt = lambda x: "-" if x is None else f"{x:.3e}"  # noqa: E731
+    print(f"routes: {cfg.name} flips with no flip upstream (an earlier "
+          f"layer of this or an earlier token) {free['first_flips']}, "
+          f"largest gate margin {fmt(free['first_max_margin'])}; the other "
+          f"{free['differ'] - free['first_flips']} follow a flip upstream, "
+          f"largest margin {fmt(float(margins[~first].max()) if (~first).any() else None)}")
+    print(f"prefill check: {prompt.shape[1]}-token prompt, prefill vs "
+          f"token-by-token decode routed freely: logits rel L2 "
+          f"{free_rel:.3e} with {free['sets_differ']} expert sets flipped "
+          f"(reported; the held check routes decode as prefill did)")
+    # decode's calls are token-major: token i meets layer l at i * L + l
+    pinned = [pf_routes[l]["idx"][:, i:i + 1]
+              for i in range(prompt.shape[1]) for l in range(layers)]
+    with _recorded_routes(pinned) as pin_routes:
+        pin_logits, _ = _decode_tokens(cfg, params, prompt, device)
+    pin = _by_layer(pin_routes, layers)
+    rel = _rel_l2(pin_logits, pf_logits)
+    router_rel = _rel_l2(pin["logits"], pf["logits"])
+    ok = rel <= PREFILL_DECODE_TOL and router_rel <= PREFILL_DECODE_TOL
+    print(f"prefill check: {prompt.shape[1]}-token prompt, prefill vs "
+          f"token-by-token decode routed as prefill: logits rel L2 "
+          f"{rel:.3e}, router logits rel L2 {router_rel:.3e} over "
+          f"{layers} MoE layers (tol {PREFILL_DECODE_TOL:.1e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"prefill and decode disagree with the same routes: logits "
+              f"rel L2 {rel:.3e}, router logits {router_rel:.3e}")
+    return {"routes": free, "pinned_rel_l2": rel,
+            "router_rel_l2": router_rel}
 
 
 def serve_phase(device: str, cfg, params, *, slots: int = 8,
@@ -2092,16 +2312,18 @@ def build_all() -> None:
 # ------------------------------------------------------------ LM training
 
 # the backward's cases: the qwen3-1.7b training shape (its first), then
-# the forward's test shapes and the backward's own (Skv past a 128-key
-# tile with Sq < Skv, G 4 at D 128, D 16 and D 80 over several tiles) in
-# both dtypes, causal and full
+# the forward's test shapes (GQA groups 5, 6, 7 and 9 among them) and the
+# backward's own (Skv past a 128-key tile with Sq < Skv, G 4 at D 128,
+# D 16 and D 80 over several tiles) in both dtypes, causal and full; then
+# dbrx-132b's attention at the training length (B 1, G 6) in bf16
 FLASH_BWD_PATH_CASE = ("train", 4, 1024, 1024, 16, 8, 128, "bfloat16", True)
 FLASH_BWD_CASES = [FLASH_BWD_PATH_CASE] + [
     c for c in FLASH_CASES if c[0].startswith("test")] + [
     (f"bwd{i}", *s, dt, causal) for dt in ("float32", "bfloat16")
     for causal in (True, False)
     for i, s in enumerate([(1, 200, 328, 8, 2, 64), (1, 256, 256, 8, 2, 128),
-                           (2, 192, 192, 4, 2, 16), (1, 160, 300, 6, 3, 80)])]
+                           (2, 192, 192, 4, 2, 16), (1, 160, 300, 6, 3, 80)])
+    ] + [("dbrx", 1, 1024, 1024, 48, 8, 128, "bfloat16", True)]
 # the forward's lse against the plain one, on |got - ref| / (1 + |ref|):
 # f32 sums in another order; the bf16 route's exponentials run on the
 # special-function unit (ex2.approx, about 2 ulp)
@@ -2650,7 +2872,7 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
                            device="cpu")
     batch0 = synthetic_lm_batch(cfg.vocab_size, batch, seq, seed=seed,
                                 device="cpu")
-    out = {}
+    out, moe_routes = {}, {}
     for dev in dict.fromkeys((device, "cpu")):
         p, b = _move(params, dev), _move(batch0, dev)
         seen = []
@@ -2658,13 +2880,14 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
                                or gr)
         reset_counts()
         t = time.perf_counter()
-        with _recorded_scans() as calls:
+        with _recorded_scans() as calls, _recorded_routes() as routes:
             new, _, m = step(p, init_state(p), b)
             loss = float(m["loss"])
         secs = time.perf_counter() - t
         if dev == device:
             device_calls = calls
         out[dev] = (new, m, seen[0], counts(), loss, secs)
+        moe_routes[dev] = routes
         del p
     (p_d, m_d, g_d, n_d, loss_d, s_d), (p_c, m_c, g_c, _, loss_c, s_c) = \
         out[device], out["cpu"]
@@ -2693,6 +2916,22 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
           f"{s_c:.3f} s on cpu")
     if scans:
         _check_scan_calls(cfg.name, device, device_calls)
+    aux = [k for k in m_c if k.startswith("moe_")]
+    if aux:
+        # the router losses are summed like the loss; the routes of every
+        # router call (the forward's and the recompute's) on both sides
+        for k in aux:
+            rel[k] = abs(float(m_d[k]) - float(m_c[k])) / abs(float(m_c[k]))
+        print("train parity: " + ", ".join(
+            f"{k} {float(m_d[k]):.6f} / {float(m_c[k]):.6f} (rel "
+            f"{rel[k]:.2e})" for k in aux))
+        routes = route_report(f"{cfg.name} train step, {device} against cpu",
+                              _flat(moe_routes["cpu"]),
+                              _flat(moe_routes[device]))
+        rel["route_sets_differ"] = routes["sets_differ"]
+        check(routes["sets_differ"] == 0,
+              f"train parity: {routes['sets_differ']} expert sets differ")
+        tol = {**tol, **{k: tol["loss"] for k in aux}}
     for key, bound in tol.items():
         check(rel[key] <= bound,
               f"train parity: {key} {rel[key]:.3e} > {bound}")
@@ -2878,6 +3117,8 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
     cuda = device != "cpu"
     if cuda:   # what earlier phases left cached, so that it cannot fragment
         torch.cuda.empty_cache()
+        print(f"train: {torch.cuda.memory_allocated()} B allocated, "
+              f"{torch.cuda.memory_reserved()} B reserved before the draw")
     cfg = get_config(arch)
     full = cfg.num_layers
     if layers:
@@ -2920,7 +3161,8 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
           f"{batch} x {seq} tokens, "
           f"first {walls[0]:.3f} s, then {step_s:.3f} s a step "
           f"({batch * seq / step_s:.1f} tokens/s), peak device memory "
-          + (f"{peak} B" if cuda else "not measured (cpu)")
+          + (f"{peak} B ({torch.cuda.max_memory_reserved()} B reserved)"
+             if cuda else "not measured (cpu)")
           + "; launches " + ", ".join(f"{k} {v}" for k, v in
                                       launches.items() if v))
     check(all(math.isfinite(x) for x in losses),
@@ -3138,13 +3380,20 @@ def kernel_line(records: dict, launches: dict) -> dict:
 
 
 def lm_path(arch: str, device: str, *, profile: bool = True,
-            serve_kw=None) -> dict:
+            serve_kw=None, layers: int = 0) -> dict:
     """One language model's prefill and serve paths (and a profiler window
-    over its engine); the model is freed before returning. Returns the
-    prefill and serve records (the serve record without its engine)."""
+    over its engine), cut to ``layers`` layers where given; the model is
+    freed before returning. Returns the prefill and serve records (the
+    serve record without its engine); on a card the prefill record's
+    ``peak_bytes`` is the peak from the draw through the prefill checks."""
     import torch
-    cfg, params = lm_params(arch, device)
+    if device != "cpu":    # what earlier phases left cached
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg, params = lm_params(arch, device, layers=layers)
     prefill = prefill_phase(device, cfg, params)
+    prefill["peak_bytes"] = torch.cuda.max_memory_allocated() \
+        if device != "cpu" else None
     serve = serve_phase(device, cfg, params, **(serve_kw or {}))
     eng = serve.pop("engine")
     if profile:
@@ -3162,6 +3411,78 @@ def lm_path(arch: str, device: str, *, profile: bool = True,
 # the recurrent families' engine runs: 4 slots x 512 positions, 8 requests
 RECURRENT_SERVE = dict(slots=4, max_seq=512, n_requests=8,
                        prompt_lens=(16, 64), new_tokens=16)
+# the MoE models at full width, cut in depth for the card's memory: 8 of
+# dbrx-132b's 40 layers (27.31e9 parameters, 54.6 GB in bf16) and one of
+# llama4-maverick's 24 periods, a dense and an MoE layer (18.55e9, 37.1 GB)
+MOE_LAYERS = {"dbrx-132b": 8, "llama4-maverick-400b-a17b": 2}
+# the MoE phase's budget of smoke seconds, and its peak device memory
+MOE_PHASE_SECONDS = 120.0
+MOE_PEAK_BYTES = 72e9
+
+
+def weight_bytes(cfg) -> int:
+    """The bytes of every parameter a decode call must read, in the
+    config's dtype: every leaf but an untied embedding table, of which a
+    call reads one row a slot. The dispatch runs every expert on its
+    capacity slots, so every expert's weights count."""
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import tree_leaves
+    specs = M.param_shape_structs(cfg, getattr(torch, cfg.dtype))
+    return sum(t.numel() * t.element_size()
+               for path, t in zip(_leaf_paths(specs), tree_leaves(specs))
+               if path != "/embed" or cfg.tie_embeddings)
+
+
+def moe_phase(device: str, layers=None, *, serve_kw=None,
+              parity_seq: int = 256) -> dict:
+    """Phase 13, the MoE block kind: each model of ``layers`` (arch ->
+    depth) at full width through ``lm_path`` (prefill, the route checks,
+    the engine, a profiler window), freed before the next is drawn; its
+    parameter counts, peak device memory and the decode call against the
+    floor its weight bytes set; then one f32 train step of each smoke
+    config on the device against the CPU (``lm_train_parity``, aux and
+    routes included). Within ``MOE_PHASE_SECONDS`` of smoke."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_config
+    layers = layers or MOE_LAYERS
+    t0 = time.perf_counter()
+    out = {}
+    for arch, depth in layers.items():
+        rec = lm_path(arch, device, layers=depth,
+                      serve_kw=serve_kw or RECURRENT_SERVE)
+        cfg = rec["cfg"]
+        full = get_config(arch)
+        nbytes = weight_bytes(cfg)
+        rec["floor_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = None if device == "cpu" else max(
+            rec["prefill"]["peak_bytes"], rec["serve"]["peak_bytes"])
+        rec["peak_bytes"] = peak
+        print(f"moe: {cfg.name} {cfg.num_layers} of {full.num_layers} layers "
+              f"at full width: {M.param_count(cfg)} parameters, "
+              f"{M.active_param_count(cfg)} active a token (the full "
+              f"config: {M.param_count(full)}, {M.active_param_count(full)} "
+              f"active); peak device memory "
+              + (f"{peak} B (limit {MOE_PEAK_BYTES:.0f})" if peak is not None
+                 else "not measured (cpu)"))
+        print(f"moe: {cfg.name} decode call {rec['serve']['decode_call_ms']:.2f}"
+              f" ms (the engine's mean, admission included), floor "
+              f"{rec['floor_ms']:.2f} ms from weight bytes alone ({nbytes} B "
+              f"over {HBM_BYTES_PER_S:.3g} B/s: every expert is read each "
+              f"call)")
+        check(peak is None or peak < MOE_PEAK_BYTES,
+              f"moe: {cfg.name} peak device memory {peak} B")
+        out[arch] = rec
+    for arch in layers:
+        cfg = get_config(arch.removesuffix("-smoke") + "-smoke")
+        out[f"{arch}-parity"] = lm_train_parity(
+            device, cfg.name, layers=cfg.num_layers, seq=parity_seq)
+    secs = time.perf_counter() - t0
+    print(f"moe: phase 13 in {secs:.1f} s (budget {MOE_PHASE_SECONDS:.0f})")
+    check(device == "cpu" or secs <= MOE_PHASE_SECONDS,
+          f"moe: phase 13 took {secs:.1f} s")
+    out["seconds"] = secs
+    return out
 
 
 def main() -> int:
@@ -3169,6 +3490,12 @@ def main() -> int:
         print("chip_smoke: src/repro_torch is not beside this script",
               file=sys.stderr)
         return 2
+    # the training phases peak within 15 GB of the card's memory, and the
+    # update's leaves of many sizes leave that much cached but unusable in
+    # fixed segments: growable segments keep what is reserved near what is
+    # allocated (set before torch starts its allocator)
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3192,6 +3519,7 @@ def main() -> int:
     qwen = lm_path("qwen3-1.7b", "cuda")
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
+    moe_phase("cuda")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     for arch, kw in RECURRENT_PARITY.items():

@@ -1,24 +1,24 @@
 """The language model: the PyTorch twin of the reference's one
-scan-over-superblocks code path (dense / GQA attention, Mamba2 hybrid with
-Zamba2's weight-shared block, RWKV6, encoder), with the scan written out as
-a Python loop over the stacked period leaves.
+scan-over-superblocks code path (dense / GQA attention, MoE, Mamba2 hybrid
+with Zamba2's weight-shared block, RWKV6, encoder), with the scan written
+out as a Python loop over the stacked period leaves.
 
 Public surface:
     build_param_specs(cfg)            ParamSpec tree (init & counting)
     init_params(cfg, generator, ...)  materialised params on a device
+    param_shape_structs(cfg, dtype)   the param tree as meta tensors
     forward(cfg, params, batch, ...)  logits (train/prefill) or hidden
-    train_loss(cfg, params, batch)    scalar CE (sequence-chunked for long S)
+    train_loss(cfg, params, batch)    scalar CE (+ MoE aux), chunked for long S
     decode_state_specs(cfg, B, S)     TensorSpec tree of the decode state
     init_decode_state(cfg, B, S, ...) zeroed decode state on a device
     decode_step(cfg, params, state, batch)  (logits, state)
     param_count(cfg)                  exact parameter count
+    active_param_count(cfg)           params touched per token
 
-The ``attn_moe`` block kind raises ``NotImplementedError`` naming the
-slice of ROADMAP.md that ports it. Under autograd, ``forward`` in modes
-"train" and "hidden" recomputes each period in the backward
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
-its scan body does. One card: the reference's shard hooks wait for the
-multi-GPU slice.
+Under autograd, ``forward`` in modes "train" and "hidden" recomputes each
+period in the backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` of its scan body does. One card: the reference's shard
+hooks wait for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -29,20 +29,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
-from . import layers, mamba2, rwkv6
+from . import layers, mamba2, moe, rwkv6
 from .params import (ParamSpec, init_tree, param_count as _spec_count,
-                     stack_specs, tree_leaves, tree_map)
+                     shape_structs, stack_specs, tree_leaves, tree_map)
 
 class TensorSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if "attn_moe" in cfg.pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind 'attn_moe' comes with the MoE slice "
-            "(ROADMAP.md Queue 1)")
 
 
 def _dtype(name) -> torch.dtype:
@@ -55,6 +48,9 @@ def _block_specs(cfg: ModelConfig, kind: str):
     if kind == "attn":
         return {"ln1": layers.norm_specs(cfg), "attn": layers.attention_specs(cfg),
                 "ln2": layers.norm_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+    if kind == "attn_moe":
+        return {"ln1": layers.norm_specs(cfg), "attn": layers.attention_specs(cfg),
+                "ln2": layers.norm_specs(cfg), "moe": moe.moe_specs(cfg)}
     if kind == "mamba2":
         return {"ln1": layers.norm_specs(cfg), "mixer": mamba2.mamba2_specs(cfg)}
     if kind == "rwkv6":
@@ -73,7 +69,6 @@ def _shared_block_specs(cfg: ModelConfig):
 
 
 def build_param_specs(cfg: ModelConfig):
-    _check_supported(cfg)
     period = {f"pos{i}": _block_specs(cfg, kind)
               for i, kind in enumerate(cfg.pattern)}
     specs = {"blocks": stack_specs(period, cfg.num_periods),
@@ -95,12 +90,30 @@ def param_count(cfg: ModelConfig) -> int:
     return _spec_count(build_param_specs(cfg))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: top-k + shared experts only)."""
+    total = param_count(cfg)
+    if not cfg.num_experts:
+        return total
+    e_specs = moe.moe_specs(cfg)
+    per_expert = _spec_count({k: e_specs[k] for k in ("w_gate", "w_up", "w_down")})
+    n_moe_layers = cfg.num_periods * sum(k == "attn_moe" for k in cfg.pattern)
+    inactive = per_expert * (1 - cfg.num_experts_per_tok / cfg.num_experts)
+    return int(total - n_moe_layers * inactive)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cuda"):
     """Parameters drawn from ``generator`` (which lies on ``device``) with
     the reference's init laws, stored in ``dtype``."""
     return init_tree(build_param_specs(cfg), generator, _dtype(dtype),
                      resolve_device(device))
+
+
+def param_shape_structs(cfg: ModelConfig, dtype=torch.float32):
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtype, no storage."""
+    return shape_structs(build_param_specs(cfg), _dtype(dtype))
 
 
 # ------------------------------------------------------------------ embed
@@ -146,20 +159,28 @@ def _periods(blocks) -> list:
 
 # ------------------------------------------------------------------ forward
 
-def _apply_block(cfg, kind, p, h, positions):
-    """Full-sequence application of one block. Returns (h, cache)."""
-    if kind == "attn":
+def _apply_block(cfg, kind, p, h, positions, moe_path, moe_groups):
+    """Full-sequence application of one block. Returns (h, cache, aux):
+    aux holds an ``attn_moe`` block's router losses, else it is empty."""
+    if kind in ("attn", "attn_moe"):
         a, (k, v) = layers.attention_block(cfg, p["attn"],
                                            layers.apply_norm(cfg, p["ln1"], h),
                                            positions)
         h = h + a
-        h = h + layers.mlp_block(cfg, p["mlp"],
-                                 layers.apply_norm(cfg, p["ln2"], h))
-        return h, {"k": k, "v": v}
+        aux = {}
+        if kind == "attn":
+            h = h + layers.mlp_block(cfg, p["mlp"],
+                                     layers.apply_norm(cfg, p["ln2"], h))
+        else:
+            m, aux = moe.moe_block(cfg, p["moe"],
+                                   layers.apply_norm(cfg, p["ln2"], h),
+                                   path=moe_path, groups=moe_groups)
+            h = h + m
+        return h, {"k": k, "v": v}, aux
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_block(
             cfg, p["mixer"], layers.apply_norm(cfg, p["ln1"], h))
-        return h + m, {"conv": conv_s, "ssd": ssd_s}
+        return h + m, {"conv": conv_s, "ssd": ssd_s}, {}
     if kind == "rwkv6":
         x_prev0 = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
                               device=h.device)
@@ -168,7 +189,7 @@ def _apply_block(cfg, kind, p, h, positions):
         h = h + t
         c, x_cm = rwkv6.channelmix_block(
             cfg, p["cm"], layers.apply_norm(cfg, p["ln2"], h), x_prev0)
-        return h + c, {"x_tm": x_tm, "x_cm": x_cm, "wkv": wkv}
+        return h + c, {"x_tm": x_tm, "x_cm": x_cm, "wkv": wkv}, {}
     raise ValueError(kind)
 
 
@@ -185,31 +206,39 @@ def _apply_shared(cfg, p, h, emb0, positions):
     return h, {"k": k, "v": v}
 
 
-def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache):
+def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
+                  moe_path, moe_groups):
     """One period: its blocks in pattern order, then Zamba2's shared block.
-    Returns (h, the period's caches or {})."""
-    caches = {}
+    Returns (h, the period's caches or {}, the sum of its MoE blocks' aux
+    or {})."""
+    caches, auxes = {}, []
     for j, kind in enumerate(cfg.pattern):
-        h, cache = _apply_block(cfg, kind, p[f"pos{j}"], h, positions)
+        h, cache, aux = _apply_block(cfg, kind, p[f"pos{j}"], h, positions,
+                                     moe_path, moe_groups)
         if want_cache:
             caches[f"pos{j}"] = cache
+        if aux:
+            auxes.append(aux)
     if cfg.shared_attn_every_period:
         h, sc = _apply_shared(cfg, shared_p, h, emb0, positions)
         if want_cache:
             caches["shared"] = sc
-    return h, caches
+    return h, caches, {k: sum(a[k] for a in auxes) for k in auxes[0]} \
+        if auxes else {}
 
 
 def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
-            remat: bool = True):
-    """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, {});
+            remat: bool = True, moe_path: str = "dispatch",
+            moe_groups: int = 0):
+    """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, aux);
     "prefill" -> (last-token logits (B,V) f32, decode_state whose caches
     are the per-period caches stacked over periods: k/v (periods, B, S,
     KV, hd), Mamba2's conv/ssd and RWKV6's x_tm/x_cm/wkv states, Zamba2's
-    shared k/v); "hidden" -> (final hidden states, {}). With ``remat``,
-    in modes "train" and "hidden" under autograd, each period keeps only
-    its input for the backward and is recomputed there."""
-    _check_supported(cfg)
+    shared k/v); "hidden" -> (final hidden states, aux). aux is the MoE
+    router losses (each period's sum over its MoE blocks, averaged over
+    periods), {} without MoE blocks. With ``remat``, in modes "train" and
+    "hidden" under autograd, each period keeps only its input for the
+    backward and is recomputed there."""
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
     dtype = _dtype(cfg.dtype)
@@ -229,23 +258,30 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     want_cache = mode == "prefill"
     recompute = remat and mode in ("train", "hidden") \
         and torch.is_grad_enabled()
-    per_period = []
+    def recomputed(h, p):
+        # the period's aux comes out of the recomputed region too
+        h, _, aux = _apply_period(cfg, p, h, positions, emb0, shared_p,
+                                  False, moe_path, moe_groups)
+        return h, aux
+
+    per_period, auxes = [], []
     for p in _periods(params["blocks"]):
         if recompute:
-            h = checkpoint(
-                lambda h, p=p: _apply_period(cfg, p, h, positions, emb0,
-                                             shared_p, False)[0],
-                h, use_reentrant=False)
-            continue
-        h, caches = _apply_period(cfg, p, h, positions, emb0, shared_p,
-                                  want_cache)
-        per_period.append(caches)
+            h, aux = checkpoint(recomputed, h, p, use_reentrant=False)
+        else:
+            h, caches, aux = _apply_period(cfg, p, h, positions, emb0,
+                                           shared_p, want_cache, moe_path,
+                                           moe_groups)
+            per_period.append(caches)
+        auxes.append(aux)
+    aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
+           for k in auxes[0]}
 
     h = layers.apply_norm(cfg, params["final_norm"], h)
     if mode == "hidden":
-        return h, {}
+        return h, aux
     if mode == "train":
-        return _unembed(cfg, params, h).to(torch.float32), {}
+        return _unembed(cfg, params, h).to(torch.float32), aux
     # prefill: logits for the last position + populated decode state
     logits = _unembed(cfg, params, h[:, -1]).to(torch.float32)
     caches = {key: {n: torch.stack([c[key][n] for c in per_period])
@@ -284,11 +320,14 @@ def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int):
 
 
 def train_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
-               loss_chunks: int = 0):
-    """Mean next-token cross-entropy of ``batch["labels"]``. Returns
-    (loss, {"loss", "ce"}). ``loss_chunks`` 0 chunks long sequences
-    (``max(1, min(16, S // 512))``); the count is lowered until it
-    divides S. More than one chunk goes through ``chunked_ce``."""
+               loss_chunks: int = 0, moe_path: str = "dispatch",
+               moe_groups: int = 0):
+    """Mean next-token cross-entropy of ``batch["labels"]``, plus 0.01 of
+    the MoE load-balance loss and 1e-3 of its z-loss where the model has
+    MoE blocks. Returns (loss, {"loss", "ce", and the aux losses}).
+    ``loss_chunks`` 0 chunks long sequences (``max(1, min(16, S //
+    512))``); the count is lowered until it divides S. More than one chunk
+    goes through ``chunked_ce``."""
     labels = batch["labels"]
     S = labels.shape[1]
     if loss_chunks == 0:
@@ -296,18 +335,23 @@ def train_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     while S % loss_chunks:
         loss_chunks -= 1
     if loss_chunks > 1:
-        h, _ = forward(cfg, params, batch, mode="hidden", remat=remat)
+        h, aux = forward(cfg, params, batch, mode="hidden", remat=remat,
+                         moe_path=moe_path, moe_groups=moe_groups)
         ce = chunked_ce(cfg, params, h, labels, chunks=loss_chunks)
     else:
-        logits, _ = forward(cfg, params, batch, mode="train", remat=remat)
+        logits, aux = forward(cfg, params, batch, mode="train", remat=remat,
+                              moe_path=moe_path, moe_groups=moe_groups)
         ce = _ce_from_logits(logits, labels) / labels.numel()
-    return ce, {"loss": ce, "ce": ce}
+    loss = ce
+    if aux:
+        loss = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    return loss, {"loss": loss, "ce": ce, **aux}
 
 
 # ------------------------------------------------------------------ decode
 
 def _cache_entry_spec(cfg: ModelConfig, kind: str, B: int, S: int, dtype):
-    if kind in ("attn", "shared"):
+    if kind in ("attn", "attn_moe", "shared"):
         shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
         return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}
     if kind == "mamba2":
@@ -325,7 +369,6 @@ def _cache_entry_spec(cfg: ModelConfig, kind: str, B: int, S: int, dtype):
 def decode_state_specs(cfg: ModelConfig, B: int, S: int, dtype=None):
     """Every cache leaf stacked over periods: (periods, B, ...). Recurrent
     states (``ssd``, ``wkv``) are f32 whatever ``dtype`` is."""
-    _check_supported(cfg)
     dtype = _dtype(dtype or cfg.dtype)
     per = {f"pos{i}": _cache_entry_spec(cfg, kind, B, S, dtype)
            for i, kind in enumerate(cfg.pattern)}
@@ -353,15 +396,21 @@ def _put(stack, layer: int, new, rows) -> None:
         stack[layer, rows] = new[rows].to(stack.dtype)
 
 
-def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows):
+def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, moe_path,
+                  moe_groups):
     """One block against its STACKED caches ``cs``, updated in place."""
-    if kind == "attn":
+    if kind in ("attn", "attn_moe"):
         a, _, _ = layers.attention_decode(
             cfg, p["attn"], layers.apply_norm(cfg, p["ln1"], h),
             cs["k"], cs["v"], layer, lengths, rows=rows)
         h = h + a
-        return h + layers.mlp_block(cfg, p["mlp"],
-                                    layers.apply_norm(cfg, p["ln2"], h))
+        if kind == "attn":
+            return h + layers.mlp_block(cfg, p["mlp"],
+                                        layers.apply_norm(cfg, p["ln2"], h))
+        m, _ = moe.moe_block(cfg, p["moe"],
+                             layers.apply_norm(cfg, p["ln2"], h),
+                             path=moe_path, groups=moe_groups)
+        return h + m
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_decode(
             cfg, p["mixer"], layers.apply_norm(cfg, p["ln1"], h),
@@ -398,19 +447,20 @@ def _decode_shared(cfg, p, h, emb0, cs, layer, lengths, rows):
                                 layers.apply_norm(cfg, p["ln2"], cat))
 
 
-def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None):
+def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None,
+                moe_path: str = "dispatch", moe_groups: int = 0):
     """One-token decode. batch: {"tokens": (B,1)} (or {"frames": (B,1,d)}).
 
     The stacked caches in ``state`` are updated IN PLACE: each layer writes
     its new k/v at ``lengths`` and its new recurrent state (conv, ssd,
     x_tm, x_cm, wkv) for every row, or only for the batch rows in ``rows``
     (an index tensor), so rows outside it keep their caches exactly.
-    Returns (logits (B,V) f32, {"caches": the same caches, "lengths":
-    lengths + 1}).
+    MoE blocks route every row, each row a group of its own by default
+    (so no choice drops). Returns (logits (B,V) f32, {"caches": the same
+    caches, "lengths": lengths + 1}).
     """
     if not cfg.is_decoder:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
-    _check_supported(cfg)
     dtype = _dtype(cfg.dtype)
     lengths = state["lengths"]
     caches = state["caches"]
@@ -421,7 +471,7 @@ def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None):
     for layer, p in enumerate(_periods(params["blocks"])):
         for j, kind in enumerate(cfg.pattern):
             h = _decode_block(cfg, kind, p[f"pos{j}"], h, caches[f"pos{j}"],
-                              layer, lengths, rows)
+                              layer, lengths, rows, moe_path, moe_groups)
         if cfg.shared_attn_every_period:
             h = _decode_shared(cfg, params["shared"], h, emb0,
                                caches["shared"], layer, lengths, rows)

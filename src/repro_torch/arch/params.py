@@ -3,6 +3,7 @@
 Every model declares a nested dict of :class:`ParamSpec` leaves. From that
 single declaration come:
   * ``param_count`` — the exact parameter count
+  * ``shape_structs`` — the tree as ``meta`` tensors (shapes, no storage)
   * ``init_tree``   — materialised parameters, drawn from a ``torch.Generator``
   * ``params_from_numpy`` — the same tree from arrays made elsewhere (the
     JAX package's parameters, handed over as numpy), leaf for leaf
@@ -52,45 +53,60 @@ def stack_specs(tree, n: int, axis_name: str = "layers"):
         tree)
 
 
+# the most elements of a leaf drawn at once in f32: a leaf is drawn slice
+# by slice into its tensor of the target dtype, so a draw holds the
+# parameters plus one f32 slice (256 MiB), never a leaf-sized f32 copy
+DRAW_SLICE = 1 << 26
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype, device):
     s = spec.shape
     fan_in = s[-2] if len(s) >= 2 else max(s[-1], 1)
-
-    def normal():
-        return torch.randn(s, generator=gen, dtype=torch.float32, device=device)
-
-    def uniform(lo, hi):
-        u = torch.rand(s, generator=gen, dtype=torch.float32, device=device)
-        return u * (hi - lo) + lo
-
-    if spec.init == "normal":
-        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-        return (normal() * std).to(dtype)
-    if spec.init == "embed":
-        std = spec.scale if spec.scale is not None else 0.02
-        return (normal() * std).to(dtype)
     if spec.init == "zeros":
         return torch.zeros(s, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(s, dtype=dtype, device=device)
     if spec.init == "const":
         return torch.full(s, spec.scale or 0.0, dtype=dtype, device=device)
-    if spec.init == "ssm_A":     # A_log: log Uniform[1, 16]
-        return torch.log(uniform(1.0, 16.0)).to(dtype)
-    if spec.init == "ssm_dt":    # softplus^-1 of Uniform[1e-3, 1e-1]
-        return torch.log(torch.expm1(uniform(1e-3, 1e-1))).to(dtype)
-    if spec.init == "rwkv_decay":  # w0 so that exp(-exp(w0)) ~ 0.85..0.99
-        return uniform(-3.0, -0.5).to(dtype)
-    if spec.init == "uniform_small":
-        return (uniform(-0.5, 0.5) * (spec.scale or 1.0)).to(dtype)
-    raise ValueError(f"unknown init {spec.init}")
+
+    def normal(n, std):
+        return torch.randn(n, generator=gen, dtype=torch.float32,
+                           device=device).mul_(std)
+
+    def uniform(n, lo, hi):
+        u = torch.rand(n, generator=gen, dtype=torch.float32, device=device)
+        return u.mul_(hi - lo).add_(lo)
+
+    if spec.init == "normal":
+        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        draw = lambda n: normal(n, std)  # noqa: E731
+    elif spec.init == "embed":
+        std = spec.scale if spec.scale is not None else 0.02
+        draw = lambda n: normal(n, std)  # noqa: E731
+    elif spec.init == "ssm_A":     # A_log: log Uniform[1, 16]
+        draw = lambda n: torch.log(uniform(n, 1.0, 16.0))  # noqa: E731
+    elif spec.init == "ssm_dt":    # softplus^-1 of Uniform[1e-3, 1e-1]
+        draw = lambda n: torch.log(torch.expm1(uniform(n, 1e-3, 1e-1)))  # noqa: E731
+    elif spec.init == "rwkv_decay":  # w0 so that exp(-exp(w0)) ~ 0.85..0.99
+        draw = lambda n: uniform(n, -3.0, -0.5)  # noqa: E731
+    elif spec.init == "uniform_small":
+        draw = lambda n: uniform(n, -0.5, 0.5).mul_(spec.scale or 1.0)  # noqa: E731
+    else:
+        raise ValueError(f"unknown init {spec.init}")
+    out = torch.empty(s, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), DRAW_SLICE):
+        n = min(DRAW_SLICE, flat.numel() - i)
+        flat[i:i + n] = draw(n)
+    return out
 
 
 def init_tree(tree, generator: torch.Generator, dtype=torch.float32,
               device="cpu"):
     """Materialise a spec tree with the JAX package's init laws. The draws
     come from ``generator`` (on ``device``), leaf by leaf in sorted-key
-    order, so the values differ from ``jax.random``'s by design."""
+    order and each leaf in flat slices of ``DRAW_SLICE`` elements, so the
+    values differ from ``jax.random``'s by design."""
     device = torch.device(device)
 
     def draw(t):
@@ -98,6 +114,13 @@ def init_tree(tree, generator: torch.Generator, dtype=torch.float32,
             return {k: draw(t[k]) for k in sorted(t)}
         return _init_leaf(t, generator, dtype, device)
     return draw(tree)
+
+
+def shape_structs(tree, dtype):
+    """The spec tree as tensors on the ``meta`` device: each leaf's shape
+    in ``dtype``, no storage."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), tree)
 
 
 def param_count(tree) -> int:

@@ -28,13 +28,6 @@ def _unflatten(like, leaves):
     return build(like)
 
 
-def _check_moe(moe_path: str, moe_groups: int) -> None:
-    if moe_path != "dispatch" or moe_groups != 0:
-        raise NotImplementedError(
-            f"moe_path={moe_path!r}, moe_groups={moe_groups}: MoE routing "
-            "comes with the MoE slice (ROADMAP.md Queue 1 item 3)")
-
-
 def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
                     remat: bool = True,
                     moe_path: str = "dispatch", microbatches: int = 1,
@@ -44,10 +37,9 @@ def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
 
     cast_params_bf16: cast the f32 master params to bf16 before the
     forward; the gradients still flow to the f32 masters through the cast.
-    ``moe_path`` and ``moe_groups`` other than their defaults raise (the
-    MoE slice). One card: the reference's ``shard`` hook waits for the
-    multi-GPU slice."""
-    _check_moe(moe_path, moe_groups)
+    ``moe_path`` ("dispatch" or "dense") and ``moe_groups`` reach the MoE
+    blocks; the metrics carry their aux losses. One card: the reference's
+    ``shard`` hook waits for the multi-GPU slice."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
@@ -57,7 +49,9 @@ def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
         with torch.enable_grad():
             if cast_params_bf16:
                 tree = cast_tree(tree, torch.bfloat16)
-            loss, metrics = M.train_loss(cfg, tree, batch, remat=remat)
+            loss, metrics = M.train_loss(cfg, tree, batch, remat=remat,
+                                         moe_path=moe_path,
+                                         moe_groups=moe_groups)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(live, grads)]
@@ -102,17 +96,15 @@ def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
 
 def make_prefill_step(cfg: ModelConfig, *, moe_path: str = "dispatch",
                       moe_groups: int = 0):
-    _check_moe(moe_path, moe_groups)
-
     def prefill(params, batch):
-        return M.forward(cfg, params, batch, mode="prefill", remat=False)
+        return M.forward(cfg, params, batch, mode="prefill", remat=False,
+                         moe_path=moe_path, moe_groups=moe_groups)
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, *, moe_path: str = "dispatch",
                      moe_groups: int = 0):
-    _check_moe(moe_path, moe_groups)
-
     def decode(params, state, batch):
-        return M.decode_step(cfg, params, state, batch)
+        return M.decode_step(cfg, params, state, batch, moe_path=moe_path,
+                             moe_groups=moe_groups)
     return decode

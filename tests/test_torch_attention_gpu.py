@@ -1,8 +1,9 @@
 """The hand-written CUDA ``flash_attention`` and ``decode_attention``
 kernels against their plain PyTorch versions on the card, at the unit-test
 shapes of tests/test_kernels.py, head dims 16, 80 and 128, Sq < Skv,
-ragged lengths, and the serving path's shapes (qwen3-1.7b, zamba2-2.7b,
-hubert-xlarge's non-causal D 80). f32 inputs exercise flash_attention's
+ragged lengths, GQA groups 5, 6, 7 and 9 at D 128, and the serving
+path's shapes (qwen3-1.7b, zamba2-2.7b, hubert-xlarge's non-causal D 80,
+dbrx-132b's group 6, llama4-maverick's group 5). f32 inputs exercise flash_attention's
 CUDA-core route, bf16 its wgmma route; decode lengths on and around the
 split-KV boundaries. Imports no JAX, so it runs on a machine with a card:
 
@@ -30,6 +31,12 @@ FLASH_SHAPES = [
     (4, 1024, 1024, 16, 8, 128),       # qwen3-1.7b prefill
     (4, 1024, 1024, 32, 32, 80),       # zamba2-2.7b's shared attention block
     (2, 500, 500, 16, 16, 80),         # hubert-xlarge (its encoder is non-causal)
+    # GQA groups 5, 6, 7 and 9 at D 128 (llama4-maverick, dbrx-132b and
+    # internlm2-20b, qwen2-vl-7b, starcoder2-7b)
+    (1, 128, 128, 40, 8, 128), (2, 96, 160, 48, 8, 128),
+    (1, 200, 200, 28, 4, 128), (2, 64, 64, 36, 4, 128),
+    (4, 1024, 1024, 48, 8, 128),       # dbrx-132b prefill
+    (4, 1024, 1024, 40, 8, 128),       # llama4-maverick prefill
 ]
 # (B, S, H, KV, D)
 DECODE_SHAPES = [
@@ -37,6 +44,10 @@ DECODE_SHAPES = [
     (3, 200, 4, 4, 80), (2, 300, 28, 4, 128),
     (8, 2048, 16, 8, 128),             # qwen3-1.7b serving, 8 slots
     (4, 512, 32, 32, 80),              # zamba2-2.7b serving, group 1
+    # GQA groups 5, 6 and 9 at D 128 (group 7 is the (2, 300, 28, 4) case)
+    (2, 256, 40, 8, 128), (3, 300, 48, 8, 128), (2, 200, 36, 4, 128),
+    (4, 512, 48, 8, 128),              # dbrx-132b serving, group 6
+    (4, 512, 40, 8, 128),              # llama4-maverick serving, group 5
 ]
 
 

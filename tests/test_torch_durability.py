@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from _hypothesis_compat import given, settings, st
+from _property_settings import UNTIMED
 from repro.core.castor import Castor as JaxCastor
 from repro.core.deployment import deployment_record as jax_deployment_record
 from repro.durability import wal as jax_wal
@@ -87,7 +88,7 @@ def _assert_records_equal(got, want):
         assert d_g["v"].tobytes() == d_w["v"].tobytes()
 
 
-@settings(max_examples=25)
+@settings(max_examples=25, **UNTIMED)
 @given(st.lists(st.lists(st.floats(min_value=-1e12, max_value=1e12),
                          min_size=0, max_size=7),
                 min_size=0, max_size=6))
@@ -107,7 +108,7 @@ def test_frames_byte_identical_to_jax_package(chunks):
     assert len(split_frames(blob)) == len(recs)
 
 
-@settings(max_examples=25)
+@settings(max_examples=25, **UNTIMED)
 @given(st.lists(st.floats(min_value=-1e6, max_value=1e6),
                 min_size=1, max_size=9),
        st.integers(min_value=0, max_value=10**9))
@@ -137,7 +138,7 @@ def test_codec_every_truncation_never_raises():
         _assert_records_equal(got, recs[:len(got)])
 
 
-@settings(max_examples=25)
+@settings(max_examples=25, **UNTIMED)
 @given(st.integers(min_value=0, max_value=10**9),
        st.integers(min_value=1, max_value=255))
 def test_codec_single_byte_corruption_detected(pos_seed, xor):

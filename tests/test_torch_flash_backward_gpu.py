@@ -1,9 +1,10 @@
 """The hand-written CUDA ``flash_attention`` backward on the card, against
 the plain backward (``attention_backward_reference``) on the same inputs
 and the forward's own ``lse``: both dtypes, causal and full, Sq < Skv,
-groups 1, 2 and 4, head dims 16 to 128 (one atom, a partial second
-atom), ragged lengths, Skv past a 128-key tile with Sq < Skv, and the
-training shape (qwen3-1.7b, B 4, S 1024, H 16, KV 8, D 128). Also the
+groups 1, 2, 4, 5, 6, 7 and 9, head dims 16 to 128 (one atom, a partial
+second atom), ragged lengths, Skv past a 128-key tile with Sq < Skv,
+dbrx-132b's attention (B 1, S 1024, H 48, KV 8, D 128) and the training
+shape (qwen3-1.7b, B 4, S 1024, H 16, KV 8, D 128). Also the
 ``lse`` both forward routes write, the backward's determinism (three runs
 bitwise equal at the training shape), its three launches a call (nothing
 falls back to the plain backward), the Function's counts and the two
@@ -41,6 +42,10 @@ SHAPES = [
     (1, 256, 256, 8, 2, 128),          # G = 4
     (2, 192, 192, 4, 2, 16),           # D 16: part of one 64-column atom
     (1, 160, 300, 6, 3, 80),           # D 80: a partial second atom
+    # GQA groups 5, 6, 7 and 9 at D 128: dK/dV sums a group's query heads
+    (1, 128, 128, 40, 8, 128), (2, 96, 160, 48, 8, 128),
+    (1, 200, 200, 28, 4, 128), (2, 64, 64, 36, 4, 128),
+    (1, 1024, 1024, 48, 8, 128),       # dbrx-132b's attention, one row
     (4, 1024, 1024, 16, 8, 128),       # qwen3-1.7b training
 ]
 TRAIN_SHAPE = SHAPES[-1]

@@ -1,6 +1,8 @@
 """The port's language model against the JAX package's, on the six
-pure-attention smoke configs and the two recurrent ones (zamba2-2.7b's
-Mamba2 hybrid with its shared block, rwkv6-7b): the JAX parameters from
+pure-attention smoke configs, the two recurrent ones (zamba2-2.7b's
+Mamba2 hybrid with its shared block, rwkv6-7b) and the two MoE ones
+(dbrx-132b, llama4-maverick's dense / MoE alternation with its shared
+expert; their routes held equal layer by layer): the JAX parameters from
 ``M.init_params(cfg, PRNGKey(0))`` cross as numpy through
 ``params_from_numpy``, and both packages compute ``forward`` (train and
 prefill) and ``decode_step`` on the same tokens. f32 where the point is
@@ -31,7 +33,7 @@ ATTN_ARCHS = ["qwen3-1.7b", "llama3-8b", "starcoder2-7b", "internlm2-20b",
               "qwen2-vl-7b", "hubert-xlarge"]
 DECODERS = [a for a in ATTN_ARCHS if a != "hubert-xlarge"]
 RECURRENT_ARCHS = ["zamba2-2.7b", "rwkv6-7b"]
-OTHER_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
+MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
 # f32: the two packages run the same f32 arithmetic in other orders (XLA's
 # fused dots against ATen's GEMMs); after two layers the logits agree to a
 # few ulps of their largest entry
@@ -231,17 +233,6 @@ def test_bf16_parameters_as_stored():
     want, _ = JM.forward(jcfg, jp, jb, mode="train", remat=False)
     got, _ = TM.forward(tcfg, tp, tb, mode="train")
     assert _rel_max(got, want) < BF16_TOL
-
-
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_unported_block_kinds_raise(arch):
-    cfg = get_config(arch + "-smoke")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TM.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TM.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TM.init_decode_state(cfg, 1, 4, device="cpu")
 
 
 def test_encoder_has_no_decode_and_dist_waits():
@@ -515,3 +506,161 @@ def test_zamba2_bf16_forward_as_close_to_f32_as_reference():
     port_err = _rel_max(got, f32)
     assert port_err <= 1.25 * ref_err + 2.0 ** -8, (port_err, ref_err)
     assert _rel_max(got, want) <= 2 * ref_err
+
+
+# ---------------------------------------------------------------- MoE
+
+def _moe_aux_close(got, want):
+    assert set(got) == set(want) == {"moe_lb_loss", "moe_z_loss"}
+    for key in want:
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_param_tree_matches_jax(arch):
+    jcfg, tcfg, jp, tp = _pair(arch)
+    assert [l.shape for l in jax.tree_util.tree_leaves(jp)] == \
+        [tuple(t.shape) for t in tree_leaves(tp)]
+    assert TM.param_count(tcfg) == JM.param_count(jcfg)
+    own = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert [tuple(t.shape) for t in tree_leaves(own)] == \
+        [tuple(t.shape) for t in tree_leaves(tp)]
+    moe = tp["blocks"][f"pos{len(tcfg.pattern) - 1}"]["moe"]
+    assert moe["w_gate"].shape == (tcfg.num_periods, tcfg.num_experts,
+                                   tcfg.d_model, tcfg.d_ff)
+    assert ("shared" in moe) == bool(tcfg.n_shared_experts)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_train_matches_jax(arch):
+    """Logits and the router aux losses (each period's sum, averaged over
+    periods), one flash_attention launch per attention block, dense or
+    MoE; every layer's expert choices equal."""
+    from test_torch_moe import assert_routes_agree, jax_routes, port_routes
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jb, tb = _batch(jcfg, 1)
+    with jax_routes() as jr:
+        want, jaux = JM.forward(jcfg, jp, jb, mode="train", remat=False)
+    before = fa_ops.invocation_count()
+    with port_routes() as tr:
+        got, aux = TM.forward(tcfg, tp, tb, mode="train")
+    assert_routes_agree(tr, jr)
+    assert fa_ops.invocation_count() == before + tcfg.num_layers
+    assert got.dtype == torch.float32 and got.shape == (B, S, tcfg.vocab_size)
+    assert _rel_max(got, want) < F32_TOL
+    _moe_aux_close(aux, jaux)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_matches_jax(arch):
+    """Last logits, every layer's k / v caches (the MoE blocks' too), the
+    lengths, and the hidden states with their aux."""
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jb, tb = _batch(jcfg, 2)
+    want, jstate = JM.forward(jcfg, jp, jb, mode="prefill", remat=False)
+    got, state = TM.forward(tcfg, tp, tb, mode="prefill")
+    assert _rel_max(got, want) < F32_TOL
+    assert state["lengths"].tolist() == [S] * B
+    specs = TM.decode_state_specs(tcfg, B, S)["caches"]
+    assert sorted(state["caches"]) == sorted(specs) == sorted(
+        jstate["caches"])
+    for key, leaves in state["caches"].items():
+        for name, tc in leaves.items():
+            jc = np.asarray(jstate["caches"][key][name])
+            assert tuple(tc.shape) == jc.shape == specs[key][name].shape
+            assert _rel_max(tc, jc) < F32_TOL, (key, name)
+    hidden, aux = TM.forward(tcfg, tp, tb, mode="hidden")
+    jh, jaux = JM.forward(jcfg, jp, jb, mode="hidden", remat=False)
+    assert _rel_max(hidden, jh) < F32_TOL
+    _moe_aux_close(aux, jaux)
+
+
+@pytest.mark.parametrize("path,groups", [("dispatch", 0), ("dispatch", 4),
+                                         ("dense", 0)])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_paths_and_groups_match_jax(arch, path, groups):
+    """``moe_path`` and ``moe_groups`` reach every MoE block: the train
+    logits and aux of the reference at the same options."""
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jb, tb = _batch(jcfg, 8)
+    want, jaux = JM.forward(jcfg, jp, jb, mode="train", remat=False,
+                            moe_path=path, moe_groups=groups)
+    got, aux = TM.forward(tcfg, tp, tb, mode="train", moe_path=path,
+                          moe_groups=groups)
+    assert _rel_max(got, want) < F32_TOL
+    _moe_aux_close(aux, jaux)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_steps_match_jax(arch):
+    """Three decode steps from a zeroed state: logits at every step, then
+    the caches and lengths (each row its own routing group)."""
+    jcfg, tcfg, jp, tp = _pair(arch)
+    jstate = JM.init_decode_state(jcfg, B, 8)
+    state = TM.init_decode_state(tcfg, B, 8, device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        tok = rng.integers(0, jcfg.vocab_size, (B, 1)).astype(np.int32)
+        want, jstate = JM.decode_step(jcfg, jp, jstate,
+                                      {"tokens": jnp.asarray(tok)})
+        got, state = TM.decode_step(tcfg, tp, state,
+                                    {"tokens": torch.tensor(tok)})
+        assert _rel_max(got, want) < F32_TOL
+    assert state["lengths"].tolist() == np.asarray(jstate["lengths"]).tolist()
+    for key, leaves in state["caches"].items():
+        for name, tc in leaves.items():
+            assert _rel_max(tc, jstate["caches"][key][name]) < F32_TOL
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_decode_consistency(arch):
+    """decode(prefill(x[:-1]), x[-1]) == forward(x)[-1] inside the port, at
+    the JAX package's own bound (tests/test_arch_smoke.py)."""
+    _, tcfg, _, tp = _pair(arch)
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, tcfg.vocab_size, (B, S)))
+    full, _ = TM.forward(tcfg, tp, {"tokens": toks}, mode="train")
+    _, state = TM.forward(tcfg, tp, {"tokens": toks[:, :S - 1]},
+                          mode="prefill")
+    got, _ = TM.decode_step(tcfg, tp, _grow(state, 1),
+                            {"tokens": toks[:, S - 1:]})
+    rel = float((got - full[:, -1]).abs().max()
+                / (full[:, -1].abs().max() + 1e-9))
+    assert rel < 2e-3, f"{arch}: prefill+decode rel err {rel}"
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_bf16_forward_as_close_to_f32_as_reference(arch):
+    """The MoE smoke configs in their own compute dtype (bf16), f32
+    parameters cast at use on both sides. The packages round attention's
+    probabilities at other places (one bf16 ulp), and where two experts'
+    gates nearly tie that is enough to route a token elsewhere, which
+    moves its output far past rounding (the reference's own bf16 and f32
+    runs route apart in the same way). So: (1) any expert choice where
+    the free runs differ sits at a gate margin within BF16_TOL; (2) the
+    port routed as the reference routed is held as zamba2's bf16 forward
+    is, to the reference's f32 model: no further from it than the
+    reference's bf16 run, within a quarter of that distance plus one bf16
+    ulp (2^-8), and within twice that distance of the reference's bf16
+    logits. The block alone is held at BF16_TOL in
+    tests/test_torch_moe.py."""
+    from test_torch_moe import jax_routes, port_routes, route_flips
+    jcfg, tcfg, jp, tp = _pair(arch, "bfloat16")
+    jb, tb = _batch(jcfg, 5)
+    with jax_routes() as jr:
+        want, _ = JM.forward(jcfg, jp, jb, mode="train", remat=False)
+    with port_routes() as free:
+        TM.forward(tcfg, tp, tb, mode="train")
+    margins, _ = route_flips(free, jr)
+    assert (margins <= BF16_TOL).all(), margins
+    with port_routes(pinned=jr):
+        got, _ = TM.forward(tcfg, tp, tb, mode="train")
+    f32, _ = JM.forward(jcfg.replace(dtype="float32"), jp, jb, mode="train",
+                        remat=False)
+    ref_err = _rel_max(torch.tensor(np.asarray(want, np.float32)), f32)
+    port_err = _rel_max(got, f32)
+    assert port_err <= 1.25 * ref_err + 2.0 ** -8, (port_err, ref_err)
+    assert _rel_max(got, want) <= 2 * ref_err
+    _, state = TM.forward(tcfg, tp, tb, mode="prefill")
+    assert state["caches"]["pos0"]["k"].dtype == torch.bfloat16

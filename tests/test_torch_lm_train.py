@@ -1,6 +1,7 @@
 """The port's LM training path against the JAX package's on the CPU:
-``train_loss`` and its gradients (six pure-attention smoke configs and
-zamba2 / rwkv6 smoke, loss chunks 1 and 4, remat on), ``apply_update`` on
+``train_loss`` and its gradients (six pure-attention smoke configs,
+zamba2 / rwkv6 smoke and the two MoE smoke configs with their router
+aux losses, loss chunks 1 and 4, remat on), ``apply_update`` on
 seeded trees, three ``make_train_step`` steps with and without
 microbatching, and the synthetic token streams and batches. Parameters
 come from the JAX package's ``init_params`` and cross as numpy through
@@ -33,8 +34,10 @@ from repro_torch.train import step as TS
 
 torch.set_num_threads(1)
 
+MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
 ARCHS = ["qwen3-1.7b", "llama3-8b", "starcoder2-7b", "internlm2-20b",
-         "qwen2-vl-7b", "hubert-xlarge", "zamba2-2.7b", "rwkv6-7b"]
+         "qwen2-vl-7b", "hubert-xlarge", "zamba2-2.7b", "rwkv6-7b"] \
+    + MOE_ARCHS
 # The loss: the same f32 sums in other orders (measured <= 1e-7
 # relative), held to 1e-5.
 LOSS_RTOL = 1e-5
@@ -103,7 +106,11 @@ def test_train_loss_and_grads_match_jax(arch, chunks):
         has_aux=True)(jp)
     loss, metrics, grads = _port_value_and_grad(tcfg, _tparams(np_p), tb,
                                                 loss_chunks=chunks)
-    assert set(metrics) == {"loss", "ce"} <= set(jm)
+    # the loss, the cross-entropy and, with MoE blocks, the aux losses
+    assert {"loss", "ce"} <= set(metrics) == set(jm)
+    for key in jm:
+        np.testing.assert_allclose(float(metrics[key].detach()),
+                                   float(jm[key]), rtol=LOSS_RTOL)
     np.testing.assert_allclose(float(loss.detach()), float(jl),
                                rtol=LOSS_RTOL)
     jleaves = jax.tree_util.tree_leaves(jg)
@@ -243,13 +250,56 @@ def test_grad_hook_and_bf16_cast():
                                rtol=2e-2)
 
 
-def test_moe_options_raise():
-    cfg = get_config("qwen3-1.7b-smoke")
-    for kw in ({"moe_path": "dense"}, {"moe_groups": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            TS.make_train_step(cfg, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            TS.make_prefill_step(cfg, **kw)
+@pytest.mark.parametrize("moe", [{}, {"moe_path": "dense"},
+                                 {"moe_groups": 4}])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_steps_match_jax(arch, moe):
+    """Two ``make_train_step`` steps of an MoE smoke config (f32, remat
+    on) from the same params on the same batches, at the default routing,
+    the dense path and 4 token groups: the loss, the router aux losses in
+    the metrics, the grad norm, then the params."""
+    jcfg, tcfg, jp, np_p = _pair(arch)
+    jstep = JS.make_train_step(jcfg, **moe)
+    tstep = TS.make_train_step(tcfg, **moe)
+    jparams, tparams = jp, _tparams(np_p)
+    jstate, tstate = JO.init_state(jparams), TO.init_state(tparams)
+    for i in range(2):
+        jb, tb = _batches(jcfg, tcfg, seed=40 + i, batch=4)
+        jparams, jstate, jm = jstep(jparams, jstate, jb)
+        tparams, tstate, tm = tstep(tparams, tstate, tb)
+        assert set(tm) == set(jm) == {"loss", "ce", "moe_lb_loss",
+                                      "moe_z_loss", "grad_norm"}
+        for key in ("loss", "ce", "moe_lb_loss", "moe_z_loss"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    for w, t in zip(jax.tree_util.tree_leaves(jparams), tree_leaves(tparams)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), rtol=0,
+                                   atol=PARAM_ATOL)
+
+
+@pytest.mark.parametrize("moe", [{"moe_path": "dense"}, {"moe_groups": 4}])
+def test_moe_options_reach_prefill_and_decode(moe):
+    """``make_prefill_step`` and ``make_decode_step`` pass ``moe_path`` and
+    ``moe_groups`` to the model: the reference's logits at the same
+    options."""
+    jcfg, tcfg, jp, np_p = _pair("dbrx-132b")
+    p = _tparams(np_p)
+    tok = np.random.default_rng(11).integers(
+        0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    want, _ = JS.make_prefill_step(jcfg, **moe)(jp, {"tokens": jnp.asarray(tok)})
+    got, _ = TS.make_prefill_step(tcfg, **moe)(p, {"tokens": torch.tensor(tok)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5 * float(np.abs(want).max()))
+    nxt = tok[:, :1]
+    want, _ = JS.make_decode_step(jcfg, **moe)(
+        jp, JM.init_decode_state(jcfg, B, 8), {"tokens": jnp.asarray(nxt)})
+    got, _ = TS.make_decode_step(tcfg, **moe)(
+        p, TM.init_decode_state(tcfg, B, 8, device="cpu"),
+        {"tokens": torch.tensor(nxt)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5 * float(np.abs(want).max()))
 
 
 def test_prefill_and_decode_steps_match_forward():

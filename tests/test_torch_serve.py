@@ -1,10 +1,11 @@
 """The port's serving engine and launcher: greedy generations equal the JAX
-engine's token for token (f32, qwen3-1.7b-smoke and the recurrent
-zamba2-2.7b-smoke and rwkv6-7b-smoke, 2 slots, 3 requests, so a request
-is admitted while another slot is active and a slot is reused), the
+engine's token for token (f32, qwen3-1.7b-smoke, the recurrent
+zamba2-2.7b-smoke and rwkv6-7b-smoke and the MoE dbrx-132b-smoke and
+llama4-maverick-400b-a17b-smoke, 2 slots, 3 requests, so a request is
+admitted while another slot is active and a slot is reused), the
 throughput accounting, idle rows kept exactly, the CPU launcher, serve
-runs that load no JAX, and chip_smoke.py's language-model and scan phases
-rehearsed at a tiny size."""
+runs that load no JAX, and chip_smoke.py's language-model, scan and MoE
+phases rehearsed at a tiny size."""
 import importlib.util
 import os
 import subprocess
@@ -33,6 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 RECURRENT_ARCHS = ["zamba2-2.7b", "rwkv6-7b"]
+MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
 
 
 def _params(dtype="float32", arch="qwen3-1.7b"):
@@ -57,7 +59,7 @@ def test_engine_tokens_equal_jax_engine():
     _engine_tokens_equal_jax_engine("qwen3-1.7b")
 
 
-@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS + MOE_ARCHS)
 def test_recurrent_engine_tokens_equal_jax_engine(arch):
     _engine_tokens_equal_jax_engine(arch)
 
@@ -146,7 +148,7 @@ def test_launcher_runs_on_cpu(capsys):
     _launcher_runs_on_cpu(capsys, "qwen3-1.7b")
 
 
-@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS + MOE_ARCHS)
 def test_launcher_runs_recurrent_archs_on_cpu(capsys, arch):
     _launcher_runs_on_cpu(capsys, arch)
 
@@ -168,12 +170,14 @@ def test_launcher_defaults_to_the_card():
 
 
 def test_serve_never_loads_jax_or_repro():
-    """Serve runs of an attention model and of both recurrent families
-    (their scans and decode recurrences included) load no JAX module."""
+    """Serve runs of an attention model, of both recurrent families
+    (their scans and decode recurrences included) and of both MoE models
+    (routing and dispatch included) load no JAX module."""
     code = textwrap.dedent("""
         import sys
         from repro_torch.launch import serve
-        for arch in ("qwen3-1.7b", "zamba2-2.7b", "rwkv6-7b"):
+        for arch in ("qwen3-1.7b", "zamba2-2.7b", "rwkv6-7b", "dbrx-132b",
+                     "llama4-maverick-400b-a17b"):
             reqs = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                                "--requests", "2", "--slots", "2",
                                "--new-tokens", "3", "--prompt-len", "8"])
@@ -271,6 +275,62 @@ def test_chip_smoke_recurrent_rehearsal_on_cpu(arch):
     per_call = cfg.num_periods if cfg.shared_attn_every_period else 0
     assert serve["launches"]["decode_attention"] == \
         per_call * serve["decode_calls"]
+
+
+def test_chip_smoke_moe_rehearsal_on_cpu():
+    """chip_smoke.py's phase 13 at smoke width through the plain versions:
+    each MoE model's prefill (launches, the dropped share, the routes of
+    both sides and the check routed as prefill), its engine (one
+    decode_attention per attention layer a call), the accounting and the
+    decode floor, then the f32 train-step parity with its aux and routes;
+    and the new attention cases (GQA groups 5, 6, 7 and 9, the MoE models'
+    path shapes) at sizes the CPU takes."""
+    smoke = _chip_smoke()
+    groups = {c[4] // c[5] for c in smoke.FLASH_CASES}
+    assert {5, 6, 7, 9} <= groups
+    assert {5, 6, 7, 9} <= {c[3] // c[4] for c in smoke.DECODE_CASES}
+    assert ("dbrx", 1, 1024, 1024, 48, 8, 128, "bfloat16", True) in \
+        smoke.FLASH_BWD_CASES
+    flash = [("prefill", 1, 32, 32, 40, 8, 16, "bfloat16", True)] + [
+        c for c in smoke.FLASH_CASES[1:] if c[4] // c[5] in (5, 6, 7, 9)
+        and c[1] * c[2] <= 128]
+    smoke.flash_phase("cpu", flash, time_it=False)
+    smoke.decode_phase("cpu", [("serve", 2, 64, 48, 8, 16, "bfloat16")]
+                       + [c for c in smoke.DECODE_CASES[1:]
+                          if c[3] // c[4] in (5, 6, 9)], time_it=False)
+    out = smoke.moe_phase(
+        "cpu", {f"{a}-smoke": 0 for a in MOE_ARCHS},
+        serve_kw=dict(slots=2, max_seq=48, n_requests=3,
+                      prompt_lens=(4, 8), new_tokens=3), parity_seq=32)
+    for arch in MOE_ARCHS:
+        rec = out[f"{arch}-smoke"]
+        cfg, pre, serve = rec["cfg"], rec["prefill"], rec["serve"]
+        assert pre["launches"] == smoke.forward_launches(cfg)
+        assert pre["launches"]["flash_attention"] == cfg.num_layers
+        assert 0 <= pre["dropped"]["share"] < 1
+        assert pre["pinned_rel_l2"] <= smoke.PREFILL_DECODE_TOL
+        assert pre["routes"]["entries"] == 128 * cfg.num_experts_per_tok \
+            * cfg.num_periods * cfg.pattern.count("attn_moe")
+        assert serve["requests"] == 3 and serve["tokens"] == 9
+        assert serve["launches"]["decode_attention"] == \
+            cfg.num_layers * serve["decode_calls"]
+        assert rec["floor_ms"] > 0 and rec["peak_bytes"] is None
+        err = out[f"{arch}-smoke-parity"]
+        assert {"moe_lb_loss", "moe_z_loss"} <= set(err)
+        assert max(err[k] for k in ("loss", "grad", "moe_lb_loss")) == 0
+    assert out["seconds"] > 0
+
+
+def test_chip_smoke_moe_decode_floor():
+    """The decode floor counts every weight a call reads in bf16: every
+    leaf but the untied embedding table (27.31e9 - 0.62e9 parameters of
+    dbrx-132b at 8 layers), over 3.35 TB/s."""
+    smoke = _chip_smoke()
+    cfg = get_config("dbrx-132b").replace(num_layers=8)
+    embed = cfg.vocab_size * cfg.d_model
+    assert smoke.weight_bytes(cfg) == 2 * (TM.param_count(cfg) - embed)
+    assert abs(smoke.weight_bytes(cfg) / smoke.HBM_BYTES_PER_S * 1e3
+               - 15.93) < 0.01
 
 
 def test_chip_smoke_scan_bounds():

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _hypothesis_compat import given, settings, st
+from _property_settings import UNTIMED
 from repro.forecast import ANNForecaster as JaxANN
 from repro.forecast import LinearForecaster as JaxLR
 from repro.serverless import InMemoryStorage as JaxMemory
@@ -466,7 +467,7 @@ def _roundtrip_payload(storage, vals, dtype_i, attempt):
     assert fb.values.tobytes() == fb0.values.tobytes()
 
 
-@settings(max_examples=20)
+@settings(max_examples=20, **UNTIMED)
 @given(st.lists(st.floats(min_value=-1e6, max_value=1e6),
                 min_size=0, max_size=32),
        st.integers(min_value=0, max_value=3),
@@ -475,7 +476,7 @@ def test_storage_roundtrip_inmemory_bitwise(vals, dtype_i, attempt):
     _roundtrip_payload(InMemoryStorage(), vals, dtype_i, attempt)
 
 
-@settings(max_examples=10)
+@settings(max_examples=10, **UNTIMED)
 @given(st.lists(st.floats(min_value=-1e6, max_value=1e6),
                 min_size=0, max_size=32),
        st.integers(min_value=0, max_value=3),
