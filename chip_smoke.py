@@ -166,12 +166,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its weight bytes set, peak device memory under 72 GB. Then one f32
    ``make_train_step`` of each smoke config on the card against the CPU,
    aux losses and routes included, within ``LM_PARITY_TOL``. Within 120 s.
+14. serving and scoring across devices: (a) ``decode_attention``'s stats
+   route (o, m, l in f32) against its plain version at qwen3-1.7b's and
+   dbrx-132b's engine shapes in bf16 and f32, with an empty row (m =
+   -1e30, l = 0, o = 0) and a row that ends in the first shard; each
+   cache cut into 2, 4 and 8 sequence shards, the shards' partials
+   recombined by the distributed flash-decode's ``combine_partials`` and
+   held against the one-shot kernel and the plain version, no NaN; the
+   stats route and one shard of each cut timed beside the one-shot
+   kernel. (b) qwen3-1.7b at full width in an NCCL world of one on
+   127.0.0.1, a (1, 1) mesh: 5 ``decode_step(attn_dist=...)`` against
+   the undistributed steps from the same seeded caches, the logits and
+   caches held at the bf16 attention tolerance, 28 stats-route launches a
+   step. (c) the four forecasters' fleets of 7 prosumers on a fleet mesh
+   naming the card three times (pad 2) against no mesh, versions at rtol
+   5e-2 / atol 5e-3 and forecasts at rtol 2e-3 / atol 1e-3, one fleet
+   call a bin; the ANN score rollout at N 512, width 512 on that mesh:
+   the same forecasts and ``fleet_mlp`` 3 x 24 times.
+15. dense configs: llama3-8b, starcoder2-7b, internlm2-20b, qwen2-vl-7b
+   (M-RoPE) and hubert-xlarge (non-causal, D 80, encoder only) at full
+   width cut to 2 layers: one 64-token forward each against the port on
+   the CPU in f32 (relative L2 of the logits within
+   ``DENSE_GAP_TOL``), the warm time and peak device memory; an engine
+   run of 4 requests for each decoder.
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
 the training paths' backward calls: qwen3-1.7b's for
 ``flash_attention_backward``, zamba2-2.7b's and rwkv6-7b's for the
-scans').
+scans'); ``decode_attention``'s row also carries its stats route's
+check, times and bound (``stats_*``) and launches (phase 14 b).
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -3375,7 +3399,10 @@ def kernel_line(records: dict, launches: dict) -> dict:
                ("library_ms", "graph_ms", "library_graph_ms", "f32_ms",
                 "f32_graph_ms", "fwd_bwd_ms", "library_fwd_bwd_ms",
                 "device_ms", "library_device_ms", "fwd_bwd_device_ms",
-                "library_fwd_bwd_device_ms")}})
+                "library_fwd_bwd_device_ms", "stats_ms", "stats_graph_ms",
+                "stats_plain_ms", "stats_bound_ms", "stats_bound_by",
+                "stats_max_abs_err", "stats_launches", "stats_shard_ms",
+                "one_shot_ms", "one_shot_graph_ms")}})
     return {"kernels": rows}
 
 
@@ -3485,6 +3512,487 @@ def moe_phase(device: str, layers=None, *, serve_kw=None,
     return out
 
 
+
+# ------------------------------------------------------- across devices
+
+# phase 14 (a): decode_attention's stats route at the engine shapes of
+# qwen3-1.7b (the path shape of (b)) and dbrx-132b, each cache also cut
+# into 2, 4 and 8 sequence shards on the one card and the shards' partials
+# recombined by the distributed flash-decode's combine; (label, B, S, H,
+# KV, D)
+STATS_CASES = [("qwen3", 8, 2048, 16, 8, 128), ("dbrx", 4, 512, 48, 8, 128)]
+STATS_SHARDS = (2, 4, 8)
+# (b): qwen3-1.7b decode steps at full width in an NCCL world of one, its
+# attention through the distributed flash-decode (sequence extent 1),
+# against the same steps undistributed
+DIST_DECODE = dict(batch=8, max_seq=2048, steps=4)
+# (c): the four forecasters' fleet bins on a mesh that names the card three
+# times, 7 prosumers (pad 2), at the JAX package's test sizes; then the ANN
+# score rollout at the flow's scoring shape on the same mesh
+FLEET_MESH_HP = {"lr": ("LinearForecaster", {}),
+                 "gam": ("GAMForecaster", {}),
+                 "ann": ("ANNForecaster", {"hidden": 8, "epochs": 20}),
+                 "lstm": ("LSTMForecaster", {"hidden": 8, "epochs": 20})}
+FLEET_MESH_N = 7
+MESH_ROLLOUT = dict(n=512, width=512)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def stats_bound(q, k_cache, lengths) -> dict:
+    """The stats route's least time: q read once and the valid cache
+    entries of k and v, the f32 outputs o (B, H, D), m and l (B, H)
+    written once, against ``decode_bound``'s operations."""
+    B, H, D = q.shape
+    KV = k_cache.shape[2]
+    valid = int(lengths.clamp(min=0, max=k_cache.shape[1]).sum())
+    nbytes = (q.numel() + 2 * valid * KV * D) * q.element_size() \
+        + 4 * (B * H * D + 2 * B * H) + lengths.numel() * 4
+    return _bound(valid * H * 4 * D, nbytes, BF16_FLOP_PER_S)
+
+
+def _stats_errors(got, want) -> tuple:
+    """Errors of the stats route's ``(o, m, l)`` against the plain
+    version's: ``|got - want| / (1 + |want|)`` for m and l, and for o in
+    units of the row's denominator (``o / max(l, 1)``, the normalised
+    output the combine makes of it): o is an unnormalised sum of up to S
+    values, so an element near 0 carries the rounding of the whole sum.
+    Returns ``({name: rel_err}, {name: max abs diff})``, o's diff in the
+    same units."""
+    import torch
+    scale = torch.clamp_min(want[2], 1.0)[..., None]
+    pairs = {"o": (got[0] / scale, want[0] / scale), "m": (got[1], want[1]),
+             "l": (got[2], want[2])}
+    return ({n: _rel_err(a, b) for n, (a, b) in pairs.items()},
+            {n: float((a - b).abs().max()) for n, (a, b) in pairs.items()})
+
+
+def stats_phase(device: str, cases=STATS_CASES, shards=STATS_SHARDS, *,
+                time_it: bool) -> dict:
+    """Phase 14 (a): ``decode_attention_partial`` (the stats route) against
+    its plain version on the whole cache, with a length-0 row and a row
+    that ends in the first of 8 shards; then the cache cut into
+    ``shards`` sequence shards, each shard's partials from the stats route
+    at its offset, recombined by ``combine_partials`` and held against the
+    one-shot kernel and the plain version. With ``time_it`` the stats
+    route on qwen3's whole cache (the path shape of (b)) and on one shard
+    of each cut, beside the one-shot kernel, by CUDA events. Returns the
+    path record (the qwen3 bf16 case)."""
+    import torch
+    from repro_torch.kernels.decode_attention.distributed import (
+        _partial, combine_partials)
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_partial)
+    from repro_torch.kernels.decode_attention.ref import (
+        NEG_INF, decode_attention_partial_reference,
+        decode_attention_reference)
+    record = None
+    for seed, (label, B, S, H, KV, D) in enumerate(cases):
+        for dtype in ("bfloat16", "float32"):
+            g = torch.Generator(device=device).manual_seed(300 + seed)
+            dt = getattr(torch, dtype)
+            q = torch.randn(B, H, D, generator=g, device=device).to(dt)
+            kc, vc = (torch.randn(B, S, KV, D, generator=g,
+                                  device=device).to(dt) for _ in range(2))
+            lengths = torch.randint(1, S + 1, (B,), generator=g,
+                                    device=device, dtype=torch.int32)
+            lengths[0] = 0                         # an empty row
+            lengths[1] = S // 8 // 2               # ends in the first shard
+            live = lengths > 0
+            got = decode_attention_partial(q, kc, vc, lengths)
+            want = decode_attention_partial_reference(q, kc, vc, lengths)
+            errs, diffs = _stats_errors(got, want)
+            ok = max(errs.values()) <= ATTN_TOL[dtype] and all(
+                bool(torch.isfinite(t).all()) for t in got) \
+                and bool((got[1][0] == NEG_INF).all()) \
+                and bool((got[2][0] == 0).all()) \
+                and bool((got[0][0] == 0).all())
+            print(f"decode_attention stats route {label} B={B} S={S} H={H} "
+                  f"KV={KV} D={D} {dtype}: rel_err o/max(l, 1) {errs['o']:.3e} m "
+                  f"{errs['m']:.3e} l {errs['l']:.3e} (tol "
+                  f"{ATTN_TOL[dtype]:.0e}), the empty row m=-1e30 l=0 o=0 "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"stats route {label} {dtype} disagrees with its "
+                      f"plain version: {errs}")
+            one = decode_attention(q, kc, vc, lengths)
+            plain = decode_attention_reference(q, kc, vc, lengths)
+            for n in shards:
+                S_loc = S // n
+                parts = [_partial(q, kc[:, i * S_loc:(i + 1) * S_loc],
+                                  vc[:, i * S_loc:(i + 1) * S_loc], lengths,
+                                  i * S_loc) for i in range(n)]
+                out = combine_partials(
+                    *(torch.stack(t) for t in zip(*parts))).to(dt)
+                e_one = _rel_err(out[live], one[live])
+                e_plain = _rel_err(out[live], plain[live])
+                ok = max(e_one, e_plain) <= ATTN_TOL[dtype] \
+                    and not bool(torch.isnan(out).any()) \
+                    and bool((out[0] == 0).all())
+                print(f"decode_attention stats route {label} {dtype} in {n} "
+                      f"shards of {S_loc}: recombined against the one-shot "
+                      f"kernel {e_one:.3e}, against the plain version "
+                      f"{e_plain:.3e} (tol {ATTN_TOL[dtype]:.0e}), no NaN, "
+                      f"the empty row 0 {'ok' if ok else 'FAIL'}")
+                check(ok, f"stats route {label} {dtype}: {n} shards "
+                          f"recombined miss ({e_one:.3e}, {e_plain:.3e})")
+            if (label, dtype) != (STATS_CASES[0][0], "bfloat16"):
+                continue
+            record = {"stats_max_abs_err": max(diffs.values()),
+                **{f"stats_{k}": v for k, v in
+                   stats_bound(q, kc, lengths).items()}}
+            if not time_it:
+                continue
+            sets = _input_sets((q, kc, vc, lengths), record["stats_bytes"])
+            rec = {}
+            _timed(rec, sets, decode_attention_partial,
+                   decode_attention_partial_reference, None, 50)
+            record.update({f"stats_{k}": rec[k]
+                           for k in ("ms", "plain_ms", "graph_ms")})
+            record["one_shot_ms"] = _time_ms(decode_attention, sets, 50)
+            record["one_shot_graph_ms"] = _time_ms(decode_attention, sets, 50,
+                                                   graph=True)
+            print(f"decode_attention stats route {label} time: "
+                  f"{record['stats_ms']:.4f} ms/call eager, "
+                  f"{record['stats_graph_ms']:.4f} ms by CUDA graph replay "
+                  f"(the one-shot kernel {record['one_shot_ms']:.4f} / "
+                  f"{record['one_shot_graph_ms']:.4f} ms on the same "
+                  f"inputs); bound {record['stats_bound_ms']:.4f} ms by "
+                  f"{record['stats_bound_by']} ({record['stats_bytes']} "
+                  f"bytes); plain version {record['stats_plain_ms']:.4f} ms")
+            record["stats_shard_ms"] = {}
+            for n in shards:         # the first shard of each cut, alone
+                S_loc = S // n
+                local = lengths.clamp(0, S_loc)
+                shard = (q, kc[:, :S_loc].contiguous(),
+                         vc[:, :S_loc].contiguous(), local)
+                b = stats_bound(*shard[:2], local)
+                ssets = _input_sets(shard, b["bytes"])
+                ms = _time_ms(decode_attention_partial, ssets, 50)
+                gms = _time_ms(decode_attention_partial, ssets, 50,
+                               graph=True)
+                record["stats_shard_ms"][n] = {"ms": ms, "graph_ms": gms,
+                                               "bound_ms": b["bound_ms"]}
+                print(f"decode_attention stats route {label} one shard of "
+                      f"{n} (S_loc {S_loc}): {ms:.4f} ms/call eager, "
+                      f"{gms:.4f} ms by graph replay; bound "
+                      f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return record
+
+
+def dist_decode_phase(device: str, arch: str = "qwen3-1.7b", *,
+                      layers: int = 0, batch: int = 8, max_seq: int = 2048,
+                      steps: int = 4, seed: int = 14) -> dict:
+    """Phase 14 (b): a world of one process (NCCL on the card, gloo on the
+    CPU) on 127.0.0.1, a (1, 1) ("data", "model") mesh, and ``steps``
+    decode steps of ``arch`` over seeded caches: ``decode_step(attn_dist=
+    {"mesh": mesh})`` against ``decode_step`` from the same state, each
+    step's logits held at the bf16 attention tolerance and the final caches
+    too; the stats route's launches (one a layer a step) and none of the
+    one-shot kernel's in the distributed steps. The world is destroyed
+    before returning."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import tree_leaves, tree_map
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.launch.mesh import make_mesh
+    backend = "nccl" if device != "cpu" else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg, params = lm_params(arch, device, layers=layers)
+        g = torch.Generator(device=device).manual_seed(seed)
+        state = M.init_decode_state(cfg, batch, max_seq, device=device)
+        for t in tree_leaves(state["caches"]):
+            t.normal_(generator=g)
+        state["lengths"] = torch.randint(
+            max_seq // 4, max_seq - steps, (batch,), generator=g,
+            device=device, dtype=torch.int32)
+        dstate = tree_map(lambda t: t.clone(), state)
+        tok = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
+                            device=device)
+        worst, secs = 0.0, {"plain": 0.0, "dist": 0.0}
+        plain_calls = dist_calls = 0
+        with torch.no_grad():
+            # step 0 is compared and counted but not timed: the world's
+            # first collective sets up its communicator
+            for step in range(steps + 1):
+                t = time.perf_counter()
+                before = dec.invocation_count()
+                want, state = M.decode_step(cfg, params, state,
+                                            {"tokens": tok})
+                plain_calls += dec.invocation_count() - before
+                _sync(device)
+                secs["plain"] += (time.perf_counter() - t) * (step > 0)
+                t = time.perf_counter()
+                b0, b1 = dec.invocation_count(), dec.partial_invocation_count()
+                got, dstate = M.decode_step(cfg, params, dstate,
+                                            {"tokens": tok},
+                                            attn_dist={"mesh": mesh})
+                check(dec.invocation_count() == b0,
+                      "distributed decode ran the one-shot kernel")
+                dist_calls += dec.partial_invocation_count() - b1
+                _sync(device)
+                secs["dist"] += (time.perf_counter() - t) * (step > 0)
+                worst = max(worst, _rel_err(got, want))
+                tok = want.argmax(-1, keepdim=True)
+        # relative L2: only the written slots can differ, through hidden
+        # states rounded to bf16 after attention outputs that may differ
+        # in the last bit
+        cache_err = max(_rel_l2(a, b) for a, b in
+                        zip(tree_leaves(dstate["caches"]),
+                            tree_leaves(state["caches"])))
+        per_call = forward_launches(cfg)["flash_attention"]
+        ok = worst <= ATTN_TOL["bfloat16"] \
+            and cache_err <= ATTN_TOL["bfloat16"] \
+            and torch.equal(dstate["lengths"], state["lengths"]) \
+            and dist_calls == plain_calls == (steps + 1) * per_call
+        print(f"distributed decode: {cfg.name} in a {backend} world of one, "
+              f"mesh (1, 1), {steps + 1} steps x {batch} rows over {max_seq} "
+              f"positions: logits against the undistributed step "
+              f"{worst:.3e}, caches {cache_err:.3e} relative L2 (tol "
+              f"{ATTN_TOL['bfloat16']:.0e}); stats-route launches "
+              f"{dist_calls} ({per_call} a step), one-shot kernel launches "
+              f"{plain_calls} in the undistributed steps; "
+              f"{secs['dist'] / steps * 1e3:.2f} ms a distributed step, "
+              f"{secs['plain'] / steps * 1e3:.2f} ms undistributed (the "
+              f"last {steps}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"distributed decode of {cfg.name} disagrees: logits "
+                  f"{worst:.3e}, caches {cache_err:.3e}, launches "
+                  f"{dist_calls} / {plain_calls}")
+        del params, state, dstate
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        return {"launches": dist_calls, "max_logit_err": worst,
+                "step_ms": secs["dist"] / steps * 1e3}
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync(device: str) -> None:
+    if device != "cpu":
+        import torch
+        torch.cuda.synchronize()
+
+
+def fleet_mesh_phase(device: str, *, n: int = FLEET_MESH_N,
+                     rollout=MESH_ROLLOUT, horizon: int = HORIZON) -> dict:
+    """Phase 14 (c): with the mesh module's devices set to the card named
+    three times, each forecaster's fleet of ``n`` prosumers trained and
+    scored sharded (mesh 3, pad ``(-n) % 3``) against the same fleet with
+    ``user_params["mesh"] = "off"``: versions at rtol 5e-2 / atol 5e-3,
+    forecasts at ``FLEET_RTOL`` / ``FLEET_ATOL``, one fleet call a bin.
+    Then the ANN score rollout at ``rollout``'s shape on that mesh against
+    the same rollout unsharded: the forecasts, and ``fleet_mlp`` once a
+    shard a step."""
+    import numpy as np
+    import torch
+    from repro_torch import forecast
+    from repro_torch.forecast import ann
+    from repro_torch.forecast.base import version_to_numpy
+    from repro_torch.forecast.features import FeatureSpec
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.testing import (FLEET_ATOL, FLEET_RTOL,
+                                     build_fleet_castor)
+    dev = torch.device(device, 0) if device != "cpu" else torch.device("cpu")
+    devices = (dev,) * 3
+    pad = (-n) % 3
+    original = mesh_mod.local_devices
+    mesh_mod.local_devices = lambda: devices
+    out = {}
+    try:
+        for kind, (cls_name, hp) in FLEET_MESH_HP.items():
+            cls = getattr(forecast, cls_name)
+            t = time.perf_counter()
+            ca, fa = build_fleet_castor(kind, cls, hp, "auto", n=n,
+                                        device=device)
+            cb, fb = build_fleet_castor(kind, cls, hp, "off", n=n,
+                                        device=device)
+            secs = time.perf_counter() - t
+            tele = all(b["sharded"] and b["mesh_devices"] == 3
+                       and b["pad"] == pad and b["dispatches"] == 1
+                       for b in fa.last_bin_stats) \
+                and not any(b["sharded"] for b in fb.last_bin_stats)
+            p_err = fc_err = 0.0
+            close = True
+            for i in range(n):
+                name = f"s-Z_PRO_0_{i}"
+                pa = version_to_numpy(ca.versions.get(name).params)["params"]
+                pb = version_to_numpy(cb.versions.get(name).params)["params"]
+                for k in pb:
+                    a, b = np.asarray(pa[k], np.float64), \
+                        np.asarray(pb[k], np.float64)
+                    p_err = max(p_err, float(np.abs(a - b).max()))
+                    close &= bool(np.allclose(a, b, rtol=5e-2, atol=5e-3))
+                fa_, fb_ = (c.predictions.history(name)[0]
+                            for c in (ca, cb))
+                fc_err = max(fc_err, float(np.abs(fa_.values
+                                                  - fb_.values).max()))
+                close &= bool(np.allclose(fa_.values, fb_.values,
+                                          rtol=FLEET_RTOL, atol=FLEET_ATOL))
+                close &= bool(np.allclose(fa_.lower, fb_.lower,
+                                          rtol=FLEET_RTOL, atol=FLEET_ATOL))
+            ok = tele and close
+            print(f"fleet mesh: {kind} {n} prosumers on [{dev}] x 3 (pad "
+                  f"{pad}, one fleet call a bin) against no mesh: params "
+                  f"max |diff| {p_err:.3e} (rtol 5e-2, atol 5e-3), "
+                  f"forecasts {fc_err:.3e} (rtol {FLEET_RTOL:.0e}, atol "
+                  f"{FLEET_ATOL:.0e}); both fleets in {secs:.1f} s "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"fleet mesh: {kind} sharded bins disagree or "
+                      f"misreport: {fa.last_bin_stats}")
+            out[kind] = {"params_err": p_err, "forecast_err": fc_err}
+        # the ANN score rollout at the flow's scoring shape
+        N, W = rollout["n"], rollout["width"]
+        up = {**ann.ANNForecaster.DEFAULTS, "horizon": horizon}
+        spec = FeatureSpec.from_params(up)
+        F = spec.n_features
+        stacked = ann._init_fleet(21, N, F, W, dev)
+        g = np.random.default_rng(21)
+        warm = max(spec.target_lags, spec.weather_lags) + 1
+        y_hist = g.uniform(0.5, 3.0, (N, warm))
+        stacked["y_scale"] = torch.as_tensor(y_hist.max(axis=1) * 1.2,
+                                             dtype=torch.float32, device=dev)
+        mu = torch.as_tensor(g.normal(0, 0.1, (N, F)), dtype=torch.float32,
+                             device=dev)
+        sd = torch.as_tensor(g.uniform(0.8, 1.2, (N, F)),
+                             dtype=torch.float32, device=dev)
+        temp_hist = g.normal(10, 5, (N, warm))
+        temps_fut = g.normal(10, 5, (N, horizon))
+        mesh = mesh_mod.make_fleet_mesh(3, devices=devices)
+        args = (spec, up, stacked, mu, sd, y_hist, temp_hist, temps_fut,
+                T0, horizon, dev)
+        with torch.no_grad():
+            want = ann.ANNForecaster._device_rollout(*args)
+            reset_counts()
+            t = time.perf_counter()
+            got = ann.ANNForecaster._device_rollout(*args, mesh=mesh)
+            secs = time.perf_counter() - t
+        launches = counts()["fleet_mlp"]
+        err = float(np.abs(got - want).max())
+        ok = got.shape == (N, horizon) and bool(np.isfinite(got).all()) \
+            and bool(np.allclose(got, want, rtol=FLEET_RTOL,
+                                 atol=FLEET_ATOL)) \
+            and launches == 3 * horizon
+        print(f"fleet mesh: ANN score rollout N={N} width={W} over "
+              f"{horizon} steps on [{dev}] x 3 against no mesh: forecasts "
+              f"max |diff| {err:.3e} (rtol {FLEET_RTOL:.0e}, atol "
+              f"{FLEET_ATOL:.0e}); fleet_mlp launches {launches} (3 shards "
+              f"x {horizon} steps); {secs:.3f} s {'ok' if ok else 'FAIL'}")
+        check(ok, f"fleet mesh: sharded ANN rollout {err:.3e}, launches "
+                  f"{launches}")
+        out["rollout"] = {"err": err, "launches": launches, "seconds": secs}
+    finally:
+        mesh_mod.local_devices = original
+    return out
+
+
+def across_devices_phase(device: str, *, time_it: bool = True,
+                         decode_kw=None, fleet_kw=None) -> dict:
+    """Phase 14, serving and scoring across devices: (a) the stats route,
+    (b) the distributed decode in a world of one, (c) the sharded fleet."""
+    t0 = time.perf_counter()
+    stats = stats_phase(device, time_it=time_it)
+    reset_counts()
+    decode = dist_decode_phase(device, **(decode_kw or DIST_DECODE))
+    fleet = fleet_mesh_phase(device, **(fleet_kw or {}))
+    print(f"across devices: phase 14 in {time.perf_counter() - t0:.1f} s")
+    return {"stats": stats, "decode": decode, "fleet": fleet}
+
+
+# Queue 3 gap (a): the five dense configs the card had not run, at full
+# width, cut in depth (layers) for the phase's time; each one prefill held
+# against the port on the CPU (f32 there) and, for the decoders, an
+# engine run of 4 requests
+DENSE_GAP_LAYERS = {"llama3-8b": 2, "starcoder2-7b": 2, "internlm2-20b": 2,
+                    "qwen2-vl-7b": 2, "hubert-xlarge": 2}
+# the card's bf16 prefill against the CPU's f32 one at 2 layers: the bf16
+# roundings of the card's GEMMs and attention, a few ulps (2^-8 each)
+DENSE_GAP_TOL = PREFILL_DECODE_TOL
+
+
+def dense_gap_phase(device: str, layers=None, *, seq: int = 64,
+                    seed: int = 15) -> dict:
+    """Each dense config of ``layers`` (arch -> depth) at full width: one
+    ``forward`` (prefill for a decoder, the encoder's full forward for
+    hubert-xlarge) of one seeded 64-token prompt, its ``flash_attention``
+    launches, the warm time and the peak device memory; the same forward
+    on the CPU in f32 from the same parameters, the last logits (all of
+    hubert's) held at ``DENSE_GAP_TOL`` relative L2; then for the decoders
+    ``serve_phase`` with 4 slots x 256 positions and 4 requests of 2 new
+    tokens."""
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import tree_map
+    layers = layers or DENSE_GAP_LAYERS
+    cuda = device != "cpu"
+    out = {}
+    for arch, depth in layers.items():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg, params = lm_params(arch, device, layers=depth)
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        if cfg.frontend == "frames":
+            batch = {"frames": torch.randn(1, seq, cfg.d_model, generator=g)}
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq),
+                                             generator=g)}
+        mode = "prefill" if cfg.is_decoder else "train"
+        dev_batch = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            reset_counts()
+            logits = M.forward(cfg, params, dev_batch, mode=mode)[0]
+            launches = counts()
+            _sync(device)
+            t = time.perf_counter()
+            M.forward(cfg, params, dev_batch, mode=mode)
+            _sync(device)
+            warm = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() if cuda else None
+            cpu_cfg = cfg.replace(dtype="float32")
+            cpu_params = tree_map(lambda x: x.to("cpu", torch.float32)
+                                  if x.is_floating_point() else x.cpu(),
+                                  params)
+            want = M.forward(cpu_cfg, cpu_params, batch, mode=mode)[0]
+        del cpu_params
+        rel = _rel_l2(logits.float().cpu(), want)
+        err = _rel_err(logits.float().cpu(), want)
+        n_flash = forward_launches(cfg)["flash_attention"]
+        ok = rel <= DENSE_GAP_TOL and bool(torch.isfinite(logits).all()) \
+            and launches["flash_attention"] == n_flash
+        print(f"dense: {cfg.name} at full width, {cfg.num_layers} layers "
+              f"({M.param_count(cfg)} parameters), {mode} of 1 x {seq}: "
+              f"flash_attention launches {launches['flash_attention']}, "
+              f"warm {warm * 1e3:.2f} ms, peak device memory "
+              + (f"{peak} B" if peak is not None else "not measured (cpu)")
+              + f"; logits against the CPU in f32: rel L2 {rel:.3e} (tol "
+              f"{DENSE_GAP_TOL:.0e}), max |diff|/(1+|ref|) {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"dense: {cfg.name} prefill misses the CPU ({rel:.3e}) or "
+                  f"its launches {launches['flash_attention']} != {n_flash}")
+        rec = {"rel_l2": rel, "err": err, "warm_s": warm, "peak_bytes": peak}
+        if cfg.is_decoder:
+            serve = serve_phase(device, cfg, params, slots=4, max_seq=256,
+                                n_requests=4, prompt_lens=(16, 32),
+                                new_tokens=2)
+            serve.pop("engine")
+            rec["serve"] = serve
+        del params
+        out[arch] = rec
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -3520,6 +4028,8 @@ def main() -> int:
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
     moe_phase("cuda")
+    across = across_devices_phase("cuda")
+    dense_gap_phase("cuda")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     for arch, kw in RECURRENT_PARITY.items():
@@ -3540,6 +4050,10 @@ def main() -> int:
                     recurrent["zamba2-2.7b"]["launches"]["ssd_scan_backward"],
                 "wkv6_scan_backward":
                     recurrent["rwkv6-7b"]["launches"]["wkv6_scan_backward"]}
+    # the stats route of decode_attention: its check and times (a), its
+    # launches on the distributed decode path (b)
+    records["decode_attention"].update(across["stats"],
+                                       stats_launches=across["decode"]["launches"])
     print(f"smoke: {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(kernel_line(records, launches)))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.decode_attention.distributed import decode_attention_distributed
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from .params import ParamSpec
@@ -165,11 +166,15 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
     or only for the batch rows in ``rows`` (an index tensor) — then attends
     over lengths+1. The stacks are mutated, never copied. Returns
     (out (B,1,d_model), kstack, vstack).
+
+    With ``dist`` ({"mesh": a DeviceMesh, optional "seq_axis" (default
+    "model") and "batch_axes" (default ("data",))}) the stacks are this
+    rank's S-chunk (periods, B, S_loc, KV, hd) of a cache sharded over the
+    ranks of ``seq_axis``: only the rank whose chunk holds position
+    ``lengths[b]`` writes the new k/v, at ``lengths[b] − offset`` in its
+    chunk, and every rank attends over lengths+1 through the distributed
+    flash-decode (``kernels/decode_attention/distributed.py``).
     """
-    if dist is not None:
-        raise NotImplementedError(
-            "sequence-sharded decode attention comes with the multi-GPU "
-            "slice (ROADMAP.md Queue 1)")
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x)                # (B,1,H/KV,hd)
     pos = lengths[:, None]                           # (B,1)
@@ -183,9 +188,26 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
 
     b_idx = torch.arange(B, device=x.device) if rows is None else rows
     at = lengths.long()[b_idx]
-    kstack[layer, b_idx, at] = k[b_idx, 0].to(kstack.dtype)
-    vstack[layer, b_idx, at] = v[b_idx, 0].to(vstack.dtype)
-    o = decode_attention(q[:, 0], kstack[layer], vstack[layer], lengths + 1)
+    if dist is None:
+        kstack[layer, b_idx, at] = k[b_idx, 0].to(kstack.dtype)
+        vstack[layer, b_idx, at] = v[b_idx, 0].to(vstack.dtype)
+        o = decode_attention(q[:, 0], kstack[layer], vstack[layer],
+                             lengths + 1)
+    else:
+        seq_axis = dist.get("seq_axis", "model")
+        S_loc = kstack.shape[2]
+        at = at - dist["mesh"].get_local_rank(seq_axis) * S_loc
+        # a row whose position lies in another rank's chunk rewrites the
+        # slot it reads, so no rank waits on the host for a mask
+        mine = ((at >= 0) & (at < S_loc))[:, None, None]
+        at = at.clamp(0, S_loc - 1)
+        for stack, new in ((kstack, k), (vstack, v)):
+            stack[layer, b_idx, at] = torch.where(
+                mine, new[b_idx, 0].to(stack.dtype), stack[layer, b_idx, at])
+        o = decode_attention_distributed(
+            q[:, 0], kstack[layer], vstack[layer], lengths + 1,
+            mesh=dist["mesh"], seq_axis=seq_axis,
+            batch_axes=dist.get("batch_axes", ("data",)))
     out = o.reshape(B, -1) @ p["wo"].to(x.dtype)
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)

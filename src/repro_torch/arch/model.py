@@ -17,12 +17,19 @@ Public surface:
 
 Under autograd, ``forward`` in modes "train" and "hidden" recomputes each
 period in the backward (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` of its scan body does. One card: the reference's shard
-hooks wait for the multi-GPU slice.
+``jax.checkpoint`` of its scan body does.
+
+``shard(x, names)`` is the layout hook of the reference, called at its
+places with the same logical names (``distributed.sharding.make_shard_fn``
+builds one; the default does nothing). ``scan_unroll`` is accepted with the
+values ``lax.scan``'s ``unroll`` takes, a positive int or a bool: the loop
+over periods is Python, so, as ``unroll`` in the reference, it changes no
+result. ``attn_dist`` sends decode attention through the distributed
+flash-decode (``layers.attention_decode``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,6 +39,19 @@ from ..kernels.common import resolve_device
 from . import layers, mamba2, moe, rwkv6
 from .params import (ParamSpec, init_tree, param_count as _spec_count,
                      shape_structs, stack_specs, tree_leaves, tree_map)
+
+def _id_shard(x, names):
+    """The default ``shard`` hook: no layout to impose."""
+    return x
+
+
+def _check_unroll(scan_unroll) -> None:
+    """Raise on a value ``lax.scan`` refuses for ``unroll``."""
+    if not isinstance(scan_unroll, (bool, int)) or (
+            not isinstance(scan_unroll, bool) and scan_unroll < 1):
+        raise ValueError(f"scan_unroll must be a bool or a positive int, "
+                         f"got {scan_unroll!r}")
+
 
 class TensorSpec(NamedTuple):
     shape: Tuple[int, ...]
@@ -159,7 +179,7 @@ def _periods(blocks) -> list:
 
 # ------------------------------------------------------------------ forward
 
-def _apply_block(cfg, kind, p, h, positions, moe_path, moe_groups):
+def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups):
     """Full-sequence application of one block. Returns (h, cache, aux):
     aux holds an ``attn_moe`` block's router losses, else it is empty."""
     if kind in ("attn", "attn_moe"):
@@ -174,7 +194,8 @@ def _apply_block(cfg, kind, p, h, positions, moe_path, moe_groups):
         else:
             m, aux = moe.moe_block(cfg, p["moe"],
                                    layers.apply_norm(cfg, p["ln2"], h),
-                                   path=moe_path, groups=moe_groups)
+                                   path=moe_path, shard=shard,
+                                   groups=moe_groups)
             h = h + m
         return h, {"k": k, "v": v}, aux
     if kind == "mamba2":
@@ -207,14 +228,15 @@ def _apply_shared(cfg, p, h, emb0, positions):
 
 
 def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
-                  moe_path, moe_groups):
+                  shard, moe_path, moe_groups):
     """One period: its blocks in pattern order, then Zamba2's shared block.
     Returns (h, the period's caches or {}, the sum of its MoE blocks' aux
     or {})."""
+    h = shard(h, ("batch", "seq", None))
     caches, auxes = {}, []
     for j, kind in enumerate(cfg.pattern):
         h, cache, aux = _apply_block(cfg, kind, p[f"pos{j}"], h, positions,
-                                     moe_path, moe_groups)
+                                     shard, moe_path, moe_groups)
         if want_cache:
             caches[f"pos{j}"] = cache
         if aux:
@@ -228,7 +250,8 @@ def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
 
 
 def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
-            remat: bool = True, moe_path: str = "dispatch",
+            shard: Callable = _id_shard, remat: bool = True,
+            moe_path: str = "dispatch", scan_unroll=1,
             moe_groups: int = 0):
     """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, aux);
     "prefill" -> (last-token logits (B,V) f32, decode_state whose caches
@@ -241,6 +264,7 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     backward and is recomputed there."""
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
+    _check_unroll(scan_unroll)
     dtype = _dtype(cfg.dtype)
     if cfg.frontend == "frames":
         B, S = batch["frames"].shape[:2]
@@ -248,7 +272,7 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     else:
         B, S = batch["tokens"].shape
         device = batch["tokens"].device
-    h = _embed(cfg, params, batch, dtype)
+    h = shard(_embed(cfg, params, batch, dtype), ("batch", "seq", None))
     positions = _positions(cfg, batch, B, S, device)
     if "ln0" in params:
         h = layers.apply_norm(cfg, params["ln0"], h)
@@ -261,7 +285,7 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     def recomputed(h, p):
         # the period's aux comes out of the recomputed region too
         h, _, aux = _apply_period(cfg, p, h, positions, emb0, shared_p,
-                                  False, moe_path, moe_groups)
+                                  False, shard, moe_path, moe_groups)
         return h, aux
 
     per_period, auxes = [], []
@@ -270,8 +294,8 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
             h, aux = checkpoint(recomputed, h, p, use_reentrant=False)
         else:
             h, caches, aux = _apply_period(cfg, p, h, positions, emb0,
-                                           shared_p, want_cache, moe_path,
-                                           moe_groups)
+                                           shared_p, want_cache, shard,
+                                           moe_path, moe_groups)
             per_period.append(caches)
         auxes.append(aux)
     aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
@@ -298,7 +322,8 @@ def _ce_from_logits(logits, labels):
     return torch.sum(lse - ll)
 
 
-def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int):
+def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int,
+               shard: Callable = _id_shard):
     """Sequence-chunked mean cross-entropy: the (B, S, V) f32 logits are
     never materialised. Each S/chunks slice computes its own logits and,
     under autograd, recomputes them in the backward."""
@@ -306,6 +331,7 @@ def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int):
     csz = S // chunks
 
     def one(hc, lc):
+        hc = shard(hc, ("batch", None, None))
         return _ce_from_logits(_unembed(cfg, params, hc).to(torch.float32),
                                lc)
 
@@ -319,9 +345,10 @@ def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int):
     return total / (B * S)
 
 
-def train_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
-               loss_chunks: int = 0, moe_path: str = "dispatch",
-               moe_groups: int = 0):
+def train_loss(cfg: ModelConfig, params, batch, *,
+               shard: Callable = _id_shard, remat: bool = True,
+               moe_path: str = "dispatch", scan_unroll=1,
+               loss_chunks: int = 0, moe_groups: int = 0):
     """Mean next-token cross-entropy of ``batch["labels"]``, plus 0.01 of
     the MoE load-balance loss and 1e-3 of its z-loss where the model has
     MoE blocks. Returns (loss, {"loss", "ce", and the aux losses}).
@@ -335,12 +362,15 @@ def train_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     while S % loss_chunks:
         loss_chunks -= 1
     if loss_chunks > 1:
-        h, aux = forward(cfg, params, batch, mode="hidden", remat=remat,
-                         moe_path=moe_path, moe_groups=moe_groups)
-        ce = chunked_ce(cfg, params, h, labels, chunks=loss_chunks)
+        h, aux = forward(cfg, params, batch, mode="hidden", shard=shard,
+                         remat=remat, moe_path=moe_path,
+                         scan_unroll=scan_unroll, moe_groups=moe_groups)
+        ce = chunked_ce(cfg, params, h, labels, chunks=loss_chunks,
+                        shard=shard)
     else:
-        logits, aux = forward(cfg, params, batch, mode="train", remat=remat,
-                              moe_path=moe_path, moe_groups=moe_groups)
+        logits, aux = forward(cfg, params, batch, mode="train", shard=shard,
+                              remat=remat, moe_path=moe_path,
+                              scan_unroll=scan_unroll, moe_groups=moe_groups)
         ce = _ce_from_logits(logits, labels) / labels.numel()
     loss = ce
     if aux:
@@ -396,20 +426,20 @@ def _put(stack, layer: int, new, rows) -> None:
         stack[layer, rows] = new[rows].to(stack.dtype)
 
 
-def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, moe_path,
-                  moe_groups):
+def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, shard,
+                  moe_path, moe_groups, attn_dist=None):
     """One block against its STACKED caches ``cs``, updated in place."""
     if kind in ("attn", "attn_moe"):
         a, _, _ = layers.attention_decode(
             cfg, p["attn"], layers.apply_norm(cfg, p["ln1"], h),
-            cs["k"], cs["v"], layer, lengths, rows=rows)
+            cs["k"], cs["v"], layer, lengths, dist=attn_dist, rows=rows)
         h = h + a
         if kind == "attn":
             return h + layers.mlp_block(cfg, p["mlp"],
                                         layers.apply_norm(cfg, p["ln2"], h))
         m, _ = moe.moe_block(cfg, p["moe"],
                              layers.apply_norm(cfg, p["ln2"], h),
-                             path=moe_path, groups=moe_groups)
+                             path=moe_path, shard=shard, groups=moe_groups)
         return h + m
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_decode(
@@ -434,13 +464,14 @@ def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, moe_path,
     raise ValueError(kind)
 
 
-def _decode_shared(cfg, p, h, emb0, cs, layer, lengths, rows):
+def _decode_shared(cfg, p, h, emb0, cs, layer, lengths, rows,
+                   attn_dist=None):
     """The Zamba2 shared block for one token; period ``layer``'s slice of
     the shared k/v stack is written in place."""
     cat = torch.cat([h, emb0], dim=-1)
     a, _, _ = layers.attention_decode(
         cfg, p["attn"], layers.apply_norm(cfg, p["ln1"], cat),
-        cs["k"], cs["v"], layer, lengths, rows=rows)
+        cs["k"], cs["v"], layer, lengths, dist=attn_dist, rows=rows)
     h = h + a
     cat = torch.cat([h, emb0], dim=-1)
     return h + layers.mlp_block(cfg, p["mlp"],
@@ -448,7 +479,8 @@ def _decode_shared(cfg, p, h, emb0, cs, layer, lengths, rows):
 
 
 def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None,
-                moe_path: str = "dispatch", moe_groups: int = 0):
+                shard: Callable = _id_shard, moe_path: str = "dispatch",
+                scan_unroll=1, moe_groups: int = 0, attn_dist=None):
     """One-token decode. batch: {"tokens": (B,1)} (or {"frames": (B,1,d)}).
 
     The stacked caches in ``state`` are updated IN PLACE: each layer writes
@@ -456,25 +488,31 @@ def decode_step(cfg: ModelConfig, params, state, batch, *, rows=None,
     x_tm, x_cm, wkv) for every row, or only for the batch rows in ``rows``
     (an index tensor), so rows outside it keep their caches exactly.
     MoE blocks route every row, each row a group of its own by default
-    (so no choice drops). Returns (logits (B,V) f32, {"caches": the same
-    caches, "lengths": lengths + 1}).
+    (so no choice drops). With ``attn_dist`` (see
+    ``layers.attention_decode``) the k/v stacks are this rank's S-chunk of
+    caches sharded over a mesh axis. Returns (logits (B,V) f32,
+    {"caches": the same caches, "lengths": lengths + 1}).
     """
     if not cfg.is_decoder:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
+    _check_unroll(scan_unroll)
     dtype = _dtype(cfg.dtype)
     lengths = state["lengths"]
     caches = state["caches"]
     h = _embed(cfg, params, batch, dtype)
     if "ln0" in params:
         h = layers.apply_norm(cfg, params["ln0"], h)
+    h = shard(h, ("batch", None, None))
     emb0 = h
     for layer, p in enumerate(_periods(params["blocks"])):
         for j, kind in enumerate(cfg.pattern):
             h = _decode_block(cfg, kind, p[f"pos{j}"], h, caches[f"pos{j}"],
-                              layer, lengths, rows, moe_path, moe_groups)
+                              layer, lengths, rows, shard, moe_path,
+                              moe_groups, attn_dist)
         if cfg.shared_attn_every_period:
             h = _decode_shared(cfg, params["shared"], h, emb0,
-                               caches["shared"], layer, lengths, rows)
+                               caches["shared"], layer, lengths, rows,
+                               attn_dist)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     logits = _unembed(cfg, params, h[:, 0]).to(torch.float32)
     return logits, {"caches": caches, "lengths": lengths + 1}

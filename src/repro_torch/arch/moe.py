@@ -20,11 +20,18 @@ rounding point of the reference and is kept. One card: the reference's
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .params import ParamSpec
+
+
+def _id_shard(x, names):
+    """The default ``shard`` hook: no layout to impose."""
+    return x
 
 
 def moe_specs(cfg: ModelConfig):
@@ -125,7 +132,8 @@ def dispatch_slots(ig, E: int):
 
 
 def moe_block_dispatch(cfg: ModelConfig, p, x, *,
-                       capacity_factor: float = 1.25, groups: int = 0):
+                       capacity_factor: float = 1.25,
+                       shard: Callable = _id_shard, groups: int = 0):
     """Capacity-bounded dispatch with token groups: tokens are flattened to
     (G, Sg, d); capacity is per (group, expert), C = cf * Sg * k / E;
     over-capacity choices drop (the token keeps its residual).
@@ -142,6 +150,7 @@ def moe_block_dispatch(cfg: ModelConfig, p, x, *,
     G, Sg, C = dispatch_geometry(cfg, B * S, capacity_factor, groups)
 
     w, idx, aux = _router(cfg, p, x)                          # (B,S,k) x2
+    x_grp = shard(x.reshape(G, Sg, d), ("tokens", None, None))
     ig = idx.reshape(G, Sg, k)
     slot = dispatch_slots(ig, E)
     keep = slot < C
@@ -154,23 +163,25 @@ def moe_block_dispatch(cfg: ModelConfig, p, x, *,
                      device=x.device)
     tok = torch.arange(G * Sg, device=x.device).reshape(G, Sg, 1)
     src.scatter_(0, dest.reshape(-1), tok.expand(G, Sg, k).reshape(-1))
-    xg = torch.cat([x.reshape(G * Sg, d), x.new_zeros(1, d)])
-    expert_in = xg[src[:-1]].reshape(E, G, C, d)
+    xg = torch.cat([x_grp.reshape(G * Sg, d), x.new_zeros(1, d)])
+    expert_in = shard(xg[src[:-1]].reshape(E, G, C, d),
+                      ("expert", "tokens", None, None))
 
-    eo = _expert_ffn_grouped(p, expert_in).reshape(E * G * C, d)
+    eo = shard(_expert_ffn_grouped(p, expert_in),
+               ("expert", "tokens", None, None)).reshape(E * G * C, d)
     eo = torch.cat([eo, eo.new_zeros(1, d)])
     picked = eo[dest]                                         # (G,Sg,k,d)
     wk = torch.where(keep, w.reshape(G, Sg, k), 0.0).to(x.dtype)
     out = torch.sum(picked.to(torch.float32)
                     * wk.to(torch.float32)[..., None], dim=2)
-    out = out.to(x.dtype).reshape(B, S, d)
+    out = shard(out.to(x.dtype), ("tokens", None, None)).reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + _shared_expert(p["shared"], x)
     return out, aux
 
 
 def moe_block(cfg: ModelConfig, p, x, *, path: str = "dispatch",
-              groups: int = 0):
+              shard: Callable = _id_shard, groups: int = 0):
     if path == "dense":
         return moe_block_dense(cfg, p, x)
-    return moe_block_dispatch(cfg, p, x, groups=groups)
+    return moe_block_dispatch(cfg, p, x, shard=shard, groups=groups)

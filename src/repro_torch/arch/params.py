@@ -7,8 +7,7 @@ single declaration come:
   * ``init_tree``   — materialised parameters, drawn from a ``torch.Generator``
   * ``params_from_numpy`` — the same tree from arrays made elsewhere (the
     JAX package's parameters, handed over as numpy), leaf for leaf
-
-Sharding specs wait for the multi-GPU slice.
+  * ``partition_tree`` — a ``PartitionSpec`` tree via logical-axis rules
 """
 from __future__ import annotations
 
@@ -31,6 +30,24 @@ class ParamSpec:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+class PartitionSpec(tuple):
+    """How a tensor is laid out over a named mesh, one entry per tensor
+    dim: ``None`` (replicated), a mesh axis name, or a tuple of names (the
+    dim split over those axes, the first outermost). The twin of
+    ``jax.sharding.PartitionSpec``; ``distributed.sharding.placements``
+    turns it into DTensor placements."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def tree_map(f, tree):
     """Apply ``f`` to every leaf of a nested dict (a spec or a tensor)."""
     if isinstance(tree, dict):
@@ -51,6 +68,25 @@ def stack_specs(tree, n: int, axis_name: str = "layers"):
     return tree_map(
         lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.init, s.scale),
         tree)
+
+
+def partition_tree(tree, rules: dict, mesh_axes: Tuple[str, ...]):
+    """Logical axes -> PartitionSpec. ``rules[name]`` is a mesh axis (or tuple
+    of mesh axes) or None. Unknown logical names replicate."""
+    def one(s: ParamSpec):
+        out = []
+        used: set = set()
+        for ax in s.axes:
+            m = rules.get(ax) if ax is not None else None
+            if m is None:
+                out.append(None)
+                continue
+            ms = tuple(m) if isinstance(m, (tuple, list)) else (m,)
+            ms = tuple(a for a in ms if a in mesh_axes and a not in used)
+            used.update(ms)
+            out.append(ms if len(ms) > 1 else (ms[0] if ms else None))
+        return PartitionSpec(*out)
+    return tree_map(one, tree)
 
 
 # the most elements of a leaf drawn at once in f32: a leaf is drawn slice

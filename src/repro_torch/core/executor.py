@@ -274,15 +274,21 @@ class FleetExecutor(_ExecBase):
     deployment with ``user_params["runtime"] = "off"`` or executor-wide
     with ``runtime="off"``.
 
-    One card: a bin runs whole on the system's device. Sharding a bin's
-    instance axis across cards is not ported; the per-bin telemetry keys
-    (``sharded``, ``mesh_devices``, ``pad``) stay and read one card.
+    Mesh sharding: with more than one card the bin's instance axis is
+    split over a 1-D fleet mesh (``launch.mesh.make_fleet_mesh``) — still
+    ONE fleet call per bin, each card training/scoring its N/ndev slice.
+    Uneven bins are padded to a shard multiple inside the sharded call and
+    the pad rows masked off. Opt out per deployment with
+    ``user_params["mesh"] = "off"`` or executor-wide with ``mesh="off"``;
+    per-bin telemetry (``mesh_devices``, ``pad``, ``sharded``) lands in
+    ``last_bin_stats``.
     """
 
     def __init__(self, system, *, fallback: Optional[LocalPoolExecutor] = None,
-                 runtime: str = "auto"):
+                 mesh: str = "auto", runtime: str = "auto"):
         super().__init__(system)
         self.fallback = fallback or LocalPoolExecutor(system, max_parallel=8)
+        self.mesh = mesh                 # "auto" | "off"
         if runtime == "off":
             self.runtime = None
         else:
@@ -352,8 +358,20 @@ class FleetExecutor(_ExecBase):
         return out
 
     def _bin_mesh(self, bin_jobs_: List[Job]):
-        """Fleet mesh for one bin: None, since a bin runs on one card."""
-        return None
+        """Fleet mesh for one bin: auto-selected when there is more than one
+        card and the bin is worth splitting; ``user_params["mesh"]="off"``
+        opts a deployment out (bins share user_params, so the first job
+        speaks for all). The mesh is sized to min(cards, bin) — a 2-job bin
+        on an 8-card host shards over 2 cards, not 8 mostly-padding
+        shards."""
+        if self.mesh == "off" or len(bin_jobs_) < 2:
+            return None
+        dep = self.system.deployments.get(bin_jobs_[0].deployment_name)
+        if str(dep.user_params.get("mesh", "auto")).lower() == "off":
+            return None
+        from ..launch import mesh as mesh_mod
+        return mesh_mod.make_fleet_mesh(
+            min(len(mesh_mod.local_devices()), len(bin_jobs_)))
 
     def _fail(self, job: Job, dt: float, err: str) -> JobResult:
         self.system.scheduler.mark_failed(job)
@@ -429,7 +447,7 @@ class FleetExecutor(_ExecBase):
                 return out
         # detection is a host-side store compare, nothing to shard
         mesh = None if task == "detect" else self._bin_mesh(bin_jobs_)
-        ndev = len(mesh.devices.flat) if mesh is not None else 1
+        ndev = len(mesh.devices) if mesh is not None else 1
         pad = (-len(bin_jobs_)) % ndev
         if task == "train":
             instances = [self._instantiate(j, cls=cls) for j in bin_jobs_]

@@ -52,8 +52,9 @@ class ModelInterface(abc.ABC):
         """Return (times, values) prediction over the configured horizon."""
 
     # ---- optional fleet hooks (megabatched execution) ----
-    # ``mesh``: reserved for sharding a bin's instance axis across cards;
-    # the executor passes None (one card).
+    # ``mesh``: optional 1-D fleet mesh (launch/mesh.make_fleet_mesh); when
+    # given, the bin's instance axis is split over its devices. None = the
+    # whole bin on the system's device, the same results.
     @classmethod
     def fleet_train(cls, instances: List["ModelInterface"], *, mesh=None):
         raise NotImplementedError

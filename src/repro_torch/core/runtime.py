@@ -369,7 +369,8 @@ class FleetRuntime:
         state.param_cache = (key, stacked, mu, sd, list(model_objects))
         return stacked, mu, sd
 
-    def fleet_score(self, cls, instances, model_objects) -> Optional[list]:
+    def fleet_score(self, cls, instances, model_objects, *,
+                    mesh=None) -> Optional[list]:
         """Device-resident scoring: trailing windows come from the ring
         (no store read, no host stacking), params from the train handoff
         or a once-per-version stacking. Returns None to fall back to the
@@ -402,7 +403,8 @@ class FleetRuntime:
                                 state.n_pad - n)
         vals = cls._device_rollout(spec, up, stacked, mu, sd, state.y_tail,
                                    state.t_tail, temps_future,
-                                   float(fut_t[0]), H, self.device)
+                                   float(fut_t[0]), H, self.device,
+                                   mesh=mesh)
         if vals is None:                 # no device predictor: remember
             self._no_rollout.add((cls, spec0))
             return None

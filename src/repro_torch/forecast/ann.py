@@ -96,7 +96,7 @@ class ANNForecaster(ForecastModelBase):
 
     # ------------- fleet hooks -------------
     @classmethod
-    def _fleet_fit(cls, X, y, rng, up, device):
+    def _fleet_fit(cls, X, y, rng, up, device, mesh=None):
         # bin-shared user_params, NOT redeclared defaults: a deployment with
         # hidden=128 must fleet-train the same width LocalPool would
         width = int(up["hidden"])
@@ -104,16 +104,23 @@ class ANNForecaster(ForecastModelBase):
         # the sigmoid's scale, not the model object's max|y| + 1e-6
         ys = to_device(np.abs(to_host(y)).max(axis=1) * 1.2 + 1e-6, device)
         X, y = to_device(X, device), to_device(y, device)
-        n = X.shape[0]
-        init = _init_fleet(int(rng.integers(2**31)), n, X.shape[-1], width,
-                           device)
+        # initial weights drawn at the TRUE bin size, before any split: an
+        # instance trains from the same weights at any shard count
+        init = _init_fleet(int(rng.integers(2**31)), X.shape[0], X.shape[-1],
+                           width, device)
 
-        def loss(p):
-            # each instance's own mean over its rows, summed over the bin:
-            # every instance gets the gradient of its own loss
-            return (_fleet_mlp_out(p, X, ys) - y).square().mean(dim=1).sum()
+        def fit(init, X, y, ys):
+            def loss(p):
+                # each instance's own mean over its rows, summed over the
+                # bin: every instance gets the gradient of its own loss
+                return (_fleet_mlp_out(p, X, ys) - y).square().mean(
+                    dim=1).sum()
+            return fit_adam(init, loss, epochs, lr)
 
-        params = fit_adam(init, loss, epochs, lr)
+        if mesh is not None:
+            from ..distributed.sharding import fleet_sharded
+            fit = fleet_sharded(fit, mesh)
+        params = fit(init, X, y, ys)
         params["y_scale"] = ys
         return params
 

@@ -5,7 +5,7 @@ Each concrete model supplies:
     _fit(X, y, rng) -> params               (one instance, standardized X)
     _predict(params, X) -> yhat             (one-step prediction, plain torch)
 and optionally the fleet hooks (stacked across instances):
-    _fleet_fit(X, y, rng, up, device) -> stacked params (leading N)
+    _fleet_fit(X, y, rng, up, device, mesh=None) -> stacked params (leading N)
     _fleet_window_predict(stacked, X) -> (N, T) float64 one-step predictions
 
 A model object here is ``{"kind", "params": {name: tensor}, "mu", "sd"
@@ -363,15 +363,14 @@ class ForecastModelBase(ModelInterface):
     @classmethod
     def fleet_train(cls, instances: List[ModelInterface], *, mesh=None,
                     runtime=None):
-        """Train a bin: one stacked fit on the system's device. The
-        design comes from the runtime (a cold build answers with the host
-        f64 design, a warm state assembles on the device) or, without
-        one, from ``_fleet_xy``. Returns one model object per instance;
-        their params are rows of the stacked device tensors, which the
-        runtime keeps as the train->score handoff."""
-        if mesh is not None:
-            raise NotImplementedError("sharding a bin across cards is not "
-                                      "ported; the executor passes mesh=None")
+        """Train a bin: one stacked fit on the system's device, or with
+        ``mesh`` (a fleet mesh) the instance axis split over the mesh's
+        devices, each shard fitted on its own. The design comes from the
+        runtime (a cold build answers with the host f64 design, a warm
+        state assembles on the device) or, without one, from
+        ``_fleet_xy``. Returns one model object per instance; their params
+        are rows of the stacked device tensors, which the runtime keeps as
+        the train->score handoff."""
         state = loaded = None
         if runtime is not None:
             loaded = runtime.fleet_xy(cls, instances)
@@ -384,7 +383,7 @@ class ForecastModelBase(ModelInterface):
         # merged params speak for the whole bin
         up = {**cls.DEFAULTS, **instances[0].user_params}
         device = instances[0].system.device
-        params = cls._fleet_fit(X, y, rng, up, device)    # stacked, on device
+        params = cls._fleet_fit(X, y, rng, up, device, mesh=mesh)  # stacked
         y_h = to_host(y)
         ymax = np.abs(y_h).max(axis=1)
         yhat = cls._fleet_window_predict(params, X)
@@ -430,11 +429,9 @@ class ForecastModelBase(ModelInterface):
     @classmethod
     def fleet_score(cls, instances: List[ModelInterface], model_objects, *,
                     mesh=None, runtime=None):
-        if mesh is not None:
-            raise NotImplementedError("sharding a bin across cards is not "
-                                      "ported; the executor passes mesh=None")
         if runtime is not None:
-            res = runtime.fleet_score(cls, instances, model_objects)
+            res = runtime.fleet_score(cls, instances, model_objects,
+                                      mesh=mesh)
             if res is not None:
                 return cls._attach_bands(model_objects, res)
         cls.fleet_load(instances)
@@ -467,7 +464,7 @@ class ForecastModelBase(ModelInterface):
         if up.get("rollout", "device") != "host":
             vals = cls._device_rollout(spec, up, stacked, mu, sd, y_hist,
                                        temp_hist, temps_fut, t_start, H,
-                                       device)
+                                       device, mesh=mesh)
         if vals is None:                 # reference path / no device hook
             def predict(x):                              # x: (N, F)
                 x = torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -497,20 +494,23 @@ class ForecastModelBase(ModelInterface):
     @classmethod
     def _device_rollout(cls, spec: FeatureSpec, up: dict, stacked, mu, sd,
                         y_hist, temp_hist, temps_future, t_start: float,
-                        H: int, device) -> Optional[np.ndarray]:
+                        H: int, device, mesh=None) -> Optional[np.ndarray]:
         """Score a whole bin on ``device`` with one host round-trip (see
-        ``make_device_rollout``) instead of H host-loop steps. Returns None
-        when the model has no device predictor — callers then fall back to
-        the numpy reference path, preserving the executor equivalence
-        contract for models that cannot run device-resident."""
+        ``make_device_rollout``) instead of H host-loop steps; with ``mesh``
+        the bin's instance axis is split over the mesh's devices, each
+        shard rolled out on its own. Returns None when the model has no
+        device predictor — callers then fall back to the numpy reference
+        path, preserving the executor equivalence contract for models that
+        cannot run device-resident."""
         statics = cls._rollout_statics(up, stacked)
-        key = (cls, spec, H, statics)
+        key = (cls, spec, H, statics, mesh)
         fn = _ROLLOUT_CACHE.get(key)
         if fn is None:
             predict = cls._device_predict_factory(spec, statics)
             if predict is None:
                 return None
-            fn = _ROLLOUT_CACHE.put(key, make_device_rollout(predict, spec, H))
+            fn = _ROLLOUT_CACHE.put(
+                key, make_device_rollout(predict, spec, H, mesh=mesh))
         tl, wl = spec.target_lags, spec.weather_lags
         f32 = torch.float32
         y0 = torch.as_tensor(y_hist, dtype=f32, device=device)[..., -tl:]

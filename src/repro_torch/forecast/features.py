@@ -267,7 +267,8 @@ def step_features_torch(spec: FeatureSpec, y_win, t_win, cal_row):
     return torch.cat(cols, dim=-1)
 
 
-def make_device_rollout(predict_fn, spec: FeatureSpec, horizon: int):
+def make_device_rollout(predict_fn, spec: FeatureSpec, horizon: int,
+                        mesh=None):
     """Device-resident whole-horizon rollout: a plain Python loop over the
     horizon whose every step — feature assembly, per-instance
     standardization, prediction, window roll — runs on the inputs' device.
@@ -280,6 +281,14 @@ def make_device_rollout(predict_fn, spec: FeatureSpec, horizon: int):
     ``y_buf[:, h:h+L]`` and writes its prediction at ``y_buf[:, L+h]``,
     so no window is rebuilt per step and the predictions are the buffer's
     tail.
+
+    With ``mesh`` (a 1-D fleet mesh from ``launch.mesh.make_fleet_mesh``)
+    the instance axis N of every input and output is split over the mesh's
+    devices (``distributed.sharding.fleet_sharded``): the recursion is
+    per-instance independent, so each shard rolls out on its device with no
+    collective, and its predictor runs once per step per shard; hod/dow
+    are the shared horizon calendar and are copied whole. Uneven N is
+    edge-padded to a shard multiple and the pad rows are sliced back off.
 
     predict_fn: (stacked_params, x (N, F)) -> (N,) predictions
     (standardized features in, physical-unit predictions out).
@@ -309,4 +318,8 @@ def make_device_rollout(predict_fn, spec: FeatureSpec, horizon: int):
             y_buf[:, tl + h] = predict_fn(stacked, (x - mu) / sd)
         return y_buf[:, tl:]
 
-    return run
+    if mesh is None:
+        return run
+    from ..distributed.sharding import fleet_sharded
+    # hod/dow (args 6, 7) are the shared horizon calendar: replicated
+    return fleet_sharded(run, mesh, replicated_argnums=(6, 7))

@@ -11,7 +11,7 @@ import torch
 
 from .base import (ForecastModelBase, device_version, numpy_params, to_device,
                    to_host)
-from .linear import _ridge_fit
+from .linear import _ridge_fit, _ridge_fleet
 
 N_KNOTS = 8
 
@@ -134,7 +134,7 @@ class GAMForecaster(ForecastModelBase):
                              params["knots"], params["cols"])
 
     @classmethod
-    def _fleet_fit(cls, X, y, rng, up, device):
+    def _fleet_fit(cls, X, y, rng, up, device, mesh=None):
         # spline columns from the bin's SHARED user_params — a non-default
         # target_lags shifts the concurrent-temp column, so defaults here
         # would spline the wrong feature and diverge from LocalPool
@@ -147,7 +147,8 @@ class GAMForecaster(ForecastModelBase):
                               N_KNOTS) for j in cols]
             knots.append(np.stack(ks))
             Xes.append(_expand(X[i], ks, cols))
-        th = _ridge_fit(to_device(np.stack(Xes), device), to_device(y, device))
+        th = _ridge_fleet(to_device(np.stack(Xes), device),
+                          to_device(y, device), mesh=mesh)
         return {"theta": th, "knots": to_device(np.stack(knots), device),
                 "cols": torch.tensor(cols, device=device).expand(
                     X.shape[0], len(cols)).contiguous()}

@@ -26,6 +26,17 @@ def _ridge_fit(X, y, lam: float = 1e-2):
     return torch.linalg.solve(A, b)[..., 0].float()
 
 
+def _ridge_fleet(X, y, lam: float = 1e-2, mesh=None):
+    """The batched ridge solve of a bin; with ``mesh`` (a fleet mesh) the
+    instance axis is split over the mesh's devices, shard by shard
+    (``distributed.sharding.fleet_sharded``). Shared by the LR and GAM
+    fleet fits."""
+    if mesh is None:
+        return _ridge_fit(X, y, lam)
+    from ..distributed.sharding import fleet_sharded
+    return fleet_sharded(lambda xx, yy: _ridge_fit(xx, yy, lam), mesh)(X, y)
+
+
 def lr_version_from_numpy(model_object: dict, device) -> dict:
     """Convert an LR version in the persisted numpy layout (``params``
     ``{"theta": (F + 1,)}``) into the port's model object, f32 on
@@ -51,11 +62,11 @@ class LinearForecaster(ForecastModelBase):
         return (X @ th[:-1] + th[-1]).cpu().numpy()
 
     @classmethod
-    def _fleet_fit(cls, X, y, rng, up, device):
+    def _fleet_fit(cls, X, y, rng, up, device, mesh=None):
         # stays device-resident: fleet_train hands the stacked theta to the
         # runtime for scoring
-        return {"theta": _ridge_fit(to_device(X, device),
-                                    to_device(y, device))}
+        return {"theta": _ridge_fleet(to_device(X, device),
+                                      to_device(y, device), mesh=mesh)}
 
     @classmethod
     def _fleet_window_predict(cls, stacked, X):

@@ -119,22 +119,28 @@ class LSTMForecaster(ForecastModelBase):
         return out[0] if single else out
 
     @classmethod
-    def _fleet_fit(cls, X, y, rng, up, device):
+    def _fleet_fit(cls, X, y, rng, up, device, mesh=None):
         # bin-shared user_params, NOT redeclared defaults (fleet == local)
         width = int(up["hidden"])
         epochs, lr = int(up["epochs"]), float(up["lr"])
         ys = to_device(np.abs(to_host(y)).max(axis=1) * 1.2 + 1e-6, device)
         seqs = to_device(X, device).flip(-1)         # lag order -> time order
         y = to_device(y, device)
+        # initial weights at the TRUE bin size, before any split (see ann.py)
         init = _init_fleet(int(rng.integers(2**31)), seqs.shape[0], width,
                            device)
 
-        def loss(p):
-            # each instance's own mean, summed over the bin (see ann.py)
-            return (_fleet_lstm_out(p, seqs, ys) - y).square().mean(
-                dim=1).sum()
+        def fit(init, seqs, y, ys):
+            def loss(p):
+                # each instance's own mean, summed over the bin (see ann.py)
+                return (_fleet_lstm_out(p, seqs, ys) - y).square().mean(
+                    dim=1).sum()
+            return fit_adam(init, loss, epochs, lr)
 
-        params = fit_adam(init, loss, epochs, lr)
+        if mesh is not None:
+            from ..distributed.sharding import fleet_sharded
+            fit = fleet_sharded(fit, mesh)
+        params = fit(init, seqs, y, ys)
         params["y_scale"] = ys
         return params
 

@@ -34,6 +34,16 @@
 //    with the usual rescale by exp(m_split - m_max) and rounds once;
 //  * a length above S counts as S; a row of length 0 writes zeros.
 //
+// The stats route (decode_attention_partial_forward) runs the same partial
+// pass, then a combine that keeps the statistics a sequence shard needs to
+// be merged with the others (src/repro/kernels/decode_attention/
+// distributed.py, _partial): in f32 the unnormalised output sum_s w_s o_s
+// (B, H, D), the max m (B, H) and the denominator l (B, H), with
+// w_s = exp(m_s - m) over the kernel's own splits. A row with no valid slot
+// in the cache writes m = -1e30, l = 0 and o = 0, never -inf: the shards'
+// combine takes exp(m - max m), which is NaN where every shard of a row is
+// -inf and 0 or 1 (with o = l = 0) where they are -1e30.
+//
 // Plain C interface, loaded with ctypes (see ../kernel.py).
 
 #include <cuda_bf16.h>
@@ -53,6 +63,7 @@ constexpr int kMaxGroup = 16;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most a block can have
 constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = kMaxGroup * kMaxHeadDim / kThreads;  // outputs per thread
+constexpr float kEmptyMax = -1e30f;  // the stats route's m of a row with no valid slot
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -296,15 +307,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+// kStats false: out (B, H, D) of type T gets o / l. kStats true: out is
+// f32, the unnormalised o, and out_m, out_l (B, H) f32 get m and l.
+template <typename T, bool kStats>
 __global__ void __launch_bounds__(kThreads)
     decode_combine_kernel(const float* __restrict__ ws_ml, const float* __restrict__ ws_o,
-                          T* __restrict__ out, int H, int KV, int D, int n_split) {
+                          void* __restrict__ out, float* __restrict__ out_m,
+                          float* __restrict__ out_l, int H, int KV, int D, int n_split) {
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / KV;
   const size_t part0 = (static_cast<size_t>(b) * KV + kvh) * n_split;
-  T* ob = out + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * D;
+  const size_t head0 = static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G;
   for (int e = threadIdx.x; e < G * D; e += kThreads) {
     const int g = e / D;
     float m_max = -INFINITY;
@@ -317,7 +331,15 @@ __global__ void __launch_bounds__(kThreads)
       l = fmaf(w, ws_ml[(part0 + s) * 2 * G + G + g], l);
       o = fmaf(w, ws_o[(part0 + s) * G * D + e], o);
     }
-    ob[e] = from_f32<T>(l > 0.f ? o / l : 0.f);
+    if constexpr (kStats) {
+      static_cast<float*>(out)[head0 * D + e] = o;  // 0 where no split held a slot
+      if (e % D == 0) {
+        out_m[head0 + g] = m_max == -INFINITY ? kEmptyMax : m_max;
+        out_l[head0 + g] = l;
+      }
+    } else {
+      static_cast<T*>(out)[head0 * D + e] = from_f32<T>(l > 0.f ? o / l : 0.f);
+    }
   }
 }
 
@@ -326,10 +348,12 @@ size_t smem_bytes(int G, int D, size_t elem) {
          sizeof(float) * (static_cast<size_t>(G) * D + static_cast<size_t>(G) * kBlockK + 3 * G);
 }
 
+// The partial pass, then the combine: o / l in T into out, or with stats
+// the f32 o, m and l into out, out_m and out_l.
 template <typename T>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const void* lengths, void* ws,
-                   void* out, int B, int S, int H, int KV, int D, int n_split, int split_len,
-                   float scale, cudaStream_t stream) {
+                   void* out, float* out_m, float* out_l, bool stats, int B, int S, int H, int KV,
+                   int D, int n_split, int split_len, float scale, cudaStream_t stream) {
   const int G = H / KV;
   const size_t smem = smem_bytes(G, D, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(decode_partial_kernel<T>,
@@ -343,9 +367,36 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const void* le
       static_cast<const int*>(lengths), ws_ml, ws_o, S, H, KV, D, split_len, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(KV, B), kThreads, 0, stream>>>(ws_ml, ws_o, static_cast<T*>(out),
-                                                                H, KV, D, n_split);
+  if (stats)
+    decode_combine_kernel<T, true><<<dim3(KV, B), kThreads, 0, stream>>>(
+        ws_ml, ws_o, out, out_m, out_l, H, KV, D, n_split);
+  else
+    decode_combine_kernel<T, false><<<dim3(KV, B), kThreads, 0, stream>>>(
+        ws_ml, ws_o, out, nullptr, nullptr, H, KV, D, n_split);
   return cudaGetLastError();
+}
+
+bool bad_shape(int B, int S, int H, int KV, int D, int n_split, int split_len, int dtype) {
+  return B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxGroup || D < 8 ||
+         D % 8 != 0 || D > kMaxHeadDim || n_split < 1 || split_len < 1 ||
+         static_cast<long long>(n_split) * split_len < S ||
+         smem_bytes(H / KV, D, dtype == 0 ? 4 : 2) > static_cast<size_t>(kMaxSmemBytes);
+}
+
+int dispatch(const void* q, const void* kc, const void* vc, const void* lengths, void* ws,
+             void* out, float* out_m, float* out_l, bool stats, int B, int S, int H, int KV,
+             int D, int n_split, int split_len, float scale, int dtype, void* stream) {
+  if (bad_shape(B, S, H, KV, D, n_split, split_len, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch<float>(q, kc, vc, lengths, ws, out, out_m, out_l, stats, B, S,
+                                          H, KV, D, n_split, split_len, scale, st));
+  if (dtype == 1)
+    return static_cast<int>(launch<__nv_bfloat16>(q, kc, vc, lengths, ws, out, out_m, out_l,
+                                                   stats, B, S, H, KV, D, n_split, split_len,
+                                                   scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -378,19 +429,21 @@ int decode_attention_forward(const void* q, const void* kc, const void* vc,
                              const void* lengths, void* ws, void* out, int B, int S, int H,
                              int KV, int D, int n_split, int split_len, float scale, int dtype,
                              void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxGroup || D < 8 ||
-      D % 8 != 0 || D > kMaxHeadDim || n_split < 1 || split_len < 1 ||
-      static_cast<long long>(n_split) * split_len < S ||
-      smem_bytes(H / KV, D, dtype == 0 ? 4 : 2) > static_cast<size_t>(kMaxSmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch<float>(q, kc, vc, lengths, ws, out, B, S, H, KV, D, n_split,
-                                          split_len, scale, st));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(q, kc, vc, lengths, ws, out, B, S, H, KV, D,
-                                                   n_split, split_len, scale, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, kc, vc, lengths, ws, out, nullptr, nullptr, false, B, S, H, KV, D, n_split,
+                  split_len, scale, dtype, stream);
+}
+
+// The stats route: as decode_attention_forward, but out_o (B, H, D), out_m
+// and out_l (B, H) are f32 and receive the unnormalised output, the max and
+// the denominator (m = -1e30, l = 0, o = 0 for a row with no valid slot).
+int decode_attention_partial_forward(const void* q, const void* kc, const void* vc,
+                                     const void* lengths, void* ws, void* out_o, void* out_m,
+                                     void* out_l, int B, int S, int H, int KV, int D,
+                                     int n_split, int split_len, float scale, int dtype,
+                                     void* stream) {
+  return dispatch(q, kc, vc, lengths, ws, out_o, static_cast<float*>(out_m),
+                  static_cast<float*>(out_l), true, B, S, H, KV, D, n_split, split_len, scale,
+                  dtype, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Builds and launches the hand-written CUDA ``decode_attention`` kernels
 (``csrc/decode_attention.cu``): split-KV flash-decoding, a partial pass
 over ``split_plan``'s cache ranges and a combine pass, so each call is two
-launches on the card.
+launches on the card. The stats route (``decode_attention_partial_cuda``)
+runs the same pair but keeps the softmax statistics, for a sequence shard
+that is merged with the others.
 
 The source compiles at first use through ``kernels/build.py`` (``nvcc``
 into a ``ctypes`` library under ``build/repro_torch/``). Nothing is built
@@ -45,6 +47,9 @@ def _bind(lib, path) -> None:
     lib.decode_attention_forward.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                              i, i, i, ctypes.c_float, i, p]
     lib.decode_attention_forward.restype = i
+    lib.decode_attention_partial_forward.argtypes = [
+        p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.decode_attention_partial_forward.restype = i
     lib.decode_attention_config.argtypes = [ctypes.POINTER(i)]
     lib.decode_attention_config.restype = None
     lib.decode_attention_error_string.argtypes = [i]
@@ -102,15 +107,10 @@ def check_launch(group: int, head_dim: int,
                          "shared memory")
 
 
-def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the partial and the combine pass on the current stream of
-    ``q``'s card and return the output without synchronising. Shapes are
-    checked by ``ops.decode_attention``; this checks what the kernel itself
-    needs.
-    ``lengths`` is read on the card: a length above S counts as S, and a
-    row of length 0 gives zeros."""
+def _checked(q, k_cache, v_cache, lengths) -> tuple:
+    """What the kernels need of their inputs, checked; returns
+    ``(dtype code, (B, S, H, KV, D), (n_split, split_len))``. Shapes are
+    checked by the ops."""
     code = _DTYPE_CODES.get(q.dtype)
     if code is None:
         raise TypeError(f"decode_attention kernel takes float32 or "
@@ -127,14 +127,31 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                         f"lengths, got {lengths.dtype}")
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    G = H // KV
-    check_launch(G, D, q.dtype)
-    n_split, split_len = split_plan(B, KV, S)
+    check_launch(H // KV, D, q.dtype)
+    return code, (B, S, H, KV, D), split_plan(B, KV, S)
+
+
+def _workspace(q, KV: int, n_split: int) -> torch.Tensor:
+    """Each split's (m, l) per query head and unnormalised output, f32."""
+    B, H, D = q.shape
+    return torch.empty(B * KV * n_split * (H // KV) * (D + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """Launch the partial and the combine pass on the current stream of
+    ``q``'s card and return the output without synchronising. Shapes are
+    checked by ``ops.decode_attention``; this checks what the kernel itself
+    needs.
+    ``lengths`` is read on the card: a length above S counts as S, and a
+    row of length 0 gives zeros."""
+    code, (B, S, H, KV, D), (n_split, split_len) = _checked(
+        q, k_cache, v_cache, lengths)
     lib = _library()
     out = torch.empty_like(q)
-    # each split's (m, l) per query head and unnormalised output, f32
-    ws = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = _workspace(q, KV, n_split)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.decode_attention_forward(
@@ -143,3 +160,29 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             D, n_split, split_len, D ** -0.5, code, stream)
     _build.check_error(lib, "decode_attention", err)
     return out
+
+
+def decode_attention_partial_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  lengths: torch.Tensor) -> tuple:
+    """The stats route: the same partial pass, then a combine that writes
+    ``(o, m, l)`` in f32 — the unnormalised output (B, H, D), the running
+    max and the denominator (B, H) over the cache's first ``lengths[b]``
+    slots — without synchronising. A row with no valid slot gives m =
+    -1e30, l = 0 and o = 0."""
+    code, (B, S, H, KV, D), (n_split, split_len) = _checked(
+        q, k_cache, v_cache, lengths)
+    lib = _library()
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    ws = _workspace(q, KV, n_split)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.decode_attention_partial_forward(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), ws.data_ptr(), o.data_ptr(), m.data_ptr(),
+            l.data_ptr(), B, S, H, KV, D, n_split, split_len, D ** -0.5,
+            code, stream)
+    _build.check_error(lib, "decode_attention", err)
+    return o, m, l

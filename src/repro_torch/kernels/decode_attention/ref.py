@@ -37,3 +37,33 @@ def decode_attention_reference(q, k_cache, v_cache, lengths, *,
     o = torch.einsum("bkgs,bskd->bkgd", p,
                      v_cache.to(torch.float32)).reshape(B, H, D)
     return o.to(q.dtype)
+
+
+#: the max a row with no valid slot reports (the reference's ``NEG_INF``,
+#: ``src/repro/kernels/decode_attention/distributed.py``): finite, so the
+#: shards' ``exp(m - max m)`` is never ``exp(-inf + inf)``
+NEG_INF = -1e30
+
+
+def decode_attention_partial_reference(q, k_cache, v_cache, lengths):
+    """Plain version of the stats route: the unnormalised attention of each
+    query head over the cache's first ``lengths[b]`` slots, as the
+    reference's ``_partial`` computes it at offset 0. Returns ``(o (B,H,D),
+    m (B,H), l (B,H))`` in f32: ``o = sum_s p_s v_s`` with ``p_s = exp(s_s
+    - m)`` rounded to the cache dtype before the product, ``m`` the largest
+    valid score (``NEG_INF`` where none is valid), ``l = sum_s p_s``."""
+    B, H, D = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    qg = q.reshape(B, KV, G, D).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg,
+                     k_cache.to(torch.float32)) * (D ** -0.5)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths[:, None])[:, None, None, :]           # (B,1,1,S)
+    s = torch.where(valid, s, NEG_INF)
+    m = torch.amax(s, dim=-1)                                # (B,KV,G)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(torch.float32),
+                     v_cache.to(torch.float32))
+    return o.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)

@@ -1,6 +1,7 @@
-"""Shared fixtures of the port's durability and serverless tests: the
-steady-state and detection systems, the replayable crash-restart plans,
-the bitwise store snapshots they are compared by, and the tolerances.
+"""Shared fixtures of the port's fleet, durability and serverless tests:
+the steady-state, sharded-fleet and detection systems, the replayable
+crash-restart plans, the bitwise store snapshots they are compared by, and
+the tolerances.
 Every system factory takes ``device=`` (default ``"cuda"``, which raises
 without a card; the CPU tests pass ``"cpu"``). A model object that holds tensors is
 compared through its numpy image (``forecast.base.version_to_numpy``), so
@@ -96,6 +97,20 @@ def build_detection_castor(n: int = 3, *, site: str = "D", seed: int = 11,
                         detect=Schedule(FLEET_NOW + MINUTE, MINUTE))
     return c
 
+
+
+def run_polls(c, k: int, *, executor=None, t0: float = FLEET_NOW,
+              step: float = HOUR):
+    """Run ``k`` consecutive scheduler polls through ``executor`` (default:
+    the castor's persistent fleet executor — the runtime-warm path),
+    asserting every job succeeds. Returns the executor (its
+    ``last_bin_stats`` describe the final poll)."""
+    ex = executor if executor is not None else c.fleet_executor()
+    for i in range(k):
+        res = ex.run(c.scheduler.poll(t0 + i * step))
+        assert all(r.ok for r in res), \
+            [r.error for r in res if not r.ok]
+    return ex
 
 def _canon(obj):
     """Canonical bitwise-comparable form of a params pytree / array: every
@@ -342,3 +357,31 @@ def drive_plan(c, plan, *, executor: str = "fleet",
         res = c.tick(t, executor=executor)
         bad = [r.error for r in res if not r.ok]
         assert not bad, bad
+
+
+def build_fleet_castor(kind: str, cls, hp: dict, mesh_opt: str, *,
+                       n: int = 6, seed: int = 9, site: str = "Z",
+                       run: bool = True, device="cuda"):
+    """Small smart-grid fleet: one ``kind`` deployment per prosumer
+    (named ``s-{site}_PRO_0_{i}``), train+score due at FLEET_NOW, with
+    ``user_params["mesh"] = mesh_opt``. With ``run`` the due jobs execute
+    through a FleetExecutor (asserting success). Returns ``(castor,
+    fleet_executor)``."""
+    from .core import Castor, Schedule
+    from .core.executor import FleetExecutor
+    from .timeseries.ingest import SiteSpec, build_site
+    c = Castor(device=device)
+    build_site(c, SiteSpec(site, n_prosumers=n, n_feeders=1,
+                           n_substations=1, seed=seed),
+               t0=0.0, t1=38 * DAY)
+    c.publish(kind, "1.0", cls)
+    c.deploy_for_all(package=kind, signal="ENERGY_LOAD", name_prefix="s",
+                     kind="PROSUMER", train=Schedule(FLEET_NOW, 1e12),
+                     score=Schedule(FLEET_NOW, 1e12),
+                     user_params={"train_window_days": 14,
+                                  "mesh": mesh_opt, **hp})
+    fx = FleetExecutor(c)
+    if run:
+        res = fx.run(c.scheduler.poll(FLEET_NOW))
+        assert all(r.ok for r in res), [r.error for r in res if not r.ok]
+    return c, fx

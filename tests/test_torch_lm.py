@@ -240,9 +240,13 @@ def test_encoder_has_no_decode_and_dist_waits():
     with pytest.raises(ValueError, match="encoder-only"):
         TM.decode_step(cfg, {}, {"lengths": torch.zeros(2, dtype=torch.int32)},
                        {})
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        layers.attention_decode(get_config("qwen3-1.7b-smoke"), {}, None,
-                                None, None, 0, None, dist={"mesh": None})
+    # the distributed flash-decode is ported (tests/test_torch_decode_
+    # distributed.py); what the decode step still refuses is an unroll
+    # lax.scan refuses
+    with pytest.raises(ValueError, match="scan_unroll"):
+        TM.decode_step(get_config("qwen3-1.7b-smoke"), {},
+                       {"lengths": torch.zeros(2, dtype=torch.int32)}, {},
+                       scan_unroll=0)
 
 
 def test_cuda_default_without_card_raises():
