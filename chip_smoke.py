@@ -189,6 +189,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the CPU in f32 (relative L2 of the logits within
    ``DENSE_GAP_TOL``), the warm time and peak device memory; an engine
    run of 4 requests for each decoder.
+16. training across devices, in an NCCL world of one on 127.0.0.1: (a)
+   qwen3-1.7b at full width and depth (f32 masters, bf16 compute, remat,
+   B 4 x S 1024) through ``launch.cells.build_cell``'s train ``fn`` on a
+   (1, 1) ("data", "model") mesh (``baseline_rules``), 4 steps, each from
+   the same state as the undistributed ``make_train_step``: loss, grad
+   norm and every param leaf within ``LM_PARITY_TOL`` (the bit-equal
+   leaves counted), the moments and step count bit-equal (by sums of
+   their bits), 56
+   ``flash_attention`` forwards and 28
+   backwards a step; both steps' times, tokens/s and peak memory. (b) The
+   same from the same start with ``compress_with_feedback`` as the hook:
+   losses finite, the last below the first, each leaf's compression
+   error within half a code. (c) (a)'s state through
+   ``CheckpointManager.save_async`` (one shard file a rank), a mesh from
+   ``elastic_remesh``, ``restore_latest(shardings=)``: bit-equal; then
+   ``TrainSupervisor.run(..., shardings=)`` with a ``NodeFailure``
+   (qwen3-1.7b at full width, 2 layers): one restore, the final state
+   equal to the uninterrupted run's. (d) The five dense configs' training
+   at full width, 2 layers: one f32 step's gradients card against CPU
+   (``lm_train_parity(gradients_only=True)``), bf16 steps
+   (``lm_train_path``; a token model's loss falls) with 2
+   ``flash_attention`` forwards and 1 backward a layer. (e) The dry run's ``compute_s`` for (a)'s cell
+   no larger than (a)'s measured step, and its count of qwen3-1.7b
+   ``train_4k`` on the production mesh. Within 240 s.
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
@@ -1912,8 +1936,8 @@ def _recorded_routes(pinned=None):
     calls = []
     own = moe._router
 
-    def router(cfg, p, x):
-        w, idx, aux = own(cfg, p, x)
+    def router(cfg, p, x, **kw):
+        w, idx, aux = own(cfg, p, x, **kw)
         logits = x.to(torch.float32) @ p["router"].to(torch.float32)
         if pinned is not None:
             idx = pinned[len(calls)].to(idx.device)
@@ -2871,14 +2895,35 @@ def _move(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
+def train_batch(cfg, batch: int, seq: int, seed: int, device: str) -> dict:
+    """A seeded training batch of ``cfg``'s inputs: the next-token stream
+    of ``synthetic_lm_batch`` for a token model, ``synthetic_batch_for``'s
+    frames (audio) or tokens, patch embeddings and M-RoPE positions
+    (vlm) otherwise."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.synthetic import (synthetic_batch_for,
+                                            synthetic_lm_batch)
+    if cfg.frontend == "none":
+        return synthetic_lm_batch(cfg.vocab_size, batch, seq, seed=seed,
+                                  device=device)
+    return synthetic_batch_for(cfg, ShapeSpec("train", seq, batch, "train"),
+                               seed=seed, device=device)
+
+
 def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
                     layers: int = 2, batch: int = 1, seq: int = 256,
-                    seed: int = 21, tol=LM_PARITY_TOL) -> dict:
+                    seed: int = 21, tol=LM_PARITY_TOL,
+                    gradients_only: bool = False) -> dict:
     """One f32 ``make_train_step`` of ``arch`` at full width cut to
     ``layers`` layers, on ``device`` and on the CPU from the same params
     (drawn on the CPU) and batch: the loss, the grad norm, every gradient
     leaf (read through ``grad_hook``) and the updated params within
-    ``tol``; on the device the launches of ``train_launches``
+    ``tol``. With ``gradients_only``, the step's gradients alone
+    (``make_grad_fn``: the CPU's f32 AdamW over a full-width vocabulary
+    costs tens of seconds, and its arithmetic does not depend on the
+    config) from params drawn on ``device`` and copied to the CPU (whose
+    seeded draw of 1.5e9 of them is slow). On the
+    device the launches of ``train_launches``
     (each kernel's backward once, its forward twice). Where the model has
     scans, every scan call of the device's step is held to its plain
     version at its own inputs (``_check_scan_calls``). Returns the
@@ -2887,15 +2932,16 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
     from repro_torch.arch import model as M
     from repro_torch.arch.params import tree_leaves
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import synthetic_lm_batch
     from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.step import _unflatten, make_grad_fn
     check(not torch.backends.cuda.matmul.allow_tf32,
           "train parity: f32 matmuls must not run in TF32")
     cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
-    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
-                           device="cpu")
-    batch0 = synthetic_lm_batch(cfg.vocab_size, batch, seq, seed=seed,
-                                device="cpu")
+    home = device if gradients_only else "cpu"
+    params = M.init_params(cfg, torch.Generator(device=home).manual_seed(
+        seed), device=home)
+    batch0 = train_batch(cfg, batch, seq, seed, "cpu")
     out, moe_routes = {}, {}
     for dev in dict.fromkeys((device, "cpu")):
         p, b = _move(params, dev), _move(batch0, dev)
@@ -2905,7 +2951,12 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
         reset_counts()
         t = time.perf_counter()
         with _recorded_scans() as calls, _recorded_routes() as routes:
-            new, _, m = step(p, init_state(p), b)
+            if gradients_only:
+                grads, m = make_grad_fn(cfg)(p, [b])
+                seen.append(_unflatten(p, grads))
+                m["grad_norm"], new = global_norm(seen[0]), None
+            else:
+                new, _, m = step(p, init_state(p), b)
             loss = float(m["loss"])
         secs = time.perf_counter() - t
         if dev == device:
@@ -2921,23 +2972,27 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
     rel = {"loss": abs(loss_d - loss_c) / abs(loss_c),
            "grad_norm": abs(float(m_d["grad_norm"]) - float(m_c["grad_norm"]))
            / float(m_c["grad_norm"]),
-           "grad": gaps[worst],
-           "update_excess": _update_excess(
-               p_d, p_c, g_d, g_c, params, opt,
-               (m_d["grad_norm"], m_c["grad_norm"]))}
+           "grad": gaps[worst]}
+    if not gradients_only:
+        rel["update_excess"] = _update_excess(
+            p_d, p_c, g_d, g_c, params, opt,
+            (m_d["grad_norm"], m_c["grad_norm"]))
+        p_diff = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(tree_leaves(p_d), tree_leaves(p_c)))
+        params_line = (f"params max |diff| {p_diff:.2e} (excess over what "
+                       f"the gradient differences allow "
+                       f"{rel['update_excess']:.2e})")
+    else:
+        params_line = "gradients only (no update)"
     scans = any(kind in cfg.pattern for kind in ("mamba2", "rwkv6"))
-    p_diff = max(float((a.cpu() - b).abs().max())
-                 for a, b in zip(tree_leaves(p_d), tree_leaves(p_c)))
     print(f"train parity: {cfg.name} d={cfg.d_model} H={cfg.num_heads} "
           f"KV={cfg.num_kv_heads} hd={cfg.head_dim} vocab={cfg.vocab_size}, "
           f"{layers} layers, f32, B {batch} x S {seq}: {device} against cpu "
           f"from the same params, loss {loss_d:.6f} / {loss_c:.6f} (rel "
           f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
-          f"gradient leaf {rel['grad']:.2e} of its max ({worst}), params max "
-          f"|diff| "
-          f"{p_diff:.2e} (excess over what the gradient differences allow "
-          f"{rel['update_excess']:.2e}); step {s_d:.3f} s on {device}, "
-          f"{s_c:.3f} s on cpu")
+          f"gradient leaf {rel['grad']:.2e} of its max ({worst}), "
+          f"{params_line}; step {s_d:.3f} s on {device}, {s_c:.3f} s on "
+          f"cpu")
     if scans:
         _check_scan_calls(cfg.name, device, device_calls)
     aux = [k for k in m_c if k.startswith("moe_")]
@@ -2957,8 +3012,9 @@ def lm_train_parity(device: str, arch: str = "qwen3-1.7b", *,
               f"train parity: {routes['sets_differ']} expert sets differ")
         tol = {**tol, **{k: tol["loss"] for k in aux}}
     for key, bound in tol.items():
-        check(rel[key] <= bound,
-              f"train parity: {key} {rel[key]:.3e} > {bound}")
+        if key in rel:
+            check(rel[key] <= bound,
+                  f"train parity: {key} {rel[key]:.3e} > {bound}")
     want = train_launches(cfg)
     check(device == "cpu" or n_d == want,
           f"train parity: launches {n_d}, expected {want}")
@@ -3125,8 +3181,10 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
     """``arch`` at full width, at full depth or cut to ``layers`` layers
     (whole periods): f32 master params from a seeded generator on the
     device, AdamW defaults, ``steps`` steps of ``make_train_step`` (bf16
-    compute, remat) on ``SyntheticTokenStream(vocab, batch, seq)``. Every
-    loss finite, the last below the first; per step the launches of
+    compute, remat) on ``SyntheticTokenStream(vocab, batch, seq)`` (a
+    frames or patches model: ``train_batch``'s random batches). Every
+    loss finite, for a token model the last below the first (random
+    labels need not fall); per step the launches of
     ``train_launches`` (each kernel's forward twice, the forward and the
     recompute, its backward once), no other kernel; on a card the peak
     device memory under ``TRAIN_PEAK_BYTES``. Prints the step times,
@@ -3152,8 +3210,13 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
                            device=device)
     opt_state = init_state(params)
     step = make_train_step(cfg)
-    stream = SyntheticTokenStream(cfg.vocab_size, batch, seq, device=device)
-    batches = [stream.next() for _ in range(steps + 1)]
+    if cfg.frontend == "none":
+        stream = SyntheticTokenStream(cfg.vocab_size, batch, seq,
+                                      device=device)
+        batches = [stream.next() for _ in range(steps + 1)]
+    else:                      # frames (audio) or patches + M-RoPE (vlm)
+        batches = [train_batch(cfg, batch, seq, i, device)
+                   for i in range(steps + 1)]
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3191,7 +3254,7 @@ def lm_train_path(device: str, arch: str = "qwen3-1.7b", *, batch: int = 4,
                                       launches.items() if v))
     check(all(math.isfinite(x) for x in losses),
           f"train: a loss is not finite: {losses}")
-    check(losses[-1] < losses[0],
+    check(cfg.frontend != "none" or losses[-1] < losses[0],
           f"train: the loss did not fall: {losses[0]} -> {losses[-1]}")
     check(peak is None or peak < TRAIN_PEAK_BYTES,
           f"train: peak device memory {peak} B >= {TRAIN_PEAK_BYTES} B")
@@ -3993,6 +4056,503 @@ def dense_gap_phase(device: str, layers=None, *, seq: int = 64,
     return out
 
 
+# Phase 16: training across devices. (a) the train cell of qwen3-1.7b at
+# full width and depth on a (1, 1) mesh in a world of one against the
+# undistributed step, (b) with the int8 hook, (c) sharded checkpoint,
+# elastic remesh, restore, supervised restart, (d) the dense configs'
+# training, (e) the dry run's roofline against (a)'s step
+SHARDED_TRAIN = dict(batch=4, seq=1024, steps=4)
+# the supervised restart: qwen3-1.7b at full width cut to 2 layers (a
+# 4.9e9 B state, most of it the embedding's): two checkpoint writes and
+# one restore through restore_latest(shardings=)
+SUPERVISED = dict(arch="qwen3-1.7b", layers=2, steps=4, every=2, fail_at=3)
+# gap (a): the five dense configs' training, at full width cut to 2
+# layers: one f32 step card against CPU, then DENSE_TRAIN_STEPS bf16
+# steps. A token model's loss must fall, and at 2 layers the first AdamW
+# steps raise it: llama3-8b, starcoder2-7b and internlm2-20b first end
+# below their first loss (by 1.8 or more) after 9 steps
+DENSE_TRAIN_LAYERS = dict(DENSE_GAP_LAYERS)
+DENSE_TRAIN_STEPS = 9
+TRAIN_MESH_SECONDS = 240.0
+# |compressed - (g + e)| per leaf, in units of the leaf's scale: half a
+# code, plus the f32 roundings of x / scale and code x scale, a few ulps
+# of max |deq| = 127 scale (2^-14 is 128 ulps of it)
+COMPRESS_SLACK = 2.0 ** -14
+
+
+def _world_of_one(device: str) -> str:
+    """A process group of one rank on 127.0.0.1: NCCL on the card, gloo
+    on the CPU."""
+    import torch.distributed as dist
+    backend = "nccl" if device != "cpu" else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    return backend
+
+
+def _locals(tree):
+    """Every DTensor leaf's local block (in a world of one: the whole)."""
+    from repro_torch.distributed.checkpoint import tree_map
+    return tree_map(lambda t: t.to_local(), tree)
+
+
+def _state_gaps(got, want) -> tuple:
+    """(worst max |got - want| / max |want| over the leaves, leaves
+    bit-equal, leaves): ``got`` on the device, ``want`` anywhere; a leaf
+    at a time is moved to ``got``'s device."""
+    import torch
+    from repro_torch.distributed.checkpoint import flatten
+    worst, same, n = 0.0, 0, 0
+    for a, b in zip(flatten(got), flatten(want)):
+        b = b.to(a.device)
+        same += bool(torch.equal(a, b))
+        n += 1
+        if a.is_floating_point():
+            worst = max(worst, float((a - b).abs().max()
+                                     / (b.abs().max() + 1e-30)))
+    return worst, same, n
+
+
+def _bit_sums(t) -> tuple:
+    """Two sums of a tensor's bits as integers (all of them, every other
+    one): equal for bit-equal tensors, so a state can be compared without
+    being kept."""
+    import torch
+    flat = t.reshape(-1)
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[flat.element_size()]
+    bits = flat.view(as_int).to(torch.int64)
+    return int(bits.sum()), int(bits[1::2].sum())
+
+
+def _feedback_hook(record: list):
+    """``FeedbackHook`` (``compress_with_feedback`` as a ``grad_hook``);
+    per call, the worst leaf's |compressed - (g + e)| in units of its
+    scale (max |deq| / 127) is appended to ``record``."""
+    import torch
+    from repro_torch.distributed.checkpoint import flatten
+    from repro_torch.distributed.compression import FeedbackHook
+    inner = FeedbackHook()
+
+    def hook(grads):
+        grads = inner(grads)
+        record.append(max(
+            float(e.abs().max() / (g.to(torch.float32).abs().max() / 127))
+            for g, e in zip(flatten(grads), flatten(inner.error))
+            if float(g.abs().max()) > 0))
+        return grads
+    return hook
+
+
+def sharded_train_phase(device: str, arch: str = "qwen3-1.7b", *,
+                        batch: int = 4, seq: int = 1024, steps: int = 4,
+                        layers: int = 0, supervised=None, seed: int = 16,
+                        must_fall: bool = True) -> dict:
+    """Phase 16 (a)-(c) in a world of one (NCCL on the card) on 127.0.0.1,
+    a (1, 1) ("data", "model") mesh: (a) ``arch`` (f32 masters, bf16
+    compute, remat; cut to ``layers`` where given) through ``build_cell``'s
+    train ``fn`` (``baseline_rules``) for ``steps`` steps, each from the
+    same state as the undistributed ``make_train_step``: loss, grad norm
+    and params within ``LM_PARITY_TOL``, the leaves bit-equal counted (the
+    moments by sums of their bits: three states do not fit beside a
+    step), each kernel's launches of ``train_launches`` a step, the step
+    times, tokens/s and peak memory of both; (c) (a)'s state saved with
+    ``CheckpointManager.save_async``, a mesh from ``elastic_remesh`` and
+    the state restored onto it with ``shardings=``, bit-equal; (b) (a)
+    again from its initial state on its batches with
+    ``compress_with_feedback`` as the hook: finite losses, the last below
+    the first (where ``must_fall``: a smoke model's loss barely moves in a
+    few steps), every leaf within half a code; then (c) the supervised
+    restart of ``supervised_restart``. The world is destroyed before
+    returning."""
+    import math
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.arch import model as M
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.synthetic import SyntheticTokenStream
+    from repro_torch.distributed.checkpoint import CheckpointManager, flatten
+    from repro_torch.distributed.fault import elastic_remesh
+    from repro_torch.distributed.sharding import (baseline_rules, place,
+                                                  place_tree)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import init_state, make_train_step
+    cuda = device != "cpu"
+    t_phase = time.perf_counter()
+    backend = _world_of_one(device)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        if cuda:
+            torch.cuda.empty_cache()
+        params = M.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed),
+            device=device)
+        shape = ShapeSpec("phase16", seq, batch, "train")
+        cell = build_cell(cfg, shape, mesh, rules=baseline_rules(),
+                          microbatches=1)
+        sh = cell_shardings(cell)
+        state = place_tree((params, init_state(params)), sh[:2])
+        del params
+        undistributed = make_train_step(cfg)
+        stream = SyntheticTokenStream(cfg.vocab_size, batch, seq,
+                                      device=device)
+        batches = [stream.next() for _ in range(steps)]
+        # the world's first collective sets up its communicator
+        dist.all_reduce(torch.zeros(1, device=device))
+        per_step = train_launches(cfg)
+        rows, secs, peaks = [], {"plain": [], "cell": []}, \
+            {"plain": 0, "cell": 0}
+        tol = LM_PARITY_TOL
+        for i, b in enumerate(batches):
+            plain = _locals(state)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            p_u, o_u, m_u = undistributed(plain[0], plain[1], b)
+            loss_u = float(m_u["loss"])
+            _sync(device)
+            secs["plain"].append(time.perf_counter() - t)
+            if cuda:
+                peaks["plain"] = max(peaks["plain"],
+                                     torch.cuda.max_memory_allocated())
+            # the updated params stay on the card beside the cell's step;
+            # the moments and step count are kept as sums of their bits
+            want_bits = [_bit_sums(t) for t in flatten(o_u)]
+            del o_u, plain
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            p_d, o_d, m_d = cell.fn(state[0], state[1], {
+                k: place(v, *sh[2][k]) for k, v in b.items()})
+            loss_d = float(m_d["loss"])
+            _sync(device)
+            secs["cell"].append(time.perf_counter() - t)
+            got_counts = counts()
+            if cuda:        # less the compared params held beside the step
+                held = sum(t.numel() * t.element_size() for t in flatten(p_u))
+                peaks["cell"] = max(peaks["cell"],
+                                    torch.cuda.max_memory_allocated() - held)
+            state = (p_d, o_d)
+            worst, same, n = _state_gaps(_locals(p_d), p_u)
+            moments = sum(_bit_sums(a) == w for a, w in
+                          zip(flatten(_locals(o_d)), want_bits))
+            del p_u, p_d, o_d
+            rel = {"loss": abs(loss_d - loss_u) / abs(loss_u),
+                   "grad_norm": abs(float(m_d["grad_norm"])
+                                    - float(m_u["grad_norm"]))
+                   / float(m_u["grad_norm"]), "params": worst}
+            # bit-equal moments: a fault in how the cell hands its state
+            # back would otherwise feed both sides of the next step alike
+            ok = rel["loss"] <= tol["loss"] \
+                and rel["grad_norm"] <= tol["grad_norm"] \
+                and worst <= tol["grad"] and got_counts == per_step \
+                and math.isfinite(loss_d) and moments == len(want_bits)
+            print(f"sharded train step {i}: {cfg.name} cell on mesh (1, 1) "
+                  f"against make_train_step from the same state: loss "
+                  f"{loss_d:.6f} / {loss_u:.6f} (rel {rel['loss']:.2e}), "
+                  f"grad norm rel {rel['grad_norm']:.2e}, params worst leaf "
+                  f"{worst:.2e} of its max, {same}/{n} param leaves "
+                  f"bit-equal, moments and step {moments}/{len(want_bits)} "
+                  f"bit-equal (sums of their bits); {secs['cell'][-1]:.3f} s / "
+                  f"{secs['plain'][-1]:.3f} s; launches " + ", ".join(
+                      f"{k} {v}" for k, v in got_counts.items() if v)
+                  + f" {'ok' if ok else 'FAIL'}")
+            check(ok, f"sharded train step {i}: {rel}, moments and step "
+                      f"{moments}/{len(want_bits)} bit-equal, launches "
+                      f"{got_counts} (expected {per_step})")
+            rows.append({"loss": loss_d, "loss_rel": rel["loss"],
+                         "grad_norm_rel": rel["grad_norm"],
+                         "params_rel": worst, "bit_equal": same == n
+                         and moments == len(want_bits)})
+        warm = {k: v[1:] or v for k, v in secs.items()}
+        step_s = {k: sum(v) / len(v) for k, v in warm.items()}
+        tokens = batch * seq
+        print(f"sharded train: {cfg.name} ({cfg.num_layers} layers, "
+              f"{M.param_count(cfg)} parameters) in a {backend} world of "
+              f"one, B {batch} x S {seq}: {step_s['cell']:.3f} s a step "
+              f"({tokens / step_s['cell']:.1f} tokens/s) through the cell, "
+              f"{step_s['plain']:.3f} s ({tokens / step_s['plain']:.1f} "
+              f"tokens/s) undistributed (mean of steps 1-{steps - 1}); peak "
+              f"device memory "
+              + (f"{peaks['cell']} B / {peaks['plain']} B (the cell's less "
+                 f"the undistributed step's params held for the comparison)"
+                 if cuda else
+                 "not measured (cpu)")
+              + f"; flash_attention {per_step['flash_attention']} forwards "
+              f"and {per_step['flash_attention_backward']} backwards a step")
+        check(not cuda or peaks["cell"] < TRAIN_PEAK_BYTES,
+              f"sharded train: peak {peaks['cell']} B >= {TRAIN_PEAK_BYTES}")
+        out = {"steps": rows, "step_s": step_s, "peak_bytes": peaks,
+               "launches": per_step, "cfg": cfg,
+               "tokens_per_s": tokens / step_s["cell"],
+               "seconds_a": time.perf_counter() - t_phase}
+        with tempfile.TemporaryDirectory() as td:
+            # (c) save, remesh, restore
+            mgr = CheckpointManager(f"{td}/ckpt", keep=1)
+            t = time.perf_counter()
+            mgr.save_async({"params": state[0], "opt": state[1]},
+                           step=steps)
+            t_snap = time.perf_counter() - t
+            mgr.wait()
+            t_save = time.perf_counter() - t
+            new = elastic_remesh(model_axis=16)
+            new_sh = cell_shardings(build_cell(cfg, shape, new,
+                                               rules=baseline_rules(),
+                                               microbatches=1))
+            t = time.perf_counter()
+            restored, manifest = mgr.restore_latest(
+                {"params": state[0], "opt": state[1]},
+                shardings={"params": new_sh[0], "opt": new_sh[1]})
+            _sync(device)
+            t_restore = time.perf_counter() - t
+            pairs = list(zip(flatten(restored), flatten(
+                {"params": state[0], "opt": state[1]})))
+            same = all(torch.equal(a.to_local(), b.to_local())
+                       for a, b in pairs)
+            on_new = all(a.device_mesh == new for a, _ in pairs)
+            nbytes = sum(a.to_local().numel() * a.to_local().element_size()
+                         for a, _ in pairs)
+            n_leaves = len(pairs)
+            del pairs
+            ok = same and on_new and manifest["step"] == steps \
+                and tuple(new.shape) == (1, 1)
+            print(f"checkpoint: {cfg.name} state ({nbytes} B, "
+                  f"{n_leaves} leaves) saved sharded by save_async "
+                  f"(host snapshot {t_snap:.1f} s, written {t_save:.1f} s), "
+                  f"elastic_remesh -> mesh {tuple(new.shape)}, restored "
+                  f"with shardings= in {t_restore:.1f} s: bit-equal "
+                  f"{same}, on the new mesh {on_new} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, "checkpoint: the restore onto the new mesh differs")
+            out["checkpoint"] = {"bytes": nbytes, "snapshot_s": t_snap,
+                                 "save_s": t_save, "restore_s": t_restore}
+        del state
+        if cuda:
+            torch.cuda.empty_cache()
+        # (b) the int8 hook, from (a)'s initial state on (a)'s batches
+        del restored
+        record = []
+        hooked = build_cell(cfg, shape, new, rules=baseline_rules(),
+                            microbatches=1,
+                            grad_hook=_feedback_hook(record))
+        params = M.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed),
+            device=device)
+        params, opt = place_tree((params, init_state(params)), new_sh[:2])
+        losses = []
+        for b in batches:
+            params, opt, m = hooked.fn(params, opt, {
+                k: place(v, *new_sh[2][k]) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        worst = max(record)
+        ok = all(math.isfinite(x) for x in losses) \
+            and (losses[-1] < losses[0] or not must_fall) \
+            and worst <= 0.5 + COMPRESS_SLACK
+        print(f"compressed train: {cfg.name} cell with compress_with_feedback "
+              f"as grad_hook, {steps} steps from (a)'s initial state on its "
+              f"batches: losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + " (uncompressed " + ", ".join(f"{r['loss']:.4f}"
+                                              for r in rows)
+              + f"); worst |compressed - (g + e)| {worst:.6f} of a leaf's "
+              f"scale (bound {0.5 + COMPRESS_SLACK:.6f}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"compressed train: losses {losses}, error {worst}")
+        out["compressed"] = {"losses": losses, "worst_of_scale": worst}
+        del params, opt
+        if cuda:
+            torch.cuda.empty_cache()
+        out["supervised"] = supervised_restart(
+            device, **(supervised or SUPERVISED))
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def supervised_restart(device: str, arch: str, *, layers: int, steps: int,
+                       every: int, fail_at: int, batch: int = 4,
+                       seq: int = 1024, seed: int = 17) -> dict:
+    """Phase 16 (c), in the open world of one: ``arch`` cut to ``layers``
+    through a train cell on a mesh from ``elastic_remesh``,
+    ``steps`` steps uninterrupted, then the same under
+    ``TrainSupervisor.run(..., shardings=)`` with a checkpoint every
+    ``every`` steps and a ``NodeFailure`` injected before step
+    ``fail_at``: one failure, one restore, the final state equal to the
+    uninterrupted run's (each step's batch chosen by the state's own
+    step count, so a replayed step sees its batch again)."""
+    import itertools
+    import tempfile
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.synthetic import SyntheticTokenStream
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import (NodeFailure, TrainSupervisor,
+                                               elastic_remesh)
+    from repro_torch.distributed.sharding import (baseline_rules, place,
+                                                  place_tree)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    from repro_torch.train import init_state
+    cfg = get_config(arch).replace(num_layers=layers)
+    mesh = elastic_remesh(model_axis=16)
+    cell = build_cell(cfg, ShapeSpec("restart", seq, batch, "train"), mesh,
+                      rules=baseline_rules(), microbatches=1)
+    sh = cell_shardings(cell)
+    stream = SyntheticTokenStream(cfg.vocab_size, batch, seq, device=device)
+    batches = [{k: place(v, *sh[2][k]) for k, v in stream.next().items()}
+               for _ in range(steps)]
+
+    def fresh():
+        params = M.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed),
+            device=device)
+        return place_tree((params, init_state(params)), sh[:2])
+
+    def run(state, _):
+        done = int(state[1].step.to_local())
+        if failures["left"] and done + 1 == fail_at:
+            failures["left"] -= 1
+            raise NodeFailure(f"injected before step {fail_at}")
+        p, o, _ = cell.fn(state[0], state[1], batches[done])
+        return (p, o)
+
+    failures = {"left": 0}
+    want = fresh()
+    for _ in range(steps):
+        want = run(want, None)
+    want = _move(_locals(want), "cpu")
+    failures["left"] = 1
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        sup = TrainSupervisor(CheckpointManager(f"{td}/ckpt", keep=2),
+                              checkpoint_every=every)
+        state, rep = sup.run(fresh(), itertools.repeat(None), run,
+                             num_steps=steps, shardings=sh[:2])
+    secs = time.perf_counter() - t
+    worst, same, n = _state_gaps(_locals(state), want)
+    ok = (rep.failures_handled, rep.restores, rep.final_step) \
+        == (1, 1, steps) and worst <= LM_PARITY_TOL["grad"]
+    print(f"supervised restart: {cfg.name} ({layers} layers, "
+          f"{M.param_count(cfg)} parameters) on mesh {tuple(mesh.shape)}, "
+          f"{steps} steps, checkpoints every {every}, a NodeFailure before "
+          f"step {fail_at}: failures {rep.failures_handled}, restores "
+          f"{rep.restores}, final step {rep.final_step}; against the "
+          f"uninterrupted run worst leaf {worst:.2e}, {same}/{n} leaves "
+          f"bit-equal; {secs:.1f} s {'ok' if ok else 'FAIL'}")
+    check(ok, f"supervised restart: {rep}, worst leaf {worst}")
+    del state
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"seconds": secs, "worst": worst, "bit_equal": same == n}
+
+
+def dense_train_phase(device: str, layers=None, *, parity_seq: int = 256,
+                      batch: int = 4, seq: int = 1024,
+                      steps: int = DENSE_TRAIN_STEPS) -> dict:
+    """Phase 16 (d), gap (a)'s training half: each dense config of
+    ``layers`` (arch -> depth) at full width, one f32 step's loss, grad
+    norm and gradients card against the CPU from the same params, drawn
+    on the card (``lm_train_parity`` at ``LM_PARITY_TOL``, its launches;
+    the update's arithmetic, which no config changes, is held at
+    qwen3-1.7b in phase 9), then
+    ``steps`` bf16 steps of ``lm_train_path`` (profile off): finite
+    losses, a token model's last below its first (random labels need not
+    fall), two ``flash_attention`` forwards and one backward a layer a
+    step."""
+    layers = layers or DENSE_TRAIN_LAYERS
+    out = {}
+    for arch, depth in layers.items():
+        t = time.perf_counter()
+        parity = lm_train_parity(device, arch, layers=depth, seq=parity_seq,
+                                 gradients_only=True)
+        t_parity = time.perf_counter() - t
+        path = lm_train_path(device, arch, batch=batch, seq=seq,
+                             steps=steps, layers=depth, profile=False)
+        secs = time.perf_counter() - t
+        print(f"dense train: {arch} at {depth} layers, parity and path in "
+              f"{secs:.1f} s (the parity {t_parity:.1f} s)")
+        out[arch] = {"parity": parity, "step_s": path["step_s"],
+                     "peak_bytes": path["peak_bytes"],
+                     "launches": path["launches"], "seconds": secs}
+    return out
+
+
+def dryrun_check(device: str, train: dict, *, batch: int = 4,
+                 seq: int = 1024) -> dict:
+    """Phase 16 (e): the dry run's count of (a)'s own cell on one device;
+    its ``compute_s`` (operations over the card's peak) must not exceed
+    (a)'s measured step, or the count is wrong. Then qwen3-1.7b
+    ``train_4k`` on the production mesh (host only)."""
+    import tempfile
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    cfg = train["cfg"]
+    with tempfile.TemporaryDirectory() as td:
+        own = dryrun.run_cell(cfg, ShapeSpec("phase16", seq, batch, "train"),
+                              multi_pod=False, out_dir=td,
+                              mesh=MeshShape((1, 1), ("data", "model")),
+                              microbatches=1)
+        prod = dryrun.run_cell("qwen3-1.7b", "train_4k", multi_pod=False,
+                               out_dir=td)
+    step = train["step_s"]["cell"]
+    rl = own["roofline"]
+    ok = rl["compute_s"] <= step
+    mem = own["memory"]["peak_per_device_bytes"]
+    print(f"dry run: {cfg.name} B {batch} x S {seq} on one device: "
+          f"{own['cost']['flops']:.4e} flops, {own['cost']['bytes']:.4e} "
+          f"bytes; roofline compute {rl['compute_s'] * 1e3:.2f} ms, memory "
+          f"{rl['memory_s'] * 1e3:.2f} ms ({rl['card']}) against the "
+          f"measured step {step * 1e3:.2f} ms "
+          f"({rl['compute_s'] / step:.3f} of it); peak per device "
+          f"{mem:.4e} B counted, "
+          + (f"{train['peak_bytes']['cell']} B measured" if device != "cpu"
+             else "not measured (cpu)")
+          + f" {'ok' if ok else 'FAIL'}")
+    check(ok, f"dry run: compute {rl['compute_s']} s > the measured step "
+              f"{step} s: the count is wrong")
+    r = prod["roofline"]
+    print(f"dry run: qwen3-1.7b train_4k on the production mesh "
+          f"{prod['mesh']}: {prod['cost']['flops']:.4e} flops a device, "
+          f"microbatches {prod['microbatches']}, batch split "
+          f"{prod['batch_split']}, peak "
+          f"{prod['memory']['peak_per_device_bytes']:.4e} B a device; "
+          f"compute {r['compute_s'] * 1e3:.2f} ms, memory "
+          f"{r['memory_s'] * 1e3:.2f} ms, collectives "
+          f"{r['collective_s'] * 1e3:.2f} ms, {r['dominant']}")
+    return {"own": own, "production": prod}
+
+
+def training_across_devices_phase(device: str, *, train_kw=None,
+                                  dense_layers=None, dense_kw=None) -> dict:
+    """Phase 16, training across devices: (a)-(c) ``sharded_train_phase``,
+    (d) ``dense_train_phase``, (e) ``dryrun_check``; within
+    ``TRAIN_MESH_SECONDS`` on the card."""
+    t0 = time.perf_counter()
+    kw = {**SHARDED_TRAIN, **(train_kw or {})}
+    train = sharded_train_phase(device, **kw)
+    t_train = time.perf_counter() - t0
+    dense = dense_train_phase(device, dense_layers, **(dense_kw or {}))
+    t_dense = time.perf_counter() - t0 - t_train
+    dry = dryrun_check(device, train, batch=kw["batch"], seq=kw["seq"])
+    secs = time.perf_counter() - t0
+    print(f"training across devices: phase 16 in {secs:.1f} s (budget "
+          f"{TRAIN_MESH_SECONDS:.0f}): (a) {train['seconds_a']:.1f} s, "
+          f"(a)-(c) {t_train:.1f} s, (d) "
+          f"{t_dense:.1f} s, (e) {secs - t_train - t_dense:.1f} s")
+    check(device == "cpu" or secs <= TRAIN_MESH_SECONDS,
+          f"phase 16 took {secs:.1f} s, over {TRAIN_MESH_SECONDS:.0f}")
+    return {"train": train, "dense": dense, "dryrun": dry, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -4030,6 +4590,7 @@ def main() -> int:
     moe_phase("cuda")
     across = across_devices_phase("cuda")
     dense_gap_phase("cuda")
+    training_across_devices_phase("cuda")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     for arch, kw in RECURRENT_PARITY.items():

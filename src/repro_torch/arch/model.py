@@ -29,7 +29,7 @@ flash-decode (``layers.attention_decode``).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -179,7 +179,8 @@ def _periods(blocks) -> list:
 
 # ------------------------------------------------------------------ forward
 
-def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups):
+def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups,
+                 token_mean=None):
     """Full-sequence application of one block. Returns (h, cache, aux):
     aux holds an ``attn_moe`` block's router losses, else it is empty."""
     if kind in ("attn", "attn_moe"):
@@ -195,7 +196,7 @@ def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups):
             m, aux = moe.moe_block(cfg, p["moe"],
                                    layers.apply_norm(cfg, p["ln2"], h),
                                    path=moe_path, shard=shard,
-                                   groups=moe_groups)
+                                   groups=moe_groups, token_mean=token_mean)
             h = h + m
         return h, {"k": k, "v": v}, aux
     if kind == "mamba2":
@@ -228,7 +229,7 @@ def _apply_shared(cfg, p, h, emb0, positions):
 
 
 def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
-                  shard, moe_path, moe_groups):
+                  shard, moe_path, moe_groups, token_mean=None):
     """One period: its blocks in pattern order, then Zamba2's shared block.
     Returns (h, the period's caches or {}, the sum of its MoE blocks' aux
     or {})."""
@@ -236,7 +237,7 @@ def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
     caches, auxes = {}, []
     for j, kind in enumerate(cfg.pattern):
         h, cache, aux = _apply_block(cfg, kind, p[f"pos{j}"], h, positions,
-                                     shard, moe_path, moe_groups)
+                                     shard, moe_path, moe_groups, token_mean)
         if want_cache:
             caches[f"pos{j}"] = cache
         if aux:
@@ -252,7 +253,7 @@ def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
 def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
             shard: Callable = _id_shard, remat: bool = True,
             moe_path: str = "dispatch", scan_unroll=1,
-            moe_groups: int = 0):
+            moe_groups: int = 0, token_mean: Optional[Callable] = None):
     """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, aux);
     "prefill" -> (last-token logits (B,V) f32, decode_state whose caches
     are the per-period caches stacked over periods: k/v (periods, B, S,
@@ -261,7 +262,8 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     router losses (each period's sum over its MoE blocks, averaged over
     periods), {} without MoE blocks. With ``remat``, in modes "train" and
     "hidden" under autograd, each period keeps only its input for the
-    backward and is recomputed there."""
+    backward and is recomputed there. ``token_mean`` reaches the MoE
+    routers (``moe._router``)."""
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_unroll(scan_unroll)
@@ -285,7 +287,8 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     def recomputed(h, p):
         # the period's aux comes out of the recomputed region too
         h, _, aux = _apply_period(cfg, p, h, positions, emb0, shared_p,
-                                  False, shard, moe_path, moe_groups)
+                                  False, shard, moe_path, moe_groups,
+                                  token_mean)
         return h, aux
 
     per_period, auxes = [], []
@@ -295,7 +298,7 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
         else:
             h, caches, aux = _apply_period(cfg, p, h, positions, emb0,
                                            shared_p, want_cache, shard,
-                                           moe_path, moe_groups)
+                                           moe_path, moe_groups, token_mean)
             per_period.append(caches)
         auxes.append(aux)
     aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
@@ -348,13 +351,14 @@ def chunked_ce(cfg: ModelConfig, params, h, labels, *, chunks: int,
 def train_loss(cfg: ModelConfig, params, batch, *,
                shard: Callable = _id_shard, remat: bool = True,
                moe_path: str = "dispatch", scan_unroll=1,
-               loss_chunks: int = 0, moe_groups: int = 0):
+               loss_chunks: int = 0, moe_groups: int = 0,
+               token_mean: Optional[Callable] = None):
     """Mean next-token cross-entropy of ``batch["labels"]``, plus 0.01 of
     the MoE load-balance loss and 1e-3 of its z-loss where the model has
     MoE blocks. Returns (loss, {"loss", "ce", and the aux losses}).
     ``loss_chunks`` 0 chunks long sequences (``max(1, min(16, S //
     512))``); the count is lowered until it divides S. More than one chunk
-    goes through ``chunked_ce``."""
+    goes through ``chunked_ce``. ``token_mean``: ``forward``'s."""
     labels = batch["labels"]
     S = labels.shape[1]
     if loss_chunks == 0:
@@ -364,13 +368,15 @@ def train_loss(cfg: ModelConfig, params, batch, *,
     if loss_chunks > 1:
         h, aux = forward(cfg, params, batch, mode="hidden", shard=shard,
                          remat=remat, moe_path=moe_path,
-                         scan_unroll=scan_unroll, moe_groups=moe_groups)
+                         scan_unroll=scan_unroll, moe_groups=moe_groups,
+                         token_mean=token_mean)
         ce = chunked_ce(cfg, params, h, labels, chunks=loss_chunks,
                         shard=shard)
     else:
         logits, aux = forward(cfg, params, batch, mode="train", shard=shard,
                               remat=remat, moe_path=moe_path,
-                              scan_unroll=scan_unroll, moe_groups=moe_groups)
+                              scan_unroll=scan_unroll, moe_groups=moe_groups,
+                              token_mean=token_mean)
         ce = _ce_from_logits(logits, labels) / labels.numel()
     loss = ce
     if aux:

@@ -13,14 +13,16 @@ Execution paths:
     cross-check of the dispatch path).
 
 Aux losses: Switch-style load balance and router z-loss, returned as
-metrics. The expert products are batched GEMMs (``torch.bmm``), as the
-reference's are einsums outside any Pallas kernel. Every cast below is a
-rounding point of the reference and is kept. One card: the reference's
-``shard`` hook waits for the multi-GPU slice.
+metrics. The load balance multiplies two means over the tokens, so a step
+whose ranks each hold a share of the batch takes them over every token
+(``token_mean``, which the sharded train step passes). The expert products
+are batched GEMMs (``torch.bmm``), as the reference's are einsums outside
+any Pallas kernel. Every cast below is a rounding point of the reference
+and is kept.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,8 +53,12 @@ def moe_specs(cfg: ModelConfig):
     return sp
 
 
-def _router(cfg: ModelConfig, p, x):
-    """x (B,S,d) -> (weights (B,S,k) f32, idx (B,S,k), aux dict)."""
+def _router(cfg: ModelConfig, p, x,
+            token_mean: Optional[Callable] = None):
+    """x (B,S,d) -> (weights (B,S,k) f32, idx (B,S,k), aux dict).
+    ``token_mean`` turns this rank's mean over its tokens into the mean
+    over every rank's (equal token counts; differentiable), where each
+    rank holds a share of the batch; None: the batch is whole here."""
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     k = cfg.num_experts_per_tok
     gates = torch.softmax(logits, dim=-1)
@@ -63,6 +69,8 @@ def _router(cfg: ModelConfig, p, x):
     me = torch.mean(gates, dim=(0, 1))                            # mean gate
     ce = torch.mean(F.one_hot(idx[..., 0], E).to(torch.float32),
                     dim=(0, 1))                                   # top-1 freq
+    if token_mean is not None:
+        me, ce = token_mean(me), token_mean(ce)
     lb_loss = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return w, idx, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
@@ -89,9 +97,10 @@ def _shared_expert(p, x):
     return _swiglu(x, p["w_gate"], p["w_up"], p["w_down"], torch.matmul)
 
 
-def moe_block_dense(cfg: ModelConfig, p, x):
+def moe_block_dense(cfg: ModelConfig, p, x, *,
+                    token_mean: Optional[Callable] = None):
     """All experts on all tokens (smoke-scale only)."""
-    w, idx, aux = _router(cfg, p, x)
+    w, idx, aux = _router(cfg, p, x, token_mean=token_mean)
     E = cfg.num_experts
     comb = torch.sum(F.one_hot(idx, E).to(torch.float32) * w[..., None],
                      dim=2)                                       # (B,S,E)
@@ -133,7 +142,8 @@ def dispatch_slots(ig, E: int):
 
 def moe_block_dispatch(cfg: ModelConfig, p, x, *,
                        capacity_factor: float = 1.25,
-                       shard: Callable = _id_shard, groups: int = 0):
+                       shard: Callable = _id_shard, groups: int = 0,
+                       token_mean: Optional[Callable] = None):
     """Capacity-bounded dispatch with token groups: tokens are flattened to
     (G, Sg, d); capacity is per (group, expert), C = cf * Sg * k / E;
     over-capacity choices drop (the token keeps its residual).
@@ -149,7 +159,7 @@ def moe_block_dispatch(cfg: ModelConfig, p, x, *,
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     G, Sg, C = dispatch_geometry(cfg, B * S, capacity_factor, groups)
 
-    w, idx, aux = _router(cfg, p, x)                          # (B,S,k) x2
+    w, idx, aux = _router(cfg, p, x, token_mean=token_mean)   # (B,S,k) x2
     x_grp = shard(x.reshape(G, Sg, d), ("tokens", None, None))
     ig = idx.reshape(G, Sg, k)
     slot = dispatch_slots(ig, E)
@@ -181,7 +191,9 @@ def moe_block_dispatch(cfg: ModelConfig, p, x, *,
 
 
 def moe_block(cfg: ModelConfig, p, x, *, path: str = "dispatch",
-              shard: Callable = _id_shard, groups: int = 0):
+              shard: Callable = _id_shard, groups: int = 0,
+              token_mean: Optional[Callable] = None):
     if path == "dense":
-        return moe_block_dense(cfg, p, x)
-    return moe_block_dispatch(cfg, p, x, shard=shard, groups=groups)
+        return moe_block_dense(cfg, p, x, token_mean=token_mean)
+    return moe_block_dispatch(cfg, p, x, shard=shard, groups=groups,
+                              token_mean=token_mean)

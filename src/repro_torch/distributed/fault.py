@@ -1,15 +1,15 @@
-"""Fault tolerance: failure detection and supervised restart.
+"""Fault tolerance: failure detection, elastic re-meshing, preemption.
 
   * ``HealthMonitor`` — heartbeat registry with failure injection (tests
     simulate node loss deterministically).
+  * ``elastic_remesh`` — from the surviving ranks, rebuild the largest
+    valid (data, model) ``DeviceMesh`` (``largest_mesh_shape``); training
+    resumes from the last checkpoint on the shrunken mesh
+    (``checkpoint.restore(shardings=)`` places each leaf there).
   * ``TrainSupervisor`` — wraps a train loop: on a step failure, restore
-    from the last checkpoint and continue. On SIGTERM, checkpoint and exit
-    (preemption).
-  * ``largest_mesh_shape`` — the (data, model) grid an elastic restart
-    would shrink to.
-
-``elastic_remesh`` (rebuilding a device mesh from the survivors) waits for
-the multi-GPU slice (ROADMAP.md Queue 1 item 5).
+    from the last checkpoint (onto ``shardings``, if given; optionally
+    shrink the mesh through ``on_remesh``) and continue. On SIGTERM,
+    checkpoint and exit (preemption).
 """
 from __future__ import annotations
 
@@ -74,6 +74,23 @@ def largest_mesh_shape(n_devices: int, *, model_axis: int = 16):
     return (data, model_axis)
 
 
+def elastic_remesh(devices=None, *, model_axis: int = 16):
+    """The largest valid (data, model) ``DeviceMesh`` over the surviving
+    ranks ``devices`` (default: every rank of the process group): shape
+    ``largest_mesh_shape(len(devices), model_axis=)`` over the first
+    data x model of them, in the order given. Creating a mesh's subgroups
+    is collective, so every rank of the process group calls it, a lost
+    rank too; ranks outside the new mesh get one whose
+    ``get_coordinate()`` is None."""
+    import torch.distributed as dist
+    from ..launch.mesh import make_mesh
+    ranks = list(range(dist.get_world_size()) if devices is None
+                 else devices)
+    shape = largest_mesh_shape(len(ranks), model_axis=model_axis)
+    return make_mesh(shape, ("data", "model"),
+                     ranks=ranks[:shape[0] * shape[1]])
+
+
 @dataclass
 class SupervisorReport:
     steps_run: int = 0
@@ -89,8 +106,9 @@ class TrainSupervisor:
 
     ``step_fn(state, batch) -> state`` runs under supervision; a step that
     raises ``NodeFailure`` or the card's runtime error triggers a restore
-    from the latest checkpoint (and ``on_remesh``, if given). SIGTERM
-    triggers checkpoint-and-exit.
+    from the latest checkpoint, placed at ``shardings`` where ``run`` is
+    given them (and ``on_remesh``, if given). SIGTERM triggers
+    checkpoint-and-exit.
     """
 
     def __init__(self, ckpt_manager, *, checkpoint_every: int = 50,
@@ -109,7 +127,7 @@ class TrainSupervisor:
         self._preempt.set()
 
     def run(self, state, batches, step_fn, *, start_step: int = 0,
-            num_steps: int = 100) -> tuple:
+            num_steps: int = 100, shardings=None) -> tuple:
         rep = SupervisorReport()
         step = start_step
         it = iter(batches)
@@ -129,7 +147,8 @@ class TrainSupervisor:
                 rep.failures_handled += 1
                 if rep.restores >= self.max_restores:
                     raise
-                restored, manifest = self.ckpt.restore_latest(state)
+                restored, manifest = self.ckpt.restore_latest(
+                    state, shardings=shardings)
                 if restored is None:
                     raise
                 state = restored

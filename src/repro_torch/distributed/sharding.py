@@ -306,3 +306,116 @@ def decode_state_shardings(mesh, rules: Rules, cfg, state_specs):
         return mesh, placements(mesh, spec_for(mesh, rules.acts, logical,
                                                shape))
     return walk(state_specs, "")
+
+
+# ---------------------------------------------------------------------------
+# DTensors and whole tensors: what the sharded steps move between.
+# ---------------------------------------------------------------------------
+
+def local_block(t, mesh, pls):
+    """The block of ``t`` (a tensor whole on every rank) that this rank
+    holds under placements ``pls`` on ``mesh``: a view, no communication.
+    The mesh dims split in order, the first outermost, evenly (the
+    divisibility guard keeps every shard even)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            n = mesh.shape[i]
+            if t.shape[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does "
+                                 f"not split evenly over {n} ranks")
+            size = t.shape[pl.dim] // n
+            t = t.narrow(pl.dim, coord[i] * size, size)
+    return t
+
+
+def sharded_extent(mesh, pls) -> int:
+    """How many blocks placements ``pls`` cut a tensor into: the product
+    of the sizes of the mesh dims it is sharded on."""
+    from torch.distributed.tensor import Shard
+    return math.prod(n for n, pl in zip(mesh.shape, pls)
+                     if isinstance(pl, Shard))
+
+
+def rows_only(mesh, pls) -> tuple:
+    """``pls`` with every mesh dim but the data-parallel ones replicated:
+    what a decode step gathers a state leaf to (its batch rows kept)."""
+    from torch.distributed.tensor import Replicate
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    return tuple(pl if names[i] in dp else Replicate()
+                 for i, pl in enumerate(pls))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    return tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+
+
+def place(t, mesh, pls):
+    """A tensor whole on every rank as the DTensor of ``pls`` on ``mesh``,
+    from this rank's block of it (``local_block``): no communication, no
+    copy."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_block(t, mesh, pls), mesh, tuple(pls),
+                              run_check=False, shape=t.shape,
+                              stride=contiguous_stride(t.shape))
+
+
+def place_tree(tree, shardings):
+    """A tree (dicts, tuples, NamedTuples) of tensors whole on every rank,
+    each placed by ``place`` on its leaf of ``shardings`` (a ``(mesh,
+    placements)`` tree of the same structure, as ``param_shardings`` or
+    ``launch.cells.cell_shardings`` give)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [place_tree(t, sh) for t, sh in zip(tree, shardings)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    return place(tree, *shardings)
+
+
+def as_local(t, like):
+    """``t``, this rank's block under ``like``'s placements, as a DTensor
+    of ``like``'s mesh, placements, shape and stride."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def whole(x):
+    """A DTensor gathered whole on every rank (a plain tensor); a plain
+    tensor is taken as whole already."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def holds_distinct(x, mesh) -> bool:
+    """Whether this rank's block of ``x`` counts once in a sum over
+    ``mesh``: it sits at coordinate 0 of every mesh dim ``x`` is
+    replicated on (a plain tensor, whole on every rank: of every dim)."""
+    from torch.distributed.tensor import DTensor, Shard
+    pls = x.placements if isinstance(x, DTensor) else ()
+    return all(c == 0 or (i < len(pls) and isinstance(pls[i], Shard))
+               for i, c in enumerate(mesh.get_coordinate()))
+
+
+def mesh_sum(t, mesh):
+    """Sum ``t`` in place over every rank of ``mesh`` (an all-reduce over
+    each mesh dim's group in turn); returns it."""
+    import torch.distributed as dist
+    for d in range(mesh.ndim):
+        dist.all_reduce(t, group=mesh.get_group(d))
+    return t
+
+
+def mesh_mean_autograd(t, mesh):
+    """The mean of ``t`` over every rank of ``mesh`` under autograd (its
+    gradient is summed back over the ranks)."""
+    from torch.distributed.nn.functional import all_reduce
+    for d in range(mesh.ndim):
+        t = all_reduce(t, group=mesh.get_group(d))
+    return t / mesh.size()

@@ -6,7 +6,9 @@ importing this module touches no device and no process group.
 A fleet mesh needs no ``torch.distributed``: a fleet bin's instances are
 independent, so ``distributed.sharding.fleet_sharded`` runs each shard on
 its device from this one process. The LM meshes span the current process
-group (gloo on the CPU, NCCL on the cards), one rank a device.
+group (gloo on the CPU, NCCL on the cards), one rank a device. A
+``MeshShape`` is a mesh's names and sizes without ranks: what the dry run
+accounts over when no process group has the production mesh's ranks.
 """
 from __future__ import annotations
 
@@ -64,11 +66,32 @@ def make_fleet_mesh(n_devices: Optional[int] = None,
     return mesh
 
 
-def make_mesh(shape, axes):
-    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first
-    ``prod(shape)`` ranks of the current process group (the cards under
-    NCCL, the CPU under any other backend). Raises without a process group
-    or with fewer ranks than the mesh needs."""
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, no ranks: what ``spec_for``,
+    ``placements`` and the dry run read of a ``DeviceMesh``
+    (``mesh_dim_names``, ``shape``, ``size()``, ``ndim``). It stands for
+    the production meshes' 256 and 512 devices, which no process group of
+    one machine has; nothing can run on it."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self, mesh_dim: Optional[int] = None) -> int:
+        return math.prod(self.shape) if mesh_dim is None \
+            else self.shape[mesh_dim]
+
+
+def make_mesh(shape, axes, *, ranks: Optional[Sequence[int]] = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over ``ranks`` (default:
+    the first ``prod(shape)`` ranks) of the current process group (the
+    cards under NCCL, the CPU under any other backend). Every rank of the
+    group must call it, those outside the mesh too: creating its
+    subgroups is collective. Raises without a process group or with fewer
+    ranks than the mesh needs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     shape, axes = tuple(shape), tuple(axes)
@@ -83,16 +106,26 @@ def make_mesh(shape, axes):
     if size > world:
         raise ValueError(f"Number of ranks {world} must be >= the product "
                          f"of mesh_shape {shape}")
+    ranks = list(range(size)) if ranks is None else list(ranks)
+    if len(set(ranks)) != len(ranks) or len(ranks) != size \
+            or not set(ranks) <= set(range(world)):
+        raise ValueError(f"a mesh of shape {shape} needs {size} distinct "
+                         f"ranks of the {world}, got {ranks}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(size).reshape(shape),
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """16x16 = 256 ranks per pod; 2 pods = 512 ranks multi-pod."""
+    """16x16 = 256 ranks per pod; 2 pods = 512 ranks multi-pod: a
+    ``DeviceMesh`` where the process group has that many ranks, else the
+    ``MeshShape`` the dry run accounts over."""
+    import torch.distributed as dist
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    if dist.is_initialized() and dist.get_world_size() >= math.prod(shape):
+        return make_mesh(shape, axes)
+    return MeshShape(shape, axes)
 
 
 def dp_axes(mesh) -> tuple:

@@ -60,11 +60,15 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def apply_update(params, grads, state: AdamWState, cfg: AdamWConfig):
+def apply_update(params, grads, state: AdamWState, cfg: AdamWConfig, *,
+                 gnorm=None):
     """Returns (new_params, new_state, {"grad_norm": the unclipped global
-    norm of ``grads``})."""
+    norm of ``grads``}). ``gnorm`` is that norm where the caller computed
+    it: a sharded step updates each rank's shards of the tree with the
+    norm over every shard."""
     f32 = torch.float32
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     b1c = 1.0 - torch.pow(cfg.b1, step.to(f32))

@@ -33,6 +33,48 @@ def _unflatten(like, leaves):
     return build(like)
 
 
+def make_grad_fn(cfg: ModelConfig, *, shard: Callable = _ID,
+                 remat: bool = True, moe_path: str = "dispatch",
+                 scan_unroll=1, moe_groups: int = 0,
+                 cast_params_bf16: bool = False,
+                 token_mean: Optional[Callable] = None):
+    """Returns grads(params, micro_batches) -> (gradients as a list in
+    ``tree_leaves`` order, metrics): one batch's gradients of
+    ``train_loss``, or, for more than one microbatch, their f32 sum over
+    the microbatches divided by their count and the metrics' means.
+    ``token_mean`` reaches the MoE routers (``arch.model.forward``)."""
+    def single(params, batch):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        tree = _unflatten(params, live)
+        with torch.enable_grad():
+            if cast_params_bf16:
+                tree = cast_tree(tree, torch.bfloat16)
+            loss, metrics = M.train_loss(cfg, tree, batch, shard=shard,
+                                         remat=remat, moe_path=moe_path,
+                                         scan_unroll=scan_unroll,
+                                         moe_groups=moe_groups,
+                                         token_mean=token_mean)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def grads(params, micro_batches):
+        if len(micro_batches) == 1:
+            return single(params, micro_batches[0])
+        acc, mets = None, []
+        for batch in micro_batches:
+            g, metrics = single(params, batch)
+            g = [x.to(torch.float32) for x in g]
+            acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+            mets.append(metrics)
+        metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
+                   for k in mets[0]}
+        return [g / len(micro_batches) for g in acc], metrics
+
+    return grads
+
+
 def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
                     shard: Callable = _ID, remat: bool = True,
                     moe_path: str = "dispatch", microbatches: int = 1,
@@ -49,52 +91,24 @@ def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
     named (``_reshard_micro``), as the reference does."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-
-    def single(params, batch):
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        tree = _unflatten(params, live)
-        with torch.enable_grad():
-            if cast_params_bf16:
-                tree = cast_tree(tree, torch.bfloat16)
-            loss, metrics = M.train_loss(cfg, tree, batch, shard=shard,
-                                         remat=remat, moe_path=moe_path,
-                                         scan_unroll=scan_unroll,
-                                         moe_groups=moe_groups)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(live, grads)]
-        return grads, {k: v.detach() for k, v in metrics.items()}
-
-    def _to_micro(x):
-        # (B, ...) -> (mb, B/mb, ...); M-RoPE positions (3, B, S) keep their
-        # leading 3 inside each microbatch: (3, B, S) -> (mb, 3, B/mb, S)
-        if x.dim() == 3 and x.shape[0] == 3:
-            return x.reshape(3, microbatches, -1, x.shape[2]).transpose(0, 1)
-        return x.reshape((microbatches, -1) + tuple(x.shape[1:]))
+    grad_fn = make_grad_fn(cfg, shard=shard, remat=remat, moe_path=moe_path,
+                           scan_unroll=scan_unroll, moe_groups=moe_groups,
+                           cast_params_bf16=cast_params_bf16)
 
     def _reshard_micro(x):
         if x.dim() == 4 and x.shape[1] == 3:
             return shard(x, (None, None, "batch", None))
         return shard(x, (None, "batch") + (None,) * (x.dim() - 2))
 
-    def accumulated(params, batch):
-        mb = {k: _reshard_micro(_to_micro(batch[k])) for k in sorted(batch)}
-        acc, mets = None, []
-        for i in range(microbatches):
-            grads, metrics = single(params, {k: x[i] for k, x in mb.items()})
-            grads = [g.to(torch.float32) for g in grads]
-            acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
-            mets.append(metrics)
-        grads = [g / microbatches for g in acc]
-        metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
-                   for k in mets[0]}
-        return grads, metrics
-
     def train_step(params, opt_state, batch):
         if microbatches > 1:
-            grads, metrics = accumulated(params, batch)
+            mb = {k: _reshard_micro(to_micro(batch[k], microbatches))
+                  for k in sorted(batch)}
+            micro = [{k: x[i] for k, x in mb.items()}
+                     for i in range(microbatches)]
         else:
-            grads, metrics = single(params, batch)
+            micro = [batch]
+        grads, metrics = grad_fn(params, micro)
         grads = _unflatten(params, grads)
         if grad_hook is not None:
             grads = grad_hook(grads)
@@ -103,6 +117,14 @@ def make_train_step(cfg: ModelConfig, *, opt: AdamWConfig = AdamWConfig(),
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def to_micro(x, microbatches: int):
+    """(B, ...) -> (mb, B/mb, ...); M-RoPE positions (3, B, S) keep their
+    leading 3 inside each microbatch: (3, B, S) -> (mb, 3, B/mb, S)."""
+    if x.dim() == 3 and x.shape[0] == 3:
+        return x.reshape(3, microbatches, -1, x.shape[2]).transpose(0, 1)
+    return x.reshape((microbatches, -1) + tuple(x.shape[1:]))
 
 
 def make_prefill_step(cfg: ModelConfig, *, shard: Callable = _ID,

@@ -191,3 +191,230 @@ def _lm_decode(mesh, arch: str, lengths, seed: int, S: int) -> dict:
             "whole": {k: {n: t for n, t in c.items() if n in ("k", "v")}
                       for k, c in whole["caches"].items()},
             "lengths": mine["lengths"]}
+
+
+# ------------------------------------------ training across devices
+
+def _whole_np(tree):
+    """Every leaf gathered whole (a collective over its mesh), as numpy."""
+    from repro_torch.distributed.checkpoint import tree_map
+    from repro_torch.distributed.sharding import whole
+    return tree_map(lambda t: whole(t).numpy(), tree)
+
+
+def _placed_train_state(cfg, np_params, mesh, rules):
+    """The params (from numpy) and a zero AdamW state, at the cell's
+    placements: params and moments at ``param_shardings``, the step count
+    replicated."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import params_from_numpy
+    from repro_torch.distributed.sharding import param_shardings, place_tree
+    from repro_torch.train.optim import AdamWState, init_state
+    params = params_from_numpy(np_params, "cpu")
+    p_sh = param_shardings(mesh, rules, M.build_param_specs(cfg))
+    o_sh = AdamWState((mesh, (Replicate(),) * mesh.ndim), p_sh, p_sh)
+    return (*place_tree((params, init_state(params)), (p_sh, o_sh)), p_sh)
+
+
+def _train_case(mesh, c: dict) -> dict:
+    """``c["steps"]`` of a train cell's ``fn`` from ``c["params"]`` on the
+    batches ``c["batches"]`` (numpy, placed at the cell's batch
+    shardings): each step's metrics, then the params, moments and step
+    count gathered whole, and whether every leaf kept its placements."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.compression import FeedbackHook
+    from repro_torch.distributed.sharding import place, whole
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    cfg = get_config(c["arch"]).replace(dtype="float32")
+    rules = getattr(S, c["rules"])("pod" in mesh.mesh_dim_names)
+    B, seq = c["batches"][0]["labels"].shape
+    cell = build_cell(cfg, ShapeSpec("t", seq, B, "train"), mesh,
+                      rules=rules, microbatches=c["microbatches"],
+                      grad_hook=FeedbackHook() if c["hook"] else None)
+    params, ostate, p_sh = _placed_train_state(cfg, c["params"], mesh, rules)
+    b_sh = cell_shardings(cell)[2]
+    metrics = []
+    for b in c["batches"]:
+        batch = {k: place(torch.from_numpy(v), *b_sh[k]) for k, v in b.items()}
+        params, ostate, m = cell.fn(params, ostate, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    kept = all(tuple(x.placements) == tuple(sh[1])
+               for x, sh in zip(_leaves(params), _leaves(p_sh)))
+    return {"metrics": metrics, "params": _whole_np(params),
+            "mu": _whole_np(ostate.mu), "nu": _whole_np(ostate.nu),
+            "step": int(whole(ostate.step)), "placements_kept": kept,
+            "microbatches": cell.microbatches}
+
+
+def _leaves(tree) -> list:
+    """A dict tree's leaves in sorted-key order (a ``(mesh, placements)``
+    pair is a leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _serve_case(mesh, c: dict) -> dict:
+    """A prefill cell and a decode cell of ``c["arch"]`` (f32) on
+    ``mesh``: their outputs gathered whole."""
+    from repro_torch.arch.params import tree_map
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.sharding import place, place_tree, whole
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    cfg = get_config(c["arch"]).replace(dtype="float32")
+    rules = getattr(S, c["rules"])(False)
+    params = _placed_train_state(cfg, c["params"], mesh, rules)[0]
+    tokens = torch.from_numpy(c["tokens"])
+    B, seq = tokens.shape
+    pre = build_cell(cfg, ShapeSpec("p", seq, B, "prefill"), mesh,
+                     rules=rules)
+    b_sh = cell_shardings(pre)[1]
+    logits, state = pre.fn(params, {"tokens": place(tokens, *b_sh["tokens"])})
+    out = {"prefill_logits": whole(logits).numpy(),
+           "prefill_state": _whole_np(state)}
+    dec = build_cell(cfg, ShapeSpec("d", c["cache"], B, "decode"), mesh,
+                     rules=rules, dist_decode=c["dist_decode"])
+    _, s_sh, b_sh = cell_shardings(dec)
+    dstate = tree_map(torch.from_numpy, c["state"])
+    dstate = {"caches": place_tree(dstate["caches"], s_sh["caches"]),
+              "lengths": place(dstate["lengths"], *s_sh["lengths"])}
+    nxt = place(torch.from_numpy(c["next"]), *b_sh["tokens"])
+    for _ in range(c["steps"]):
+        logits, dstate = dec.fn(params, dstate, {"tokens": nxt})
+    out["decode_logits"] = whole(logits).numpy()
+    out["decode_state"] = _whole_np(dstate)
+    out["state_placements_kept"] = all(
+        tuple(x.placements) == tuple(sh[1]) for x, sh in
+        zip(_leaves(dstate["caches"]), _leaves(s_sh["caches"])))
+    return out
+
+
+def sharded_train_world(rank: int, train_cases: list,
+                        serve_cases: list) -> list:
+    """tests/test_torch_sharded_train.py: each train case's cell steps on
+    its mesh, then each serve case's prefill and decode cells; rank 0
+    returns the results."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes, out = {}, {"train": [], "serve": []}
+    for kind, cases, run in (("train", train_cases, _train_case),
+                             ("serve", serve_cases, _serve_case)):
+        for c in cases:
+            key = (tuple(c["mesh"]), tuple(c["axes"]))
+            if key not in meshes:
+                meshes[key] = make_mesh(*key)
+            res = run(meshes[key], c)
+            out[kind].append(res if rank == 0 else None)
+    return out
+
+
+def elastic_world(rank: int, arch: str, np_params, batches, ckpt: str,
+                  survivors: list) -> dict:
+    """tests/test_torch_elastic.py: one train-cell step of ``arch`` (f32)
+    on a (2, 2) mesh, the state saved sharded; the rank after the
+    survivors "lost"; ``elastic_remesh(survivors, model_axis=2)`` (every
+    rank calls it); the checkpoint restored onto the new mesh at its
+    ``param_shardings`` and one more step there."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import shape_structs
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.checkpoint import flatten, restore, save
+    from repro_torch.distributed.fault import elastic_remesh
+    from repro_torch.distributed.sharding import (baseline_rules,
+                                                  param_shardings, place)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optim import AdamWState
+    cfg = get_config(arch).replace(dtype="float32")
+    rules = baseline_rules()
+    B, seq = batches[0]["labels"].shape
+    shape = ShapeSpec("t", seq, B, "train")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    params, ostate, _ = _placed_train_state(cfg, np_params, mesh, rules)
+    cell = build_cell(cfg, shape, mesh, rules=rules, microbatches=1)
+    b_sh = cell_shardings(cell)[2]
+    params, ostate, _ = cell.fn(params, ostate, {
+        k: place(torch.from_numpy(v), *b_sh[k]) for k, v in
+        batches[0].items()})
+    state = {"params": params, "opt": ostate}
+    save(ckpt, state, step=5)
+    out = {"saved": _whole_np(state)}
+    new = elastic_remesh(survivors, model_axis=2)
+    out["mesh_shape"] = tuple(new.shape)
+    out["mesh_ranks"] = new.mesh.tolist()
+    if new.get_coordinate() is None:
+        return out
+    specs = M.build_param_specs(cfg)
+    p_sh = param_shardings(new, rules, specs)
+    like = {"params": shape_structs(specs, torch.float32),
+            "opt": AdamWState(torch.empty((), dtype=torch.int32,
+                                          device="meta"),
+                              shape_structs(specs, torch.float32),
+                              shape_structs(specs, torch.float32))}
+    sh = {"params": p_sh,
+          "opt": AdamWState((new, (Replicate(),) * new.ndim), p_sh, p_sh)}
+    restored, manifest = restore(ckpt, like, shardings=sh)
+    out["manifest"] = manifest
+    out["on_new_mesh"] = all(isinstance(x, DTensor) and x.device_mesh == new
+                             for x in flatten(restored))
+    out["restored"] = _whole_np(restored)
+    cell2 = build_cell(cfg, shape, new, rules=rules, microbatches=1)
+    b_sh = cell_shardings(cell2)[2]
+    p, o, m = cell2.fn(restored["params"], restored["opt"], {
+        k: place(torch.from_numpy(v), *b_sh[k]) for k, v in
+        batches[1].items()})
+    out["next"] = {"params": _whole_np(p), "mu": _whole_np(o.mu),
+                   "metrics": {k: float(v) for k, v in m.items()}}
+    return out
+
+
+def failed_write_world(rank: int, root: str, failing: int) -> dict:
+    """tests/test_torch_elastic.py: sharded saves of a (2, 2) mesh whose
+    shard write fails on rank ``failing`` (its ``np.savez`` raises, as on
+    a full disk), by ``CheckpointManager.save_async`` + ``wait`` and by
+    ``save``: what each rank raised, then the latest checkpoint restored
+    whole."""
+    import numpy as np
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import checkpoint as C
+    from repro_torch.distributed.sharding import place, whole
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"))
+    pls = (Shard(0), Shard(1))
+    tree = {"w": torch.arange(32.0).reshape(4, 8)}
+    placed = {"w": place(tree["w"], mesh, pls)}
+    mgr = C.CheckpointManager(root, keep=3)
+    mgr.save_async(placed, step=1)
+    mgr.wait()
+    savez = np.savez
+
+    def full_disk(*args, **kw):
+        raise OSError(28, "No space left on device")
+
+    def save_async():
+        mgr.save_async(placed, step=2)
+        mgr.wait()
+    out = {}
+    for name, save in (("save_async", save_async),
+                       ("save", lambda: C.save(f"{root}/step-3", placed,
+                                               step=3))):
+        if rank == failing:
+            np.savez = full_disk
+        try:
+            save()
+            out[name] = None
+        except Exception as e:          # noqa: BLE001  (what each raised)
+            out[name] = type(e).__name__
+        finally:
+            np.savez = savez
+    restored, manifest = mgr.restore_latest(tree, shardings={"w": (mesh,
+                                                                   pls)})
+    out["latest"] = manifest["step"]
+    out["restored"] = whole(restored["w"]).numpy()
+    return out

@@ -369,8 +369,11 @@ def test_port_never_loads_jax_or_repro():
                                         "--steps", "2",
                                         "--checkpoint-dir", td])
         assert len(losses) == 2 and all(np.isfinite(losses)), losses
+        import repro_torch.distributed.compression  # noqa: F401
         import repro_torch.distributed.sharding  # noqa: F401
         import repro_torch.kernels.decode_attention.distributed  # noqa: F401
+        import repro_torch.launch.cells  # noqa: F401
+        import repro_torch.launch.dryrun  # noqa: F401
         import repro_torch.launch.mesh  # noqa: F401
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -1,0 +1,208 @@
+"""The port's dry run (``launch/cells.py``, ``launch/dryrun.py``) on the
+CPU with no process group: ``auto_microbatches`` against the JAX
+package's on every arch x train shape x production mesh (the JAX
+function reads only ``mesh.shape`` and ``mesh.axis_names``, so stand-in
+meshes serve); the accounting against the reference test's own bounds
+(``tests/test_dryrun_machinery.py``) on a (2, 4) mesh; the per-device
+parameter bytes against what the JAX package's ``param_shardings``
+implies; and ``python -m repro_torch.launch.dryrun --all`` in a
+subprocess, which loads neither ``jax`` nor ``repro``."""
+import json
+import math
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import pytest
+
+import repro.distributed.sharding as JS
+from repro.arch import model as JM
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import get_config as jax_get_config
+from repro.launch import cells as JCells
+from repro_torch.arch.params import tree_leaves
+from repro_torch.configs import SHAPES, get_config, list_archs, \
+    shape_applicable
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.distributed.sharding import serve_rules
+from repro_torch.launch import cells as TCells
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshShape, make_production_mesh
+
+ROOT = Path(__file__).resolve().parent.parent
+MESHES = {"pod": ((16, 16), ("data", "model")),
+          "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+TRAIN_SHAPES = [s for s in SHAPES if SHAPES[s].kind == "train"]
+
+
+def _jax_mesh(shape, axes):
+    return types.SimpleNamespace(shape=dict(zip(axes, shape)),
+                                 axis_names=axes)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", list_archs())
+def test_auto_microbatches_match_jax(arch, mesh):
+    shape, axes = MESHES[mesh]
+    for s in TRAIN_SHAPES:
+        want = JCells.auto_microbatches(jax_get_config(arch), JSHAPES[s],
+                                        _jax_mesh(shape, axes))
+        got = TCells.auto_microbatches(get_config(arch), SHAPES[s],
+                                       MeshShape(shape, axes))
+        assert got == want
+
+
+def test_production_mesh_is_a_stand_in_without_a_world():
+    m = make_production_mesh()
+    assert isinstance(m, MeshShape) and m.size() == 256
+    assert make_production_mesh(multi_pod=True).mesh_dim_names == \
+        ("pod", "data", "model")
+
+
+def test_train_flops_within_the_reference_bounds(tmp_path):
+    """qwen3-1.7b ``train_4k`` on (2, 4): the operations a device does in
+    a step lie within 0.8-2.0 x 6 N D / 8 (N = 1.72e9, D = 256 x 4096),
+    the remat factor's bounds in ``tests/test_dryrun_machinery.py``."""
+    mesh = MeshShape((2, 4), ("data", "model"))
+    r = dryrun.run_cell("qwen3-1.7b", "train_4k", multi_pod=False,
+                        out_dir=tmp_path, mesh=mesh)
+    n, d = 1.72e9, 256 * 4096
+    model = 6 * n * d / 8
+    assert 0.8 * model < r["cost"]["flops"] < 2.0 * model, r["cost"]
+    assert r["batch_split"] == 8 and r["rows_per_device"] == 32
+    assert r["roofline"]["dominant"] in ("compute_s", "memory_s",
+                                         "collective_s")
+    assert (tmp_path / "qwen3-1.7b__train_4k__2x4.json").exists()
+
+
+def test_dist_decode_slashes_the_wire_bytes(tmp_path):
+    """``decode_32k`` with ``serve_rules`` and the distributed
+    flash-decode moves less than half the baseline's collective bytes
+    (the reference test's bound): no cache gather, three stats
+    all-reduces a layer."""
+    mesh = MeshShape((2, 4), ("data", "model"))
+    base = dryrun.run_cell("qwen3-1.7b", "decode_32k", multi_pod=False,
+                           out_dir=tmp_path, mesh=mesh)
+    opt = dryrun.run_cell("qwen3-1.7b", "decode_32k", multi_pod=False,
+                          out_dir=tmp_path, mesh=mesh,
+                          rules=serve_rules(False), dist_decode=True)
+    wire = lambda r: r["cost"]["collective_wire_bytes"]  # noqa: E731
+    assert wire(opt) < 0.5 * wire(base), (wire(opt), wire(base))
+    assert opt["cost"]["collective_counts"]["all-reduce"] == 3 * 28
+    assert opt["cost"]["flops"] == base["cost"]["flops"]
+
+
+@pytest.fixture
+def jax_specs(monkeypatch):
+    monkeypatch.setattr(JS, "NamedSharding", lambda mesh, spec: spec)
+
+
+def _jax_local_bytes(arch, shape, axes, rules, nbytes) -> float:
+    mesh = _jax_mesh(shape, axes)
+    specs = JM.build_param_specs(jax_get_config(arch))
+    total = 0.0
+    for s, spec in zip(
+            jax_tree_leaves(specs),
+            jax_tree_leaves(JS.param_shardings(mesh, rules, specs))):
+        ext = 1
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                ext *= mesh.shape[a]
+        total += math.prod(s.shape) * nbytes / ext
+    return total
+
+
+def jax_tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_tree_leaves(tree[k])]
+    return [tree]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_param_bytes_match_jax_shardings(mesh, jax_specs, tmp_path):
+    """A device's parameter bytes in each train cell (f32) and decode cell
+    (bf16, serve rules) equal what the JAX package's ``param_shardings``
+    implies on the same stand-in mesh."""
+    shape, axes = MESHES[mesh]
+    multi = "pod" in axes
+    for arch in list_archs():
+        for kind, rules, nbytes in (("train_4k", None, 4),
+                                    ("prefill_32k", "serve", 2)):
+            kw = {"rules": serve_rules(multi)} if rules else {}
+            r = dryrun.run_cell(arch, kind, multi_pod=multi,
+                                out_dir=tmp_path, **kw)
+            jr = JS.serve_rules(multi) if rules else JS.baseline_rules(multi)
+            want = _jax_local_bytes(arch, shape, axes, jr, nbytes)
+            assert r["memory"]["param_bytes"] == pytest.approx(want,
+                                                               rel=1e-12)
+
+
+def test_roofline_and_custom_cell(tmp_path):
+    """A cell of one's own shape on a (1, 1) mesh: everything on one
+    device, no collective moves a byte, and the roofline's terms are the
+    count over the card's peaks."""
+    mesh = MeshShape((1, 1), ("data", "model"))
+    r = dryrun.run_cell("qwen3-1.7b", ShapeSpec("a", 1024, 4, "train"),
+                        multi_pod=False, out_dir=tmp_path, mesh=mesh,
+                        microbatches=1)
+    assert r["cost"]["collective_wire_bytes"] == 0
+    assert r["roofline"]["compute_s"] == r["cost"]["flops"] / 989e12
+    assert r["roofline"]["memory_s"] == r["cost"]["bytes"] / 3.35e12
+    assert r["roofline"]["card"].startswith("NVIDIA H100")
+    cell = TCells.build_cell("qwen3-1.7b", "train_4k", mesh)
+    assert all(t.device.type == "meta" for t in tree_leaves(cell.args[0]))
+
+
+def _clean_env():
+    return {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+            "HOME": os.environ.get("HOME", "/tmp"),
+            "JAX_PLATFORMS": os.environ.get("JAX_PLATFORMS", "cpu")}
+
+
+def test_cli_all_runs_without_jax_or_a_world(tmp_path):
+    code = ("import runpy, sys\n"
+            "sys.argv = ['dryrun', '--all', '--out', sys.argv[1]]\n"
+            "runpy.run_module('repro_torch.launch.dryrun', "
+            "run_name='__main__')\n"
+            "import torch.distributed as dist\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
+            "m.startswith(('jax.', 'repro.'))]\n"
+            "assert not bad, bad\n"
+            "assert not dist.is_initialized()\n"
+            "print('CLEAN')\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          capture_output=True, text=True, timeout=300,
+                          env=_clean_env(), cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "CLEAN"
+    want, skipped = set(), set()
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for s in SHAPES.values():
+            ok, why = shape_applicable(cfg, s)
+            if ok:
+                want.add(f"{arch}__{s.name}__pod.json")
+            else:
+                skipped.add(f"SKIP {arch} x {s.name}: {why}")
+    assert {p.name for p in tmp_path.glob("*.json")} == want
+    assert skipped == {ln for ln in lines if ln.startswith("SKIP")}
+    assert sum(ln.startswith("OK  ") for ln in lines) == len(want)
+    one = json.loads((tmp_path / "qwen3-1.7b__train_4k__pod.json")
+                     .read_text())
+    assert set(one) >= {"memory", "cost", "roofline", "mesh", "n_devices"}
+    assert set(one["cost"]) == {"flops", "bytes", "collective_wire_bytes",
+                                "collectives", "collective_counts"}
+    assert one["n_devices"] == 256
+
+
+def test_cli_refuses_keep_hlo(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-1.7b", "--shape", "train_4k", "--keep-hlo", "--out",
+         str(tmp_path)], capture_output=True, text=True, timeout=120,
+        env=_clean_env(), cwd=tmp_path)
+    assert proc.returncode == 2 and "--keep-hlo" in proc.stderr
+    assert not list(tmp_path.glob("*.json"))

@@ -115,8 +115,8 @@ def port_routes(pinned=None):
     calls = []
     own = TMoe._router
 
-    def router(cfg, p, x):
-        w, idx, aux = own(cfg, p, x)
+    def router(cfg, p, x, **kw):
+        w, idx, aux = own(cfg, p, x, **kw)
         logits = x.float() @ p["router"].float()
         if pinned is not None:
             idx = torch.tensor(pinned[len(calls)]["idx"], dtype=torch.long)
