@@ -212,14 +212,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``lm_train_path``; a token model's loss falls) with 2
    ``flash_attention`` forwards and 1 backward a layer. (e) The dry run's ``compute_s`` for (a)'s cell
    no larger than (a)'s measured step, and its count of qwen3-1.7b
-   ``train_4k`` on the production mesh. Within 240 s.
+   ``train_4k`` on the production mesh. Within 240 s. Since the cells
+   compute on their shards, (a) runs through the tensor-parallel code at
+   a model extent of 1 (every collective of a one-rank group skipped).
+17. the cells on their shards: (a) ``flash_attention`` (forward and
+   backward, bf16, B 4, S 1024) and ``decode_attention`` (B 8, S 2048) at
+   one rank's head counts on the pod mesh's model axis (``TP_HEADS``:
+   qwen3-1.7b at 2, H 8 / KV 4; llama3-8b at 16, H 2 / KV 1;
+   internlm2-20b at 16, H 3 / KV 1, group 3) against their plain
+   versions, timed beside them and ``scaled_dot_product_attention``,
+   with their bounds (the ``per_rank`` entries of the kernels line).
+   (b) A world of two gloo processes on the one card (NCCL takes one rank
+   a device): each collective the cells issue probed on CUDA tensors; if
+   gloo refuses one, the line names it and the world of one (16 (a))
+   stands alone. Else qwen3-1.7b at full width, 2 layers, f32, on a
+   (1, 2) ("data", "model") mesh: a train step through the cell, a
+   prefill and a decode step with and without the distributed
+   flash-decode (``serve_rules``) against the world of one's calls on the
+   same inputs at ``TP_WORLD_TOL`` (``tests/test_torch_sharded_train.py``'s
+   pins). Within ``TP_WORLD_SECONDS``.
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
 the training paths' backward calls: qwen3-1.7b's for
 ``flash_attention_backward``, zamba2-2.7b's and rwkv6-7b's for the
 scans'); ``decode_attention``'s row also carries its stats route's
-check, times and bound (``stats_*``) and launches (phase 14 b).
+check, times and bound (``stats_*``) and launches (phase 14 b); the
+attention rows carry phase 17 (a)'s per-rank cases (``per_rank``).
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -3465,7 +3484,7 @@ def kernel_line(records: dict, launches: dict) -> dict:
                 "library_fwd_bwd_device_ms", "stats_ms", "stats_graph_ms",
                 "stats_plain_ms", "stats_bound_ms", "stats_bound_by",
                 "stats_max_abs_err", "stats_launches", "stats_shard_ms",
-                "one_shot_ms", "one_shot_graph_ms")}})
+                "one_shot_ms", "one_shot_graph_ms", "per_rank")}})
     return {"kernels": rows}
 
 
@@ -4553,6 +4572,392 @@ def training_across_devices_phase(device: str, *, train_kw=None,
     return {"train": train, "dense": dense, "dryrun": dry, "seconds": secs}
 
 
+# ------------------------------------------------ the cells on their shards
+
+# the attention kernels at one rank's heads on the pod mesh's model axis
+# (16; qwen3-1.7b at 2 as well): (label, H, KV) at D 128, the forward and
+# backward at the training shape (B 4, S 1024, causal, bf16), decode at
+# the engine shape (B 8, S 2048). internlm2-20b's group of 3 is one no
+# earlier card run had
+TP_HEADS = [("qwen3 tp2", 8, 4), ("llama3 tp16", 2, 1),
+            ("internlm2 tp16", 3, 1)]
+# the world of two on one card: qwen3-1.7b at full width cut to 2 layers
+# (f32), a (1, 2) ("data", "model") mesh of two processes over gloo, its
+# train step, prefill and decode cells against the world of one's calls
+TP_WORLD = dict(arch="qwen3-1.7b", layers=2, batch=2, seq=256, cache=512,
+                seed=26)
+# tests/test_torch_sharded_train.py's pins (f32): loss, grad norm, the
+# moments (of their leaf's max; the first step's are its gradients), the
+# serve cells' logits and caches. The params after the step are held as
+# phase 9 holds the card's step against the CPU's (``_update_excess``):
+# no element past what the two sides' gradient differences allow. A
+# fixed 2e-5 does not hold at full width: on an NVIDIA H100 80GB HBM3
+# (700.00 W) it read 3.90e-5 where the two sides' gradients, equal to
+# 5.5e-6 of their leaf's max, sit near AdamW's eps (1e-8), whose step
+# g / (|g| + eps) they then steer
+TP_WORLD_TOL = dict(loss=1e-5, grad_norm=1e-4, moment=1e-4,
+                    update_excess=0.0, serve=2e-5)
+TP_WORLD_SECONDS = 240.0
+# the collectives the world of two's cells issue (a train step under
+# baseline_rules, prefill and decode under serve_rules), each probed on
+# the card's tensors first; and the reduce-scatter, which the cells issue
+# under sp_rules and for FSDP shards (a data axis of more than one rank),
+# probed and reported too
+TP_COLLECTIVES = ("all_reduce", "all_reduce max", "all_gather")
+TP_PROBED = TP_COLLECTIVES + ("reduce_scatter",)
+
+
+def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool) -> dict:
+    """``flash_attention`` (forward and backward) and ``decode_attention``
+    at one rank's head counts (``TP_HEADS``) against their plain versions,
+    with bounds and, where ``time_it``, times beside the plain version
+    and ``scaled_dot_product_attention``. Returns {kernel: [record]}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_reference)
+    t0 = time.perf_counter()
+    out = {"flash_attention": [], "flash_attention_backward": [],
+           "decode_attention": []}
+    B, S, D, Bd, Sd, dtype = 4, 1024, 128, 8, 2048, "bfloat16"
+    dt = torch.bfloat16
+    for seed, (label, H, KV) in enumerate(heads):
+        g = torch.Generator(device=device).manual_seed(900 + seed)
+        tag = f"{label} H={H} KV={KV} G={H // KV}"
+        q, k, v, do = (torch.randn(B, S, n, D, generator=g,
+                                   device=device).to(dt)
+                       for n in (H, KV, KV, H))
+        rec = _agree(f"flash_attention per rank {tag} B={B} S={S} D={D}",
+                     flash_attention(q, k, v, causal=True),
+                     attention_reference(q, k, v, causal=True), dtype)
+        rec.update(label=label, H=H, KV=KV, **flash_bound(q, k, True))
+        if time_it:
+            sets = [(*s, *(t.transpose(1, 2) for t in s))
+                    for s in _input_sets((q, k, v), rec["bytes"])]
+            _timed(rec, sets,
+                   lambda q, k, v, *_: flash_attention(q, k, v, causal=True),
+                   lambda q, k, v, *_: attention_reference(q, k, v,
+                                                           causal=True),
+                   lambda *s: F.scaled_dot_product_attention(
+                       *s[3:], is_causal=True, enable_gqa=True), 20)
+            print(f"flash_attention per rank {label} time: "
+                  + _times(rec, "scaled_dot_product_attention"))
+        out["flash_attention"].append(rec)
+        o, lse = _flash_with_lse(q, k, v, True)
+        want = attention_backward_reference(q, k, v, o, lse, do, True)
+        errs = [_agree(f"flash_attention_backward per rank {tag} {part}",
+                       a, b, dtype)
+                for part, a, b in zip(("dq", "dk", "dv"),
+                                      _flash_backward(q, k, v, o, do, lse,
+                                                      True), want)]
+        rec = {"label": label, "H": H, "KV": KV,
+               "max_abs_err": max(e["max_abs_err"] for e in errs),
+               "rel_err": max(e["rel_err"] for e in errs),
+               **flash_backward_bound(q, k, True)}
+        if time_it:
+            sets = _input_sets((q, k, v, o, do, lse), rec["bytes"])
+            kern = lambda *s: _flash_backward(*s, True)          # noqa: E731
+            plain = lambda q, k, v, o, do, lse: \
+                attention_backward_reference(q, k, v, o, lse, do, True)  # noqa: E731
+            sdpa = [(F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), q, k, v, do)
+                for q, k, v, do in (
+                    tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in s[:3]) + (s[4].transpose(1, 2),)
+                    for s in sets)]
+            rec.update(
+                ms=_time_ms(kern, sets, 10), plain_ms=_time_ms(plain, sets, 2),
+                library_ms=_time_ms(lambda o, q, k, v, do: torch.autograd.grad(
+                    o, (q, k, v), do, retain_graph=True), sdpa, 10),
+                graph_ms=_time_ms(kern, sets, 10, graph=True))
+            print(f"flash_attention_backward per rank {label} time: "
+                  f"{rec['ms']:.4f} ms/call eager, {rec['graph_ms']:.4f} ms "
+                  f"by CUDA graph replay, inputs cold in L2; bound "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                  f"({rec['bytes']} bytes, {rec['flops']} flop); plain "
+                  f"backward {rec['plain_ms']:.4f} ms; "
+                  f"scaled_dot_product_attention's backward "
+                  f"{rec['library_ms']:.4f} ms")
+        out["flash_attention_backward"].append(rec)
+        qd = torch.randn(Bd, H, D, generator=g, device=device).to(dt)
+        kc, vc = (torch.randn(Bd, Sd, KV, D, generator=g,
+                              device=device).to(dt) for _ in range(2))
+        lengths = torch.randint(1, Sd + 1, (Bd,), generator=g, device=device,
+                                dtype=torch.int32)
+        rec = _agree(f"decode_attention per rank {tag} B={Bd} S={Sd} D={D}",
+                     decode_attention(qd, kc, vc, lengths),
+                     decode_attention_reference(qd, kc, vc, lengths), dtype)
+        rec.update(label=label, H=H, KV=KV, **decode_bound(qd, kc, lengths))
+        if time_it:
+            mask = (torch.arange(Sd, device=device)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            sets = [(q_, k_, v_, n_, q_[:, :, None], k_.transpose(1, 2),
+                     v_.transpose(1, 2)) for q_, k_, v_, n_ in
+                    _input_sets((qd, kc, vc, lengths), rec["bytes"])]
+            _timed(rec, sets,
+                   lambda *s: decode_attention(*s[:4]),
+                   lambda *s: decode_attention_reference(*s[:4]),
+                   lambda *s: F.scaled_dot_product_attention(
+                       *s[4:], attn_mask=mask, enable_gqa=True), 50)
+            print(f"decode_attention per rank {label} time: "
+                  + _times(rec, "scaled_dot_product_attention"))
+        out["decode_attention"].append(rec)
+    print(f"per-rank kernels: {len(heads)} head layouts in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _tp_world_rank(rank: int, port: int, out_path: str, kw: dict) -> None:
+    """One rank of ``tp_world_phase``'s world of two."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        res = _tp_world_body(rank, **kw)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        torch.save(res, out_path)
+
+
+def _probe_collectives(device: str) -> dict:
+    """Each collective of ``TP_PROBED`` on ``device``'s tensors in the
+    world: {name: the error it raised} for each one refused."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (all_gather_along,
+                                                  reduce_scatter_along)
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(torch.ones(4, device=device)),
+        "all_reduce max": lambda: dist.all_reduce(
+            torch.ones(4, device=device), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: all_gather_along(
+            torch.ones(2, 3, device=device), 1, None, 2),
+        "reduce_scatter": lambda: reduce_scatter_along(
+            torch.ones(2, 4, device=device), 1, None, 2)}
+    refused = {}
+    for name in TP_PROBED:
+        try:
+            probes[name]()
+            _sync(device)
+        except Exception as e:    # noqa: BLE001  (reported, then the world
+            refused[name] = (f"{type(e).__name__}: "     # is not used)
+                             f"{str(e).splitlines()[0][:200]}")
+    return refused
+
+
+def _tp_world_body(rank: int, *, device: str, arch: str, layers: int,
+                   batch: int, seq: int, cache: int, seed: int) -> dict:
+    """The world of two's work: the probe, then (where no collective the
+    cells issue was refused) a train step, a prefill and a decode step
+    (with and without the distributed flash-decode) through the cells on
+    a (1, 2) mesh, each held on rank 0 against the undistributed call on
+    the same inputs (the world of one: the (1, 1) cell is bit-equal to it,
+    phase 16 (a))."""
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.checkpoint import flatten, tree_map
+    from repro_torch.distributed.sharding import (baseline_rules,
+                                                  gather_whole, place,
+                                                  place_tree, serve_rules)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (AdamWConfig, init_state, make_decode_step,
+                                   make_prefill_step, make_train_step)
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    out = {"refused": _probe_collectives(device)}
+    if set(out["refused"]) & set(TP_COLLECTIVES):
+        return out
+    mesh = make_mesh((1, 2), ("data", "model"), device_type=device)
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = M.init_params(cfg, g, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g,
+                           device=device, dtype=torch.int32)
+    b = {"tokens": tokens[:, :-1].contiguous(),
+         "labels": tokens[:, 1:].contiguous()}
+    whole_tree = lambda t: tree_map(gather_whole, t)        # noqa: E731
+    # (a) a train step through the cell
+    cell = build_cell(cfg, ShapeSpec("tp", seq, batch, "train"), mesh,
+                      rules=baseline_rules(), microbatches=1)
+    sh = cell_shardings(cell)
+    state = place_tree((params, init_state(params)), sh[:2])
+    _sync(device)
+    reset_counts()
+    t = time.perf_counter()
+    p_d, o_d, m_d = cell.fn(state[0], state[1],
+                            {k: place(v, *sh[2][k]) for k, v in b.items()})
+    _sync(device)
+    out["train_s"] = time.perf_counter() - t
+    out["launches"] = {"train": counts()}
+    p_d, mu_d, nu_d = (whole_tree(x) for x in (p_d, o_d.mu, o_d.nu))
+    del state
+    # (b) prefill and decode through the serve cells (weights stationary)
+    rules = serve_rules()
+    pre = build_cell(cfg, ShapeSpec("tp", seq, batch, "prefill"), mesh,
+                     rules=rules, serve_dtype="float32")
+    p_sh = cell_shardings(pre)
+    served = place_tree(params, p_sh[0])
+    with torch.no_grad():
+        reset_counts()
+        t = time.perf_counter()
+        logits, _ = pre.fn(served, {"tokens": place(b["tokens"],
+                                                    *p_sh[1]["tokens"])})
+        _sync(device)
+        out["prefill_s"] = time.perf_counter() - t
+        out["launches"]["prefill"] = counts()
+        pre_logits = gather_whole(logits)
+        dstate = M.init_decode_state(cfg, batch, cache, device=device)
+        dstate["caches"] = tree_map(
+            lambda x: torch.randn(x.shape, generator=g, device=device),
+            dstate["caches"])
+        dstate["lengths"] = torch.randint(1, cache, (batch,), generator=g,
+                                          device=device, dtype=torch.int32)
+        nxt = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
+                            device=device, dtype=torch.int32)
+        dec = {}
+        for dist_decode in (False, True):
+            cell_d = build_cell(cfg, ShapeSpec("tp", cache, batch, "decode"),
+                                mesh, rules=rules, dist_decode=dist_decode,
+                                serve_dtype="float32")
+            _, s_sh, b_sh = cell_shardings(cell_d)
+            placed = {"caches": place_tree(tree_map(torch.clone,
+                                                    dstate["caches"]),
+                                           s_sh["caches"]),
+                      "lengths": place(dstate["lengths"], *s_sh["lengths"])}
+            reset_counts()
+            t = time.perf_counter()
+            lg, new = cell_d.fn(served, placed,
+                                {"tokens": place(nxt, *b_sh["tokens"])})
+            _sync(device)
+            out["launches"][f"decode dist={dist_decode}"] = {
+                **counts(), "decode_attention_partial": _kernel_ops()[
+                    "decode_attention"].partial_invocation_count()}
+            dec[dist_decode] = {"s": time.perf_counter() - t,
+                                "logits": gather_whole(lg),
+                                "caches": whole_tree(new["caches"])}
+    if rank:
+        return out
+    # the world of one on rank 0: the undistributed calls
+    opt = AdamWConfig()
+    p_u, o_u, m_u = make_train_step(cfg)(params, init_state(params), b)
+    # the first step's clipped gradients, from the moments (mu = (1 - b1)
+    # s g): each side's own clip scale is in them
+    grads = [tree_map(lambda m: m / (1 - opt.b1), mu) for mu in (mu_d,
+                                                                 o_u.mu)]
+    out["train"] = {
+        "loss": (float(m_d["loss"]), float(m_u["loss"])),
+        "grad_norm": (float(m_d["grad_norm"]), float(m_u["grad_norm"])),
+        "params": max(float((a - c).abs().max()) for a, c in
+                      zip(flatten(p_d), flatten(p_u))),
+        "update_excess": _update_excess(p_d, p_u, *grads, params, opt,
+                                        (0.0, 0.0)),
+        "moments": max(float((a - b_).abs().max() / b_.abs().max())
+                       for a, b_ in zip(flatten((mu_d, nu_d)),
+                                        flatten((o_u.mu, o_u.nu))))}
+    with torch.no_grad():
+        want, _ = make_prefill_step(cfg)(params, {"tokens": b["tokens"]})
+        out["prefill"] = float((pre_logits - want).abs().max())
+        out["decode"] = {}
+        for dist_decode, d in dec.items():
+            st = tree_map(torch.clone, dstate)
+            wl, wn = make_decode_step(cfg)(params, st, {"tokens": nxt})
+            out["decode"][dist_decode] = {
+                "s": d["s"], "logits": float((d["logits"] - wl).abs().max()),
+                "caches": max(float((a - c).abs().max()) for a, c in
+                              zip(flatten(d["caches"]),
+                                  flatten(wn["caches"])))}
+    return out
+
+
+def tp_world_phase(device: str, **kw) -> dict:
+    """The cells on their shards in a world of two processes on one card
+    (gloo: NCCL takes one rank a device): each collective the cells issue
+    probed on the card's tensors, then, where none was refused,
+    ``_tp_world_body``'s train, prefill and decode cells against the
+    world of one, at ``TP_WORLD_TOL``. A refused collective is printed
+    and the world of one (phase 16 (a)) stands alone."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    kw = {**TP_WORLD, **kw, "device": device}
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/rank0.pt"
+        ctx = mp.start_processes(_tp_world_rank,
+                                 args=(_free_port(), path, kw), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_WORLD_SECONDS
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      f"world of two: still running after "
+                      f"{TP_WORLD_SECONDS:.0f} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(5)
+        res = torch.load(path, weights_only=False)
+    secs = time.perf_counter() - t0
+    for name, why in res["refused"].items():
+        print(f"world of two: gloo refused {name} on {device} tensors "
+              f"({why})" + ("; the world of one (phase 16 (a)) stands alone"
+                            if name in TP_COLLECTIVES else
+                            "; the cells issue it under sp_rules and for "
+                            "FSDP shards, which this world does not run"))
+    print(f"world of two: gloo took "
+          + ", ".join(n for n in TP_PROBED if n not in res["refused"])
+          + f" on {device} tensors")
+    if set(res["refused"]) & set(TP_COLLECTIVES):
+        print(f"world of two: {secs:.1f} s")
+        return {"refused": res["refused"], "seconds": secs}
+    tol, tr = TP_WORLD_TOL, res["train"]
+    rel = lambda pair: abs(pair[0] - pair[1]) / abs(pair[1])  # noqa: E731
+    ok = rel(tr["loss"]) <= tol["loss"] \
+        and rel(tr["grad_norm"]) <= tol["grad_norm"] \
+        and tr["update_excess"] <= tol["update_excess"] \
+        and tr["moments"] <= tol["moment"]
+    where = "the CPU" if device == "cpu" else "one card"
+    print(f"world of two: {kw['arch']} ({kw['layers']} layers, f32) on a "
+          f"(1, 2) mesh of two gloo processes on {where}, B "
+          f"{kw['batch']} x S {kw['seq']}: train step through the cell "
+          f"{res['train_s']:.3f} s, loss {tr['loss'][0]:.6f} / "
+          f"{tr['loss'][1]:.6f} (rel {rel(tr['loss']):.2e}), grad norm rel "
+          f"{rel(tr['grad_norm']):.2e}, moments (the first step's "
+          f"gradients) worst {tr['moments']:.2e} of their max, params worst "
+          f"{tr['params']:.2e} with {tr['update_excess']:.2e} past what "
+          f"the gradient differences allow, against the world of one "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"world of two: the train cell differs from the world of one: "
+              f"{tr}")
+    ok_serve = res["prefill"] <= tol["serve"] and all(
+        d["logits"] <= tol["serve"] and d["caches"] <= tol["serve"]
+        for d in res["decode"].values())
+    print(f"world of two: prefill ({res['prefill_s']:.3f} s) logits max "
+          f"|diff| {res['prefill']:.2e}; decode "
+          + ", ".join(f"{'distributed' if k else 'gathered cache'} "
+                      f"({d['s']:.3f} s) logits {d['logits']:.2e} caches "
+                      f"{d['caches']:.2e}" for k, d in res["decode"].items())
+          + f" against the world of one (atol {tol['serve']:.0e}) "
+          f"{'ok' if ok_serve else 'FAIL'}; {secs:.1f} s in all")
+    check(ok_serve, f"world of two: the serve cells differ: {res}")
+    print("world of two: launches on rank 0 at its shards' head counts: "
+          + "; ".join(f"{call} " + ", ".join(f"{k} {v}" for k, v in
+                                             n.items() if v)
+                      for call, n in res["launches"].items()))
+    return {**res, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -4591,6 +4996,7 @@ def main() -> int:
     across = across_devices_phase("cuda")
     dense_gap_phase("cuda")
     training_across_devices_phase("cuda")
+    tp_world_phase("cuda")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     for arch, kw in RECURRENT_PARITY.items():
@@ -4615,6 +5021,13 @@ def main() -> int:
     # launches on the distributed decode path (b)
     records["decode_attention"].update(across["stats"],
                                        stats_launches=across["decode"]["launches"])
+    # each attention kernel at one rank's head counts on the model axis
+    for name, recs in tp_kernel_phase("cuda", time_it=True).items():
+        records[name]["per_rank"] = [
+            {key: r.get(key) for key in (
+                "label", "H", "KV", "max_abs_err", "ms", "graph_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in recs]
     print(f"smoke: {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(kernel_line(records, launches)))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,17 @@ All functions are plain functions on tensors; parameters come in as nested
 dicts built by the matching ``*_specs`` builders. Compute dtype follows the
 inputs (bf16), accumulation and softmax in f32 inside the attention
 kernels. Every cast below is a rounding point of the reference and is kept.
+
+Tensor parallelism: with ``tp`` (a ``distributed.sharding.TPContext``) the
+attention and MLP blocks take one rank's shards of the ``model`` axis,
+read from the weights' shapes. ``wq`` / ``bq`` narrower than H x hd hold
+this rank's ``H / tp`` whole heads ``[r H/tp, (r+1) H/tp)``; ``wk``,
+``wv``, ``bk``, ``bv`` stay whole and the rank computes only the KV heads
+its q heads read (all of them where a cache is written); ``wo`` is the
+matching row shard, its partial sums reduced before ``bo`` is added. In
+the MLP, ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` narrower than d_ff
+are column shards and ``w_down`` the row shard. Without ``tp``, or with
+whole weights, every block computes as without a mesh.
 """
 from __future__ import annotations
 
@@ -122,44 +133,101 @@ def attention_specs(cfg: ModelConfig, d_in: Optional[int] = None):
     return sp
 
 
-def _project_qkv(cfg, p, x):
+def _project_qkv(cfg, p, x, kv=None):
+    """q for the heads ``wq`` holds; k, v for KV heads ``kv`` = [a, b)
+    (default: all of them)."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    a, b = kv or (0, KV)
+    cols = slice(a * hd, b * hd)
+    whole = (a, b) == (0, KV)
+    wk = p["wk"] if whole else p["wk"][..., cols]
+    wv = p["wv"] if whole else p["wv"][..., cols]
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    k = x @ wk.to(x.dtype)
+    v = x @ wv.to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+        k = k + (p["bk"] if whole else p["bk"][cols]).to(x.dtype)
+        v = v + (p["bv"] if whole else p["bv"][cols]).to(x.dtype)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, b - a, hd)
+    v = v.reshape(B, S, b - a, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
     return q, k, v
 
 
-def attention_block(cfg: ModelConfig, p, x, positions):
+def head_range(cfg, p, tp) -> tuple:
+    """(first q head, q heads) this rank holds of ``p["wq"]``: all H where
+    the projection is whole."""
+    hq = p["wq"].shape[-1] // cfg.head_dim
+    if hq == cfg.num_heads:
+        return 0, hq
+    if hq * tp.tp != cfg.num_heads:
+        raise ValueError(f"{hq} of {cfg.num_heads} heads on a model axis of "
+                         f"{tp.tp}: the head projection is split mid-head")
+    return tp.rank * hq, hq
+
+
+def kv_range(cfg, lo: int, hq: int) -> tuple:
+    """[a, b): the KV heads that q heads [lo, lo + hq) read."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    return lo // G, (lo + hq - 1) // G + 1
+
+
+def kv_for_heads(cfg, lo: int, hq: int, a: int, k, v):
+    """k, v of KV heads [a, ...) (dim 2) as the kernels read them for q
+    heads [lo, lo + hq): as they are where the rank's q heads group evenly
+    over them, else each q head's KV head repeated (group 1)."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    want = [(lo + j) // G - a for j in range(hq)]
+    n = k.shape[2]
+    if hq % n == 0 and want == [j // (hq // n) for j in range(hq)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def attention_block(cfg: ModelConfig, p, x, positions, tp=None,
+                    cache: bool = True):
     """Full-sequence attention (train / prefill).
 
     x: (B, S, d_in) normed input. Returns (out (B,S,d_model), (k, v)) so
-    prefill can populate caches.
-    """
-    q, k, v = _project_qkv(cfg, p, x)
+    prefill can populate caches. With ``tp`` and this rank's head shards,
+    k and v are those of every KV head where ``cache``, else only of the
+    KV heads its q heads read; ``out`` is reduced over the model axis (or,
+    under sequence parallelism, ``x`` and ``out`` are this rank's sequence
+    shards)."""
+    KV = cfg.num_kv_heads
+    lo, hq = head_range(cfg, p, tp)
+    sharded = hq < cfg.num_heads
+    if tp is not None:
+        x = tp.enter(x, sharded)
+    used = kv_range(cfg, lo, hq) if sharded else (0, KV)
+    a = 0 if cache else used[0]
+    q, k, v = _project_qkv(cfg, p, x, None if cache else used)
     q = apply_rope(q, positions, cfg.rope_theta, mrope=cfg.use_mrope)
     k = apply_rope(k, positions, cfg.rope_theta, mrope=cfg.use_mrope)
-    o = flash_attention(q, k, v, causal=cfg.causal)
+    ka, va = k, v
+    if sharded:
+        if (used[1] - used[0]) != k.shape[2]:
+            ka = k[:, :, used[0] - a:used[1] - a].contiguous()
+            va = v[:, :, used[0] - a:used[1] - a].contiguous()
+        ka, va = kv_for_heads(cfg, lo, hq, used[0], ka, va)
+    o = flash_attention(q, ka, va, causal=cfg.causal)
     B, S = o.shape[:2]
     out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    if tp is not None:
+        out = tp.leave(out, sharded)
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out, (k, v)
 
 
 def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
-                     dist=None, rows=None):
+                     dist=None, rows=None, tp=None):
     """One-token decode against STACKED caches (periods, B, S, KV, hd).
 
     Writes the new k/v IN PLACE at (layer, b, lengths[b]) — for every row,
@@ -174,8 +242,18 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
     ``lengths[b]`` writes the new k/v, at ``lengths[b] − offset`` in its
     chunk, and every rank attends over lengths+1 through the distributed
     flash-decode (``kernels/decode_attention/distributed.py``).
+
+    With ``tp`` and this rank's head shards, the new k/v of every KV head
+    are written (the caches hold them all); the rank attends with its q
+    heads over the KV heads they read, or, with ``dist``, gathers every
+    rank's q heads, attends over its S-chunk, combines, and keeps its own
+    heads' output for its row shard of ``wo``.
     """
     B = x.shape[0]
+    lo, hq = head_range(cfg, p, tp)
+    sharded = hq < cfg.num_heads
+    if tp is not None:
+        x = tp.enter(x, sharded)
     q, k, v = _project_qkv(cfg, p, x)                # (B,1,H/KV,hd)
     pos = lengths[:, None]                           # (B,1)
     if cfg.use_mrope:
@@ -191,8 +269,14 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
     if dist is None:
         kstack[layer, b_idx, at] = k[b_idx, 0].to(kstack.dtype)
         vstack[layer, b_idx, at] = v[b_idx, 0].to(vstack.dtype)
-        o = decode_attention(q[:, 0], kstack[layer], vstack[layer],
-                             lengths + 1)
+        kc, vc = kstack[layer], vstack[layer]
+        if sharded:
+            a, b = kv_range(cfg, lo, hq)
+            if b - a != kc.shape[2]:
+                kc = kc[:, :, a:b].contiguous()
+                vc = vc[:, :, a:b].contiguous()
+            kc, vc = kv_for_heads(cfg, lo, hq, a, kc, vc)
+        o = decode_attention(q[:, 0], kc, vc, lengths + 1)
     else:
         seq_axis = dist.get("seq_axis", "model")
         S_loc = kstack.shape[2]
@@ -204,11 +288,18 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
         for stack, new in ((kstack, k), (vstack, v)):
             stack[layer, b_idx, at] = torch.where(
                 mine, new[b_idx, 0].to(stack.dtype), stack[layer, b_idx, at])
+        qs = q[:, 0]
+        if sharded:
+            qs = tp.gather_heads(qs, 1)
         o = decode_attention_distributed(
-            q[:, 0], kstack[layer], vstack[layer], lengths + 1,
+            qs, kstack[layer], vstack[layer], lengths + 1,
             mesh=dist["mesh"], seq_axis=seq_axis,
             batch_axes=dist.get("batch_axes", ("data",)))
+        if sharded:
+            o = o[:, lo:lo + hq]
     out = o.reshape(B, -1) @ p["wo"].to(x.dtype)
+    if tp is not None:
+        out = tp.leave(out, sharded)
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out[:, None], kstack, vstack
@@ -230,7 +321,13 @@ def mlp_specs(cfg: ModelConfig, d_in: Optional[int] = None):
     return sp
 
 
-def mlp_block(cfg: ModelConfig, p, x):
+def mlp_block(cfg: ModelConfig, p, x, tp=None):
+    """The MLP on x (B, S, d_in); with ``tp`` and this rank's column / row
+    shards (``w_down`` shorter than d_ff), its partial sums reduced over
+    the model axis before ``b_down`` is added."""
+    sharded = p["w_down"].shape[0] < cfg.d_ff
+    if tp is not None:
+        x = tp.enter(x, sharded)
     if cfg.act == "swiglu":
         g = x @ p["w_gate"].to(x.dtype)
         u = x @ p["w_up"].to(x.dtype)
@@ -242,6 +339,8 @@ def mlp_block(cfg: ModelConfig, p, x):
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     out = h @ p["w_down"].to(x.dtype)
+    if tp is not None:
+        out = tp.leave(out, sharded)
     if "b_down" in p:
         out = out + p["b_down"].to(x.dtype)
     return out

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -386,13 +386,6 @@ def as_local(t, like):
                               stride=like.stride())
 
 
-def whole(x):
-    """A DTensor gathered whole on every rank (a plain tensor); a plain
-    tensor is taken as whole already."""
-    from torch.distributed.tensor import DTensor
-    return x.full_tensor() if isinstance(x, DTensor) else x
-
-
 def holds_distinct(x, mesh) -> bool:
     """Whether this rank's block of ``x`` counts once in a sum over
     ``mesh``: it sits at coordinate 0 of every mesh dim ``x`` is
@@ -405,10 +398,11 @@ def holds_distinct(x, mesh) -> bool:
 
 def mesh_sum(t, mesh):
     """Sum ``t`` in place over every rank of ``mesh`` (an all-reduce over
-    each mesh dim's group in turn); returns it."""
+    each mesh dim's group of more than one rank in turn); returns it."""
     import torch.distributed as dist
     for d in range(mesh.ndim):
-        dist.all_reduce(t, group=mesh.get_group(d))
+        if mesh.shape[d] > 1:
+            dist.all_reduce(t, group=mesh.get_group(d))
     return t
 
 
@@ -417,5 +411,264 @@ def mesh_mean_autograd(t, mesh):
     gradient is summed back over the ranks)."""
     from torch.distributed.nn.functional import all_reduce
     for d in range(mesh.ndim):
-        t = all_reduce(t, group=mesh.get_group(d))
+        if mesh.shape[d] > 1:
+            t = all_reduce(t, group=mesh.get_group(d))
     return t / mesh.size()
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd: what a rank computes on its shards through.
+# Each takes an explicit process group of ``n`` ranks; at n = 1 it is the
+# identity and issues nothing.
+# ---------------------------------------------------------------------------
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def all_gather_along(x, dim: int, group, n: int):
+    """The blocks of ``group``'s ``n`` ranks concatenated along ``dim`` in
+    group-rank order (one all-gather)."""
+    dist = _dist()
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    ag = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    ag(out, x, group=group)
+    return out.unflatten(0, (n, x.shape[0])).movedim(0, dim) \
+        .flatten(dim, dim + 1)
+
+
+def reduce_scatter_along(x, dim: int, group, n: int):
+    """The sum over ``group``'s ``n`` ranks of ``x``, each rank keeping its
+    block along ``dim`` (one reduce-scatter)."""
+    dist = _dist()
+    k = x.shape[dim] // n
+    parts = x.unflatten(dim, (n, k)).movedim(dim, 0).contiguous()
+    out = torch.empty(parts.shape[1:], dtype=x.dtype, device=x.device)
+    rs = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    rs(out, parts.flatten(0, 1), group=group)
+    return out
+
+
+def _all_reduce_copy(x, group, op=None):
+    dist = _dist()
+    x = x.clone()
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
+    return x
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along a dim; the backward reduce-scatters the gradient
+    (the sum over the group, this rank's block)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return all_gather_along(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_along(g, *ctx.args), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter along a dim; the backward all-gathers the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return reduce_scatter_along(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_along(g, *ctx.args), None, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Into a model-parallel region: the identity; the backward sums the
+    ranks' partial gradients (an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_copy(g, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Out of a model-parallel region: the ranks' partial results summed
+    (an all-reduce); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_copy(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather(x, dim: int, group, n: int):
+    """All-gather along ``dim`` over ``group`` (``n`` ranks); the gradient
+    is reduce-scattered back. FSDP's gather of a weight shard, and
+    sequence parallelism's gather of the residual stream."""
+    return x if n == 1 else _Gather.apply(x, dim, group, n)
+
+
+def scatter(x, dim: int, group, n: int):
+    """Reduce-scatter along ``dim`` over ``group``; the gradient is
+    all-gathered back. Sequence parallelism's way out of a region."""
+    return x if n == 1 else _Scatter.apply(x, dim, group, n)
+
+
+def copy_in(x, group, n: int):
+    """Identity forward, all-reduce backward (tensor parallelism's way
+    into a region whose ranks each compute a part)."""
+    return x if n == 1 else _CopyIn.apply(x, group)
+
+
+def reduce_out(x, group, n: int):
+    """All-reduce forward, identity backward (the way out of that
+    region)."""
+    return x if n == 1 else _ReduceOut.apply(x, group)
+
+
+def sharded_dims(mesh, pls) -> dict:
+    """``{mesh dim: tensor dim}`` for each mesh dim of more than one rank
+    that placements ``pls`` shard a leaf on (from ``param_shardings``,
+    whose ``spec_for`` drops a split that does not divide)."""
+    from torch.distributed.tensor import Shard
+    return {i: pl.dim for i, pl in enumerate(pls)
+            if isinstance(pl, Shard) and mesh.shape[i] > 1}
+
+
+def gather_dims(x, mesh, dims: dict):
+    """``x``, this rank's block, all-gathered over the mesh dims ``dims``
+    (``{mesh dim: tensor dim}``), the innermost first: the leaf whole on
+    those dims. No autograd."""
+    for i in sorted(dims, reverse=True):
+        x = all_gather_along(x, dims[i], mesh.get_group(i), mesh.shape[i])
+    return x
+
+
+def cut_dims(x, mesh, dims: dict):
+    """This rank's block of ``x`` (whole on the mesh dims ``dims``) on
+    those dims: a view, no communication."""
+    coord = mesh.get_coordinate()
+    for i in sorted(dims):
+        n, d = mesh.shape[i], dims[i]
+        size = x.shape[d] // n
+        x = x.narrow(d, coord[i] * size, size)
+    return x
+
+
+def gather_whole(x):
+    """A DTensor gathered whole on every rank (a plain tensor) by an
+    all-gather over each mesh dim it is sharded on; a plain tensor is
+    taken as whole already."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return gather_dims(x.to_local(), mesh, sharded_dims(mesh, x.placements))
+
+
+class _Gathered(dict):
+    """A parameter tree whose top-level FSDP shards ``TPContext.top``
+    gathered."""
+
+
+@dataclass
+class TPContext:
+    """What one rank's model code needs to compute on its shards: the
+    ``model`` axis's group (``tp`` ranks, this rank at ``rank``), whether
+    the residual stream between blocks is this rank's sequence shard
+    (``seq``, sequence parallelism), and ``fsdp``: for each leaf of the
+    parameter tree, the ``(tensor dim, group, ranks)`` all-gathers, the
+    innermost mesh dim first, that make its FSDP shard whole over the data
+    axes where it is used (the dims of ``"blocks"`` leaves are those of
+    one period's slice). ``None`` for a leaf (or subtree) that needs
+    none.
+
+    The layers read from each weight's shape whether they hold a shard of
+    it: a fused head projection narrower than the config's holds this
+    rank's ``H / tp`` heads, an MLP projection narrower than ``d_ff`` its
+    columns, an embedding shorter than the vocabulary its rows. Every
+    method is the identity at ``tp`` = 1."""
+    model: Any = None
+    tp: int = 1
+    rank: int = 0
+    seq: bool = False
+    fsdp: Any = None
+
+    # FSDP: a period's (or the top-level) leaves gathered where used
+    def gather_tree(self, tree, specs):
+        if specs is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self.gather_tree(v, specs.get(k)) for k, v in
+                    tree.items()}
+        for dim, group, n in specs:
+            tree = gather(tree, dim, group, n)
+        return tree
+
+    def period(self, p):
+        """One period's parameters, FSDP shards gathered."""
+        return self.gather_tree(p, (self.fsdp or {}).get("blocks"))
+
+    def top(self, params):
+        """The parameters outside the periods, FSDP shards gathered (once:
+        a tree this returned comes back as it is); the stacked periods as
+        they are."""
+        if isinstance(params, _Gathered):
+            return params
+        fsdp = self.fsdp or {}
+        return _Gathered({k: v if k == "blocks"
+                          else self.gather_tree(v, fsdp.get(k))
+                          for k, v in params.items()})
+
+    # the residual stream in and out of a block's parts
+    def enter(self, x, sharded: bool):
+        """``x`` (the residual stream, or its sequence shard under
+        ``seq``) as a region computing on weight shards (``sharded``) or
+        on whole weights needs it: whole along the sequence."""
+        if self.seq:
+            return gather(x, 1, self.model, self.tp)
+        return copy_in(x, self.model, self.tp) if sharded else x
+
+    def leave(self, y, sharded: bool):
+        """A region's output back to the residual stream's layout: the
+        ranks' partial sums reduced (``sharded``), this rank's sequence
+        shard kept (``seq``)."""
+        if sharded:
+            return scatter(y, 1, self.model, self.tp) if self.seq \
+                else reduce_out(y, self.model, self.tp)
+        if self.seq:
+            k = y.shape[1] // self.tp
+            return y.narrow(1, self.rank * k, k)
+        return y
+
+    def reduce(self, x):
+        """The ranks' partial values summed (forward); the gradient passes
+        to each rank unchanged."""
+        return reduce_out(x, self.model, self.tp)
+
+    def max(self, x):
+        """The largest value over the ranks (no gradient)."""
+        if self.tp == 1:
+            return x
+        return _all_reduce_copy(x.detach(), self.model,
+                                _dist().ReduceOp.MAX)
+
+    def gather_heads(self, x, dim: int):
+        """Every rank's heads of ``x`` along ``dim`` (no gradient)."""
+        if self.tp == 1:
+            return x
+        return all_gather_along(x, dim, self.model, self.tp)

@@ -3,41 +3,66 @@ shardings + meta-device args. Shared by the dry run (``launch/dryrun.py``)
 and the sharded training and serving runs.
 
 The twin of ``repro.launch.cells``, whose ``jax.jit(step, in_shardings=,
-out_shardings=)`` lets XLA partition the model over the mesh. Here the
-kernels take whole, contiguous plain tensors, so a cell's ``fn`` does no
-tensor-parallel math: it takes DTensors at the rules' placements and
+out_shardings=)`` lets XLA partition the model over the mesh. Here a
+cell's ``fn`` takes DTensors at the rules' placements and each rank
+computes on its own shards, as XLA partitions the reference's cell:
 
-  1. gathers the parameters whole on every rank (the FSDP all-gathers
-     that the placements imply), and takes this rank's rows of the batch;
-  2. runs the port's unsharded step on those plain tensors;
-  3. for training, averages the gradients over every rank of the mesh,
-     runs ``grad_hook`` on them there (where the reference's runs), cuts
-     them to the parameters' placements, takes the clip's global norm over
-     the distinct shards (a shard replicated on a mesh dim counts once),
-     and runs AdamW on each rank's shards; the moments shard like the
-     parameters and the step count is replicated;
-  4. returns DTensors at the placements it was given (outputs that carry
-     a batch dim: split over the ranks that split the batch).
+  * tensor parallelism over ``model``: an ``attn`` block's q heads and
+    ``wo`` rows, the MLP's columns and ``w_down`` rows, the embedding's,
+    LM head's and cross-entropy's vocabulary (``arch/layers.py``,
+    ``arch/model.py``); two all-reduces a block forward (the attention's
+    and the MLP's partial sums) and two backward, and three a loss chunk;
+  * FSDP over the data axes: a period's ``embed``-sharded leaves are
+    all-gathered just before the period and again in its remat
+    recompute, and their gradients reduce-scattered back to the shard;
+  * sequence parallelism (``sp_rules``): the residual stream between
+    blocks is this rank's sequence shard, the all-reduces becoming an
+    all-gather in and a reduce-scatter out;
+  * serving (``serve_rules``: no FSDP): the weights never move; a decode
+    step with ``dist_decode`` keeps the KV cache (B@data, S@model), gathers
+    every rank's q heads (B x H x hd a token), attends over its sequence
+    shard and combines (``kernels/decode_attention/distributed.py``), and
+    keeps its own heads' output for its row shard of ``wo``.
 
-A training step's rows are spread over every rank of the mesh, the model
-axis too, where the batch divides: each microbatch's B/mb rows over
-gcd(ranks, B/mb) slices, consecutive ranks sharing a slice. Prefill and
-decode keep the batch placement's rows (``batch_shardings``: the
-data-parallel axes). Every rank of a slice holds the same number of
-tokens, so the mean of the ranks' mean losses is the batch's. MoE token
-groups stay the reference's (``moe_groups`` = the mesh size over the
-global batch): a rank runs its rows' share of them, and the router's
-load-balance means are taken over every rank's tokens (the ``token_mean``
-it passes to the routers). The result equals the unsharded step's on the
-global batch, up to the order of the sums.
+The plan of each leaf (``leaf_plans``) says where it is gathered and how
+its gradient is reduced. Leaves the TP code does not split keep the
+gather-whole path, leaf by leaf, once a call: the MoE experts, Mamba2's
+and RWKV6's leaves and Zamba2's shared block. So does a block whose
+attention projections the rules split in the middle of a head (H not a
+multiple of the model extent): its attention leaves are gathered over
+``model`` and computed replicated, the *guard* (on the (16, 16) mesh:
+starcoder2-7b, H 36; qwen2-vl-7b, H 28; llama4-maverick, H 40). A cell
+records which pattern positions took it (``Cell.guarded``).
+
+A training step's microbatch rows are spread over the data-parallel
+ranks (gcd(dp ranks, rows) slices, consecutive ranks sharing a slice);
+the model axis's ranks share their rows. The gradients are reduced: over
+the data axes by the FSDP reduce-scatters, or an all-reduce for leaves
+replicated there, then divided by the data-parallel extent; over
+``model`` by a sum only for leaves replicated there that each rank used
+in part (the KV projections and the per-head norms, and under sequence
+parallelism every such leaf). ``grad_hook`` then runs on the whole
+gradients (where the reference's runs), the clip's global norm is taken
+over the distinct shards (a shard replicated on a mesh dim counts once),
+and AdamW runs on each rank's shards; the moments shard like the
+parameters and the step count is replicated. MoE token groups stay the
+reference's (``moe_groups`` = the mesh size over the global batch): a
+rank runs its rows' share of them, and the router's load-balance means
+are taken over every rank's tokens (the ``token_mean`` it passes to the
+routers). The result equals the unsharded step's on the global batch, up
+to the order of the sums.
+
+Prefill and decode keep the batch placement's rows (``batch_shardings``:
+the data-parallel axes). Their logits leave the cell as DTensors sharded
+over the vocabulary where the head is.
 
 ``lower_cell`` has no twin: nothing is lowered to XLA here.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -48,14 +73,16 @@ from ..configs import SHAPES, get_config
 from ..configs.base import ModelConfig, ShapeSpec
 from ..data.synthetic import input_specs_for
 from ..distributed.checkpoint import tree_map
-from ..distributed.sharding import (Rules, as_local, baseline_rules,
-                                    batch_shardings, contiguous_stride,
-                                    decode_state_shardings,
-                                    holds_distinct, local_block, make_shard_fn,
+from ..distributed.sharding import (Rules, TPContext, as_local,
+                                    baseline_rules, batch_shardings,
+                                    contiguous_stride, cut_dims,
+                                    decode_state_shardings, gather_dims,
+                                    gather_whole, holds_distinct,
+                                    local_block, make_shard_fn,
                                     mesh_mean_autograd, mesh_sum,
-                                    param_shardings, rows_only,
-                                    sharded_extent, whole)
-from ..launch.mesh import dp_axes
+                                    param_shardings, sharded_dims,
+                                    sharded_extent, spec_for)
+from ..launch.mesh import MeshShape, dp_axes
 from ..train import AdamWConfig, state_specs
 from ..train.optim import AdamWState, apply_update
 from ..train.step import (_unflatten, make_decode_step, make_grad_fn,
@@ -76,6 +103,8 @@ class Cell:
     dist_decode: bool = False
     cast_params_bf16: bool = False
     moe_path: str = "dispatch"
+    grad_hook: bool = False
+    guarded: Tuple[str, ...] = field(default_factory=tuple)
 
 
 def _extent(mesh, axes) -> int:
@@ -98,10 +127,33 @@ def auto_microbatches(cfg: ModelConfig, shape: ShapeSpec, mesh,
 
 
 def train_split(mesh, rows: int) -> int:
-    """How many slices a training microbatch of ``rows`` rows is cut into:
-    gcd(ranks of the mesh, rows); ``mesh.size() // split`` consecutive
-    ranks share a slice."""
+    """How many slices ``rows`` rows are cut into over ``mesh``'s ranks:
+    gcd(ranks, rows); ``mesh.size() // split`` consecutive ranks share a
+    slice. A training microbatch is cut so over the axes its rows spread
+    over (``row_mesh``)."""
     return math.gcd(mesh.size(), rows)
+
+
+def tp_model(cfg: ModelConfig) -> bool:
+    """Whether a cell of ``cfg`` computes on its model-axis shards: it has
+    attention blocks. A model without (Mamba2 with Zamba2's shared block,
+    RWKV6) keeps the gather-whole cell, its rows spread over every rank:
+    a vocab-parallel head alone would make the model axis's ranks repeat
+    its scans on shared rows."""
+    return any(k in ("attn", "attn_moe") for k in cfg.pattern)
+
+
+def row_axes(cfg: ModelConfig, mesh) -> tuple:
+    """The mesh axes a cell's rows spread over: the data-parallel ones
+    where the model axis computes on shards, else all of them."""
+    return dp_axes(mesh) if tp_model(cfg) else tuple(mesh.mesh_dim_names)
+
+
+def row_mesh(cfg: ModelConfig, mesh) -> MeshShape:
+    """``row_axes`` as a mesh (names and sizes)."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = row_axes(cfg, mesh)
+    return MeshShape(tuple(mesh.shape[names.index(a)] for a in axes), axes)
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -123,15 +175,202 @@ def local_moe_groups(cfg: ModelConfig, tokens: int, groups: int,
     return g // split
 
 
-def _flat_rank(mesh) -> int:
-    flat = 0
-    for c, n in zip(mesh.get_coordinate(), mesh.shape):
-        flat = flat * n + c
-    return flat
-
-
 def _batch_dim(key: str) -> int:
     return 1 if key == "positions" else 0         # M-RoPE (3, B, S)
+
+
+# ------------------------------------------------------------ leaf plans
+
+#: the parts of a block, and the top-level leaves, that the TP code
+#: computes on their shards; every other leaf sharded on ``model`` keeps
+#: the gather-whole path
+TP_PARTS = ("ln1", "ln2", "attn", "mlp")
+TP_TOP = ("embed", "lm_head", "final_norm", "ln0")
+#: a TP attention's leaves replicated on ``model`` that each rank uses in
+#: part (its KV heads, and the per-head norms on its q heads)
+PARTIAL = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
+
+
+@dataclass(frozen=True)
+class LeafPlan:
+    """How one parameter leaf is computed on and reduced in a cell:
+    ``upfront`` ({mesh dim: tensor dim}) is gathered once a call, ``fsdp``
+    (data-parallel mesh dims) where the leaf is used (a period's just
+    before it, again in its recompute, the gradient reduce-scattered
+    back); ``model_sum``: its gradient is summed over ``model``."""
+    path: Tuple[str, ...]
+    placements: tuple
+    upfront: Dict[int, int]
+    fsdp: Dict[int, int]
+    model_sum: bool
+
+
+def _paths(tree, pre=()):
+    """(path, leaf) of a dict tree in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], pre + (k,))]
+    return [(pre, tree)]
+
+
+def model_dim(mesh) -> Optional[int]:
+    names = tuple(mesh.mesh_dim_names)
+    return names.index("model") if "model" in names else None
+
+
+def seq_parallel(mesh, rules: Rules, seq_len: int) -> bool:
+    """Whether the residual stream is sequence-sharded over ``model``
+    (the rules' ``seq`` activation axis, where S divides)."""
+    m = model_dim(mesh)
+    return m is not None and mesh.shape[m] > 1 and "model" in _axes(
+        spec_for(mesh, rules.acts, ("seq",), (seq_len,))[0])
+
+
+def _axes(entry) -> tuple:
+    """A ``PartitionSpec`` entry's mesh axes."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _heads_split(cfg, mesh, rules) -> bool:
+    """Whether the attention's head projection is sharded on ``model``."""
+    m = model_dim(mesh)
+    if m is None or mesh.shape[m] == 1 or not cfg.num_heads:
+        return False
+    spec = spec_for(mesh, rules.params, ("embed", "heads"),
+                    (cfg.d_model, cfg.num_heads * cfg.head_dim))
+    return "model" in _axes(spec[1])
+
+
+def guarded_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
+    """The pattern positions (``"pos{j}"``) of attention blocks whose head
+    projection the rules split in the middle of a head."""
+    if not _heads_split(cfg, mesh, rules) \
+            or cfg.num_heads % mesh.shape[model_dim(mesh)] == 0:
+        return ()
+    return tuple(f"pos{j}" for j, kind in enumerate(cfg.pattern)
+                 if kind in ("attn", "attn_moe"))
+
+
+def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
+               seq: bool = False) -> list:
+    """Every parameter leaf's ``LeafPlan``, in ``tree_leaves`` order, on
+    ``mesh`` (a ``DeviceMesh`` or ``MeshShape``) under ``rules``; without
+    ``tp_model``, every leaf gathered whole once a call."""
+    specs = M.build_param_specs(cfg)
+    shardings = param_shardings(mesh, rules, specs)
+    m = model_dim(mesh)
+    dp = {i for i, a in enumerate(mesh.mesh_dim_names) if a in ("pod",
+                                                                 "data")}
+    guard = set(guarded_positions(cfg, mesh, rules))
+    out = []
+    for (path, _), (_, (_, pls)) in zip(_paths(specs), _paths(shardings)):
+        dims = sharded_dims(mesh, pls)
+        block = path[0] == "blocks"
+        tp_leaf = tp_model(cfg) and (path[2] in TP_PARTS if block
+                                     else path[0] in TP_TOP)
+        if not tp_leaf:                       # gather-whole, once a call
+            upfront = dict(dims)
+        elif block and path[1] in guard and path[2] == "attn":
+            upfront = {i: d for i, d in dims.items() if i == m}
+        else:
+            upfront = {}
+        fsdp = {i: d for i, d in dims.items() if i in dp and i not in upfront}
+        replicated = m is None or m not in dims or m in upfront
+        partial = seq or (block and tp_leaf and path[2] == "attn"
+                          and path[1] not in guard
+                          and path[3] in PARTIAL
+                          and _heads_split(cfg, mesh, rules))
+        out.append(LeafPlan(path, tuple(pls), upfront, fsdp,
+                            bool(replicated and partial and m is not None
+                                 and mesh.shape[m] > 1)))
+    return out
+
+
+def tp_context(mesh, plans: list, seq: bool) -> TPContext:
+    """This rank's ``TPContext`` on ``mesh`` (a ``DeviceMesh``): the model
+    axis's group and coordinate, and each leaf's FSDP gathers (the
+    innermost mesh dim first; a period's dims one less than its stacked
+    leaf's)."""
+    m = model_dim(mesh)
+    n = mesh.shape[m] if m is not None else 1
+    fsdp: dict = {}
+    for plan in plans:
+        if not plan.fsdp:
+            continue
+        off = 1 if plan.path[0] == "blocks" else 0
+        node = fsdp
+        for k in plan.path[:-1]:
+            node = node.setdefault(k, {})
+        node[plan.path[-1]] = tuple(
+            (plan.fsdp[i] - off, mesh.get_group(i), mesh.shape[i])
+            for i in sorted(plan.fsdp, reverse=True))
+    return TPContext(model=mesh.get_group(m) if n > 1 else None, tp=n,
+                     rank=mesh.get_coordinate()[m] if m is not None else 0,
+                     seq=seq, fsdp=fsdp)
+
+
+def _compute_params(params, plans, mesh):
+    """This rank's leaves as the model computes on them: each block
+    (``to_local``), its ``upfront`` dims gathered."""
+    leaves = [gather_dims(p.to_local().detach(), mesh, plan.upfront)
+              for p, plan in zip(tree_leaves(params), plans)]
+    return _unflatten(params, leaves)
+
+
+def row_dims(cfg: ModelConfig, mesh) -> list:
+    """The mesh dims of more than one rank in ``row_axes``."""
+    axes = row_axes(cfg, mesh)
+    return [i for i, a in enumerate(mesh.mesh_dim_names)
+            if a in axes and mesh.shape[i] > 1]
+
+
+def _row_coord(cfg, mesh) -> tuple:
+    """(flat coordinate over ``row_axes``, their extent)."""
+    flat, ext = 0, 1
+    coord = mesh.get_coordinate()
+    axes = row_axes(cfg, mesh)
+    for i, a in enumerate(mesh.mesh_dim_names):
+        if a in axes:
+            flat, ext = flat * mesh.shape[i] + coord[i], ext * mesh.shape[i]
+    return flat, ext
+
+
+def _at_rows(x, mesh, bdim: int) -> bool:
+    """Whether DTensor ``x`` holds its rows (dim ``bdim``) split over every
+    data-parallel mesh dim and nothing else: its local block is this
+    rank's rows where they spread over the data axes."""
+    return sharded_dims(mesh, x.placements) == {
+        i: bdim for i, a in enumerate(mesh.mesh_dim_names)
+        if a in ("pod", "data") and mesh.shape[i] > 1}
+
+
+def _micro_rows(cfg, batch, mesh, microbatches: int):
+    """This rank's rows of each microbatch: slice ``k`` of
+    ``train_split(row_mesh, rows)`` of microbatch ``i`` (rows ``i rows + k
+    per``), from its block where the rows spread over the data axes, the
+    batch is split over them alone and one microbatch is cut as the
+    batch, else from the batch gathered whole. Returns (microbatches,
+    rows, split)."""
+    from torch.distributed.tensor import DTensor
+    B = batch["labels"].shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into {microbatches} "
+                         "microbatches")
+    rows = B // microbatches
+    flat, ext = _row_coord(cfg, mesh)
+    split = train_split(row_mesh(cfg, mesh), rows)
+    per = rows // split
+    k = flat // (ext // split)
+    local = microbatches == 1 and split == ext and tp_model(cfg)
+    micro = [{} for _ in range(microbatches)]
+    for key, x in sorted(batch.items()):
+        bdim = _batch_dim(key)
+        if isinstance(x, DTensor) and local and _at_rows(x, mesh, bdim):
+            micro[0][key] = x.to_local()
+            continue
+        x = gather_whole(x)
+        for i in range(microbatches):
+            micro[i][key] = x.narrow(bdim, i * rows + k * per, per)
+    return micro, rows, split
 
 
 def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
@@ -146,49 +385,56 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
     ``param_shardings``), the step count a replicated DTensor, the batch
     DTensors at ``batch_shardings`` or plain tensors whole on every rank.
     Every rank of the mesh calls it (see the module's docstring)."""
+    import torch.distributed as dist
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     shard = make_shard_fn(mesh, rules)
-    n = mesh.size()
     f32 = torch.float32
     # the router's means over every rank's tokens
     token_mean = (lambda m: mesh_mean_autograd(m, mesh)) \
         if _is_moe(cfg) else None
 
     def step(params, opt_state, batch):
-        batch = {k: whole(x) for k, x in sorted(batch.items())}
-        B, S = batch["labels"].shape
-        if B % microbatches:
-            raise ValueError(f"batch {B} does not split into {microbatches} "
-                             "microbatches")
-        rows = B // microbatches
-        split = train_split(mesh, rows)
-        per = rows // split
-        k = _flat_rank(mesh) // (n // split)
-        micro = [{key: x.narrow(_batch_dim(key), i * rows + k * per, per)
-                  for key, x in batch.items()} for i in range(microbatches)]
+        micro, rows, split = _micro_rows(cfg, batch, mesh, microbatches)
+        S = micro[0]["labels"].shape[1]
         for mb in micro:              # each rank holds the same token count
-            assert mb["labels"].shape == (per, S), mb["labels"].shape
+            assert mb["labels"].shape == (rows // split, S), \
+                mb["labels"].shape
+        seq = seq_parallel(mesh, rules, S) and tp_model(cfg)
+        plans = leaf_plans(cfg, mesh, rules, seq=seq)
         grad_fn = make_grad_fn(
             cfg, shard=shard, remat=remat, moe_path=moe_path,
             scan_unroll=scan_unroll,
             moe_groups=local_moe_groups(cfg, rows * S, moe_groups, split),
-            cast_params_bf16=cast_params_bf16, token_mean=token_mean)
-        full = tree_map(lambda p: whole(p).detach(), params)
-        grads, metrics = grad_fn(full, micro)
-        del full
-        # the mean over every rank's rows (ranks sharing a slice hold equal
-        # gradients), in place, then the hook on the whole gradients
-        grads = [mesh_sum(g, mesh).div_(n) for g in grads]
-        metrics = {key: mesh_sum(v.clone(), mesh) / n
-                   for key, v in metrics.items()}
-        grads = _unflatten(params, grads)
-        if grad_hook is not None:
-            grads = grad_hook(grads)
-        p_leaves = tree_leaves(params)
-        g_local = [local_block(g, p.device_mesh, p.placements)
-                   for g, p in zip(tree_leaves(grads), p_leaves)]
+            cast_params_bf16=cast_params_bf16, token_mean=token_mean,
+            tp=tp_context(mesh, plans, seq) if tp_model(cfg) else None)
+        grads, metrics = grad_fn(_compute_params(params, plans, mesh), micro)
+        # the mean over the row slices, in place: the FSDP reduce-scatters
+        # summed a leaf over its shard's dims; the other row dims, and the
+        # model axis where a leaf's ranks each hold a part, are summed here
+        rdims, m = row_dims(cfg, mesh), model_dim(mesh)
+        ext = _row_coord(cfg, mesh)[1]
+        g_local = []
+        for g, plan in zip(grads, plans):
+            for i in rdims:
+                if i not in plan.fsdp:
+                    dist.all_reduce(g, group=mesh.get_group(i))
+            if plan.model_sum:
+                dist.all_reduce(g, group=mesh.get_group(m))
+            g_local.append(cut_dims(g.div_(ext), mesh, plan.upfront))
         del grads
+        for key, v in metrics.items():
+            v = v.clone()
+            for i in rdims:
+                dist.all_reduce(v, group=mesh.get_group(i))
+            metrics[key] = v / ext
+        p_leaves = tree_leaves(params)
+        if grad_hook is not None:     # on the whole gradients
+            dims = [sharded_dims(mesh, p.placements) for p in p_leaves]
+            hooked = grad_hook(_unflatten(params, [
+                gather_dims(g, mesh, d) for g, d in zip(g_local, dims)]))
+            g_local = [cut_dims(g, mesh, d)
+                       for g, d in zip(tree_leaves(hooked), dims)]
         # the clip's global norm: each distinct shard once, then the sum
         # over the mesh
         sq = sum(torch.sum(torch.square(g.to(f32)))
@@ -227,31 +473,57 @@ def _rows_placements(mesh, like_pls, dim: int) -> tuple:
                  for pl in like_pls)
 
 
+def _to(x, mesh, pls):
+    """This rank's block of ``x`` at placements ``pls``: a DTensor there
+    already gives its local block, any other its whole (gathered by
+    ``gather_whole``) cut."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and tuple(x.placements) == tuple(pls):
+        return x.to_local()
+    return local_block(gather_whole(x), mesh, pls)
+
+
 def _local_batch(mesh, rules: Rules, batch):
     """This rank's rows of each batch leaf (at ``batch_shardings``) and
     the placements of the tokens' rows."""
-    from torch.distributed.tensor import DTensor
     specs = {k: M.TensorSpec(tuple(x.shape), x.dtype)
              for k, x in batch.items()}
     shardings = batch_shardings(mesh, rules, specs)
-    out = {}
-    for key, x in batch.items():
-        _, pls = shardings[key]
-        if isinstance(x, DTensor):
-            x = x.redistribute(mesh, pls).to_local()
-        else:
-            x = local_block(x, mesh, pls)
-        out[key] = x
+    out = {key: _to(x, mesh, shardings[key][1]) for key, x in batch.items()}
     return out, shardings["tokens" if "tokens" in batch else "frames"][1]
+
+
+def _serve_setup(cfg, mesh, rules, params, seq_len: int):
+    """(compute params, TPContext or None) of a serve cell's call."""
+    seq = seq_parallel(mesh, rules, seq_len) and tp_model(cfg)
+    plans = leaf_plans(cfg, mesh, rules, seq=seq)
+    return _compute_params(params, plans, mesh), \
+        tp_context(mesh, plans, seq) if tp_model(cfg) else None
+
+
+def _logits_out(cfg, mesh, logits, row_pls, B: int):
+    """The cell's logits (this rank's rows, and its vocab columns where
+    the head is sharded) as a DTensor of global shape (B, V)."""
+    from torch.distributed.tensor import DTensor, Shard
+    pls = list(_rows_placements(mesh, row_pls, 0))
+    m = model_dim(mesh)
+    if logits.shape[-1] < cfg.vocab_size:
+        pls[m] = Shard(1)
+    shape = (B, cfg.vocab_size)
+    return DTensor.from_local(logits, mesh, tuple(pls), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
                               moe_path: str = "dispatch",
                               moe_groups: int = 0):
     """Returns prefill(params, batch) -> (logits, decode state) on
-    ``mesh``: the params gathered whole, this rank's rows of the batch (at
-    ``batch_shardings``), the outputs DTensors with their rows where the
-    batch's are."""
+    ``mesh``: this rank's rows of the batch (at ``batch_shardings``) on its
+    parameter shards; the caches DTensors with their rows where the
+    batch's are (whole on ``model``), the last-token logits with their
+    rows there and their vocabulary over ``model`` where the head is
+    sharded."""
     from torch.distributed.tensor import DTensor
     shard = make_shard_fn(mesh, rules)
 
@@ -260,10 +532,10 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
         split = sharded_extent(mesh, row_pls)
         B, S = batch["tokens" if "tokens" in batch else "frames"].shape[:2]
         groups = local_moe_groups(cfg, B * S, moe_groups, split)
-        full = tree_map(whole, params)
+        compute, tp = _serve_setup(cfg, mesh, rules, params, S)
         logits, state = make_prefill_step(
-            cfg, shard=shard, moe_path=moe_path, moe_groups=groups)(
-                full, local)
+            cfg, shard=shard, moe_path=moe_path, moe_groups=groups,
+            tp=tp)(compute, local)
 
         def out(t, dim):
             pls = _rows_placements(mesh, row_pls, dim)
@@ -274,7 +546,7 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
                                       stride=contiguous_stride(shape))
         state = {"caches": tree_map(lambda t: out(t, 1), state["caches"]),
                  "lengths": out(state["lengths"], 0)}
-        return out(logits, 0), state
+        return _logits_out(cfg, mesh, logits, row_pls, B), state
 
     return prefill
 
@@ -283,13 +555,13 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Rules, *,
                              moe_path: str = "dispatch", scan_unroll=1,
                              moe_groups: int = 0, dist_decode: bool = False):
     """Returns decode(params, state, batch) -> (logits, state) on
-    ``mesh``: the params gathered whole; the state's leaves DTensors at
-    ``decode_state_shardings`` (or plain, whole on every rank), each
+    ``mesh``, on this rank's parameter shards: the state's leaves DTensors
+    at ``decode_state_shardings`` (or plain, whole on every rank), each
     gathered to this rank's rows over every non-data-parallel mesh dim,
     except, with ``dist_decode``, the k/v caches, which stay sequence
     shards and attend through the distributed flash-decode; the new state
     at the state's placements (its k/v chunks written in place, as the
-    reference donates the state)."""
+    reference donates the state); the logits as ``prefill``'s."""
     from torch.distributed.tensor import DTensor
     shard = make_shard_fn(mesh, rules)
     attn_dist = {"mesh": mesh, "seq_axis": "model",
@@ -302,40 +574,36 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Rules, *,
         specs = tree_map(lambda x: M.TensorSpec(tuple(x.shape), x.dtype),
                          state)
         targets = decode_state_shardings(mesh, rules, cfg, specs)
+        dp = set(dp_axes(mesh))
+
+        def spread(pls):
+            """A state leaf's non-data-parallel sharded dims."""
+            return {i: d for i, d in sharded_dims(mesh, pls).items()
+                    if mesh.mesh_dim_names[i] not in dp}
 
         def take(path, x, target):
             _, pls = target
-            if not isinstance(x, DTensor):
-                x = DTensor.from_local(local_block(x, mesh, pls), mesh, pls,
-                                       run_check=False, shape=x.shape,
-                                       stride=x.stride())
+            t = _to(x, mesh, pls)
             if dist_decode and path in ("k", "v"):
-                return x.to_local()
-            return x.redistribute(mesh, rows_only(mesh, pls)).to_local()
+                return t
+            return gather_dims(t, mesh, spread(pls))
 
         def back(path, t, like, target):
             _, pls = target
-            if dist_decode and path in ("k", "v"):
-                return DTensor.from_local(t, mesh, pls, run_check=False,
-                                          shape=like.shape,
-                                          stride=like.stride())
-            return DTensor.from_local(
-                t, mesh, rows_only(mesh, pls), run_check=False,
-                shape=like.shape,
-                stride=like.stride()).redistribute(mesh, pls)
+            if not (dist_decode and path in ("k", "v")):
+                t = cut_dims(t, mesh, spread(pls))
+            return DTensor.from_local(t, mesh, pls, run_check=False,
+                                      shape=like.shape,
+                                      stride=contiguous_stride(like.shape))
 
         local_s = _walk(take, state, targets)
-        full = tree_map(whole, params)
+        compute, tp = _serve_setup(cfg, mesh, rules, params, 1)
         logits, new = make_decode_step(
             cfg, shard=shard, moe_path=moe_path, scan_unroll=scan_unroll,
             moe_groups=local_moe_groups(cfg, B, moe_groups, split),
-            attn_dist=attn_dist)(full, local_s, local_b)
+            attn_dist=attn_dist, tp=tp)(compute, local_s, local_b)
         new = _walk(back, new, state, targets)
-        pls = _rows_placements(mesh, row_pls, 0)
-        shape = (B,) + tuple(logits.shape[1:])
-        return DTensor.from_local(logits, mesh, pls, run_check=False,
-                                  shape=torch.Size(shape),
-                                  stride=contiguous_stride(shape)), new
+        return _logits_out(cfg, mesh, logits, row_pls, B), new
 
     return decode
 
@@ -416,7 +684,9 @@ def build_cell(arch: Union[str, ModelConfig],
     return Cell(cfg=cfg, shape=shape, mesh=mesh, rules=rules, fn=fn,
                 args=args, kind=shape.kind, microbatches=microbatches,
                 remat=remat, dist_decode=dist_decode,
-                cast_params_bf16=cast_params_bf16, moe_path=moe_path)
+                cast_params_bf16=cast_params_bf16, moe_path=moe_path,
+                grad_hook=grad_hook is not None,
+                guarded=guarded_positions(cfg, mesh, rules))
 
 
 def cell_shardings(cell: Cell):

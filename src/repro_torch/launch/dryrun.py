@@ -49,10 +49,13 @@ from ..arch import model as M
 from ..arch.moe import dispatch_geometry
 from ..arch.params import tree_leaves
 from ..configs import SHAPES, get_config, list_archs, shape_applicable
+from ..arch.layers import kv_range
 from ..distributed.sharding import (batch_shardings, param_shardings,
-                                    rows_only, serve_rules, sharded_extent)
-from .cells import (Cell, build_cell, cell_shardings, local_moe_groups,
-                    train_split)
+                                    rows_only, serve_rules, sharded_dims,
+                                    sharded_extent)
+from .cells import (Cell, LeafPlan, build_cell, cell_shardings,
+                    leaf_plans, local_moe_groups, model_dim, row_dims,
+                    row_mesh, seq_parallel, tp_model, train_split)
 from .mesh import make_production_mesh
 
 # one NVIDIA H100 80GB HBM3 at its 700 W limit (NVIDIA's data sheet, SXM,
@@ -86,10 +89,11 @@ def _nbytes(dtype) -> int:
 
 
 def _projections(cfg, expert_apps: float):
-    """(in, out, applications a token) of every projection weight a token
-    passes through once: the ParamSpecs of init "normal" with two or more
-    dims past the stacked period axis (MoE experts at ``expert_apps`` of
-    ``num_experts``; the shared block once a period)."""
+    """(path, in, out, applications a token) of every projection weight a
+    token passes through once: the ParamSpecs of init "normal" with two or
+    more dims past the stacked period axis (MoE experts at
+    ``expert_apps`` of ``num_experts``; the shared block once a
+    period)."""
     specs = M.build_param_specs(cfg)
     out = []
 
@@ -106,12 +110,77 @@ def _projections(cfg, expert_apps: float):
         if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down") \
                 and "shared" not in path:
             batch = expert_apps              # of the E stacked experts
-        out.append((shape[-2], shape[-1], apps * batch))
+        out.append((path, shape[-2], shape[-1], apps * batch))
 
     for key in ("blocks", "shared"):
         if key in specs:
             walk(specs[key], (key,), key == "shared")
     return out
+
+
+@dataclass
+class Layout:
+    """What a cell's ranks compute on (``cells.leaf_plans``): ``tp`` the
+    model extent, ``seq`` sequence parallelism, per pattern position
+    whether the attention splits on whole heads (``attn``) and the MLP on
+    its columns (``mlp``), whether the embedding table (``embed``) and the
+    LM head (``vocab``) hold vocab shards, and ``nkv``, the KV heads a
+    rank's q heads read (the most over the ranks)."""
+    plans: list
+    shapes: list
+    tp: int
+    seq: bool
+    attn: dict
+    mlp: dict
+    embed: bool
+    vocab: bool
+    nkv: int
+
+
+def layout(cell: Cell, seq_len: int) -> Layout:
+    cfg, mesh = cell.cfg, cell.mesh
+    seq = cell.kind != "decode" and tp_model(cfg) \
+        and seq_parallel(mesh, cell.rules, seq_len)
+    plans = leaf_plans(cfg, mesh, cell.rules, seq=seq)
+    specs = M.build_param_specs(cfg)
+    shapes = [s.shape for s in tree_leaves(specs)]
+    m = model_dim(mesh)
+    tp = mesh.shape[m] if m is not None and tp_model(cfg) else 1
+    split = {p.path: m is not None and m in sharded_dims(mesh, p.placements)
+             and m not in p.upfront for p in plans}
+    attn = {f"pos{j}": split.get(("blocks", f"pos{j}", "attn", "wq"), False)
+            for j in range(len(cfg.pattern))}
+    mlp = {f"pos{j}": split.get(("blocks", f"pos{j}", "mlp", "w_down"),
+                                False) for j in range(len(cfg.pattern))}
+    head = ("embed",) if cfg.tie_embeddings and "embed" in specs \
+        else ("lm_head",)
+    nkv = cfg.num_kv_heads
+    if any(attn.values()):
+        hq = cfg.num_heads // tp
+        nkv = max(b - a for a, b in (kv_range(cfg, r * hq, hq)
+                                     for r in range(tp)))
+    return Layout(plans, shapes, tp, seq, attn, mlp,
+                  split.get(("embed",), False), split.get(head, False), nkv)
+
+
+def _split(path, lay: Layout, cfg, cache: bool) -> tuple:
+    """(in, out) width factors of a projection on one rank."""
+    if path[0] != "blocks":
+        return 1.0, 1.0
+    pos, part, leaf = path[1], path[2], path[-1]
+    if part == "attn" and lay.attn[pos]:
+        if leaf == "wq":
+            return 1.0, 1.0 / lay.tp
+        if leaf == "wo":
+            return 1.0 / lay.tp, 1.0
+        if leaf in ("wk", "wv") and not cache:
+            return 1.0, lay.nkv / cfg.num_kv_heads
+    if part == "mlp" and lay.mlp[pos]:
+        if leaf in ("w_gate", "w_up", "w_in"):
+            return 1.0, 1.0 / lay.tp
+        if leaf == "w_down":
+            return 1.0 / lay.tp, 1.0
+    return 1.0, 1.0
 
 
 def _attn_layers(cfg) -> int:
@@ -120,18 +189,35 @@ def _attn_layers(cfg) -> int:
                               + int(cfg.shared_attn_every_period))
 
 
+def _attn_split(cfg, lay: Layout, decode_dist: bool = False) -> list:
+    """(heads split, applications a token) of each attention kind: a
+    block position's on whole heads over the model extent (or, with the
+    distributed flash-decode, its sequence), the shared block's whole."""
+    out = [(lay.attn[f"pos{j}"] or decode_dist, cfg.num_periods)
+           for j, k in enumerate(cfg.pattern) if k in ("attn", "attn_moe")]
+    if cfg.shared_attn_every_period:
+        out.append((decode_dist, cfg.num_periods))
+    return out
+
+
 def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
-               act: int):
-    """Forward operations and activation bytes a token: (projection
-    flops, projection activation bytes, attention flops, attention
-    bytes, scan flops, scan bytes), activations of ``act`` bytes."""
-    proj = _projections(cfg, expert_apps)
-    p_flops = sum(2 * i * o * n for i, o, n in proj)
-    p_bytes = sum((i + o) * n * act for i, o, n in proj)
+               act: int, lay: Layout, cache: bool, dist: bool = False):
+    """Forward operations and activation bytes a token on one rank:
+    (projection flops, projection activation bytes, attention flops,
+    attention bytes, scan flops, scan bytes), activations of ``act``
+    bytes."""
+    p_flops = p_bytes = 0.0
+    for path, i, o, n in _projections(cfg, expert_apps):
+        fi, fo = _split(path, lay, cfg, cache)
+        p_flops += 2 * i * o * n * fi * fo
+        p_bytes += (i * fi + o * fo) * n * act
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L = _attn_layers(cfg)
-    a_flops = L * 4 * H * hd * ctx
-    a_bytes = L * (2 * H + 2 * KV) * hd * act
+    a_flops = a_bytes = 0.0
+    for split, n in _attn_split(cfg, lay, dist):
+        t = lay.tp if split else 1
+        a_flops += n * 4 * H * hd * ctx / t
+        kv = lay.nkv if split and not cache else KV
+        a_bytes += n * (2 * H / t + 2 * kv) * hd * act
     s_flops = s_bytes = 0.0
     n_ssd = cfg.num_periods * cfg.pattern.count("mamba2")
     if n_ssd:
@@ -169,20 +255,29 @@ def _local_bytes(mesh, pls, shape, dtype) -> float:
     return math.prod(shape) * _nbytes(dtype) / sharded_extent(mesh, pls)
 
 
-def _gathers(mesh, pls, whole: float) -> tuple:
-    """(wire bytes a device receives, collectives) to gather a leaf of
-    ``whole`` bytes from ``pls``: whole minus local, one all-gather a
-    sharded mesh dim of more than one rank."""
-    from torch.distributed.tensor import Shard
-    n = sum(1 for m, pl in zip(mesh.shape, pls)
-            if isinstance(pl, Shard) and m > 1)
-    return whole - whole / sharded_extent(mesh, pls), n
+def _ring(kind: str, n: int, nbytes: float) -> float:
+    """Wire bytes a device receives in one ring collective over ``n``
+    ranks: an all-gather of ``nbytes`` a rank, a reduce-scatter of
+    ``nbytes`` in, an all-reduce of ``nbytes``."""
+    if kind == "all-gather":
+        return (n - 1) * nbytes
+    if kind == "reduce-scatter":
+        return (n - 1) / n * nbytes
+    return 2 * (n - 1) / n * nbytes
+
+
+def _chain(c: Count, kind: str, ns, nbytes: float, times: int = 1) -> None:
+    """All-gathers (or their reduce-scatters) over extents ``ns``, the
+    innermost first, from a block of ``nbytes``: each the same wire."""
+    for n in ns:
+        c.coll(kind, times * (n - 1) * nbytes, times)
+        nbytes *= n
 
 
 def _all_reduce(mesh, nbytes: float) -> tuple:
     """Ring all-reduces over each mesh dim in turn: (wire bytes, count)."""
     dims = [m for m in mesh.shape if m > 1]
-    return sum(2 * (m - 1) / m * nbytes for m in dims), len(dims)
+    return sum(_ring("all-reduce", m, nbytes) for m in dims), len(dims)
 
 
 def _state_leaves(state, shardings, name: str = ""):
@@ -192,6 +287,120 @@ def _state_leaves(state, shardings, name: str = ""):
             yield from _state_leaves(v, shardings[k], k)
         return
     yield name, state, shardings[1]
+
+
+def _elems(mesh, plan: LeafPlan, shape, dims=None) -> float:
+    """A leaf's elements on one device with its ``upfront`` dims gathered
+    (or, with ``dims``, those dims too)."""
+    keep = {i for i in sharded_dims(mesh, plan.placements)
+            if i not in plan.upfront and (dims is None or i not in dims)}
+    return math.prod(shape) / math.prod(mesh.shape[i] for i in keep)
+
+
+def _inner_first(mesh, dims) -> list:
+    return [mesh.shape[i] for i in sorted(dims, reverse=True)]
+
+
+def _weights(cell: Cell, lay: Layout, c: Count, nb: int, grad: bool,
+             fwd: int, upfront: bool = True) -> dict:
+    """The parameters' gathers: ``upfront`` once a call (param dtype;
+    counted where ``upfront``), the top-level FSDP ones once a pass and
+    each period's ``fwd`` times a pass (``nb`` bytes an element), their
+    reduce-scatters once where ``grad``. Returns the bytes: ``device``
+    (as the device computes on the weights), ``period`` (one period's
+    gathered), ``top`` (the top-level leaves gathered), ``upfront``, and
+    ``gathered``, what a device holds gathered at once."""
+    cfg, mesh = cell.cfg, cell.mesh
+    pb = _nbytes(tree_leaves(cell.args[0])[0].dtype)
+    out = {"device": 0.0, "period": 0.0, "upfront": 0.0, "top": 0.0}
+    for plan, shape in zip(lay.plans, lay.shapes):
+        local = math.prod(shape) / sharded_extent(mesh, plan.placements)
+        if plan.upfront:
+            if upfront:
+                _chain(c, "all-gather", _inner_first(mesh, plan.upfront),
+                       local * pb)
+            out["upfront"] += _elems(mesh, plan, shape) * pb
+        computed = _elems(mesh, plan, shape, plan.fsdp)
+        out["device"] += computed * nb
+        if not plan.fsdp:
+            continue
+        block = plan.path[0] == "blocks"
+        per = _elems(mesh, plan, shape) * nb / (cfg.num_periods if block
+                                                else 1)
+        ns = _inner_first(mesh, plan.fsdp)
+        times = fwd if block else 1
+        reps = cfg.num_periods if block else 1
+        _chain(c, "all-gather", ns, per, times * reps)
+        if grad:
+            _chain(c, "reduce-scatter", ns, per, reps)
+        if block:
+            out["period"] += computed * nb / cfg.num_periods
+        else:
+            out["top"] += computed * nb
+    out["gathered"] = out["upfront"] + out["period"] + out["top"]
+    return out
+
+
+def _parts(cfg, lay: Layout) -> list:
+    """(sharded, input width) of every part a period runs, in order: an
+    attention block's attention and its MLP (or MoE), a Mamba2 mixer,
+    RWKV6's time and channel mixes, Zamba2's shared attention and MLP."""
+    d = cfg.d_model
+    out = []
+    for j, kind in enumerate(cfg.pattern):
+        pos = f"pos{j}"
+        if kind in ("attn", "attn_moe"):
+            out.append((lay.attn[pos], d))
+            out.append((lay.mlp[pos] if kind == "attn" else False, d))
+        elif kind == "mamba2":
+            out.append((False, d))
+        else:
+            out += [(False, d), (False, d)]
+    if cfg.shared_attn_every_period:
+        out += [(False, 2 * d), (False, 2 * d)]
+    return out
+
+
+def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
+                 fwd: int, grad: bool) -> None:
+    """The residual stream's collectives over ``model`` in one pass of
+    ``rows`` x ``S`` tokens: the embedding's vocab sum (or sequence
+    scatter) and, for each part of each period, the TP partial sums (an
+    all-reduce out, and its copy-in's all-reduce backward), or under
+    sequence parallelism the all-gather in and the reduce-scatter out
+    (or this rank's shard kept). Forward collectives inside a period run
+    ``fwd`` times (the remat recompute)."""
+    t = lay.tp
+    if t == 1:
+        return
+    tok = rows * S * act
+    if lay.embed and cfg.frontend != "frames":
+        if lay.seq:
+            c.coll("reduce-scatter", _ring("reduce-scatter", t, tok * cfg.d_model))
+            if grad:
+                c.coll("all-gather", _ring("all-gather", t,
+                                           tok * cfg.d_model / t))
+        else:
+            c.coll("all-reduce", _ring("all-reduce", t, tok * cfg.d_model))
+    for sharded, width in _parts(cfg, lay):
+        for _ in range(cfg.num_periods):
+            if lay.seq:
+                c.coll("all-gather", fwd * _ring("all-gather", t,
+                                                 tok * width / t), fwd)
+                if grad:
+                    c.coll("reduce-scatter",
+                           _ring("reduce-scatter", t, tok * width))
+                if sharded:
+                    c.coll("reduce-scatter", fwd * _ring(
+                        "reduce-scatter", t, tok * cfg.d_model), fwd)
+                    if grad:
+                        c.coll("all-gather", _ring("all-gather", t,
+                                                   tok * cfg.d_model / t))
+            elif sharded:
+                c.coll("all-reduce", fwd * _ring("all-reduce", t,
+                                                 tok * cfg.d_model), fwd)
+                if grad:
+                    c.coll("all-reduce", _ring("all-reduce", t, tok * width))
 
 
 def account(cell: Cell) -> dict:
@@ -210,13 +419,10 @@ def account(cell: Cell) -> dict:
     whole_params = sum(math.prod(s) for s in p_shapes) * pbytes
     local_params = sum(_local_bytes(mesh, pls, s, pdt)
                        for pls, s in zip(p_pls, p_shapes))
-    w_compute = whole_params / pbytes * act     # each pass's weights
+    m = model_dim(mesh)
+    tp = mesh.shape[m] if m is not None else 1
     head = 2 * cfg.d_model * cfg.vocab_size     # LM head flops a token
     c = Count()
-    for pls, s in zip(p_pls, p_shapes):         # gathered whole, once a call
-        wire, n = _gathers(mesh, pls, math.prod(s) * pbytes)
-        if n:
-            c.coll("all-gather", wire, n)
     batch_specs = {k: M.TensorSpec(tuple(t.shape), t.dtype)
                    for k, t in cell.args[-1].items()}
     b_pls = {k: sh[1] for k, sh in
@@ -225,53 +431,95 @@ def account(cell: Cell) -> dict:
                       for t in batch_specs.values())
     batch_local = sum(_local_bytes(mesh, b_pls[k], t.shape, t.dtype)
                       for k, t in batch_specs.items())
+    lay = layout(cell, cell.shape.seq_len)
+    if lay.vocab:
+        head /= tp
     if cell.kind == "train":
-        mem = _train(cell, c, act, head, whole_params, local_params / pbytes,
-                     pbytes, w_compute, p_shapes, batch_whole, batch_local,
-                     b_pls)
+        mem = _train(cell, c, act, head, lay, local_params / pbytes, pbytes,
+                     batch_whole, batch_local, b_pls)
     else:
-        mem = _serve(cell, c, act, head, whole_params, local_params,
-                     w_compute, batch_local, b_pls)
-    m = mem["memory"]
-    m["param_bytes"] = local_params
-    m["peak_per_device_bytes"] = (m["argument_bytes"] + m["output_bytes"]
-                                  + m["temp_bytes"] - m["alias_bytes"])
+        mem = _serve(cell, c, act, head, lay, local_params, batch_local,
+                     b_pls)
+    m_ = mem["memory"]
+    m_["param_bytes"] = local_params
+    m_["peak_per_device_bytes"] = (m_["argument_bytes"] + m_["output_bytes"]
+                                   + m_["temp_bytes"] - m_["alias_bytes"])
+    mem["layout"] = {"model_extent": tp, "sequence_parallel": lay.seq,
+                     "attention_split": sorted(k for k, v in lay.attn.items()
+                                               if v),
+                     "guarded": list(cell.guarded),
+                     "vocab_split": lay.vocab}
     return mem
 
 
-def _train(cell, c, act, head, whole_params, local_elems, pbytes,
-           w_compute, p_shapes, batch_whole, batch_local, b_pls) -> dict:
+def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
+           batch_local, b_pls) -> dict:
     cfg, mesh = cell.cfg, cell.mesh
     B, S = cell.shape.global_batch, cell.shape.seq_len
     mb = cell.microbatches
-    split = train_split(mesh, B // mb)
+    rm = row_mesh(cfg, mesh)
+    ext = rm.size()
+    split = train_split(rm, B // mb)
     rows = B // mb // split                      # a device's, a microbatch
     groups = local_moe_groups(cfg, B // mb * S, mesh.size(), split)
     ctx = (S + 1) / 2 if cfg.causal else S
     pf, pb, af, ab, sf, sb = _per_token(
         cfg, S, ctx, False, _expert_apps(cfg, rows * S, groups,
-                                         cell.moe_path), act)
+                                         cell.moe_path), act, lay, False)
     tokens = mb * rows * S
     remat = int(cell.remat)
+    fwd = 1 + remat
     chunks = max(1, min(16, S // 512))
+    while S % chunks:
+        chunks -= 1
     recompute_head = int(chunks > 1)
+    vocab = cfg.vocab_size / (lay.tp if lay.vocab else 1)
     # forward, backward (2x the products, 2.5x attention's), recompute
     c.flops = tokens * ((pf + sf) * (3 + remat) + af * (3.5 + remat)
                         + head * (3 + recompute_head))
+    # the batch's rows: gathered whole unless one microbatch is cut as
+    # the data axes cut the batch
+    local = mb == 1 and split == ext and tp_model(cfg)
+    if not local:
+        for k, t in cell.args[-1].items():
+            pls = b_pls[k]
+            local = math.prod(t.shape) * _nbytes(t.dtype) \
+                / sharded_extent(mesh, pls)
+            _chain(c, "all-gather", _inner_first(mesh, sharded_dims(
+                mesh, pls)), local)
+    nb = 2 if cell.cast_params_bf16 else pbytes
+    for i in range(mb):
+        w = _weights(cell, lay, c, nb, True, fwd, upfront=i == 0)
+        _activations(c, cfg, lay, rows, S, act, fwd, True)
+        _loss(c, cfg, lay, rows, S, act, chunks)
+    w_compute = w["device"] / nb * act
     passes = 3 + remat          # forward, recompute, the two backward GEMMs
     c.bytes = (tokens * ((pb + ab + sb) * passes
-                         + cfg.vocab_size * 4 * 2 * (2 + recompute_head))
-               + mb * (w_compute * passes + whole_params)   # + dW written
-               + 3 * whole_params         # the all-reduce's read / write, cut
+                         + vocab * 4 * 2 * (2 + recompute_head))
+               + mb * (w_compute * passes + w["device"] / nb * pbytes)
+               # the gradients' reductions and cut: read, write, read
+               + 3 * local_elems * pbytes
                # AdamW: read p, g, m, v and write p, m, v (f32 moments)
                + local_elems * (3 * pbytes + 4 * 4))
-    wire, n = _all_reduce(mesh, whole_params)
-    c.coll("all-reduce", wire, n * len(p_shapes))
-    if batch_local < batch_whole:
-        c.coll("all-gather", batch_whole - batch_local, len(b_pls))
+    for plan, shape in zip(lay.plans, lay.shapes):
+        g = _elems(mesh, plan, shape, plan.fsdp) * pbytes
+        g /= math.prod(mesh.shape[i] for i in plan.fsdp)
+        for i in row_dims(cfg, mesh):
+            if i not in plan.fsdp:
+                c.coll("all-reduce", _ring("all-reduce", mesh.shape[i], g))
+        if plan.model_sum:
+            c.coll("all-reduce", _ring("all-reduce", lay.tp, g))
+        if cell.grad_hook:
+            _chain(c, "all-gather", _inner_first(
+                mesh, sharded_dims(mesh, plan.placements)),
+                math.prod(shape) * pbytes / sharded_extent(
+                    mesh, plan.placements))
     n_metrics = 2 + 2 * ("attn_moe" in cfg.pattern)   # loss, ce, aux
-    wire, n = _all_reduce(mesh, 4)
-    c.coll("all-reduce", wire * (n_metrics + 1), n * (n_metrics + 1))
+    for i in row_dims(cfg, mesh):
+        c.coll("all-reduce", n_metrics * _ring("all-reduce", mesh.shape[i],
+                                               4), n_metrics)
+    wire, n = _all_reduce(mesh, 4)                    # the clip's norm
+    c.coll("all-reduce", wire, n)
     n_moe = cfg.num_periods * cfg.pattern.count("attn_moe")
     if n_moe:      # the router's two token means a pass, me's gradient
         wire, n = _all_reduce(mesh, cfg.num_experts * 4)
@@ -279,23 +527,56 @@ def _train(cell, c, act, head, whole_params, local_elems, pbytes,
         c.coll("all-reduce", wire * k, n * k)
     local_params = local_elems * pbytes
     moments = 2 * local_elems * 4 + 4                  # f32 mu, nu; step
-    residual = cfg.num_periods * rows * S * cfg.d_model * act
+    resid_rows = rows * S / (lay.tp if lay.seq else 1)
+    residual = cfg.num_periods * resid_rows * cfg.d_model * act
     period = rows * S * (pb + ab + sb) / cfg.num_periods
-    logits = rows * (S // chunks) * cfg.vocab_size * 4 * 2
-    grads = whole_params * (1 + (mb > 1))
+    logits = rows * (S // chunks) * vocab * 4 * 2
+    # the gradients as reduced (upfront leaves whole, FSDP ones local),
+    # accumulated over microbatches, and one period's gathered
+    grads = sum(_elems(mesh, p, s) for p, s in zip(lay.plans, lay.shapes)) \
+        * pbytes * (1 + (mb > 1)) + w["period"] / nb * pbytes
+    batch = batch_local if local else batch_whole
     return {"count": c, "split": split, "rows_per_device": mb * rows,
             "memory": {"argument_bytes": local_params + moments
                        + batch_local,
                        "output_bytes": local_params + moments,
-                       "temp_bytes": whole_params + grads + residual
-                       + period + logits + batch_whole,
+                       "temp_bytes": w["gathered"] + grads + residual
+                       + period + logits + batch,
                        "alias_bytes": 0}}
 
 
-def _serve(cell, c, act, head, whole_params, local_params, w_compute,
-           batch_local, b_pls) -> dict:
+def _loss(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
+          chunks: int) -> None:
+    """The head's and the vocab-parallel cross-entropy's collectives in a
+    training pass: the max, the sum of exponentials and the label's logit
+    of each chunk (again in a chunk's recompute), the head input's
+    copy-in backward, or under sequence parallelism its sequence gather
+    (or, with a whole head, the loss's sum over the ranks)."""
+    t = lay.tp
+    if t == 1:
+        return
+    if not lay.vocab:
+        if lay.seq:
+            c.coll("all-reduce", _ring("all-reduce", t, 4))
+        return
+    h = rows * S * cfg.d_model * act
+    if lay.seq:
+        c.coll("all-gather", _ring("all-gather", t, h / t))
+        c.coll("reduce-scatter", _ring("reduce-scatter", t, h))
+    times = 2 if chunks > 1 else 1
+    csz = S // chunks
+    c.coll("all-reduce", chunks * times * 3 * _ring("all-reduce", t,
+                                                     rows * csz * 4),
+           chunks * times * 3)
+    if not lay.seq:
+        c.coll("all-reduce", chunks * _ring("all-reduce", t, h / chunks),
+               chunks)
+
+
+def _serve(cell, c, act, head, lay, local_params, batch_local,
+           b_pls) -> dict:
     import torch
-    cfg, mesh, rules = cell.cfg, cell.mesh, cell.rules
+    cfg, mesh = cell.cfg, cell.mesh
     B, S = cell.shape.global_batch, cell.shape.seq_len
     decode = cell.kind == "decode"
     split = sharded_extent(mesh, b_pls["frames" if "frames" in b_pls
@@ -307,11 +588,22 @@ def _serve(cell, c, act, head, whole_params, local_params, w_compute,
     ctx = S if decode else ((S + 1) / 2 if cfg.causal else S)
     pf, pb, af, ab, sf, sb = _per_token(
         cfg, S, ctx, decode, _expert_apps(cfg, tokens, groups,
-                                          cell.moe_path), act)
+                                          cell.moe_path), act, lay, True,
+        dist=decode and cell.dist_decode)
     heads = rows if cfg.is_decoder else rows * S
     c.flops = tokens * (pf + af + sf) + heads * head
-    logits = heads * cfg.vocab_size * 4
+    vocab = cfg.vocab_size / (lay.tp if lay.vocab else 1)
+    logits = heads * vocab * 4
+    pbytes = _nbytes(tree_leaves(cell.args[0])[0].dtype)
+    w = _weights(cell, lay, c, pbytes, False, 1)
+    w_compute = w["device"] / pbytes * act
+    _activations(c, cfg, lay, rows, 1 if decode else S, act, 1, False)
+    gathered = w["gathered"]
     if not decode:
+        if lay.seq and lay.tp > 1:          # the last token's gather
+            c.coll("all-gather", _ring("all-gather", lay.tp,
+                                       rows * S * cfg.d_model * act
+                                       / lay.tp))
         caches = sum(math.prod(t.shape) * _nbytes(t.dtype)
                      for t in tree_leaves(M.decode_state_specs(
                          cfg, rows, S, getattr(torch, cfg.dtype))["caches"]))
@@ -321,7 +613,7 @@ def _serve(cell, c, act, head, whole_params, local_params, w_compute,
                 "memory": {"argument_bytes": local_params + batch_local,
                            "output_bytes": logits
                            + caches * cfg.is_decoder,
-                           "temp_bytes": whole_params + rows * S
+                           "temp_bytes": gathered + rows * S
                            * (pb + ab + sb) / cfg.num_periods,
                            "alias_bytes": 0}}
     dstate = cell.args[1]
@@ -342,18 +634,20 @@ def _serve(cell, c, act, head, whole_params, local_params, w_compute,
             c.coll("all-gather", step - local, n)
     # the weights and every cache row read once, the new entries written
     c.bytes = w_compute + state_step + tokens * (pb + ab + sb) + logits
-    if cell.dist_decode:         # o, m, l of every attention layer
-        M_ = mesh.shape[tuple(mesh.mesh_dim_names).index("model")]
-        L, H = _attn_layers(cfg), cfg.num_heads
-        if M_ > 1:
-            for nbytes in (rows * H * cfg.head_dim * 4, rows * H * 4,
-                           rows * H * 4):
-                c.coll("all-reduce", L * 2 * (M_ - 1) / M_ * nbytes, L)
+    t = lay.tp
+    if cell.dist_decode and t > 1:
+        H, hd = cfg.num_heads, cfg.head_dim
+        for split_heads, n in _attn_split(cfg, lay):
+            if split_heads:      # every rank's q heads
+                c.coll("all-gather", n * _ring("all-gather", t,
+                                               rows * H / t * hd * act), n)
+            for nbytes in (rows * H * hd * 4, rows * H * 4, rows * H * 4):
+                c.coll("all-reduce", n * _ring("all-reduce", t, nbytes), n)
     return {"count": c, "split": split, "rows_per_device": rows,
             "memory": {"argument_bytes": local_params + state_local
                        + batch_local,
                        "output_bytes": state_local + logits,
-                       "temp_bytes": whole_params + state_step,
+                       "temp_bytes": gathered + state_step,
                        "alias_bytes": 0}}
 
 
@@ -404,6 +698,7 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool, out_dir: Path,
         "rows_per_device": acc["rows_per_device"],
         "t_account_s": time.time() - t0,
         "memory": acc["memory"],
+        "layout": acc["layout"],
         "cost": {"flops": cost.flops, "bytes": cost.bytes,
                  "collective_wire_bytes": cost.collective_wire_bytes,
                  "collectives": dict(cost.collectives),

@@ -85,11 +85,13 @@ class MeshShape:
             else self.shape[mesh_dim]
 
 
-def make_mesh(shape, axes, *, ranks: Optional[Sequence[int]] = None):
+def make_mesh(shape, axes, *, ranks: Optional[Sequence[int]] = None,
+              device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over ``ranks`` (default:
     the first ``prod(shape)`` ranks) of the current process group (the
-    cards under NCCL, the CPU under any other backend). Every rank of the
-    group must call it, those outside the mesh too: creating its
+    cards under NCCL, the CPU under any other backend, unless
+    ``device_type`` names the device its tensors lie on). Every rank of
+    the group must call it, those outside the mesh too: creating its
     subgroups is collective. Raises without a process group or with fewer
     ranks than the mesh needs."""
     import torch.distributed as dist
@@ -111,7 +113,8 @@ def make_mesh(shape, axes, *, ranks: Optional[Sequence[int]] = None):
             or not set(ranks) <= set(range(world)):
         raise ValueError(f"a mesh of shape {shape} needs {size} distinct "
                          f"ranks of the {world}, got {ranks}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = device_type or ("cuda" if dist.get_backend() == "nccl"
+                                  else "cpu")
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=axes)
 

@@ -7,7 +7,11 @@ plain tensors that need not require grad: the step differentiates
 ``train_loss`` with respect to fresh leaves that share their storage.
 ``shard`` is the model's layout hook (``distributed.sharding.make_shard_fn``)
 and ``scan_unroll`` the reference's scan unroll, which changes no result
-(``arch/model.py``).
+(``arch/model.py``). ``tp`` (a ``distributed.sharding.TPContext``: the
+model axis's group, this rank's place on it, sequence parallelism and the
+FSDP gathers) makes the gradient, prefill and decode functions compute on
+one rank's shards (``launch/cells.py`` builds it); without it they are
+the unsharded functions.
 """
 from __future__ import annotations
 
@@ -37,12 +41,14 @@ def make_grad_fn(cfg: ModelConfig, *, shard: Callable = _ID,
                  remat: bool = True, moe_path: str = "dispatch",
                  scan_unroll=1, moe_groups: int = 0,
                  cast_params_bf16: bool = False,
-                 token_mean: Optional[Callable] = None):
+                 token_mean: Optional[Callable] = None, tp=None):
     """Returns grads(params, micro_batches) -> (gradients as a list in
     ``tree_leaves`` order, metrics): one batch's gradients of
     ``train_loss``, or, for more than one microbatch, their f32 sum over
     the microbatches divided by their count and the metrics' means.
-    ``token_mean`` reaches the MoE routers (``arch.model.forward``)."""
+    ``token_mean`` reaches the MoE routers (``arch.model.forward``);
+    with ``tp`` the gradients are those of this rank's shards, each
+    period's FSDP shards reduce-scattered over the data axes."""
     def single(params, batch):
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         tree = _unflatten(params, live)
@@ -53,7 +59,7 @@ def make_grad_fn(cfg: ModelConfig, *, shard: Callable = _ID,
                                          remat=remat, moe_path=moe_path,
                                          scan_unroll=scan_unroll,
                                          moe_groups=moe_groups,
-                                         token_mean=token_mean)
+                                         token_mean=token_mean, tp=tp)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(live, grads)]
@@ -128,19 +134,21 @@ def to_micro(x, microbatches: int):
 
 
 def make_prefill_step(cfg: ModelConfig, *, shard: Callable = _ID,
-                      moe_path: str = "dispatch", moe_groups: int = 0):
+                      moe_path: str = "dispatch", moe_groups: int = 0,
+                      tp=None):
     def prefill(params, batch):
         return M.forward(cfg, params, batch, mode="prefill", shard=shard,
                          remat=False, moe_path=moe_path,
-                         moe_groups=moe_groups)
+                         moe_groups=moe_groups, tp=tp)
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, *, shard: Callable = _ID,
                      moe_path: str = "dispatch", scan_unroll=1,
-                     moe_groups: int = 0, attn_dist=None):
+                     moe_groups: int = 0, attn_dist=None, tp=None):
     def decode(params, state, batch):
         return M.decode_step(cfg, params, state, batch, shard=shard,
                              moe_path=moe_path, scan_unroll=scan_unroll,
-                             moe_groups=moe_groups, attn_dist=attn_dist)
+                             moe_groups=moe_groups, attn_dist=attn_dist,
+                             tp=tp)
     return decode

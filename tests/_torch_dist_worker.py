@@ -198,8 +198,8 @@ def _lm_decode(mesh, arch: str, lengths, seed: int, S: int) -> dict:
 def _whole_np(tree):
     """Every leaf gathered whole (a collective over its mesh), as numpy."""
     from repro_torch.distributed.checkpoint import tree_map
-    from repro_torch.distributed.sharding import whole
-    return tree_map(lambda t: whole(t).numpy(), tree)
+    from repro_torch.distributed.sharding import gather_whole
+    return tree_map(lambda t: gather_whole(t).numpy(), tree)
 
 
 def _placed_train_state(cfg, np_params, mesh, rules):
@@ -226,7 +226,7 @@ def _train_case(mesh, c: dict) -> dict:
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.distributed import sharding as S
     from repro_torch.distributed.compression import FeedbackHook
-    from repro_torch.distributed.sharding import place, whole
+    from repro_torch.distributed.sharding import gather_whole, place
     from repro_torch.launch.cells import build_cell, cell_shardings
     cfg = get_config(c["arch"]).replace(dtype="float32")
     rules = getattr(S, c["rules"])("pod" in mesh.mesh_dim_names)
@@ -245,7 +245,7 @@ def _train_case(mesh, c: dict) -> dict:
                for x, sh in zip(_leaves(params), _leaves(p_sh)))
     return {"metrics": metrics, "params": _whole_np(params),
             "mu": _whole_np(ostate.mu), "nu": _whole_np(ostate.nu),
-            "step": int(whole(ostate.step)), "placements_kept": kept,
+            "step": int(gather_whole(ostate.step)), "placements_kept": kept,
             "microbatches": cell.microbatches}
 
 
@@ -263,7 +263,8 @@ def _serve_case(mesh, c: dict) -> dict:
     from repro_torch.arch.params import tree_map
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.distributed import sharding as S
-    from repro_torch.distributed.sharding import place, place_tree, whole
+    from repro_torch.distributed.sharding import (gather_whole, place,
+                                                  place_tree)
     from repro_torch.launch.cells import build_cell, cell_shardings
     cfg = get_config(c["arch"]).replace(dtype="float32")
     rules = getattr(S, c["rules"])(False)
@@ -274,7 +275,7 @@ def _serve_case(mesh, c: dict) -> dict:
                      rules=rules)
     b_sh = cell_shardings(pre)[1]
     logits, state = pre.fn(params, {"tokens": place(tokens, *b_sh["tokens"])})
-    out = {"prefill_logits": whole(logits).numpy(),
+    out = {"prefill_logits": gather_whole(logits).numpy(),
            "prefill_state": _whole_np(state)}
     dec = build_cell(cfg, ShapeSpec("d", c["cache"], B, "decode"), mesh,
                      rules=rules, dist_decode=c["dist_decode"])
@@ -285,7 +286,7 @@ def _serve_case(mesh, c: dict) -> dict:
     nxt = place(torch.from_numpy(c["next"]), *b_sh["tokens"])
     for _ in range(c["steps"]):
         logits, dstate = dec.fn(params, dstate, {"tokens": nxt})
-    out["decode_logits"] = whole(logits).numpy()
+    out["decode_logits"] = gather_whole(logits).numpy()
     out["decode_state"] = _whole_np(dstate)
     out["state_placements_kept"] = all(
         tuple(x.placements) == tuple(sh[1]) for x, sh in
@@ -383,7 +384,7 @@ def failed_write_world(rank: int, root: str, failing: int) -> dict:
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed import checkpoint as C
-    from repro_torch.distributed.sharding import place, whole
+    from repro_torch.distributed.sharding import gather_whole, place
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh((2, 2), ("data", "model"))
     pls = (Shard(0), Shard(1))
@@ -416,5 +417,263 @@ def failed_write_world(rank: int, root: str, failing: int) -> dict:
     restored, manifest = mgr.restore_latest(tree, shardings={"w": (mesh,
                                                                    pls)})
     out["latest"] = manifest["step"]
-    out["restored"] = whole(restored["w"]).numpy()
+    out["restored"] = gather_whole(restored["w"]).numpy()
+    return out
+
+
+# ------------------------------------------ tensor-parallel cells
+
+#: ``torch.distributed`` collectives the cells may issue, recorded by the
+#: tensor-parallel world's patch; each entry's wire bytes as a device
+#: receives them in a ring (``launch.dryrun._ring``'s model)
+_RECORDED = ("all_reduce", "all_gather_single", "all_gather_into_tensor",
+             "reduce_scatter_single", "reduce_scatter_tensor", "all_gather",
+             "reduce_scatter", "broadcast", "all_to_all_single",
+             "all_to_all")
+#: DTensor's own collectives (``_functional_collectives``): a cell that
+#: reached one would move data the count does not see
+_FUNCTIONAL = ("all_gather_single", "all_gather_tensor", "all_reduce",
+               "reduce_scatter_single", "reduce_scatter_tensor",
+               "all_to_all_single", "broadcast")
+
+
+class CollectiveLog:
+    """A test-only patch of ``torch.distributed``'s collectives (and of
+    DTensor's functional ones) that records, while ``on``, each call's
+    kind, group, input shape and ring wire bytes, then issues it."""
+
+    def __init__(self):
+        import torch.distributed._functional_collectives as funcol
+        self.calls, self.on = [], False
+        self._saved = []
+        for mod, names, tag in ((dist, _RECORDED, ""),
+                                (funcol, _FUNCTIONAL, "functional:")):
+            for name in names:
+                fn = getattr(mod, name, None)
+                if fn is None:
+                    continue
+                self._saved.append((mod, name, fn))
+                setattr(mod, name, self._wrap(tag + name, fn))
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            if self.on:
+                self.calls.append(self._entry(name, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    @staticmethod
+    def _entry(name, args, kw) -> dict:
+        group = kw.get("group")
+        n = 0 if name.startswith("functional") \
+            else dist.get_world_size(group)
+        if name == "all_reduce":
+            t = args[0]
+            nbytes = t.numel() * t.element_size()
+            kind, wire = "all-reduce", 2 * (n - 1) / n * nbytes
+        elif name in ("all_gather_single", "all_gather_into_tensor"):
+            t = args[1]
+            nbytes = t.numel() * t.element_size()
+            kind, wire = "all-gather", (n - 1) * nbytes
+        elif name in ("reduce_scatter_single", "reduce_scatter_tensor"):
+            t = args[1]
+            nbytes = t.numel() * t.element_size()
+            kind, wire = "reduce-scatter", (n - 1) / n * nbytes
+        else:
+            t = args[0] if args and isinstance(args[0], torch.Tensor) \
+                else None
+            kind, wire = name, 0.0
+        return {"kind": kind, "wire": wire, "group": group, "n": n,
+                "shape": tuple(t.shape) if t is not None else None}
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self) -> None:
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _tally(calls) -> dict:
+    """{kind: [count, wire bytes]} of recorded calls."""
+    out = {}
+    for c in calls:
+        t = out.setdefault(c["kind"], [0, 0.0])
+        t[0] += 1
+        t[1] += c["wire"]
+    return out
+
+
+def _attn_shapes(params) -> set:
+    """Every shape an ``attn``-kind leaf (an attention block's attention
+    and MLP leaves, the embedding, the LM head) takes on a rank before a
+    gather over ``model``: its block and a period's slice of it. No
+    all-gather over ``model`` may carry one outside the guard."""
+    out = set()
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        if path[0] == "blocks" and path[2] not in ("attn", "mlp"):
+            return
+        if path[0] not in ("blocks", "embed", "lm_head"):
+            return
+        local = tuple(tree.to_local().shape)
+        out.update({local, local[1:] if path[0] == "blocks" else local})
+    walk(params, ())
+    return out
+
+
+def _model_gathers(calls, mesh, shapes) -> list:
+    """The recorded all-gathers over ``mesh``'s model group whose input
+    has the shape of an ``attn``-kind leaf."""
+    group = mesh.get_group("model") if mesh.shape[
+        mesh.mesh_dim_names.index("model")] > 1 else None
+    return [c["shape"] for c in calls if c["kind"] == "all-gather"
+            and group is not None and c["group"] is group
+            and c["shape"] in shapes]
+
+
+def _count(cell) -> dict:
+    """``dryrun.account``'s collectives for ``cell``: {kind: [count,
+    wire bytes]}."""
+    from repro_torch.launch.dryrun import account
+    c = account(cell)["count"]
+    return {k: [c.collective_counts[k], c.collectives[k]]
+            for k in c.collectives}
+
+
+def _tp_cfg(c):
+    from repro_torch.configs import get_config
+    cfg = get_config(c["arch"]).replace(dtype="float32")
+    return cfg.replace(**c.get("cfg", {}))
+
+
+def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
+    """A train cell's steps, each from the state ``c["starts"]`` gives it
+    (numpy params, moments and step count, placed at the cell's
+    placements) on its batch: each step's metrics, state gathered whole,
+    collectives, and whether every leaf kept its placements."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import params_from_numpy
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.sharding import (gather_whole,
+                                                  param_shardings, place,
+                                                  place_tree)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    from repro_torch.train.optim import AdamWState
+    cfg = _tp_cfg(c)
+    rules = getattr(S, c["rules"])("pod" in mesh.mesh_dim_names)
+    B, seq = c["batches"][0]["labels"].shape
+    cell = build_cell(cfg, ShapeSpec("t", seq, B, "train"), mesh,
+                      rules=rules, microbatches=c["microbatches"])
+    p_sh = param_shardings(mesh, rules, M.build_param_specs(cfg))
+    o_sh = AdamWState((mesh, (Replicate(),) * mesh.ndim), p_sh, p_sh)
+    b_sh = cell_shardings(cell)[2]
+    steps = []
+    for start, b in zip(c["starts"], c["batches"]):
+        params, ostate = place_tree((
+            params_from_numpy(start["params"], "cpu"),
+            AdamWState(torch.tensor(start["step"], dtype=torch.int32),
+                       params_from_numpy(start["mu"], "cpu"),
+                       params_from_numpy(start["nu"], "cpu"))), (p_sh, o_sh))
+        shapes = _attn_shapes(params)
+        batch = {k: place(torch.from_numpy(v), *b_sh[k]) for k, v in b.items()}
+        log.on = True
+        params, ostate, m = cell.fn(params, ostate, batch)
+        log.on = False
+        calls = log.take()
+        steps.append({
+            "tally": _tally(calls),
+            "model_gathers": _model_gathers(calls, mesh, shapes),
+            "metrics": {k: float(v) for k, v in m.items()},
+            "params": _whole_np(params), "mu": _whole_np(ostate.mu),
+            "nu": _whole_np(ostate.nu), "step": int(gather_whole(ostate.step)),
+            "placements_kept": all(
+                tuple(x.placements) == tuple(sh[1])
+                for x, sh in zip(_leaves(params), _leaves(p_sh)))})
+    return {"steps": steps, "account": _count(cell), "guarded": cell.guarded}
+
+
+def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
+    """A prefill cell and a decode cell (with or without the distributed
+    flash-decode) under ``c["rules"]``: their outputs gathered whole and
+    each call's collectives against ``dryrun.account``."""
+    from repro_torch.arch.params import tree_map
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.sharding import (gather_whole, place,
+                                                  place_tree)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    cfg = _tp_cfg(c)
+    rules = getattr(S, c["rules"])(False)
+    params = _placed_train_state(cfg, c["params"], mesh, rules)[0]
+    shapes = _attn_shapes(params)
+    inputs = {k: torch.from_numpy(v) for k, v in c["inputs"].items()}
+    first = inputs["tokens" if "tokens" in inputs else "frames"]
+    B, seq = first.shape[:2]
+    pre = build_cell(cfg, ShapeSpec("p", seq, B, "prefill"), mesh,
+                     rules=rules, serve_dtype="float32")
+    b_sh = cell_shardings(pre)[1]
+    log.on = True
+    logits, state = pre.fn(params, {k: place(v, *b_sh[k])
+                                    for k, v in inputs.items()})
+    log.on = False
+    calls = log.take()
+    out = {"prefill_logits": gather_whole(logits).numpy(),
+           "prefill_placements": tuple(map(str, logits.placements)),
+           "prefill_state": _whole_np(state),
+           "prefill": {"tally": _tally(calls), "account": _count(pre),
+                       "model_gathers": _model_gathers(calls, mesh, shapes)},
+           "guarded": pre.guarded}
+    if "state" not in c:
+        return out
+    out["decode"] = {}
+    for dist_decode in (False, True):
+        dec = build_cell(cfg, ShapeSpec("d", c["cache"], B, "decode"), mesh,
+                         rules=rules, dist_decode=dist_decode,
+                         serve_dtype="float32")
+        _, s_sh, b_sh = cell_shardings(dec)
+        dstate = tree_map(torch.from_numpy, c["state"])
+        dstate = {"caches": place_tree(dstate["caches"], s_sh["caches"]),
+                  "lengths": place(dstate["lengths"], *s_sh["lengths"])}
+        nxt = place(torch.from_numpy(c["next"]), *b_sh["tokens"])
+        log.on = True
+        logits, dstate = dec.fn(params, dstate, {"tokens": nxt})
+        log.on = False
+        calls = log.take()
+        out["decode"][dist_decode] = {
+            "logits": gather_whole(logits).numpy(), "state": _whole_np(dstate),
+            "tally": _tally(calls), "account": _count(dec),
+            "model_gathers": _model_gathers(calls, mesh, shapes),
+            "placements_kept": all(
+                tuple(x.placements) == tuple(sh[1]) for x, sh in
+                zip(_leaves(dstate["caches"]), _leaves(s_sh["caches"])))}
+    return out
+
+
+def tensor_parallel_world(rank: int, train_cases: list,
+                          serve_cases: list) -> dict:
+    """tests/test_torch_tensor_parallel.py: each train case's two cell
+    steps and each serve case's prefill and decode cells on their meshes,
+    every call's collectives recorded (by every rank)."""
+    from repro_torch.launch.mesh import make_mesh
+    log = CollectiveLog()
+    meshes, out = {}, {"train": [], "serve": []}
+    try:
+        for kind, cases, run in (("train", train_cases, _tp_train),
+                                 ("serve", serve_cases, _tp_serve)):
+            for c in cases:
+                key = tuple(c["mesh"])
+                if key not in meshes:
+                    meshes[key] = make_mesh(key, ("data", "model"))
+                out[kind].append(run(meshes[key], c, log))
+    finally:
+        log.close()
     return out

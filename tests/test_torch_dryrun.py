@@ -64,14 +64,16 @@ def test_production_mesh_is_a_stand_in_without_a_world():
 def test_train_flops_within_the_reference_bounds(tmp_path):
     """qwen3-1.7b ``train_4k`` on (2, 4): the operations a device does in
     a step lie within 0.8-2.0 x 6 N D / 8 (N = 1.72e9, D = 256 x 4096),
-    the remat factor's bounds in ``tests/test_dryrun_machinery.py``."""
+    the remat factor's bounds in ``tests/test_dryrun_machinery.py``. The
+    rows spread over the data axis alone (2 slices of the batch, 128 rows
+    a device); the model axis splits heads, columns and vocabulary."""
     mesh = MeshShape((2, 4), ("data", "model"))
     r = dryrun.run_cell("qwen3-1.7b", "train_4k", multi_pod=False,
                         out_dir=tmp_path, mesh=mesh)
     n, d = 1.72e9, 256 * 4096
     model = 6 * n * d / 8
     assert 0.8 * model < r["cost"]["flops"] < 2.0 * model, r["cost"]
-    assert r["batch_split"] == 8 and r["rows_per_device"] == 32
+    assert r["batch_split"] == 2 and r["rows_per_device"] == 128
     assert r["roofline"]["dominant"] in ("compute_s", "memory_s",
                                          "collective_s")
     assert (tmp_path / "qwen3-1.7b__train_4k__2x4.json").exists()
@@ -81,7 +83,8 @@ def test_dist_decode_slashes_the_wire_bytes(tmp_path):
     """``decode_32k`` with ``serve_rules`` and the distributed
     flash-decode moves less than half the baseline's collective bytes
     (the reference test's bound): no cache gather, three stats
-    all-reduces a layer."""
+    all-reduces a layer, beside the two tensor-parallel partial sums a
+    layer and the embedding's."""
     mesh = MeshShape((2, 4), ("data", "model"))
     base = dryrun.run_cell("qwen3-1.7b", "decode_32k", multi_pod=False,
                            out_dir=tmp_path, mesh=mesh)
@@ -90,7 +93,8 @@ def test_dist_decode_slashes_the_wire_bytes(tmp_path):
                           rules=serve_rules(False), dist_decode=True)
     wire = lambda r: r["cost"]["collective_wire_bytes"]  # noqa: E731
     assert wire(opt) < 0.5 * wire(base), (wire(opt), wire(base))
-    assert opt["cost"]["collective_counts"]["all-reduce"] == 3 * 28
+    assert opt["cost"]["collective_counts"]["all-reduce"] == \
+        3 * 28 + 2 * 28 + 1
     assert opt["cost"]["flops"] == base["cost"]["flops"]
 
 
@@ -206,3 +210,28 @@ def test_cli_refuses_keep_hlo(tmp_path):
         env=_clean_env(), cwd=tmp_path)
     assert proc.returncode == 2 and "--keep-hlo" in proc.stderr
     assert not list(tmp_path.glob("*.json"))
+
+
+def test_internlm2_train_fits_a_card_and_splits_its_work(tmp_path):
+    """internlm2-20b ``train_4k`` on the (16, 16) pod mesh: one device's
+    peak under one card's 80e9 B (228 GiB while the cell gathered every
+    parameter whole), and its operations those of the (16, 1) mesh (the
+    same rows a device) over the model extent of 16, within 2 %, once the
+    KV projections are counted as a rank computes them: its three q heads
+    read one KV head (G 6), which the two ranks reading it each compute,
+    against a 16th of the 8."""
+    cfg = get_config("internlm2-20b")
+    pod = dryrun.run_cell("internlm2-20b", "train_4k", multi_pod=False,
+                          out_dir=tmp_path)
+    one = dryrun.run_cell("internlm2-20b", "train_4k", multi_pod=False,
+                          out_dir=tmp_path,
+                          mesh=MeshShape((16, 1), ("data", "model")))
+    assert pod["memory"]["peak_per_device_bytes"] < 80e9, pod["memory"]
+    assert pod["rows_per_device"] == one["rows_per_device"] == 16
+    assert pod["layout"]["attention_split"] == ["pos0"]
+    tokens = pod["rows_per_device"] * SHAPES["train_4k"].seq_len
+    # k and v, 2 operations a multiply-add, forward + recompute + backward
+    kv = tokens * 4 * cfg.num_layers * 2 * 2 * cfg.d_model * cfg.head_dim \
+        * (1 - cfg.num_kv_heads / 16)
+    ideal = one["cost"]["flops"] / 16
+    assert abs(pod["cost"]["flops"] - kv - ideal) < 0.02 * ideal
