@@ -219,7 +219,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward, bf16, B 4, S 1024) and ``decode_attention`` (B 8, S 2048) at
    one rank's head counts on the pod mesh's model axis (``TP_HEADS``:
    qwen3-1.7b at 2, H 8 / KV 4; llama3-8b at 16, H 2 / KV 1;
-   internlm2-20b at 16, H 3 / KV 1, group 3) against their plain
+   internlm2-20b at 16, H 3 / KV 1, group 3; dbrx-132b at 2, H 24 / KV 4,
+   group 6) against their plain
    versions, timed beside them and ``scaled_dot_product_attention``,
    with their bounds (the ``per_rank`` entries of the kernels line).
    (b) A world of two gloo processes on the one card (NCCL takes one rank
@@ -231,6 +232,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    flash-decode (``serve_rules``) against the world of one's calls on the
    same inputs at ``TP_WORLD_TOL`` (``tests/test_torch_sharded_train.py``'s
    pins). Within ``TP_WORLD_SECONDS``.
+18. the MoE cells on their expert shards: dbrx-132b at full width cut to
+   one layer, f32, in a world of two gloo processes on the card (every
+   collective the cells issue probed on CUDA tensors first; a refused one
+   fails the phase). Rank 0 runs the world of one first (the gradients of
+   a step, a prefill and a decode step; the prefill and decode again row
+   by row) and keeps its figures on the host; then each rank draws its
+   shards leaf by leaf: the gradients (``make_sharded_grad_fn``, B 2 x S
+   256) on a (1, 2) mesh under ``baseline_rules`` (8 experts a rank)
+   against the world of one's at ``LM_PARITY_TOL`` (a full AdamW step
+   does not fit the card); prefill and decode, with and without the
+   distributed flash-decode, under ``serve_rules`` on (1, 2) and on (2, 1)
+   (each expert's columns over ``data``) at ``TP_WORLD_TOL["serve"]``.
+   Every rank's routes against the world of one's (a serve call whose
+   routes differ is held with the world of one's routes pinned), its
+   collectives a call (equal to ``dryrun.account``'s), rank 0's launches
+   at H 24 / KV 4, and the times and peak memory beside the world of
+   one's. Within ``EP_WORLD_SECONDS``.
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
@@ -4578,9 +4596,10 @@ def training_across_devices_phase(device: str, *, train_kw=None,
 # (16; qwen3-1.7b at 2 as well): (label, H, KV) at D 128, the forward and
 # backward at the training shape (B 4, S 1024, causal, bf16), decode at
 # the engine shape (B 8, S 2048). internlm2-20b's group of 3 is one no
-# earlier card run had
+# earlier card run had; dbrx-132b's on a model axis of 2 (phase 18's
+# world of two) is G 6 on each rank
 TP_HEADS = [("qwen3 tp2", 8, 4), ("llama3 tp16", 2, 1),
-            ("internlm2 tp16", 3, 1)]
+            ("internlm2 tp16", 3, 1), ("dbrx tp2", 24, 4)]
 # the world of two on one card: qwen3-1.7b at full width cut to 2 layers
 # (f32), a (1, 2) ("data", "model") mesh of two processes over gloo, its
 # train step, prefill and decode cells against the world of one's calls
@@ -4958,6 +4977,550 @@ def tp_world_phase(device: str, **kw) -> dict:
     return {**res, "seconds": secs}
 
 
+# ------------------------------------------------ the MoE cells on their expert shards
+
+# phase 18: dbrx-132b at full width (d 6144, 16 experts of d_ff 10752, H 48
+# / KV 8, vocab 100,352) cut to one layer, f32 (about 18.0e9 B of
+# parameters: 12.68e9 experts, 4.93e9 embedding and head, 0.35e9
+# attention), in a world of two gloo processes on the one card: its
+# gradients under baseline_rules on a (1, 2) ("data", "model") mesh (EP:
+# 8 experts a rank) and its prefill and decode cells under serve_rules on
+# (1, 2) and on (2, 1) (each expert's columns over ``data``: the expert
+# buffer's groups gathered, its products reduce-scattered), each against
+# the world of one on the same inputs. A full AdamW step holds params,
+# gradients and two moments, about 72e9 B over the two ranks: the card
+# phase takes the gradients alone (``make_sharded_grad_fn``), about 36e9
+# B; the update on the expert shards is held on the CPU
+# (tests/test_torch_expert_parallel.py). The world of one runs first on
+# rank 0 and moves its figures to the host before the ranks draw their
+# shards, each leaf drawn whole and cut, so no rank holds the whole layer
+# beside its shards
+EP_WORLD = dict(arch="dbrx-132b", layers=1, batch=2, seq=256, cache=512,
+                seed=27)
+EP_WORLD_SECONDS = 150.0
+# the gradient pins are phase 16 (d)'s (``LM_PARITY_TOL``: loss, grad norm,
+# each leaf's max |diff| over its max |ref|); the serve cells' logits and
+# caches phase 17's (``TP_WORLD_TOL["serve"]``, absolute)
+EP_SERVE_MESHES = ((1, 2), (2, 1))
+# a gradient block a rank sends to rank 0 for the comparison, in pieces
+# of at most this many elements (gloo sends each piece whole)
+EP_SEND_ELEMS = 1 << 26
+
+
+def _ep_world_rank(rank: int, port: int, out_path: str, kw: dict) -> None:
+    """One rank of ``ep_world_phase``'s world of two."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        res = _ep_world_body(rank, **kw)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        torch.save(res, out_path)
+
+
+def _draw_blocks(cfg, seed: int, device: str, shardings):
+    """The parameters ``init_params`` draws from a generator seeded
+    ``seed`` on ``device``, each leaf drawn whole and only this rank's
+    block at ``shardings`` (``param_shardings``'s tree) kept, as DTensors:
+    no rank holds more than one whole leaf beside its blocks."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.arch import model as M
+    from repro_torch.arch.params import _init_leaf
+    from repro_torch.distributed.sharding import contiguous_stride, local_block
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(spec, sh):
+        if isinstance(spec, dict):
+            return {k: draw(spec[k], sh[k]) for k in sorted(spec)}
+        whole = _init_leaf(spec, g, torch.float32, torch.device(device))
+        mesh, pls = sh
+        block = local_block(whole, mesh, pls).clone()
+        del whole
+        return DTensor.from_local(block, mesh, pls, run_check=False,
+                                  shape=torch.Size(spec.shape),
+                                  stride=contiguous_stride(spec.shape))
+    return draw(M.build_param_specs(cfg), shardings)
+
+
+def _peak(device: str):
+    import torch
+    return torch.cuda.max_memory_allocated() if device != "cpu" else None
+
+
+def _reset_peak(device: str) -> None:
+    import torch
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _free(device: str) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+
+def _ep_world_of_one(cfg, device, seed, b, dstate, nxt, groups) -> dict:
+    """Rank 0's undistributed calls: the gradients (to the host), loss and
+    grad norm of one step, prefill and a decode step, with their routes,
+    times and peak memory; then prefill and decode again row by row
+    (``"by_row"``: each row is one of the ``groups`` token groups, so the
+    same function), the reference of the cells whose ranks each hold
+    one row, at their GEMMs' row counts."""
+    import torch
+    from repro_torch.arch import model as M
+    from repro_torch.distributed.checkpoint import tree_map
+    from repro_torch.train import make_decode_step, make_prefill_step
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.step import _unflatten, make_grad_fn
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    grad_fn = make_grad_fn(cfg, moe_groups=groups)
+    t = time.perf_counter()               # a first call maps its memory
+    grad_fn(params, [b])
+    _sync(device)
+    cold = time.perf_counter() - t
+    _reset_peak(device)
+    out = {}
+    with _recorded_routes() as routes:
+        t = time.perf_counter()
+        grads, m = grad_fn(params, [b])
+        norm = global_norm(_unflatten(params, grads))
+        _sync(device)
+        out["train"] = {"s": time.perf_counter() - t, "cold_s": cold,
+                        "loss": float(m["loss"]), "grad_norm": float(norm),
+                        "peak": _peak(device), "routes": list(routes)}
+    out["grads"] = [g.cpu() for g in grads]
+    del grads
+    _free(device)
+    with torch.no_grad():
+        _reset_peak(device)
+        with _recorded_routes() as routes:
+            t = time.perf_counter()
+            logits, state = make_prefill_step(cfg, moe_groups=groups)(
+                params, {"tokens": b["tokens"]})
+            _sync(device)
+            out["prefill"] = {"s": time.perf_counter() - t,
+                              "logits": logits.cpu(),
+                              "caches": tree_map(lambda x: x.cpu(),
+                                                 state["caches"]),
+                              "peak": _peak(device), "routes": list(routes)}
+        del state
+        _reset_peak(device)
+        with _recorded_routes() as routes:
+            st = tree_map(torch.clone, dstate)
+            t = time.perf_counter()
+            logits, new = make_decode_step(cfg, moe_groups=groups)(
+                params, st, {"tokens": nxt})
+            _sync(device)
+            out["decode"] = {"s": time.perf_counter() - t,
+                             "logits": logits.cpu(),
+                             "caches": tree_map(lambda x: x.cpu(),
+                                                new["caches"]),
+                             "peak": _peak(device), "routes": list(routes)}
+        rows, n = [], b["tokens"].shape[0]
+        for i in range(n):
+            one = lambda t: t.narrow(1, i, 1)         # noqa: E731
+            lg, state = make_prefill_step(cfg, moe_groups=groups // n)(
+                params, {"tokens": b["tokens"][i:i + 1]})
+            st = {"caches": tree_map(lambda x: one(x).clone(),
+                                     dstate["caches"]),
+                  "lengths": dstate["lengths"][i:i + 1].clone()}
+            dl, new = make_decode_step(cfg, moe_groups=groups // n)(
+                params, st, {"tokens": nxt[i:i + 1]})
+            rows.append({"prefill": (lg.cpu(), tree_map(
+                lambda x: x.cpu(), state["caches"])),
+                "decode": (dl.cpu(), tree_map(lambda x: x.cpu(),
+                                              new["caches"]))})
+        out["by_row"] = {k: {"logits": torch.cat([r[k][0] for r in rows]),
+                             "caches": _cat_rows([r[k][1] for r in rows])}
+                         for k in ("prefill", "decode")}
+    del params, st, new, state
+    _free(device)
+    return out
+
+
+def _cat_rows(trees: list):
+    """Cache trees of one row each, their rows (dim 1) concatenated."""
+    import torch
+    if isinstance(trees[0], dict):
+        return {k: _cat_rows([t[k] for t in trees]) for k in trees[0]}
+    return torch.cat(trees, 1)
+
+
+def _rows_of(calls: list, mesh) -> list:
+    """Recorded routes (whole batch) cut to this rank's rows on ``mesh``
+    (the rows split over ``data``)."""
+    names = tuple(mesh.mesh_dim_names)
+    n = mesh.shape[names.index("data")]
+    r = mesh.get_coordinate()[names.index("data")]
+    out = []
+    for c in calls:
+        k = c["idx"].shape[0] // n
+        out.append({key: v[r * k:(r + 1) * k] for key, v in c.items()})
+    return out
+
+
+def _ep_world_body(rank: int, *, device: str, arch: str, layers: int,
+                   batch: int, seq: int, cache: int, seed: int) -> dict:
+    """The world of two's work (``ep_world_phase``): the probe, rank 0's
+    world of one, then the cells on their expert shards, each call's
+    collectives, launches, time, peak memory and routes recorded."""
+    import torch
+    import torch.distributed as dist
+    from _torch_dist_worker import CollectiveLog, _count, _leaves, _tally
+    from repro_torch.arch import model as M
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.checkpoint import tree_map
+    from repro_torch.distributed.sharding import (baseline_rules,
+                                                  gather_whole, place,
+                                                  place_tree, serve_rules)
+    from repro_torch.launch.cells import (build_cell, cell_shardings,
+                                          make_sharded_grad_fn)
+    from repro_torch.launch.mesh import make_mesh
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    refused = _probe_collectives(device)
+    check(not refused, f"world of two: gloo refused {refused} on {device} "
+                       "tensors, which the MoE cells issue")
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g,
+                           device=device, dtype=torch.int32)
+    b = {"tokens": tokens[:, :-1].contiguous(),
+         "labels": tokens[:, 1:].contiguous()}
+    dstate = M.init_decode_state(cfg, batch, cache, device=device)
+    dstate["caches"] = tree_map(
+        lambda x: torch.randn(x.shape, generator=g, device=device),
+        dstate["caches"])
+    dstate["lengths"] = torch.randint(1, cache, (batch,), generator=g,
+                                      device=device, dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
+                        device=device, dtype=torch.int32)
+    groups = 2                                 # the cells' (the mesh size)
+    one = _ep_world_of_one(cfg, device, seed, b, dstate, nxt, groups) \
+        if rank == 0 else None
+    ref_routes = [None]
+    if rank == 0:
+        ref_routes = [{k: one[k]["routes"] for k in ("train", "prefill",
+                                                     "decode")}]
+    dist.broadcast_object_list(ref_routes, src=0)
+    ref_routes = ref_routes[0]
+    meshes = {s: make_mesh(s, ("data", "model"), device_type=device)
+              for s in ((1, 2),) + EP_SERVE_MESHES}
+    log = CollectiveLog()
+    calls = {}
+
+    def run(label, cell, fn, ref, mesh, pinned=None, warm=False):
+        """One call of ``fn`` with its collectives, launches, time, peak
+        and routes recorded (``pinned``: the world of one's routes), the
+        ranks starting together; with ``warm``, after an untimed first
+        call (its time kept as ``cold_s``)."""
+        cold = None
+        if warm:
+            dist.barrier()
+            t = time.perf_counter()
+            fn()
+            _sync(device)
+            cold = time.perf_counter() - t
+        _sync(device)
+        dist.barrier()
+        _reset_peak(device)
+        reset_counts()
+        with _recorded_routes(pinned) as routes:
+            log.on = True
+            t = time.perf_counter()
+            res = fn()
+            _sync(device)
+            secs = time.perf_counter() - t
+            log.on = False
+        rec = {"s": secs, "cold_s": cold, "peak": _peak(device),
+               "tally": _tally(log.take()),
+               "account": _count(cell), "launches": {
+                   **{k: v for k, v in counts().items() if v},
+                   "decode_attention_partial": _kernel_ops()[
+                       "decode_attention"].partial_invocation_count()},
+               "routes": {"want": _flat(_rows_of(ref, mesh)),
+                          "got": _flat(list(routes))}}
+        rec["route_diff"] = int((rec["routes"]["want"]["idx"]
+                                 != rec["routes"]["got"]["idx"]).sum())
+        if pinned is None:
+            calls[label] = rec
+        return res, rec
+
+    try:
+        # (a) the gradients on the expert shards
+        mesh = meshes[(1, 2)]
+        cell = build_cell(cfg, ShapeSpec("ep", seq, batch, "train"), mesh,
+                          rules=baseline_rules(), microbatches=1)
+        p_sh, _, b_sh = cell_shardings(cell)
+        params = _draw_blocks(cfg, seed, device, p_sh)
+        grads_of = make_sharded_grad_fn(cfg, mesh, baseline_rules(),
+                                        moe_groups=mesh.size())
+        placed = {k: place(v, *b_sh[k]) for k, v in b.items()}
+        (grads, m), _ = run("train", cell, lambda: grads_of(params, placed),
+                            ref_routes["train"], mesh, warm=True)
+        calls["train"].update(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]))
+        blocks = [x.cpu() for x in grads]
+        del grads, params
+        _free(device)
+        # (b) prefill and decode on each serve mesh, weights stationary
+        for shape in EP_SERVE_MESHES:
+            mesh = meshes[shape]
+            rules = serve_rules()
+            pre = build_cell(cfg, ShapeSpec("ep", seq, batch, "prefill"),
+                             mesh, rules=rules, serve_dtype="float32")
+            s_sh = cell_shardings(pre)
+            served = _draw_blocks(cfg, seed, device, s_sh[0])
+            tag = "x".join(map(str, shape))
+            with torch.no_grad():
+                inputs = {"tokens": place(b["tokens"], *s_sh[1]["tokens"])}
+                (lg, st), rec = run(f"prefill {tag}", pre,
+                                    lambda: pre.fn(served, inputs),
+                                    ref_routes["prefill"], mesh)
+                out = {"logits": gather_whole(lg).cpu(),
+                       "caches": tree_map(lambda x: gather_whole(x).cpu(),
+                                          st["caches"])}
+                if rec["route_diff"]:
+                    pinned = [c["idx"] for c in
+                              _rows_of(ref_routes["prefill"], mesh)]
+                    (lg, _), _ = run("pinned", pre,
+                                     lambda: pre.fn(served, inputs),
+                                     ref_routes["prefill"], mesh, pinned)
+                    out["pinned_logits"] = gather_whole(lg).cpu()
+                calls[f"prefill {tag}"].update(out)
+                del lg, st
+                for dist_decode in (False, True):
+                    dec = build_cell(cfg, ShapeSpec("ep", cache, batch,
+                                                    "decode"), mesh,
+                                     rules=rules, dist_decode=dist_decode,
+                                     serve_dtype="float32")
+                    _, d_sh, db_sh = cell_shardings(dec)
+
+                    def state():
+                        return {"caches": place_tree(
+                            tree_map(torch.clone, dstate["caches"]),
+                            d_sh["caches"]),
+                            "lengths": place(dstate["lengths"],
+                                             *d_sh["lengths"])}
+                    tok = {"tokens": place(nxt, *db_sh["tokens"])}
+                    label = f"decode {tag} dist={dist_decode}"
+                    st0 = state()
+                    (lg, new), rec = run(label, dec,
+                                         lambda: dec.fn(served, st0, tok),
+                                         ref_routes["decode"], mesh)
+                    out = {"logits": gather_whole(lg).cpu(),
+                           "caches": tree_map(lambda x: gather_whole(x).cpu(),
+                                              new["caches"])}
+                    if rec["route_diff"]:
+                        pinned = [c["idx"] for c in
+                                  _rows_of(ref_routes["decode"], mesh)]
+                        st1 = state()
+                        (lg, _), _ = run("pinned", dec,
+                                         lambda: dec.fn(served, st1, tok),
+                                         ref_routes["decode"], mesh, pinned)
+                        out["pinned_logits"] = gather_whole(lg).cpu()
+                    calls[label].update(out)
+                    del lg, new
+            del served
+            _free(device)
+    finally:
+        log.close()
+    # every rank's records on rank 0 (tallies, times, peaks, routes), then
+    # rank 1's gradient blocks, piece by piece, for the comparison
+    small = {k: {f: v for f, v in r.items() if f not in ("logits", "caches",
+                                                         "pinned_logits")}
+             for k, r in calls.items()}
+    every = [None, None]
+    dist.all_gather_object(every, small)
+    if rank == 1:
+        for x in blocks:
+            flat = x.reshape(-1)
+            for i in range(0, flat.numel(), EP_SEND_ELEMS):
+                dist.send(flat[i:i + EP_SEND_ELEMS].contiguous(), dst=0)
+        return {}
+    gaps = {}
+    mesh = meshes[(1, 2)]
+    for path, x, ref, (_, pls) in zip(_leaf_paths(p_sh), blocks,
+                                      one["grads"], _leaves(p_sh)):
+        other = torch.empty(x.numel(), dtype=x.dtype)
+        for i in range(0, other.numel(), EP_SEND_ELEMS):
+            piece = torch.empty_like(other[i:i + EP_SEND_ELEMS])
+            dist.recv(piece, src=1)
+            other[i:i + EP_SEND_ELEMS] = piece
+        scale = float(ref.abs().max()) + 1e-30
+        gaps[path] = max(
+            float((got.reshape(want.shape) - want).abs().max())
+            for got, want in ((x, _block_at(ref, mesh, pls, 0)),
+                              (other, _block_at(ref, mesh, pls, 1)))) / scale
+    return {"ranks": every, "calls": calls, "grad_gaps": gaps,
+            "one": {k: one[k] for k in ("train", "prefill", "decode",
+                                        "by_row")},
+            "heads": {s: f"H {cfg.num_heads // s[1]} / KV "
+                         f"{cfg.num_kv_heads // s[1]}" for s in meshes}}
+
+
+def _block_at(t, mesh, pls, rank: int):
+    """The block of ``t`` (whole) that ``rank`` of ``mesh`` holds under
+    placements ``pls``: ``local_block`` at that rank's coordinate."""
+    from torch.distributed.tensor import Shard
+    coord = [int(c) for c in (mesh.mesh == rank).nonzero()[0]]
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            size = t.shape[pl.dim] // mesh.shape[i]
+            t = t.narrow(pl.dim, coord[i] * size, size)
+    return t
+
+
+def ep_world_phase(device: str, **kw) -> dict:
+    """Phase 18, the MoE cells on their expert shards: ``EP_WORLD`` in a
+    world of two processes on one card (gloo), every collective the cells
+    issue probed on the card's tensors first (a refused one fails the
+    phase). Holds the gradients against the world of one at
+    ``LM_PARITY_TOL`` and the serve cells at ``TP_WORLD_TOL["serve"]``;
+    prints every rank's routes against the world of one's (a serve cell
+    whose routes differ is held with the world of one's routes pinned),
+    each rank's collectives a call (held to ``dryrun.account``'s), rank
+    0's launches, and the times and peak memory beside the world of one's.
+    Within ``EP_WORLD_SECONDS`` on the card."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.arch.params import tree_leaves
+    t0 = time.perf_counter()
+    kw = {**EP_WORLD, **kw, "device": device}
+    _free(device)
+    card = _card_line() if device != "cpu" else "the CPU"
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/rank0.pt"
+        ctx = mp.start_processes(_ep_world_rank,
+                                 args=(_free_port(), path, kw), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + 2 * EP_WORLD_SECONDS
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      f"moe world of two: still running after "
+                      f"{2 * EP_WORLD_SECONDS:.0f} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(5)
+        res = torch.load(path, weights_only=False)
+    secs = time.perf_counter() - t0
+    one, calls = res["one"], res["calls"]
+    mb = lambda b: "not measured" if b is None else f"{b / 1e9:.2f}e9 B"  # noqa: E731
+    print(f"moe world of two ({card}): {kw['arch']} (layers "
+          f"{kw['layers']}, f32) in two gloo processes, every collective of "
+          f"its cells taken on {device} tensors; the world of one on rank "
+          f"0: gradients {one['train']['s']:.3f} s (a first call "
+          f"{one['train']['cold_s']:.3f} s; peak "
+          f"{mb(one['train']['peak'])}), prefill {one['prefill']['s']:.3f} "
+          f"s ({mb(one['prefill']['peak'])}), decode "
+          f"{one['decode']['s']:.3f} s ({mb(one['decode']['peak'])})")
+    tr = calls["train"]
+    rel = {"loss": abs(tr["loss"] - one["train"]["loss"])
+           / abs(one["train"]["loss"]),
+           "grad_norm": abs(tr["grad_norm"] - one["train"]["grad_norm"])
+           / one["train"]["grad_norm"],
+           "grad": max(res["grad_gaps"].values())}
+    worst = max(res["grad_gaps"], key=res["grad_gaps"].get)
+    ok = all(rel[k] <= LM_PARITY_TOL[k] for k in rel)
+    print(f"moe world of two ({card}): gradients on the expert shards, (1, "
+          f"2) mesh, baseline_rules, B {kw['batch']} x S {kw['seq']}: loss "
+          f"{tr['loss']:.6f} / {one['train']['loss']:.6f} (rel "
+          f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
+          f"gradient leaf {rel['grad']:.2e} of its max ({worst}) against "
+          f"the world of one {'ok' if ok else 'FAIL'}")
+    check(ok, f"moe world of two: the gradients differ: {rel}")
+    tol = TP_WORLD_TOL["serve"]
+    bad = []
+    for label, rec in calls.items():
+        if label == "train":
+            continue
+        kind = "prefill" if label.startswith("prefill") else "decode"
+        # a (2, 1) rank holds one row: held against the world of one row
+        # by row (at a GEMM's other row count cuBLAS sums in another order)
+        by_row = " 2x1" in label
+        want = one["by_row"][kind] if by_row else one[kind]
+        held = rec.get("pinned_logits", rec["logits"])
+        errs = {"logits": float((rec["logits"] - want["logits"]).abs().max()),
+                "held": float((held - want["logits"]).abs().max()),
+                "batch": float((rec["logits"]
+                                - one[kind]["logits"]).abs().max()),
+                "caches": max(float((a - b).abs().max()) for a, b in zip(
+                    tree_leaves(rec["caches"]), tree_leaves(want["caches"])))}
+        good = errs["held"] <= tol and errs["caches"] <= tol
+        bad += [] if good else [label]
+        print(f"moe world of two ({card}): {label}: logits max |diff| "
+              f"{errs['logits']:.2e}"
+              + (f" (routes pinned to the world of one's: "
+                 f"{errs['held']:.2e})" if "pinned_logits" in rec else "")
+              + f", caches {errs['caches']:.2e} against the world of one"
+              + (f" row by row (against its call on both rows: logits "
+                 f"{errs['batch']:.2e})" if by_row else "")
+              + f" (atol {tol:.0e}) {'ok' if good else 'FAIL'}")
+    check(not bad, f"moe world of two: serve cells differ: {bad}")
+    for r, rank in enumerate(res["ranks"]):
+        for label, rec in rank.items():
+            rep = route_report(f"rank {r} {label} against the world of one",
+                               rec["routes"]["want"], rec["routes"]["got"])
+            for i in rep["diff"].nonzero()[:8].tolist():
+                print(f"routes: rank {r} {label}: token {i[0]} choice {i[1]}"
+                      f" expert {int(rec['routes']['want']['idx'][tuple(i)])}"
+                      f" -> {int(rec['routes']['got']['idx'][tuple(i)])}")
+            tally, acc = rec["tally"], rec["account"]
+            same = set(tally) == set(acc) and all(
+                tally[k][0] == n and abs(tally[k][1] - w) <= 1e-9 * w + 1e-6
+                for k, (n, w) in acc.items())
+            print(f"moe world of two: rank {r} {label}: collectives "
+                  + ", ".join(f"{k} {n} ({w:.0f} B on the wire)"
+                              for k, (n, w) in sorted(tally.items()))
+                  + f" {'equal to' if same else 'DIFFER from'} "
+                  f"dryrun.account's; {rec['s']:.3f} s"
+                  + ("" if rec["cold_s"] is None else
+                     f" (a first call {rec['cold_s']:.3f} s)")
+                  + f", peak {mb(rec['peak'])} ({card})")
+            check(same, f"moe world of two: rank {r} {label} collectives "
+                        f"{tally} against the dry run's {acc}")
+    cfg_layers = kw["layers"]
+    launches = res["ranks"][0]
+    want = {"train": {"flash_attention": 2 * cfg_layers,
+                      "flash_attention_backward": cfg_layers}}
+    for label in launches:
+        if label.startswith("prefill"):
+            want[label] = {"flash_attention": cfg_layers}
+        elif label.endswith("dist=False"):
+            want[label] = {"decode_attention": cfg_layers}
+        elif label.endswith("dist=True"):
+            want[label] = {"decode_attention_partial": cfg_layers}
+    for label, n in want.items():
+        got = launches[label]["launches"]
+        check(all(got.get(k) == v for k, v in n.items()),
+              f"moe world of two: launches of {label}: {got}, expected {n}")
+    heads = res["heads"]
+    print(f"moe world of two ({card}): launches on rank 0 at its shards' "
+          f"head counts ((1, 2): {heads[(1, 2)]}; (2, 1): {heads[(2, 1)]}): "
+          + "; ".join(f"{label} " + ", ".join(
+              f"{k} {v}" for k, v in rec["launches"].items() if v)
+              for label, rec in launches.items()))
+    print(f"moe world of two ({card}): phase 18 in {secs:.1f} s (budget "
+          f"{EP_WORLD_SECONDS:.0f})")
+    check(device == "cpu" or secs <= EP_WORLD_SECONDS,
+          f"moe world of two: phase 18 took {secs:.1f} s")
+    return {**res, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -4997,6 +5560,7 @@ def main() -> int:
     dense_gap_phase("cuda")
     training_across_devices_phase("cuda")
     tp_world_phase("cuda")
+    ep_world_phase("cuda")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     for arch, kw in RECURRENT_PARITY.items():

@@ -31,12 +31,13 @@ flash-decode (``layers.attention_decode``).
 shards of a mesh: each period's FSDP shards gathered over the data axes
 just before the period (again in its recompute; the gradients
 reduce-scattered back), the ``attn`` and ``mlp`` parts on their head and
-column shards (``layers``), the embedding, the LM head and the
-cross-entropy vocab-parallel (an embedding table shorter than the
-vocabulary holds this rank's rows), and, under sequence parallelism, the
-residual stream between blocks as this rank's sequence shard. Parts whose
-weights are whole (the MoE experts, Mamba2, RWKV6, Zamba2's shared block)
-compute on the whole sequence. Without ``tp`` nothing changes.
+column shards (``layers``), the ``moe`` part on its expert shards
+(``moe``), the embedding, the LM head and the cross-entropy vocab-parallel
+(an embedding table shorter than the vocabulary holds this rank's rows),
+and, under sequence parallelism, the residual stream between blocks as
+this rank's sequence shard. Parts whose weights are whole (Mamba2, RWKV6,
+Zamba2's shared block) compute on the whole sequence. Without ``tp``
+nothing changes.
 """
 from __future__ import annotations
 
@@ -276,10 +277,11 @@ def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups,
                                      tp=tp)
         else:
             m, aux = moe.moe_block(cfg, p["moe"],
-                                   enter(layers.apply_norm(cfg, p["ln2"], h)),
+                                   layers.apply_norm(cfg, p["ln2"], h),
                                    path=moe_path, shard=shard,
-                                   groups=moe_groups, token_mean=token_mean)
-            h = h + leave(m)
+                                   groups=moe_groups, token_mean=token_mean,
+                                   tp=tp)
+            h = h + m
         return h, {"k": k, "v": v}, aux
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_block(
@@ -567,7 +569,8 @@ def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, shard,
                                         tp=tp)
         m, _ = moe.moe_block(cfg, p["moe"],
                              layers.apply_norm(cfg, p["ln2"], h),
-                             path=moe_path, shard=shard, groups=moe_groups)
+                             path=moe_path, shard=shard, groups=moe_groups,
+                             tp=tp)
         return h + m
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_decode(

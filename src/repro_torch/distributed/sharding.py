@@ -515,6 +515,19 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+class _Repeated(torch.autograd.Function):
+    """The identity; the backward divides the gradient by ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 def gather(x, dim: int, group, n: int):
     """All-gather along ``dim`` over ``group`` (``n`` ranks); the gradient
     is reduce-scattered back. FSDP's gather of a weight shard, and
@@ -590,23 +603,27 @@ class TPContext:
     """What one rank's model code needs to compute on its shards: the
     ``model`` axis's group (``tp`` ranks, this rank at ``rank``), whether
     the residual stream between blocks is this rank's sequence shard
-    (``seq``, sequence parallelism), and ``fsdp``: for each leaf of the
+    (``seq``, sequence parallelism), ``fsdp``: for each leaf of the
     parameter tree, the ``(tensor dim, group, ranks)`` all-gathers, the
     innermost mesh dim first, that make its FSDP shard whole over the data
     axes where it is used (the dims of ``"blocks"`` leaves are those of
-    one period's slice). ``None`` for a leaf (or subtree) that needs
-    none.
+    one period's slice; ``None`` for a leaf, or subtree, that needs none),
+    and ``expert_dp``: the ``(group, ranks)`` of each data-axis mesh dim
+    that splits the MoE experts' columns and stays split (the serving
+    rules' 2D expert shards), the innermost first.
 
     The layers read from each weight's shape whether they hold a shard of
     it: a fused head projection narrower than the config's holds this
     rank's ``H / tp`` heads, an MLP projection narrower than ``d_ff`` its
-    columns, an embedding shorter than the vocabulary its rows. Every
-    method is the identity at ``tp`` = 1."""
+    columns, an embedding shorter than the vocabulary its rows, an expert
+    stack shorter than E its experts. Every method is the identity at
+    ``tp`` = 1."""
     model: Any = None
     tp: int = 1
     rank: int = 0
     seq: bool = False
     fsdp: Any = None
+    expert_dp: tuple = ()
 
     # FSDP: a period's (or the top-level) leaves gathered where used
     def gather_tree(self, tree, specs):
@@ -654,6 +671,14 @@ class TPContext:
             k = y.shape[1] // self.tp
             return y.narrow(1, self.rank * k, k)
         return y
+
+    def repeated(self, x):
+        """``x`` (gathered whole along the sequence under ``seq``) as the
+        input of a part every rank computes alike: the gather's backward
+        sums the ranks' gradients, so each passes a ``tp``-th of its own."""
+        if not self.seq or self.tp == 1:
+            return x
+        return _Repeated.apply(x, self.tp)
 
     def reduce(self, x):
         """The ranks' partial values summed (forward); the gradient passes

@@ -47,11 +47,14 @@ def combine_partials(o, m, l, group=None):
     ``o·corr`` and ``l·corr``. With ``group`` each rank holds one shard's
     partials and the max and sums are all-reduces over ``group`` (every
     rank gets the result); without, the partials carry a leading axis of
-    shards on one device and the max and sums run over it."""
+    shards on one device and the max and sums run over it. A group of
+    one rank holds every shard: nothing is reduced."""
+    import torch.distributed as dist
     if group is None:
         rmax, rsum = (lambda t: t.amax(0)), (lambda t: t.sum(0))
+    elif dist.get_world_size(group) == 1:
+        rmax = rsum = lambda t: t           # noqa: E731
     else:
-        import torch.distributed as dist
         rmax = functools.partial(_all_reduce, op=dist.ReduceOp.MAX,
                                  group=group)
         rsum = functools.partial(_all_reduce, op=dist.ReduceOp.SUM,

@@ -12,6 +12,14 @@ computes on its own shards, as XLA partitions the reference's cell:
     LM head's and cross-entropy's vocabulary (``arch/layers.py``,
     ``arch/model.py``); two all-reduces a block forward (the attention's
     and the MLP's partial sums) and two backward, and three a loss chunk;
+  * expert parallelism over ``model`` (``arch/moe.py``): an ``attn_moe``
+    block's experts, ``E / tp`` a rank (or, where E does not divide the
+    extent, every expert's ``d_ff / tp`` columns), the shared expert's
+    columns as the MLP's; the ranks route their shared rows alike and
+    each combines its experts' choices, one f32 all-reduce a block
+    forward (and the shared expert's), the input's and the gates' sums
+    backward; no all-to-all. The router (d x E) is gathered over
+    ``model`` once a call;
   * FSDP over the data axes: a period's ``embed``-sharded leaves are
     all-gathered just before the period and again in its remat
     recompute, and their gradients reduce-scattered back to the shard;
@@ -22,17 +30,22 @@ computes on its own shards, as XLA partitions the reference's cell:
     step with ``dist_decode`` keeps the KV cache (B@data, S@model), gathers
     every rank's q heads (B x H x hd a token), attends over its sequence
     shard and combines (``kernels/decode_attention/distributed.py``), and
-    keeps its own heads' output for its row shard of ``wo``.
+    keeps its own heads' output for its row shard of ``wo``; the experts
+    stay 2D (``expert@model`` x ``expert_mlp@data``): each MoE block
+    all-gathers its expert buffer's token groups over the data axes and
+    reduce-scatters its partial products back.
 
 The plan of each leaf (``leaf_plans``) says where it is gathered and how
 its gradient is reduced. Leaves the TP code does not split keep the
-gather-whole path, leaf by leaf, once a call: the MoE experts, Mamba2's
-and RWKV6's leaves and Zamba2's shared block. So does a block whose
-attention projections the rules split in the middle of a head (H not a
-multiple of the model extent): its attention leaves are gathered over
-``model`` and computed replicated, the *guard* (on the (16, 16) mesh:
-starcoder2-7b, H 36; qwen2-vl-7b, H 28; llama4-maverick, H 40). A cell
-records which pattern positions took it (``Cell.guarded``).
+gather-whole path, leaf by leaf, once a call: Mamba2's and RWKV6's leaves
+and Zamba2's shared block. So does a block whose attention projections
+the rules split in the middle of a head (H not a multiple of the model
+extent): its attention leaves are gathered over ``model`` and computed
+replicated, the *guard* (on the (16, 16) mesh: starcoder2-7b, H 36;
+qwen2-vl-7b, H 28; llama4-maverick, H 40, whose MoE blocks still compute
+on their expert shards). A cell records which pattern positions took the
+guard (``Cell.guarded``) and which MoE blocks compute on expert shards
+(``Cell.expert_split``).
 
 A training step's microbatch rows are spread over the data-parallel
 ranks (gcd(dp ranks, rows) slices, consecutive ranks sharing a slice);
@@ -41,7 +54,8 @@ the data axes by the FSDP reduce-scatters, or an all-reduce for leaves
 replicated there, then divided by the data-parallel extent; over
 ``model`` by a sum only for leaves replicated there that each rank used
 in part (the KV projections and the per-head norms, and under sequence
-parallelism every such leaf). ``grad_hook`` then runs on the whole
+parallelism every such leaf but the MoE routers, whose gradient is whole
+on every rank). ``grad_hook`` then runs on the whole
 gradients (where the reference's runs), the clip's global norm is taken
 over the distinct shards (a shard replicated on a mesh dim counts once),
 and AdamW runs on each rank's shards; the moments shard like the
@@ -105,6 +119,7 @@ class Cell:
     moe_path: str = "dispatch"
     grad_hook: bool = False
     guarded: Tuple[str, ...] = field(default_factory=tuple)
+    expert_split: Tuple[str, ...] = field(default_factory=tuple)
 
 
 def _extent(mesh, axes) -> int:
@@ -184,7 +199,7 @@ def _batch_dim(key: str) -> int:
 #: the parts of a block, and the top-level leaves, that the TP code
 #: computes on their shards; every other leaf sharded on ``model`` keeps
 #: the gather-whole path
-TP_PARTS = ("ln1", "ln2", "attn", "mlp")
+TP_PARTS = ("ln1", "ln2", "attn", "mlp", "moe")
 TP_TOP = ("embed", "lm_head", "final_norm", "ln0")
 #: a TP attention's leaves replicated on ``model`` that each rank uses in
 #: part (its KV heads, and the per-head norms on its q heads)
@@ -197,12 +212,17 @@ class LeafPlan:
     ``upfront`` ({mesh dim: tensor dim}) is gathered once a call, ``fsdp``
     (data-parallel mesh dims) where the leaf is used (a period's just
     before it, again in its recompute, the gradient reduce-scattered
-    back); ``model_sum``: its gradient is summed over ``model``."""
+    back); ``stationary`` (data-parallel mesh dims) is never gathered: the
+    MoE experts' columns under the serving rules, whose ranks gather the
+    rows instead (its gradient, taken over every rank's rows, is not
+    reduced over them); ``model_sum``: its gradient is summed over
+    ``model``."""
     path: Tuple[str, ...]
     placements: tuple
     upfront: Dict[int, int]
     fsdp: Dict[int, int]
     model_sum: bool
+    stationary: Dict[int, int] = field(default_factory=dict)
 
 
 def _paths(tree, pre=()):
@@ -250,6 +270,22 @@ def guarded_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
                  if kind in ("attn", "attn_moe"))
 
 
+def expert_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
+    """The pattern positions (``"pos{j}"``) of MoE blocks whose experts
+    the rules split (over ``model`` by experts or columns, or over the
+    data axes by columns), which compute on their expert shards."""
+    if not tp_model(cfg) or not cfg.num_experts:
+        return ()
+    spec = spec_for(mesh, rules.params, ("expert", "embed", "expert_mlp"),
+                    (cfg.num_experts, cfg.d_model, cfg.d_ff))
+    axes = _axes(spec[0]) + _axes(spec[2])
+    if not any(n > 1 for a, n in zip(mesh.mesh_dim_names, mesh.shape)
+               if a in axes):
+        return ()
+    return tuple(f"pos{j}" for j, kind in enumerate(cfg.pattern)
+                 if kind == "attn_moe")
+
+
 def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
                seq: bool = False) -> list:
     """Every parameter leaf's ``LeafPlan``, in ``tree_leaves`` order, on
@@ -262,26 +298,32 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
                                                                  "data")}
     guard = set(guarded_positions(cfg, mesh, rules))
     out = []
-    for (path, _), (_, (_, pls)) in zip(_paths(specs), _paths(shardings)):
+    for (path, spec), (_, (_, pls)) in zip(_paths(specs), _paths(shardings)):
         dims = sharded_dims(mesh, pls)
         block = path[0] == "blocks"
         tp_leaf = tp_model(cfg) and (path[2] in TP_PARTS if block
                                      else path[0] in TP_TOP)
+        router = block and path[2:] == ("moe", "router")
         if not tp_leaf:                       # gather-whole, once a call
             upfront = dict(dims)
-        elif block and path[1] in guard and path[2] == "attn":
+        elif block and path[1] in guard and path[2] == "attn" or router:
             upfront = {i: d for i, d in dims.items() if i == m}
         else:
             upfront = {}
-        fsdp = {i: d for i, d in dims.items() if i in dp and i not in upfront}
+        # the experts' columns over the data axes (2D expert shards)
+        stationary = {i: d for i, d in dims.items() if tp_leaf and i in dp
+                      and spec.axes[d] == "expert_mlp"}
+        fsdp = {i: d for i, d in dims.items() if i in dp
+                and i not in upfront and i not in stationary}
         replicated = m is None or m not in dims or m in upfront
-        partial = seq or (block and tp_leaf and path[2] == "attn"
-                          and path[1] not in guard
-                          and path[3] in PARTIAL
-                          and _heads_split(cfg, mesh, rules))
+        # every rank's router gradient is whole (``arch/moe.py``)
+        partial = not router and (seq or (
+            block and tp_leaf and path[2] == "attn"
+            and path[1] not in guard and path[3] in PARTIAL
+            and _heads_split(cfg, mesh, rules)))
         out.append(LeafPlan(path, tuple(pls), upfront, fsdp,
                             bool(replicated and partial and m is not None
-                                 and mesh.shape[m] > 1)))
+                                 and mesh.shape[m] > 1), stationary))
     return out
 
 
@@ -293,7 +335,11 @@ def tp_context(mesh, plans: list, seq: bool) -> TPContext:
     m = model_dim(mesh)
     n = mesh.shape[m] if m is not None else 1
     fsdp: dict = {}
+    expert_dp = ()
     for plan in plans:
+        if plan.stationary and plan.path[-1] == "w_gate":
+            expert_dp = tuple((mesh.get_group(i), mesh.shape[i])
+                              for i in sorted(plan.stationary, reverse=True))
         if not plan.fsdp:
             continue
         off = 1 if plan.path[0] == "blocks" else 0
@@ -305,7 +351,7 @@ def tp_context(mesh, plans: list, seq: bool) -> TPContext:
             for i in sorted(plan.fsdp, reverse=True))
     return TPContext(model=mesh.get_group(m) if n > 1 else None, tp=n,
                      rank=mesh.get_coordinate()[m] if m is not None else 0,
-                     seq=seq, fsdp=fsdp)
+                     seq=seq, fsdp=fsdp, expert_dp=expert_dp)
 
 
 def _compute_params(params, plans, mesh):
@@ -373,18 +419,17 @@ def _micro_rows(cfg, batch, mesh, microbatches: int):
     return micro, rows, split
 
 
-def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
-                            opt: AdamWConfig = AdamWConfig(),
-                            remat: bool = True, moe_path: str = "dispatch",
-                            microbatches: int = 1,
-                            grad_hook: Optional[Callable] = None,
-                            scan_unroll=1, moe_groups: int = 0,
-                            cast_params_bf16: bool = False):
-    """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics) on ``mesh``: params and the AdamW moments DTensors (at
-    ``param_shardings``), the step count a replicated DTensor, the batch
-    DTensors at ``batch_shardings`` or plain tensors whole on every rank.
-    Every rank of the mesh calls it (see the module's docstring)."""
+def make_sharded_grad_fn(cfg: ModelConfig, mesh, rules: Rules, *,
+                         remat: bool = True, moe_path: str = "dispatch",
+                         microbatches: int = 1,
+                         grad_hook: Optional[Callable] = None,
+                         scan_unroll=1, moe_groups: int = 0,
+                         cast_params_bf16: bool = False):
+    """Returns grads(params, batch) -> (this rank's blocks of the step's
+    gradients, in ``tree_leaves`` order and at the params' placements,
+    metrics with the clip's ``grad_norm``): the train step's gradients
+    before the update (``make_sharded_train_step``'s arguments and
+    layout). Every rank of the mesh calls it."""
     import torch.distributed as dist
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
@@ -394,7 +439,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
     token_mean = (lambda m: mesh_mean_autograd(m, mesh)) \
         if _is_moe(cfg) else None
 
-    def step(params, opt_state, batch):
+    def grads_of(params, batch):
         micro, rows, split = _micro_rows(cfg, batch, mesh, microbatches)
         S = micro[0]["labels"].shape[1]
         for mb in micro:              # each rank holds the same token count
@@ -417,7 +462,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
         g_local = []
         for g, plan in zip(grads, plans):
             for i in rdims:
-                if i not in plan.fsdp:
+                if i not in plan.fsdp and i not in plan.stationary:
                     dist.all_reduce(g, group=mesh.get_group(i))
             if plan.model_sum:
                 dist.all_reduce(g, group=mesh.get_group(m))
@@ -441,7 +486,35 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
                  if holds_distinct(p, mesh) else torch.zeros((), dtype=f32,
                                                              device=g.device)
                  for g, p in zip(g_local, p_leaves))
-        gnorm = torch.sqrt(mesh_sum(sq, mesh))
+        metrics["grad_norm"] = torch.sqrt(mesh_sum(sq, mesh))
+        return g_local, metrics
+
+    return grads_of
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh, rules: Rules, *,
+                            opt: AdamWConfig = AdamWConfig(),
+                            remat: bool = True, moe_path: str = "dispatch",
+                            microbatches: int = 1,
+                            grad_hook: Optional[Callable] = None,
+                            scan_unroll=1, moe_groups: int = 0,
+                            cast_params_bf16: bool = False):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics) on ``mesh``: params and the AdamW moments DTensors (at
+    ``param_shardings``), the step count a replicated DTensor, the batch
+    DTensors at ``batch_shardings`` or plain tensors whole on every rank.
+    Every rank of the mesh calls it (see the module's docstring): the
+    gradients of ``make_sharded_grad_fn``, then AdamW on each rank's
+    shards."""
+    grads_of = make_sharded_grad_fn(
+        cfg, mesh, rules, remat=remat, moe_path=moe_path,
+        microbatches=microbatches, grad_hook=grad_hook,
+        scan_unroll=scan_unroll, moe_groups=moe_groups,
+        cast_params_bf16=cast_params_bf16)
+
+    def step(params, opt_state, batch):
+        g_local, metrics = grads_of(params, batch)
+        gnorm = metrics.pop("grad_norm")
         local = lambda t: t.to_local()            # noqa: E731
         state = AdamWState(local(opt_state.step),
                            tree_map(local, opt_state.mu),
@@ -686,7 +759,8 @@ def build_cell(arch: Union[str, ModelConfig],
                 remat=remat, dist_decode=dist_decode,
                 cast_params_bf16=cast_params_bf16, moe_path=moe_path,
                 grad_hook=grad_hook is not None,
-                guarded=guarded_positions(cfg, mesh, rules))
+                guarded=guarded_positions(cfg, mesh, rules),
+                expert_split=expert_split_positions(cfg, mesh, rules))
 
 
 def cell_shardings(cell: Cell):

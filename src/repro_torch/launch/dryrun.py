@@ -14,7 +14,8 @@ is counted from its config, shapes and placements, as the cell's ``fn``
 would run it (see ``launch/cells.py``):
 
   * operations: the projections' matrix products (2 in x out a token per
-    weight; MoE experts over their capacity slots), attention and the
+    weight; MoE experts over their capacity slots, a rank's experts or
+    columns), attention and the
     scans by the formulas of ``chip_smoke.py``'s bounds, the LM head on
     every token in training and on the last one in serving; a training
     step adds the backward (2x the forward's products, 2.5x attention's)
@@ -26,9 +27,10 @@ would run it (see ``launch/cells.py``):
   * collectives (ring model, wire bytes a device receives): the all-gather
     of each parameter to whole (once a step), the gradients' all-reduce
     over every mesh dim, the batch's gather, the scalar all-reduces, the
-    MoE router's token means; a decode step's gather of the sequence
-    shards, or, with the distributed flash-decode, its three stats
-    all-reduces a layer;
+    MoE router's token means, the MoE combine's sums over ``model`` and
+    the 2D expert buffer's gathers over ``data``; a decode step's gather
+    of the sequence shards, or, with the distributed flash-decode, its
+    three stats all-reduces a layer;
   * memory: the argument, output and temporary bytes a device holds.
 
 No option changes a number here by pretending to run: ``--keep-hlo`` has
@@ -119,13 +121,33 @@ def _projections(cfg, expert_apps: float):
 
 
 @dataclass
+class MoESplit:
+    """How a MoE block's experts lie on a rank: over ``model`` by experts
+    (``experts``, the extent) or by columns (``cols``), their columns over
+    the data axes (``dp``: the extents, innermost first; the expert
+    buffer's groups gathered over them), and whether the shared expert
+    splits its columns (``shared``)."""
+    experts: int = 1
+    cols: int = 1
+    dp: tuple = ()
+    shared: bool = False
+
+    @property
+    def split(self) -> bool:
+        """Whether the rank's routed output is a part of a sum over
+        ``model``."""
+        return self.experts > 1 or self.cols > 1
+
+
+@dataclass
 class Layout:
     """What a cell's ranks compute on (``cells.leaf_plans``): ``tp`` the
     model extent, ``seq`` sequence parallelism, per pattern position
-    whether the attention splits on whole heads (``attn``) and the MLP on
-    its columns (``mlp``), whether the embedding table (``embed``) and the
-    LM head (``vocab``) hold vocab shards, and ``nkv``, the KV heads a
-    rank's q heads read (the most over the ranks)."""
+    whether the attention splits on whole heads (``attn``), the MLP on
+    its columns (``mlp``) and how the MoE experts split (``moe``), whether
+    the embedding table (``embed``) and the LM head (``vocab``) hold vocab
+    shards, and ``nkv``, the KV heads a rank's q heads read (the most over
+    the ranks)."""
     plans: list
     shapes: list
     tp: int
@@ -135,6 +157,7 @@ class Layout:
     embed: bool
     vocab: bool
     nkv: int
+    moe: dict = field(default_factory=dict)
 
 
 def layout(cell: Cell, seq_len: int) -> Layout:
@@ -159,28 +182,58 @@ def layout(cell: Cell, seq_len: int) -> Layout:
         hq = cfg.num_heads // tp
         nkv = max(b - a for a, b in (kv_range(cfg, r * hq, hq)
                                      for r in range(tp)))
+    by_path = {p.path: p for p in plans}
+    moe = {}
+    for j, kind in enumerate(cfg.pattern):
+        plan = by_path.get(("blocks", f"pos{j}", "moe", "w_gate"))
+        if kind != "attn_moe" or plan is None or not tp_model(cfg):
+            continue
+        dims = sharded_dims(mesh, plan.placements)
+        on_m = dims.get(m) if m not in plan.upfront else None
+        moe[f"pos{j}"] = MoESplit(
+            experts=mesh.shape[m] if on_m == 1 else 1,
+            cols=mesh.shape[m] if on_m == 3 else 1,
+            dp=tuple(mesh.shape[i] for i in sorted(plan.stationary,
+                                                   reverse=True)),
+            shared=split.get(("blocks", f"pos{j}", "moe", "shared",
+                              "w_down"), False))
     return Layout(plans, shapes, tp, seq, attn, mlp,
-                  split.get(("embed",), False), split.get(head, False), nkv)
+                  split.get(("embed",), False), split.get(head, False), nkv,
+                  moe)
 
 
 def _split(path, lay: Layout, cfg, cache: bool) -> tuple:
-    """(in, out) width factors of a projection on one rank."""
+    """(in, out) width factors of a projection on one rank, and the factor
+    of its applications a token (a MoE rank's experts, and the groups it
+    gathers)."""
     if path[0] != "blocks":
-        return 1.0, 1.0
+        return 1.0, 1.0, 1.0
     pos, part, leaf = path[1], path[2], path[-1]
     if part == "attn" and lay.attn[pos]:
         if leaf == "wq":
-            return 1.0, 1.0 / lay.tp
+            return 1.0, 1.0 / lay.tp, 1.0
         if leaf == "wo":
-            return 1.0 / lay.tp, 1.0
+            return 1.0 / lay.tp, 1.0, 1.0
         if leaf in ("wk", "wv") and not cache:
-            return 1.0, lay.nkv / cfg.num_kv_heads
-    if part == "mlp" and lay.mlp[pos]:
+            return 1.0, lay.nkv / cfg.num_kv_heads, 1.0
+    if part == "mlp":
+        mlp = lay.mlp[pos]
+    else:                           # the shared expert splits as the MLP
+        mlp = part == "moe" and "shared" in path and pos in lay.moe \
+            and lay.moe[pos].shared
+    if mlp:
         if leaf in ("w_gate", "w_up", "w_in"):
-            return 1.0, 1.0 / lay.tp
+            return 1.0, 1.0 / lay.tp, 1.0
         if leaf == "w_down":
-            return 1.0 / lay.tp, 1.0
-    return 1.0, 1.0
+            return 1.0 / lay.tp, 1.0, 1.0
+    if part == "moe" and pos in lay.moe and "shared" not in path \
+            and leaf != "router":
+        ms = lay.moe[pos]
+        dp = math.prod(ms.dp)
+        cols = 1.0 / (ms.cols * dp)
+        apps = dp / ms.experts
+        return (1.0, cols, apps) if leaf != "w_down" else (cols, 1.0, apps)
+    return 1.0, 1.0, 1.0
 
 
 def _attn_layers(cfg) -> int:
@@ -208,9 +261,9 @@ def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
     bytes."""
     p_flops = p_bytes = 0.0
     for path, i, o, n in _projections(cfg, expert_apps):
-        fi, fo = _split(path, lay, cfg, cache)
-        p_flops += 2 * i * o * n * fi * fo
-        p_bytes += (i * fi + o * fo) * n * act
+        fi, fo, fn = _split(path, lay, cfg, cache)
+        p_flops += 2 * i * o * n * fn * fi * fo
+        p_bytes += (i * fi + o * fo) * n * fn * act
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a_flops = a_bytes = 0.0
     for split, n in _attn_split(cfg, lay, dist):
@@ -342,23 +395,84 @@ def _weights(cell: Cell, lay: Layout, c: Count, nb: int, grad: bool,
 
 
 def _parts(cfg, lay: Layout) -> list:
-    """(sharded, input width) of every part a period runs, in order: an
-    attention block's attention and its MLP (or MoE), a Mamba2 mixer,
-    RWKV6's time and channel mixes, Zamba2's shared attention and MLP."""
+    """(sharded, input width, the MoE block's ``MoESplit`` or None) of
+    every part a period runs, in order: an attention block's attention and
+    its MLP (or MoE), a Mamba2 mixer, RWKV6's time and channel mixes,
+    Zamba2's shared attention and MLP."""
     d = cfg.d_model
     out = []
     for j, kind in enumerate(cfg.pattern):
         pos = f"pos{j}"
         if kind in ("attn", "attn_moe"):
-            out.append((lay.attn[pos], d))
-            out.append((lay.mlp[pos] if kind == "attn" else False, d))
+            out.append((lay.attn[pos], d, None))
+            if kind == "attn":
+                out.append((lay.mlp[pos], d, None))
+            else:
+                out.append((False, d, lay.moe.get(pos, MoESplit())))
         elif kind == "mamba2":
-            out.append((False, d))
+            out.append((False, d, None))
         else:
-            out += [(False, d), (False, d)]
+            out += [(False, d, None), (False, d, None)]
     if cfg.shared_attn_every_period:
-        out += [(False, 2 * d), (False, 2 * d)]
+        out += [(False, 2 * d, None), (False, 2 * d, None)]
     return out
+
+
+def _moe_part(c: Count, cfg, ms: MoESplit, t: int, seq: bool, rows: int,
+              S: int, act: int, fwd: int, grad: bool) -> None:
+    """A MoE block's collectives over ``model`` in one pass of ``rows`` x
+    ``S`` tokens (``arch/moe.py``): the f32 combine's sum where the
+    experts split (an all-reduce, or under sequence parallelism a
+    reduce-scatter) and the shared expert's partial sums, each ``fwd``
+    times; backward, the input's and the gates' sums (the copy-ins' all-
+    reduces; under sequence parallelism the sequence gather's
+    reduce-scatter, the gates' all-reduce and the outputs' all-gathers)."""
+    tok = rows * S
+    x = tok * cfg.d_model * act
+    out32 = tok * cfg.d_model * 4
+    gates = tok * cfg.num_experts_per_tok * 4
+    outs = ([out32] if ms.split else []) + ([x] if ms.shared else [])
+    if seq:
+        c.coll("all-gather", fwd * _ring("all-gather", t, x / t), fwd)
+        for o in outs:
+            c.coll("reduce-scatter", fwd * _ring("reduce-scatter", t, o),
+                   fwd)
+        if grad:
+            c.coll("reduce-scatter", _ring("reduce-scatter", t, x))
+            c.coll("all-reduce", _ring("all-reduce", t, gates))
+            for o in outs:
+                c.coll("all-gather", _ring("all-gather", t, o / t))
+        return
+    for o in outs:
+        c.coll("all-reduce", fwd * _ring("all-reduce", t, o), fwd)
+    if grad and outs:
+        c.coll("all-reduce", _ring("all-reduce", t, x))
+        if ms.split:
+            c.coll("all-reduce", _ring("all-reduce", t, gates))
+
+
+def _moe_groups(c: Count, cfg, lay: Layout, tokens: int, groups: int,
+                act: int, fwd: int = 1, grad: bool = False) -> None:
+    """The serving rules' 2D expert shards in one pass of ``tokens`` (a
+    rank's, in ``groups`` token groups): each MoE block's expert buffer
+    (its experts, every group's C slots) all-gathered over the data axes
+    that split the experts' columns, the innermost first, and its partial
+    products reduce-scattered back, the outermost first, ``fwd`` times;
+    the backward's are the same (the gather's backward reduce-scatters,
+    the reduce-scatter's all-gathers)."""
+    times = fwd + int(grad)
+    for ms in lay.moe.values():
+        if not ms.dp:
+            continue
+        G, _, C = dispatch_geometry(cfg, tokens, 1.25, groups)
+        buf = cfg.num_experts / ms.experts * G * C * cfg.d_model * act
+        for _ in range(cfg.num_periods):
+            _chain(c, "all-gather", ms.dp, buf, times)
+            whole = buf * math.prod(ms.dp)
+            for n in reversed(ms.dp):
+                c.coll("reduce-scatter",
+                       times * _ring("reduce-scatter", n, whole), times)
+                whole /= n
 
 
 def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
@@ -382,9 +496,11 @@ def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
                                            tok * cfg.d_model / t))
         else:
             c.coll("all-reduce", _ring("all-reduce", t, tok * cfg.d_model))
-    for sharded, width in _parts(cfg, lay):
+    for sharded, width, ms in _parts(cfg, lay):
         for _ in range(cfg.num_periods):
-            if lay.seq:
+            if ms is not None:
+                _moe_part(c, cfg, ms, t, lay.seq, rows, S, act, fwd, grad)
+            elif lay.seq:
                 c.coll("all-gather", fwd * _ring("all-gather", t,
                                                  tok * width / t), fwd)
                 if grad:
@@ -448,7 +564,11 @@ def account(cell: Cell) -> dict:
                      "attention_split": sorted(k for k, v in lay.attn.items()
                                                if v),
                      "guarded": list(cell.guarded),
-                     "vocab_split": lay.vocab}
+                     "vocab_split": lay.vocab,
+                     "expert_split": {pos: {"experts": ms.experts,
+                                            "columns_model": ms.cols,
+                                            "columns_data": list(ms.dp)}
+                                      for pos, ms in lay.moe.items()}}
     return mem
 
 
@@ -491,6 +611,7 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
     for i in range(mb):
         w = _weights(cell, lay, c, nb, True, fwd, upfront=i == 0)
         _activations(c, cfg, lay, rows, S, act, fwd, True)
+        _moe_groups(c, cfg, lay, rows * S, groups, act, fwd, True)
         _loss(c, cfg, lay, rows, S, act, chunks)
     w_compute = w["device"] / nb * act
     passes = 3 + remat          # forward, recompute, the two backward GEMMs
@@ -505,7 +626,7 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
         g = _elems(mesh, plan, shape, plan.fsdp) * pbytes
         g /= math.prod(mesh.shape[i] for i in plan.fsdp)
         for i in row_dims(cfg, mesh):
-            if i not in plan.fsdp:
+            if i not in plan.fsdp and i not in plan.stationary:
                 c.coll("all-reduce", _ring("all-reduce", mesh.shape[i], g))
         if plan.model_sum:
             c.coll("all-reduce", _ring("all-reduce", lay.tp, g))
@@ -598,6 +719,7 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
     w = _weights(cell, lay, c, pbytes, False, 1)
     w_compute = w["device"] / pbytes * act
     _activations(c, cfg, lay, rows, 1 if decode else S, act, 1, False)
+    _moe_groups(c, cfg, lay, tokens, groups, act)
     gathered = w["gathered"]
     if not decode:
         if lay.seq and lay.tp > 1:          # the last token's gather

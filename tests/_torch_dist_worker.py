@@ -527,6 +527,28 @@ def _attn_shapes(params) -> set:
     return out
 
 
+def _expert_shapes(params) -> set:
+    """Every shape an expert weight (``w_gate``, ``w_up``, ``w_down`` of a
+    MoE block, not its shared expert) takes on a rank before a gather over
+    ``model``: its block and a period's slice of it."""
+    out = set()
+    for period in params["blocks"].values():
+        moe = period.get("moe")
+        if moe is None:
+            continue
+        for name in ("w_gate", "w_up", "w_down"):
+            local = tuple(moe[name].to_local().shape)
+            out.update({local, local[1:]})
+    return out
+
+
+def _watched(c, params) -> set:
+    """The leaf shapes no all-gather over ``model`` may carry: the
+    experts' (``c["watch"] == "experts"``) or the ``attn``-kind leaves'."""
+    return (_expert_shapes if c.get("watch") == "experts"
+            else _attn_shapes)(params)
+
+
 def _model_gathers(calls, mesh, shapes) -> list:
     """The recorded all-gathers over ``mesh``'s model group whose input
     has the shape of an ``attn``-kind leaf."""
@@ -568,11 +590,15 @@ def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
                                                   place_tree)
     from repro_torch.launch.cells import build_cell, cell_shardings
     from repro_torch.train.optim import AdamWState
+    from repro_torch.launch import cells
     cfg = _tp_cfg(c)
     rules = getattr(S, c["rules"])("pod" in mesh.mesh_dim_names)
     B, seq = c["batches"][0]["labels"].shape
     cell = build_cell(cfg, ShapeSpec("t", seq, B, "train"), mesh,
                       rules=rules, microbatches=c["microbatches"])
+    if c.get("fault") == "router_model_sum":
+        # a planted fault: the router's gradient summed over ``model``
+        cells.leaf_plans = _router_summed(cells.leaf_plans)
     p_sh = param_shardings(mesh, rules, M.build_param_specs(cfg))
     o_sh = AdamWState((mesh, (Replicate(),) * mesh.ndim), p_sh, p_sh)
     b_sh = cell_shardings(cell)[2]
@@ -583,7 +609,7 @@ def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
             AdamWState(torch.tensor(start["step"], dtype=torch.int32),
                        params_from_numpy(start["mu"], "cpu"),
                        params_from_numpy(start["nu"], "cpu"))), (p_sh, o_sh))
-        shapes = _attn_shapes(params)
+        shapes = _watched(c, params)
         batch = {k: place(torch.from_numpy(v), *b_sh[k]) for k, v in b.items()}
         log.on = True
         params, ostate, m = cell.fn(params, ostate, batch)
@@ -598,7 +624,22 @@ def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
             "placements_kept": all(
                 tuple(x.placements) == tuple(sh[1])
                 for x, sh in zip(_leaves(params), _leaves(p_sh)))})
+    if c.get("fault"):
+        cells.leaf_plans = cells.leaf_plans.__wrapped__
     return {"steps": steps, "account": _count(cell), "guarded": cell.guarded}
+
+
+def _router_summed(leaf_plans):
+    """``leaf_plans`` with every MoE router's ``model_sum`` set."""
+    import dataclasses
+    import functools
+
+    @functools.wraps(leaf_plans)
+    def plans(*args, **kw):
+        return [dataclasses.replace(p, model_sum=True)
+                if p.path[-1] == "router" else p
+                for p in leaf_plans(*args, **kw)]
+    return plans
 
 
 def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
@@ -614,7 +655,7 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
     cfg = _tp_cfg(c)
     rules = getattr(S, c["rules"])(False)
     params = _placed_train_state(cfg, c["params"], mesh, rules)[0]
-    shapes = _attn_shapes(params)
+    shapes = _watched(c, params)
     inputs = {k: torch.from_numpy(v) for k, v in c["inputs"].items()}
     first = inputs["tokens" if "tokens" in inputs else "frames"]
     B, seq = first.shape[:2]
@@ -676,4 +717,74 @@ def tensor_parallel_world(rank: int, train_cases: list,
                 out[kind].append(run(meshes[key], c, log))
     finally:
         log.close()
+    return out
+
+
+def _ep_block(mesh, c: dict) -> dict:
+    """One MoE block (``moe_block_dispatch`` at capacity factor
+    ``c["cf"]``, or ``moe_block_dense`` where ``c["path"]`` says so) on
+    this rank's expert shards of ``c["params"]`` over
+    ``mesh``'s model axis, every rank on the same ``c["x"]``: its output,
+    aux losses, the gradients of ``x`` and of the router and expert leaves
+    (this rank's shards) for the output gradient ``c["dy"]``, and the
+    dispatch's slots and capacity (every call's, recorded)."""
+    from repro_torch.arch import moe
+    from repro_torch.distributed.sharding import TPContext
+    cfg = _tp_cfg(c)
+    n = mesh.shape[mesh.mesh_dim_names.index("model")]
+    r = mesh.get_coordinate()[mesh.mesh_dim_names.index("model")]
+    E = cfg.num_experts
+    p = {k: torch.from_numpy(v) for k, v in c["params"].items()}
+    if E % n == 0:                             # expert@model
+        el = E // n
+        p = {k: v[r * el:(r + 1) * el] if k != "router" else v
+             for k, v in p.items()}
+    else:                                      # expert_mlp@model
+        f = cfg.d_ff // n
+        p = {"router": p["router"],
+             "w_gate": p["w_gate"][..., r * f:(r + 1) * f],
+             "w_up": p["w_up"][..., r * f:(r + 1) * f],
+             "w_down": p["w_down"][:, r * f:(r + 1) * f]}
+    p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    x = torch.from_numpy(c["x"]).requires_grad_(True)
+    tp = TPContext(model=mesh.get_group("model"), tp=n, rank=r)
+    slots, own = [], moe.dispatch_slots
+
+    def recorded(ig, E):
+        slots.append(own(ig, E))
+        return slots[-1]
+    moe.dispatch_slots = recorded
+    try:
+        if c["path"] == "dense":
+            out, aux = moe.moe_block_dense(cfg, p, x, tp=tp)
+        else:
+            out, aux = moe.moe_block_dispatch(
+                cfg, p, x, capacity_factor=c["cf"], groups=c["groups"],
+                tp=tp)
+    finally:
+        moe.dispatch_slots = own
+    loss = torch.sum(out * torch.from_numpy(c["dy"])) \
+        + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    loss.backward()
+    G, Sg, C = moe.dispatch_geometry(cfg, x.shape[0] * x.shape[1], c["cf"],
+                                     c["groups"])
+    return {"out": out.detach().numpy(),
+            "aux": {k: float(v) for k, v in aux.items()},
+            "dx": x.grad.numpy(),
+            "grads": {k: v.grad.numpy() for k, v in p.items()},
+            "slots": [t.numpy() for t in slots], "capacity": C,
+            "rank": r, "n": n}
+
+
+def expert_parallel_world(rank: int, train_cases: list, serve_cases: list,
+                          block_cases: list) -> dict:
+    """tests/test_torch_expert_parallel.py: the MoE configs' train and
+    serve cells (as ``tensor_parallel_world``'s, their expert weights
+    watched), then single MoE blocks on their expert shards."""
+    from repro_torch.launch.mesh import make_mesh
+    out = tensor_parallel_world(rank, train_cases, serve_cases)
+    out["blocks"] = []
+    for c in block_cases:
+        mesh = make_mesh(tuple(c["mesh"]), ("data", "model"))
+        out["blocks"].append(_ep_block(mesh, c))
     return out

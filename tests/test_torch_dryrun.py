@@ -235,3 +235,71 @@ def test_internlm2_train_fits_a_card_and_splits_its_work(tmp_path):
         * (1 - cfg.num_kv_heads / 16)
     ideal = one["cost"]["flops"] / 16
     assert abs(pod["cost"]["flops"] - kv - ideal) < 0.02 * ideal
+
+
+MOE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
+@pytest.fixture(scope="module")
+def dbrx_cells(tmp_path_factory):
+    """dbrx-132b's cells on the (16, 16) pod mesh, and its train cell on
+    the (16, 1) mesh (the same 16 rows a device, no model axis)."""
+    out = tmp_path_factory.mktemp("dbrx")
+    pod = {s: dryrun.run_cell("dbrx-132b", s, multi_pod=False, out_dir=out)
+           for s in MOE_SHAPES}
+    pod.update({f"{s} optimized": dryrun.run_cell(
+        "dbrx-132b", s, multi_pod=False, out_dir=out, optimized=True)
+        for s in MOE_SHAPES[1:]})
+    one = dryrun.run_cell("dbrx-132b", "train_4k", multi_pod=False,
+                          out_dir=out, mesh=MeshShape((16, 1),
+                                                      ("data", "model")))
+    return pod, one
+
+
+def test_dbrx_expert_flops_fall_by_the_model_extent(dbrx_cells):
+    """dbrx-132b ``train_4k``: each rank computes its 1 of 16 experts, so a
+    device's operations on the pod mesh are those of the (16, 1) mesh's
+    (every expert on every device, 99 % of its count) over the model
+    extent of 16, within 2 %, once the parts every rank repeats are
+    counted as it computes them: the router (d x E a token) and the KV
+    projections of its three q heads' one KV head (of 8, a 16th each on
+    the (16, 1) mesh)."""
+    pod, one = dbrx_cells
+    cfg = get_config("dbrx-132b")
+    p = pod["train_4k"]
+    assert p["rows_per_device"] == one["rows_per_device"] == 16
+    assert p["cost"]["flops"] <= 2.1e15, p["cost"]["flops"]
+    tokens = p["rows_per_device"] * SHAPES["train_4k"].seq_len
+    # 2 operations a multiply-add, forward + recompute + the 2 backward
+    router = tokens * 4 * cfg.num_layers * 2 * cfg.d_model \
+        * cfg.num_experts * (1 - 1 / 16)
+    kv = tokens * 4 * cfg.num_layers * 2 * 2 * cfg.d_model * cfg.head_dim \
+        * (1 - cfg.num_kv_heads / 16)
+    ideal = one["cost"]["flops"] / 16
+    assert abs(p["cost"]["flops"] - router - kv - ideal) < 0.02 * ideal
+    assert p["layout"]["model_extent"] == 16
+
+
+@pytest.mark.parametrize("shape", list(MOE_SHAPES) + [
+    f"{s} optimized" for s in MOE_SHAPES[1:]])
+def test_dbrx_cells_fit_a_card(dbrx_cells, shape):
+    """dbrx-132b on the pod mesh: a device's peak under one card's 80e9 B
+    at each shape, with the baseline and the serving rules (1438.63,
+    282.82 and 282.45 GiB while the cells gathered every expert whole)."""
+    mem = dbrx_cells[0][shape]["memory"]
+    assert mem["peak_per_device_bytes"] < 80e9, mem
+
+
+@pytest.mark.parametrize("shape", list(MOE_SHAPES) + [
+    f"{s} optimized" for s in MOE_SHAPES[1:]])
+def test_dbrx_param_bytes_match_jax_shardings(dbrx_cells, shape, jax_specs):
+    """A device's parameter bytes in dbrx-132b's cells equal what the JAX
+    package's ``param_shardings`` implies: computing on the expert shards
+    moves no parameter's placement."""
+    r = dbrx_cells[0][shape]
+    serve = shape.endswith("optimized")
+    train = shape == "train_4k"
+    rules = JS.serve_rules(False) if serve else JS.baseline_rules(False)
+    want = _jax_local_bytes("dbrx-132b", *MESHES["pod"], rules,
+                            4 if train else 2)
+    assert r["memory"]["param_bytes"] == pytest.approx(want, rel=1e-12)
