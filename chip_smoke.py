@@ -112,17 +112,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one 128-token prompt's prefill logits held against ``decode_step`` fed
    the same tokens one at a time.
 6. serve path: ``ServeEngine`` on the same parameters, 8 slots of 2048
-   positions, 16 seeded requests (prompts of 16-96 tokens, 32 new tokens
-   each, greedy): every request done, 28 ``decode_attention`` launches per
-   engine decode call; tokens/s, step time, time to first token, peak
+   positions, 9 seeded requests (prompts of 16-96 tokens, 32 new tokens
+   each but request 0's 16, greedy, so the ninth is admitted into request
+   0's slot while the others decode): every request done, 28
+   ``decode_attention`` launches per engine decode call; tokens/s, step time, time to first token, peak
    device memory; a profiler window of a few decode calls.
 7. zamba2-2.7b at full width (54 Mamba2 blocks, the shared attention
    block once per 6-block period), as 5-6: prefill of 4 x 1024 tokens with
    54 ``ssd_scan`` and 9 ``flash_attention`` launches, a 128-token
    prompt's logits and final ``ssd`` states held against token-by-token
-   decode, and ``ServeEngine`` with 4 slots x 512 positions and 8 requests
-   (prompts 16-64, 16 new tokens): 9 ``decode_attention`` launches per
-   decode call.
+   decode, and ``ServeEngine`` with 4 slots x 512 positions and 5 requests
+   (prompts 16-64, 16 new tokens but request 0's 8, the fifth admitted
+   into its slot mid-run): 9 ``decode_attention`` launches per decode
+   call.
 8. rwkv6-7b at full width (32 blocks), the same way: 32 ``wkv6_scan``
    launches per prefill, the ``wkv`` states held, the same engine run
    (its decode runs no kernel: the recurrences are plain, as in the
@@ -249,6 +251,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    collectives a call (equal to ``dryrun.account``'s), rank 0's launches
    at H 24 / KV 4, and the times and peak memory beside the world of
    one's. Within ``EP_WORLD_SECONDS``.
+19. zamba2 on its shards: zamba2-2.7b at full width cut to one period
+   (6 Mamba2 blocks and the shared block), f32, in a world of two gloo
+   processes on the card (every collective probed on CUDA tensors first;
+   a refused one fails the phase), on a (1, 2) mesh: 40 SSD heads, 16
+   shared heads and 16,000 vocabulary rows a rank. A train step (B 2 x
+   S 256) under ``baseline_rules`` against the world of one's
+   ``make_train_step`` (loss, grad norm and every gradient leaf at
+   ``LM_PARITY_TOL``, the params by ``_update_excess``); prefill and
+   decode, with and without the distributed flash-decode, under
+   ``serve_rules`` at ``MAMBA_SERVE_TOL`` (logits, the shared block's
+   k/v, the conv and ssd states: 2e-5 of each tensor's max); each rank's
+   collectives equal
+   to ``dryrun.account``'s; no Mamba2 weight all-gathered over ``model``
+   in decode (in train and prefill only ``in_proj``); the scan launches
+   on rank 0. Within ``MAMBA_WORLD_SECONDS``. The per-rank cases at the
+   end add the shared block's attention at D 80 (H 2 and H 16) and the
+   SSD scan forward and backward at 5 heads (``tp_ssd_phase``: the
+   train_4k and prefill_32k cells' rows a device on the pod mesh).
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
@@ -256,7 +276,8 @@ the training paths' backward calls: qwen3-1.7b's for
 ``flash_attention_backward``, zamba2-2.7b's and rwkv6-7b's for the
 scans'); ``decode_attention``'s row also carries its stats route's
 check, times and bound (``stats_*``) and launches (phase 14 b); the
-attention rows carry phase 17 (a)'s per-rank cases (``per_rank``).
+attention rows carry phase 17 (a)'s per-rank cases and the SSD scan's
+rows phase 19's (``per_rank``).
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -2128,11 +2149,15 @@ def moe_decode_check(cfg, params, prompt, pf_logits, pf_routes, dec_routes,
 def serve_phase(device: str, cfg, params, *, slots: int = 8,
                 max_seq: int = 2048, n_requests: int = 16,
                 prompt_lens=(16, 96), new_tokens: int = 32,
-                seed: int = 13) -> dict:
+                first_tokens: int = 0, seed: int = 13) -> dict:
     """``ServeEngine`` over seeded requests until idle, stepped as
     ``run_until_idle`` steps it. A request's time to first token runs from
     its arrival to the end of the engine step that emitted the token (the
     engine stamps the step's start, before that step's admission prefill).
+    ``first_tokens`` (where nonzero) are the new tokens of request 0: fewer
+    than ``new_tokens``, its slot frees while the others decode, and where
+    requests outnumber the slots the next one is admitted there (the
+    dirty slot's state zeroed beside live rows), which the phase checks.
     Returns the path's record."""
     import numpy as np
     import torch
@@ -2142,7 +2167,9 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     reqs = [Request(rid=i, prompt=rng.integers(
                 0, cfg.vocab_size, int(rng.integers(prompt_lens[0],
                                                     prompt_lens[1] + 1)))
-                .astype(np.int32), max_new_tokens=new_tokens)
+                .astype(np.int32),
+                max_new_tokens=first_tokens if i == 0 and first_tokens
+                else new_tokens)
             for i in range(n_requests)]
     eng = ServeEngine(cfg, params, max_slots=slots, max_seq=max_seq)
     if cuda:
@@ -2198,8 +2225,19 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     print(f"serve cut: none ({n_requests} requests, {slots} slots x "
           f"{max_seq} positions)")
     check(done == n_requests, f"serve: {n_requests - done} requests not done")
-    check(total == n_requests * new_tokens == eng.tokens_out,
-          f"serve: {total} tokens out, {eng.tokens_out} counted")
+    want_out = sum(r.max_new_tokens for r in reqs)
+    check(total == want_out == eng.tokens_out,
+          f"serve: {total} tokens out, {eng.tokens_out} counted, "
+          f"{want_out} asked")
+    if first_tokens and n_requests > slots:
+        # request ``slots`` took request 0's slot while the others decoded
+        live = min(r.finished_at for r in reqs[1:slots])
+        refill = reqs[slots].first_token_at
+        print(f"serve refill: request {slots} admitted into request 0's "
+              f"slot {'while' if refill < live else 'after'} the other "
+              f"{slots - 1} decoded")
+        check(refill < live, "serve: no request was admitted into a freed "
+                             "slot while other rows decoded")
     # decode runs one decode_attention per attention application and no
     # other kernel (the recurrences decode through their plain versions)
     per_call = forward_launches(cfg)["flash_attention"]
@@ -2208,7 +2246,7 @@ def serve_phase(device: str, cfg, params, *, slots: int = 8,
     check(launches == want,
           f"serve: kernel launches {launches} for {eng.decode_calls} decode "
           f"calls x {per_call} attention applications, expected {want}")
-    check(all(len(r.tokens) == new_tokens and
+    check(all(len(r.tokens) == r.max_new_tokens and
               all(0 <= t < cfg.vocab_size for t in r.tokens) for r in reqs),
           "serve: a request's tokens are out of range or short")
     return rec
@@ -3535,9 +3573,16 @@ def lm_path(arch: str, device: str, *, profile: bool = True,
     return {"cfg": cfg, "prefill": prefill, "serve": serve}
 
 
-# the recurrent families' engine runs: 4 slots x 512 positions, 8 requests
-RECURRENT_SERVE = dict(slots=4, max_seq=512, n_requests=8,
-                       prompt_lens=(16, 64), new_tokens=16)
+# the engine runs hold one request more than their slots, and request 0
+# asks for half the new tokens, so its slot frees mid-run and the last
+# request is admitted there beside live rows. The recurrent families' and
+# the MoE models': 4 slots x 512 positions, 5 requests (two full waves of
+# 8 took 24-28 s a model, host-bound, and the smoke must end within 1200
+# s); qwen3-1.7b's: 8 slots x 2048 positions, 9 requests of 32 new tokens
+# (16 took 55.7 s)
+RECURRENT_SERVE = dict(slots=4, max_seq=512, n_requests=5,
+                       prompt_lens=(16, 64), new_tokens=16, first_tokens=8)
+QWEN_SERVE = dict(n_requests=9, first_tokens=16)
 # the MoE models at full width, cut in depth for the card's memory: 8 of
 # dbrx-132b's 40 layers (27.31e9 parameters, 54.6 GB in bf16) and one of
 # llama4-maverick's 24 periods, a dense and an MoE layer (18.55e9, 37.1 GB)
@@ -4593,13 +4638,25 @@ def training_across_devices_phase(device: str, *, train_kw=None,
 # ------------------------------------------------ the cells on their shards
 
 # the attention kernels at one rank's heads on the pod mesh's model axis
-# (16; qwen3-1.7b at 2 as well): (label, H, KV) at D 128, the forward and
+# (16; qwen3-1.7b at 2 as well): (label, H, KV, D), the forward and
 # backward at the training shape (B 4, S 1024, causal, bf16), decode at
 # the engine shape (B 8, S 2048). internlm2-20b's group of 3 is one no
 # earlier card run had; dbrx-132b's on a model axis of 2 (phase 18's
-# world of two) is G 6 on each rank
-TP_HEADS = [("qwen3 tp2", 8, 4), ("llama3 tp16", 2, 1),
-            ("internlm2 tp16", 3, 1), ("dbrx tp2", 24, 4)]
+# world of two) is G 6 on each rank; zamba2-2.7b's shared block (H 32 =
+# KV 32, D 80) on 16 model ranks and on 2 (phase 19's world of two)
+TP_HEADS = [("qwen3 tp2", 8, 4, 128), ("llama3 tp16", 2, 1, 128),
+            ("internlm2 tp16", 3, 1, 128), ("dbrx tp2", 24, 4, 128),
+            ("zamba2 shared tp16", 2, 2, 80),
+            ("zamba2 shared tp2", 16, 16, 80)]
+# the attention cases' shapes: training (B, S) and decode (Bd, Sd)
+TP_SHAPES = dict(B=4, S=1024, Bd=8, Sd=2048)
+# the SSD scan, forward and backward (bf16), at one rank's heads of
+# zamba2-2.7b on the pod mesh's model axis of 16 (80 / 16 = 5): (label,
+# B, S, H, P, N) at the train_4k cell's rows a device (16 x 4096) and the
+# prefill_32k cell's (2 x 32768). The kernels launch a (H, B) grid (the
+# reverse sweep (H, B, 2)): 80 and 10 blocks on the card's 132 SMs
+TP_SSD = [("zamba2 train_4k tp16", 16, 4096, 5, 64, 64),
+          ("zamba2 prefill_32k tp16", 2, 32768, 5, 64, 64)]
 # the world of two on one card: qwen3-1.7b at full width cut to 2 layers
 # (f32), a (1, 2) ("data", "model") mesh of two processes over gloo, its
 # train step, prefill and decode cells against the world of one's calls
@@ -4626,11 +4683,14 @@ TP_COLLECTIVES = ("all_reduce", "all_reduce max", "all_gather")
 TP_PROBED = TP_COLLECTIVES + ("reduce_scatter",)
 
 
-def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool) -> dict:
+def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool,
+                    shapes=None) -> dict:
     """``flash_attention`` (forward and backward) and ``decode_attention``
-    at one rank's head counts (``TP_HEADS``) against their plain versions,
-    with bounds and, where ``time_it``, times beside the plain version
-    and ``scaled_dot_product_attention``. Returns {kernel: [record]}."""
+    at one rank's head counts (``TP_HEADS``: (label, H, KV, D), D 128
+    where a case gives none) against their plain versions, with bounds
+    and, where ``time_it``, times beside the plain version and
+    ``scaled_dot_product_attention``; at ``shapes`` (``TP_SHAPES``'s
+    keys) where given. Returns {kernel: [record]}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -4642,18 +4702,21 @@ def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool) -> dict:
     t0 = time.perf_counter()
     out = {"flash_attention": [], "flash_attention_backward": [],
            "decode_attention": []}
-    B, S, D, Bd, Sd, dtype = 4, 1024, 128, 8, 2048, "bfloat16"
+    shp = {**TP_SHAPES, **(shapes or {})}
+    B, S, Bd, Sd, dtype = shp["B"], shp["S"], shp["Bd"], shp["Sd"], \
+        "bfloat16"
     dt = torch.bfloat16
-    for seed, (label, H, KV) in enumerate(heads):
+    for seed, (label, H, KV, *rest) in enumerate(heads):
+        D = rest[0] if rest else 128
         g = torch.Generator(device=device).manual_seed(900 + seed)
-        tag = f"{label} H={H} KV={KV} G={H // KV}"
+        tag = f"{label} H={H} KV={KV} G={H // KV} D={D}"
         q, k, v, do = (torch.randn(B, S, n, D, generator=g,
                                    device=device).to(dt)
                        for n in (H, KV, KV, H))
         rec = _agree(f"flash_attention per rank {tag} B={B} S={S} D={D}",
                      flash_attention(q, k, v, causal=True),
                      attention_reference(q, k, v, causal=True), dtype)
-        rec.update(label=label, H=H, KV=KV, **flash_bound(q, k, True))
+        rec.update(label=label, H=H, KV=KV, D=D, **flash_bound(q, k, True))
         if time_it:
             sets = [(*s, *(t.transpose(1, 2) for t in s))
                     for s in _input_sets((q, k, v), rec["bytes"])]
@@ -4673,7 +4736,7 @@ def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool) -> dict:
                 for part, a, b in zip(("dq", "dk", "dv"),
                                       _flash_backward(q, k, v, o, do, lse,
                                                       True), want)]
-        rec = {"label": label, "H": H, "KV": KV,
+        rec = {"label": label, "H": H, "KV": KV, "D": D,
                "max_abs_err": max(e["max_abs_err"] for e in errs),
                "rel_err": max(e["rel_err"] for e in errs),
                **flash_backward_bound(q, k, True)}
@@ -4710,7 +4773,8 @@ def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool) -> dict:
         rec = _agree(f"decode_attention per rank {tag} B={Bd} S={Sd} D={D}",
                      decode_attention(qd, kc, vc, lengths),
                      decode_attention_reference(qd, kc, vc, lengths), dtype)
-        rec.update(label=label, H=H, KV=KV, **decode_bound(qd, kc, lengths))
+        rec.update(label=label, H=H, KV=KV, D=D,
+                   **decode_bound(qd, kc, lengths))
         if time_it:
             mask = (torch.arange(Sd, device=device)[None, :]
                     < lengths[:, None])[:, None, None, :]
@@ -4730,20 +4794,130 @@ def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool) -> dict:
     return out
 
 
-def _tp_world_rank(rank: int, port: int, out_path: str, kw: dict) -> None:
-    """One rank of ``tp_world_phase``'s world of two."""
+def tp_ssd_phase(device: str, cases=TP_SSD, *, time_it: bool) -> dict:
+    """``ssd_scan`` forward and backward (bf16) at one rank's SSD heads
+    (``TP_SSD``) against their plain versions (the chunked form and the
+    plain backward) on the same inputs and a seeded output gradient, at
+    ``SSD_TOL`` and ``SCAN_BWD_TOL``, with bounds (``ssd_bound``,
+    ``scan_backward_bound``) and, where ``time_it``, times beside the
+    plain versions (no single PyTorch call computes the scan). Returns
+    {kernel: [record]}."""
+    import torch
+    from repro_torch.kernels.mamba2_scan.ops import ssd_scan
+    from repro_torch.kernels.mamba2_scan.ref import (ssd_backward_reference,
+                                                     ssd_chunked)
+    t0 = time.perf_counter()
+    out = {"ssd_scan": [], "ssd_scan_backward": []}
+    dtype, chunk = "bfloat16", 64
+    for seed, (label, B, S, H, P, N) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(950 + seed)
+        dt_ = getattr(torch, dtype)
+        x = torch.randn(B, S, H, P, generator=g, device=device).to(dt_)
+        dt = _uniform(g, 1e-3, 0.1, (B, S, H), device)
+        A = -_uniform(g, 0.5, 2.0, (H,), device)
+        Bm, Cm = (torch.randn(B, S, 1, N, generator=g, device=device).to(dt_)
+                  for _ in range(2))
+        D = torch.randn(H, generator=g, device=device)
+        dy = torch.randn(B, S, H, P, generator=g, device=device).to(dt_)
+        inputs = (x, dt, A, Bm, Cm, D)
+        tag = f"{label} B={B} S={S} H={H} P={P} N={N}"
+        y, st = ssd_scan(*inputs, chunk=chunk)
+        want_y, want_st = ssd_chunked(*inputs, chunk=chunk)
+        rec = _agree(f"ssd_scan per rank {tag}", y, want_y, dtype, SSD_TOL)
+        st_err = _agree(f"ssd_scan per rank {tag} state", st, want_st,
+                        "float32", SSD_TOL)
+        rec.update(label=label, B=B, S=S, H=H,
+                   max_abs_err=max(rec["max_abs_err"],
+                                   st_err["max_abs_err"]),
+                   **ssd_bound(x, dt, Bm, D, chunk))
+        del y, st, want_y, want_st
+        if time_it:
+            _timed(rec, _input_sets(inputs, rec["bytes"]),
+                   lambda *a: ssd_scan(*a, chunk=chunk),
+                   lambda *a: ssd_chunked(*a, chunk=chunk), None, 20)
+            print(f"ssd_scan per rank {label} time: " + _times(
+                rec, "no single PyTorch call computes the scan"))
+        out["ssd_scan"].append(rec)
+        got = _ssd_backward(*inputs, dy)
+        want = ssd_backward_reference(*inputs, dy, None, None,
+                                      chunk=chunk)[:6]
+        errs = [_agree(f"ssd_scan_backward per rank {tag} {part}", a, b,
+                       "float32" if b.dtype == torch.float32 else dtype,
+                       SCAN_BWD_TOL)
+                for part, a, b in zip(("dx", "ddt", "dA", "dBm", "dCm",
+                                       "dD"), got, want)]
+        rec = {"label": label, "B": B, "S": S, "H": H,
+               "max_abs_err": max(e["max_abs_err"] for e in errs),
+               "rel_err": max(e["rel_err"] for e in errs),
+               **scan_backward_bound(inputs + (dy,), got,
+                                     ssd_bound(x, dt, Bm, D, chunk)["flops"])}
+        del got, want
+        if time_it:
+            sets = _input_sets(inputs + (dy,), rec["bytes"])
+            _timed(rec, sets, _ssd_backward,
+                   lambda *a: ssd_backward_reference(*a, None, None,
+                                                     chunk=chunk)[:6],
+                   None, 10)
+            print(f"ssd_scan_backward per rank {label} time: " + _times(
+                rec, "no single PyTorch call computes the backward"))
+        out["ssd_scan_backward"].append(rec)
+    print(f"per-rank scans: {len(cases)} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _world_rank(rank: int, port: int, out_path: str, body, kw: dict) -> None:
+    """One rank of a world of two gloo processes: ``body(rank, **kw)``
+    between the group's start and end, rank 0's result saved at
+    ``out_path``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
     try:
-        res = _tp_world_body(rank, **kw)
+        res = body(rank, **kw)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     if rank == 0:
         torch.save(res, out_path)
+
+
+def _world_of_two(body, kw: dict, seconds: float, name: str):
+    """Rank 0's result of ``body`` run in a world of two spawned gloo
+    processes (``_world_rank``). Fails if the world runs past ``seconds``;
+    kills any rank still alive when it ends."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/rank0.pt"
+        ctx = mp.start_processes(_world_rank,
+                                 args=(_free_port(), path, body, kw),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + seconds
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      f"{name}: still running after {seconds:.0f} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(5)
+        return torch.load(path, weights_only=False)
+
+
+def _collectives_report(tally: dict, acc: dict) -> tuple:
+    """(whether a call's collectives ``tally`` ({name: (count, wire
+    bytes)}) equal the dry run's ``acc``, the tally as text)."""
+    same = set(tally) == set(acc) and all(
+        tally[k][0] == n and abs(tally[k][1] - w) <= 1e-9 * w + 1e-6
+        for k, (n, w) in acc.items())
+    return same, ", ".join(f"{k} {n} ({w:.0f} B on the wire)"
+                           for k, (n, w) in sorted(tally.items()))
 
 
 def _probe_collectives(device: str) -> dict:
@@ -4905,28 +5079,9 @@ def tp_world_phase(device: str, **kw) -> dict:
     ``_tp_world_body``'s train, prefill and decode cells against the
     world of one, at ``TP_WORLD_TOL``. A refused collective is printed
     and the world of one (phase 16 (a)) stands alone."""
-    import tempfile
-    import torch
-    import torch.multiprocessing as mp
     t0 = time.perf_counter()
     kw = {**TP_WORLD, **kw, "device": device}
-    with tempfile.TemporaryDirectory() as td:
-        path = f"{td}/rank0.pt"
-        ctx = mp.start_processes(_tp_world_rank,
-                                 args=(_free_port(), path, kw), nprocs=2,
-                                 join=False, start_method="spawn")
-        deadline = time.monotonic() + TP_WORLD_SECONDS
-        try:
-            while not ctx.join(timeout=1.0):
-                check(time.monotonic() < deadline,
-                      f"world of two: still running after "
-                      f"{TP_WORLD_SECONDS:.0f} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join(5)
-        res = torch.load(path, weights_only=False)
+    res = _world_of_two(_tp_world_body, kw, TP_WORLD_SECONDS, "world of two")
     secs = time.perf_counter() - t0
     for name, why in res["refused"].items():
         print(f"world of two: gloo refused {name} on {device} tensors "
@@ -5005,23 +5160,6 @@ EP_SERVE_MESHES = ((1, 2), (2, 1))
 # a gradient block a rank sends to rank 0 for the comparison, in pieces
 # of at most this many elements (gloo sends each piece whole)
 EP_SEND_ELEMS = 1 << 26
-
-
-def _ep_world_rank(rank: int, port: int, out_path: str, kw: dict) -> None:
-    """One rank of ``ep_world_phase``'s world of two."""
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(0, str(ROOT / "tests"))
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
-    try:
-        res = _ep_world_body(rank, **kw)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
-    if rank == 0:
-        torch.save(res, out_path)
 
 
 def _draw_blocks(cfg, seed: int, device: str, shardings):
@@ -5392,31 +5530,13 @@ def ep_world_phase(device: str, **kw) -> dict:
     each rank's collectives a call (held to ``dryrun.account``'s), rank
     0's launches, and the times and peak memory beside the world of one's.
     Within ``EP_WORLD_SECONDS`` on the card."""
-    import tempfile
-    import torch
-    import torch.multiprocessing as mp
     from repro_torch.arch.params import tree_leaves
     t0 = time.perf_counter()
     kw = {**EP_WORLD, **kw, "device": device}
     _free(device)
     card = _card_line() if device != "cpu" else "the CPU"
-    with tempfile.TemporaryDirectory() as td:
-        path = f"{td}/rank0.pt"
-        ctx = mp.start_processes(_ep_world_rank,
-                                 args=(_free_port(), path, kw), nprocs=2,
-                                 join=False, start_method="spawn")
-        deadline = time.monotonic() + 2 * EP_WORLD_SECONDS
-        try:
-            while not ctx.join(timeout=1.0):
-                check(time.monotonic() < deadline,
-                      f"moe world of two: still running after "
-                      f"{2 * EP_WORLD_SECONDS:.0f} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join(5)
-        res = torch.load(path, weights_only=False)
+    res = _world_of_two(_ep_world_body, kw, 2 * EP_WORLD_SECONDS,
+                        "moe world of two")
     secs = time.perf_counter() - t0
     one, calls = res["one"], res["calls"]
     mb = lambda b: "not measured" if b is None else f"{b / 1e9:.2f}e9 B"  # noqa: E731
@@ -5480,13 +5600,9 @@ def ep_world_phase(device: str, **kw) -> dict:
                       f" expert {int(rec['routes']['want']['idx'][tuple(i)])}"
                       f" -> {int(rec['routes']['got']['idx'][tuple(i)])}")
             tally, acc = rec["tally"], rec["account"]
-            same = set(tally) == set(acc) and all(
-                tally[k][0] == n and abs(tally[k][1] - w) <= 1e-9 * w + 1e-6
-                for k, (n, w) in acc.items())
-            print(f"moe world of two: rank {r} {label}: collectives "
-                  + ", ".join(f"{k} {n} ({w:.0f} B on the wire)"
-                              for k, (n, w) in sorted(tally.items()))
-                  + f" {'equal to' if same else 'DIFFER from'} "
+            same, text = _collectives_report(tally, acc)
+            print(f"moe world of two: rank {r} {label}: collectives {text}"
+                  f" {'equal to' if same else 'DIFFER from'} "
                   f"dryrun.account's; {rec['s']:.3f} s"
                   + ("" if rec["cold_s"] is None else
                      f" (a first call {rec['cold_s']:.3f} s)")
@@ -5521,6 +5637,330 @@ def ep_world_phase(device: str, **kw) -> dict:
     return {**res, "seconds": secs}
 
 
+# ------------------------------------------------ zamba2 on its shards
+
+# phase 19: zamba2-2.7b at full width (d 2560, 80 SSD heads of P 64, N
+# 64, the shared block's H 32 = KV 32 at D 80, vocab 32,000) cut to one
+# period (6 Mamba2 blocks and the shared block), f32 (about 0.58e9
+# parameters), in a world of two gloo processes on the one card, on a
+# (1, 2) ("data", "model") mesh: 40 SSD heads, 16 shared heads and 16,000
+# vocabulary rows a rank, ``in_proj``'s 5,224-column shards straddling z
+# and x. A train step under baseline_rules (the whole AdamW step fits:
+# the parameters beside their moments), prefill and decode (with and
+# without the distributed flash-decode) under serve_rules, each against
+# the world of one on the same inputs
+MAMBA_WORLD = dict(arch="zamba2-2.7b", layers=6, batch=2, seq=256,
+                   cache=512, seed=28)
+MAMBA_WORLD_SECONDS = 150.0
+# the serve cells' logits and caches against the world of one: 2e-5 of
+# each tensor's largest |value| (``TP_WORLD_TOL["serve"]``'s number, in
+# the gradient leaves' measure). Absolute 2e-5 misses at full width
+# through 6 mixers and the shared block: on NVIDIA H100 80GB HBM3
+# (700.00 W) the prefill's logits read 2.37e-5 and the shared block's k
+# 2.40e-5 off (relative to their max 5.14e-6 and 4.99e-6), where one f32
+# GEMM of the same inputs at another row count (the first mixer's conv
+# state, 6 rows against 512) already reads 7.27e-6: cuBLAS sums in
+# another order
+MAMBA_SERVE_TOL = 2e-5
+
+
+def _call_seconds(device: str, fn, start=None) -> float:
+    """Seconds of one call of ``fn`` (its result dropped), after
+    ``start()`` where given (a barrier: the ranks start together)."""
+    _sync(device)
+    if start is not None:
+        start()
+    t = time.perf_counter()
+    fn()
+    _sync(device)
+    return time.perf_counter() - t
+
+
+def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
+                      batch: int, seq: int, cache: int, seed: int) -> dict:
+    """The world of two's work (``mamba_world_phase``): the probe, the
+    cells on the mixers' head shards (every call's collectives, launches,
+    time and Mamba2 weights gathered over ``model`` recorded), their
+    outputs gathered whole; then rank 0's world of one on the same
+    inputs and the gaps."""
+    import torch
+    import torch.distributed as dist
+    from _torch_dist_worker import (CollectiveLog, _count, _mamba_shapes,
+                                    _model_gathers, _tally)
+    from repro_torch.arch import model as M
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.checkpoint import flatten, tree_map
+    from repro_torch.distributed.sharding import (baseline_rules,
+                                                  gather_whole, place,
+                                                  place_tree, serve_rules)
+    from repro_torch.launch.cells import build_cell, cell_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (AdamWConfig, init_state, make_decode_step,
+                                   make_prefill_step, make_train_step)
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    refused = _probe_collectives(device)
+    check(not refused, f"zamba2 world of two: gloo refused {refused} on "
+                       f"{device} tensors, which the cells issue")
+    mesh = make_mesh((1, 2), ("data", "model"), device_type=device)
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = M.init_params(cfg, g, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g,
+                           device=device, dtype=torch.int32)
+    b = {"tokens": tokens[:, :-1].contiguous(),
+         "labels": tokens[:, 1:].contiguous()}
+    dstate = M.init_decode_state(cfg, batch, cache, device=device)
+    dstate["caches"] = tree_map(
+        lambda x: torch.randn(x.shape, generator=g, device=device),
+        dstate["caches"])
+    dstate["lengths"] = torch.randint(1, cache, (batch,), generator=g,
+                                      device=device, dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
+                        device=device, dtype=torch.int32)
+    whole_tree = lambda t: tree_map(gather_whole, t)        # noqa: E731
+    log = CollectiveLog()
+    calls, outs = {}, {}
+
+    def run(label, cell, fn, shapes):
+        """One call of ``fn``, the ranks starting together, with its
+        collectives, launches and time recorded."""
+        _sync(device)
+        dist.barrier()
+        reset_counts()
+        log.on = True
+        t = time.perf_counter()
+        res = fn()
+        _sync(device)
+        secs = time.perf_counter() - t
+        log.on = False
+        taken = log.take()
+        calls[label] = {
+            "s": secs, "tally": _tally(taken), "account": _count(cell),
+            "model_gathers": sorted(set(_model_gathers(taken, mesh,
+                                                       shapes))),
+            "launches": {**{k: v for k, v in counts().items() if v},
+                         "decode_attention_partial": _kernel_ops()[
+                             "decode_attention"].partial_invocation_count()},
+            "mamba_split": cell.mamba_split,
+            "in_proj_route": cell.in_proj_route}
+        return res
+
+    try:
+        # (a) a train step through the cell
+        cell = build_cell(cfg, ShapeSpec("mamba", seq, batch, "train"), mesh,
+                          rules=baseline_rules(), microbatches=1)
+        sh = cell_shardings(cell)
+        state = place_tree((params, init_state(params)), sh[:2])
+        placed = {k: place(v, *sh[2][k]) for k, v in b.items()}
+        p_d, o_d, m_d = run("train", cell,
+                            lambda: cell.fn(state[0], state[1], placed),
+                            _mamba_shapes(state[0]))
+        outs["train"] = {"loss": float(m_d["loss"]),
+                         "grad_norm": float(m_d["grad_norm"]),
+                         "params": whole_tree(p_d), "mu": whole_tree(o_d.mu)}
+        calls["train"]["warm_s"] = _call_seconds(device, lambda: cell.fn(
+            p_d, o_d, placed), dist.barrier)
+        del state, p_d, o_d
+        # (b) prefill and decode through the serve cells
+        rules = serve_rules()
+        pre = build_cell(cfg, ShapeSpec("mamba", seq, batch, "prefill"),
+                         mesh, rules=rules, serve_dtype="float32")
+        p_sh = cell_shardings(pre)
+        served = place_tree(params, p_sh[0])
+        shapes = _mamba_shapes(served)
+        with torch.no_grad():
+            inputs = {"tokens": place(b["tokens"], *p_sh[1]["tokens"])}
+            lg, st = run("prefill", pre, lambda: pre.fn(served, inputs),
+                         shapes)
+            outs["prefill"] = {"logits": gather_whole(lg),
+                               "caches": whole_tree(st["caches"])}
+            for dist_decode in (False, True):
+                dec = build_cell(cfg, ShapeSpec("mamba", cache, batch,
+                                                "decode"), mesh, rules=rules,
+                                 dist_decode=dist_decode,
+                                 serve_dtype="float32")
+                _, s_sh, b_sh = cell_shardings(dec)
+                st0 = {"caches": place_tree(tree_map(torch.clone,
+                                                     dstate["caches"]),
+                                            s_sh["caches"]),
+                       "lengths": place(dstate["lengths"],
+                                        *s_sh["lengths"])}
+                tok = {"tokens": place(nxt, *b_sh["tokens"])}
+                label = f"decode dist={dist_decode}"
+                lg, new = run(label, dec, lambda: dec.fn(served, st0, tok),
+                              shapes)
+                outs[label] = {"logits": gather_whole(lg),
+                               "caches": whole_tree(new["caches"])}
+    finally:
+        log.close()
+    every = [None, None]
+    dist.all_gather_object(every, calls)
+    if rank:
+        return {}
+    # the world of one on rank 0: the undistributed calls
+    opt = AdamWConfig()
+    step = make_train_step(cfg)
+    reset_counts()
+    t = time.perf_counter()
+    p_u, o_u, m_u = step(params, init_state(params), b)
+    _sync(device)
+    one = {"train": {"s": time.perf_counter() - t, "launches": counts()}}
+    one["train"]["warm_s"] = _call_seconds(device,
+                                           lambda: step(p_u, o_u, b))
+    tr = outs["train"]
+    grads = [tree_map(lambda m: m / (1 - opt.b1), mu)
+             for mu in (tr["mu"], o_u.mu)]
+    gaps = {path: float((a - c).abs().max() / (c.abs().max() + 1e-30))
+            for path, a, c in zip(_leaf_paths(grads[1]), flatten(grads[0]),
+                                  flatten(grads[1]))}
+    res = {"ranks": every, "calls": every[0], "grad_gaps": gaps,
+           "train": {"loss": (tr["loss"], float(m_u["loss"])),
+                     "grad_norm": (tr["grad_norm"],
+                                   float(m_u["grad_norm"])),
+                     "update_excess": _update_excess(
+                         tr["params"], p_u, *grads, params, opt, (0.0, 0.0))}}
+    del p_u, o_u, grads, outs["train"]
+    serve = {}
+    with torch.no_grad():
+        reset_counts()
+        t = time.perf_counter()
+        want, wstate = make_prefill_step(cfg)(params, {"tokens": b["tokens"]})
+        _sync(device)
+        one["prefill"] = {"s": time.perf_counter() - t, "launches": counts()}
+        serve["prefill"] = (want, wstate["caches"])
+        st = tree_map(torch.clone, dstate)
+        t = time.perf_counter()
+        wl, wn = make_decode_step(cfg)(params, st, {"tokens": nxt})
+        _sync(device)
+        one["decode"] = {"s": time.perf_counter() - t}
+        for d in (False, True):
+            serve[f"decode dist={d}"] = (wl, wn["caches"])
+    res["serve"] = {}
+
+    def gap(a, ref):
+        """(max |a - ref|, that over max |ref|)."""
+        d = float((a - ref).abs().max())
+        return d, d / (float(ref.abs().max()) + 1e-30)
+    for label, (want, wcaches) in serve.items():
+        got = outs[label]
+        res["serve"][label] = {
+            "logits": gap(got["logits"], want),
+            "caches": {key: tuple(map(max, zip(*(
+                gap(got["caches"][key][n], t_)
+                for n, t_ in leaves.items()))))
+                for key, leaves in wcaches.items()}}
+    res["one"] = one
+    res["heads"] = (f"{cfg.ssm_heads // 2} of {cfg.ssm_heads} SSD heads, "
+                    f"{cfg.num_heads // 2} of {cfg.num_heads} shared heads "
+                    f"(D {cfg.head_dim}), {cfg.vocab_size // 2} of "
+                    f"{cfg.vocab_size} vocabulary rows a rank")
+    return res
+
+
+def mamba_world_phase(device: str, **kw) -> dict:
+    """Phase 19, zamba2 on its shards: ``MAMBA_WORLD`` in a world of two
+    processes on one card (gloo), every collective the cells issue probed
+    on the card's tensors first (a refused one fails the phase). Holds
+    the train step against the world of one (loss, grad norm and every
+    gradient leaf at ``LM_PARITY_TOL``; the params after AdamW by
+    ``_update_excess``), the prefill and decode cells' logits and caches
+    (the shared block's k/v, the conv and ssd states) at
+    ``MAMBA_SERVE_TOL``, each rank's collectives a call against
+    ``dryrun.account``'s, no Mamba2 weight all-gathered over ``model`` in
+    a decode cell (in a train or prefill cell only ``in_proj``), and the
+    scan launches on rank 0 (12 forward and 6 backward a train step: 6
+    mixers, each forward again in its period's recompute; 6 a prefill).
+    Within ``MAMBA_WORLD_SECONDS`` on the card."""
+    t0 = time.perf_counter()
+    kw = {**MAMBA_WORLD, **kw, "device": device}
+    _free(device)
+    card = _card_line() if device != "cpu" else "the CPU"
+    res = _world_of_two(_mamba_world_body, kw, 2 * MAMBA_WORLD_SECONDS,
+                        "zamba2 world of two")
+    secs = time.perf_counter() - t0
+    tr = res["train"]
+    rel = {"loss": abs(tr["loss"][0] - tr["loss"][1]) / abs(tr["loss"][1]),
+           "grad_norm": abs(tr["grad_norm"][0] - tr["grad_norm"][1])
+           / tr["grad_norm"][1],
+           "grad": max(res["grad_gaps"].values())}
+    worst = max(res["grad_gaps"], key=res["grad_gaps"].get)
+    ok = all(rel[k] <= LM_PARITY_TOL[k] for k in rel) \
+        and tr["update_excess"] <= TP_WORLD_TOL["update_excess"]
+    one = res["one"]
+    print(f"zamba2 world of two ({card}): {kw['arch']} ({kw['layers']} "
+          f"layers, f32) on a (1, 2) mesh of two gloo processes, "
+          f"{res['heads']}; train step through the cell "
+          f"{res['calls']['train']['s']:.3f} s a first call, "
+          f"{res['calls']['train']['warm_s']:.3f} s a second (the world of "
+          f"one {one['train']['s']:.3f} / {one['train']['warm_s']:.3f} s), "
+          f"B {kw['batch']} x S {kw['seq']}: "
+          f"loss {tr['loss'][0]:.6f} / {tr['loss'][1]:.6f} (rel "
+          f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
+          f"gradient leaf {rel['grad']:.2e} of its max ({worst}), params "
+          f"{tr['update_excess']:.2e} past what the gradient differences "
+          f"allow, against the world of one {'ok' if ok else 'FAIL'}")
+    check(ok, f"zamba2 world of two: the train cell differs: {rel}, {tr}")
+    tol = MAMBA_SERVE_TOL
+    bad = []
+    for label, e in res["serve"].items():
+        good = e["logits"][1] <= tol \
+            and max(r for _, r in e["caches"].values()) <= tol
+        bad += [] if good else [label]
+        print(f"zamba2 world of two ({card}): {label} "
+              f"({res['calls'][label]['s']:.3f} s): logits max |diff| "
+              f"{e['logits'][0]:.2e} ({e['logits'][1]:.2e} of their max), "
+              f"caches " + ", ".join(
+                  f"{k} {a:.2e} ({r:.2e})" for k, (a, r) in sorted(
+                      e["caches"].items()))
+              + f" against the world of one (tol {tol:.0e} of each "
+              f"tensor's max) {'ok' if good else 'FAIL'}")
+    check(not bad, f"zamba2 world of two: serve cells differ: {bad}")
+    for r, rank in enumerate(res["ranks"]):
+        for label, rec in rank.items():
+            tally, acc = rec["tally"], rec["account"]
+            same, text = _collectives_report(tally, acc)
+            gathered = rec["model_gathers"]
+            weights_ok = not gathered if label.startswith("decode") \
+                else gathered == ["in_proj"]
+            print(f"zamba2 world of two: rank {r} {label} "
+                  f"({rec['in_proj_route']} route): collectives {text}"
+                  f" {'equal to' if same else 'DIFFER from'} "
+                  f"dryrun.account's; Mamba2 weights all-gathered over "
+                  f"model: {', '.join(gathered) or 'none'} "
+                  f"{'ok' if weights_ok else 'FAIL'}; {rec['s']:.3f} s")
+            check(same, f"zamba2 world of two: rank {r} {label} collectives "
+                        f"{tally} against the dry run's {acc}")
+            check(weights_ok, f"zamba2 world of two: rank {r} {label} "
+                              f"gathered {gathered} over model")
+    launches = res["ranks"][0]
+    want = {"train": {"ssd_scan": 12, "ssd_scan_backward": 6,
+                      "flash_attention": 2, "flash_attention_backward": 1},
+            "prefill": {"ssd_scan": 6, "flash_attention": 1},
+            "decode dist=False": {"decode_attention": 1},
+            "decode dist=True": {"decode_attention_partial": 1}}
+    periods = kw["layers"] // 6
+    for label, n in want.items():
+        got = launches[label]["launches"]
+        n = {k: v * periods for k, v in n.items()}
+        check(all(got.get(k) == v for k, v in n.items()),
+              f"zamba2 world of two: launches of {label}: {got}, "
+              f"expected {n}")
+    print(f"zamba2 world of two ({card}): launches on rank 0 at its "
+          f"shards: " + "; ".join(
+              f"{label} " + ", ".join(f"{k} {v}" for k, v in
+                                      rec["launches"].items() if v)
+              for label, rec in launches.items())
+          + f"; the world of one's train step "
+          + ", ".join(f"{k} {v}" for k, v in one["train"]["launches"].items()
+                      if v))
+    print(f"zamba2 world of two ({card}): phase 19 in {secs:.1f} s (budget "
+          f"{MAMBA_WORLD_SECONDS:.0f})")
+    check(device == "cpu" or secs <= MAMBA_WORLD_SECONDS,
+          f"zamba2 world of two: phase 19 took {secs:.1f} s")
+    return {**res, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -5552,7 +5992,7 @@ def main() -> int:
     train_parity("cuda")
     fleet_path = forecast_flow("cuda")
     durable_serverless_flow("cuda", fleet_path)
-    qwen = lm_path("qwen3-1.7b", "cuda")
+    qwen = lm_path("qwen3-1.7b", "cuda", serve_kw=QWEN_SERVE)
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
     moe_phase("cuda")
@@ -5561,6 +6001,7 @@ def main() -> int:
     training_across_devices_phase("cuda")
     tp_world_phase("cuda")
     ep_world_phase("cuda")
+    mamba_world_phase("cuda")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     for arch, kw in RECURRENT_PARITY.items():
@@ -5586,11 +6027,15 @@ def main() -> int:
     records["decode_attention"].update(across["stats"],
                                        stats_launches=across["decode"]["launches"])
     # each attention kernel at one rank's head counts on the model axis
-    for name, recs in tp_kernel_phase("cuda", time_it=True).items():
+    # and the SSD scan at one rank's heads
+    per_rank = {**tp_kernel_phase("cuda", time_it=True),
+                **tp_ssd_phase("cuda", time_it=True)}
+    for name, recs in per_rank.items():
         records[name]["per_rank"] = [
             {key: r.get(key) for key in (
-                "label", "H", "KV", "max_abs_err", "ms", "graph_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "label", "H", "KV", "D", "B", "S", "max_abs_err", "ms",
+                "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if key in r}
             for r in recs]
     print(f"smoke: {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(kernel_line(records, launches)))

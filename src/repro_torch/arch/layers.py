@@ -10,7 +10,9 @@ attention and MLP blocks take one rank's shards of the ``model`` axis,
 read from the weights' shapes. ``wq`` / ``bq`` narrower than H x hd hold
 this rank's ``H / tp`` whole heads ``[r H/tp, (r+1) H/tp)``; ``wk``,
 ``wv``, ``bk``, ``bv`` stay whole and the rank computes only the KV heads
-its q heads read (all of them where a cache is written); ``wo`` is the
+its q heads read (and, where a prefill writes a cache, every KV head,
+at its sequence chunk where the cell chooses that; a decode step writes
+every KV head); ``wo`` is the
 matching row shard, its partial sums reduced before ``bo`` is added. In
 the MLP, ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` narrower than d_ff
 are column shards and ``w_down`` the row shard. Without ``tp``, or with
@@ -18,7 +20,7 @@ whole weights, every block computes as without a mesh.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -133,9 +135,9 @@ def attention_specs(cfg: ModelConfig, d_in: Optional[int] = None):
     return sp
 
 
-def _project_qkv(cfg, p, x, kv=None):
-    """q for the heads ``wq`` holds; k, v for KV heads ``kv`` = [a, b)
-    (default: all of them)."""
+def _project_kv(cfg, p, x, kv=None):
+    """k, v (B, S, b - a, hd) of KV heads ``kv`` = [a, b) (default: all
+    of them)."""
     B, S, _ = x.shape
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     a, b = kv or (0, KV)
@@ -143,20 +145,29 @@ def _project_qkv(cfg, p, x, kv=None):
     whole = (a, b) == (0, KV)
     wk = p["wk"] if whole else p["wk"][..., cols]
     wv = p["wv"] if whole else p["wv"][..., cols]
-    q = x @ p["wq"].to(x.dtype)
     k = x @ wk.to(x.dtype)
     v = x @ wv.to(x.dtype)
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
+    if "bk" in p:
         k = k + (p["bk"] if whole else p["bk"][cols]).to(x.dtype)
         v = v + (p["bv"] if whole else p["bv"][cols]).to(x.dtype)
-    q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, b - a, hd)
     v = v.reshape(B, S, b - a, hd)
     if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
-    return q, k, v
+    return k, v
+
+
+def _project_qkv(cfg, p, x, kv=None):
+    """q for the heads ``wq`` holds; k, v for KV heads ``kv`` = [a, b)
+    (default: all of them)."""
+    B, S, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+    return (q, *_project_kv(cfg, p, x, kv))
 
 
 def head_range(cfg, p, tp) -> tuple:
@@ -191,25 +202,40 @@ def kv_for_heads(cfg, lo: int, hq: int, a: int, k, v):
 
 
 def attention_block(cfg: ModelConfig, p, x, positions, tp=None,
-                    cache: bool = True):
+                    cache: Union[bool, str] = True):
     """Full-sequence attention (train / prefill).
 
     x: (B, S, d_in) normed input. Returns (out (B,S,d_model), (k, v)) so
     prefill can populate caches. With ``tp`` and this rank's head shards,
-    k and v are those of every KV head where ``cache``, else only of the
-    KV heads its q heads read; ``out`` is reduced over the model axis (or,
-    under sequence parallelism, ``x`` and ``out`` are this rank's sequence
-    shards)."""
+    k and v are only of the KV heads its q heads read, or, where
+    ``cache``, those of every KV head: at every position, or, where
+    ``cache`` is ``"chunks"`` (the cell's choice,
+    ``cells.kv_cache_chunks``), at this rank's sequence chunk (positions
+    ``[r S/tp, (r+1) S/tp)``: the cache's layout over ``model``);
+    ``out`` is reduced over the model axis (or, under sequence
+    parallelism, ``x`` and ``out`` are this rank's sequence shards)."""
     KV = cfg.num_kv_heads
     lo, hq = head_range(cfg, p, tp)
     sharded = hq < cfg.num_heads
     if tp is not None:
         x = tp.enter(x, sharded)
+    S = x.shape[1]
+    chunks = cache == "chunks"
+    if chunks and (not sharded or S % tp.tp):
+        raise ValueError(f"k/v cache chunks need heads split over the "
+                         f"model axis and S {S} a multiple of {tp.tp}")
+    whole = bool(cache) and not chunks
     used = kv_range(cfg, lo, hq) if sharded else (0, KV)
-    a = 0 if cache else used[0]
-    q, k, v = _project_qkv(cfg, p, x, None if cache else used)
+    a = 0 if whole else used[0]
+    q, k, v = _project_qkv(cfg, p, x, None if whole else used)
     q = apply_rope(q, positions, cfg.rope_theta, mrope=cfg.use_mrope)
     k = apply_rope(k, positions, cfg.rope_theta, mrope=cfg.use_mrope)
+    kc, vc = k, v
+    if chunks:           # every KV head at this rank's positions
+        n = S // tp.tp
+        kc, vc = _project_kv(cfg, p, x.narrow(1, tp.rank * n, n))
+        kc = apply_rope(kc, positions.narrow(-1, tp.rank * n, n),
+                        cfg.rope_theta, mrope=cfg.use_mrope)
     ka, va = k, v
     if sharded:
         if (used[1] - used[0]) != k.shape[2]:
@@ -223,7 +249,7 @@ def attention_block(cfg: ModelConfig, p, x, positions, tp=None,
         out = tp.leave(out, sharded)
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
-    return out, (k, v)
+    return out, (kc, vc)
 
 
 def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,

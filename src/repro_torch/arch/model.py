@@ -32,17 +32,19 @@ shards of a mesh: each period's FSDP shards gathered over the data axes
 just before the period (again in its recompute; the gradients
 reduce-scattered back), the ``attn`` and ``mlp`` parts on their head and
 column shards (``layers``), the ``moe`` part on its expert shards
-(``moe``), the embedding, the LM head and the cross-entropy vocab-parallel
-(an embedding table shorter than the vocabulary holds this rank's rows),
-and, under sequence parallelism, the residual stream between blocks as
-this rank's sequence shard. Parts whose weights are whole (Mamba2, RWKV6,
-Zamba2's shared block) compute on the whole sequence. Without ``tp``
-nothing changes.
+(``moe``), the ``mamba2`` mixer on its SSD heads (``mamba2``),
+Zamba2's shared block on its heads and MLP columns as an ``attn`` block,
+the embedding, the LM head and the cross-entropy vocab-parallel (an
+embedding table shorter than the vocabulary holds this rank's rows), and,
+under sequence parallelism, the residual stream between blocks as this
+rank's sequence shard. Parts whose weights are whole (RWKV6, a mixer
+whose SSD heads do not split over the model axis) compute on the whole
+sequence. Without ``tp`` nothing changes.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
@@ -285,8 +287,9 @@ def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups,
         return h, {"k": k, "v": v}, aux
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_block(
-            cfg, p["mixer"], enter(layers.apply_norm(cfg, p["ln1"], h)))
-        return h + leave(m), {"conv": conv_s, "ssd": ssd_s}, {}
+            cfg, p["mixer"], layers.apply_norm(cfg, p["ln1"], h), tp=tp,
+            cache=want_cache)
+        return h + m, {"conv": conv_s, "ssd": ssd_s}, {}
     if kind == "rwkv6":
         x_prev0 = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
                               device=h.device)
@@ -301,12 +304,12 @@ def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups,
     raise ValueError(kind)
 
 
-def _apply_shared(cfg, p, h, emb0, positions, tp=None):
+def _apply_shared(cfg, p, h, emb0, positions, tp=None, want_cache=True):
     """Zamba2 weight-shared attention+MLP block on concat(h, emb0)."""
     cat = torch.cat([h, emb0], dim=-1)
     a, (k, v) = layers.attention_block(cfg, p["attn"],
                                        layers.apply_norm(cfg, p["ln1"], cat),
-                                       positions, tp=tp)
+                                       positions, tp=tp, cache=want_cache)
     h = h + a
     cat = torch.cat([h, emb0], dim=-1)
     h = h + layers.mlp_block(cfg, p["mlp"],
@@ -332,7 +335,8 @@ def _apply_period(cfg, p, h, positions, emb0, shared_p, want_cache,
         if aux:
             auxes.append(aux)
     if cfg.shared_attn_every_period:
-        h, sc = _apply_shared(cfg, shared_p, h, emb0, positions, tp)
+        h, sc = _apply_shared(cfg, shared_p, h, emb0, positions, tp,
+                              want_cache)
         if want_cache:
             caches["shared"] = sc
     return h, caches, {k: sum(a[k] for a in auxes) for k in auxes[0]} \
@@ -343,7 +347,7 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
             shard: Callable = _id_shard, remat: bool = True,
             moe_path: str = "dispatch", scan_unroll=1,
             moe_groups: int = 0, token_mean: Optional[Callable] = None,
-            tp=None):
+            tp=None, cache: Union[bool, str] = True):
     """Full-sequence forward. mode: "train" -> (logits (B,S,V) f32, aux);
     "prefill" -> (last-token logits (B,V) f32, decode_state whose caches
     are the per-period caches stacked over periods: k/v (periods, B, S,
@@ -356,7 +360,9 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     routers (``moe._router``). With ``tp`` (see the module's docstring)
     the logits are this rank's vocab columns where the head is sharded,
     and mode "hidden" returns the residual stream's layout (under
-    sequence parallelism this rank's sequence shard)."""
+    sequence parallelism this rank's sequence shard), and ``cache`` says
+    how a prefill's attention writes its k/v caches (``True``, or
+    ``"chunks"``: ``layers.attention_block``)."""
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_unroll(scan_unroll)
@@ -376,7 +382,7 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     emb0 = h
     shared_p = params.get("shared")
 
-    want_cache = mode == "prefill"
+    want_cache = cache if mode == "prefill" else False
     recompute = remat and mode in ("train", "hidden") \
         and torch.is_grad_enabled()
     def recomputed(h, p):
@@ -575,7 +581,7 @@ def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, shard,
     if kind == "mamba2":
         m, (conv_s, ssd_s) = mamba2.mamba2_decode(
             cfg, p["mixer"], layers.apply_norm(cfg, p["ln1"], h),
-            (cs["conv"][layer], cs["ssd"][layer]))
+            (cs["conv"][layer], cs["ssd"][layer]), tp=tp)
         _put(cs["conv"], layer, conv_s, rows)
         _put(cs["ssd"], layer, ssd_s, rows)
         return h + m

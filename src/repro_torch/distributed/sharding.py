@@ -685,6 +685,14 @@ class TPContext:
         to each rank unchanged."""
         return reduce_out(x, self.model, self.tp)
 
+    def total(self, x):
+        """The ranks' partial values summed, where each rank's own part
+        then reads the sum (a norm over channels split over ``model``):
+        the gradient of each rank's partial is the sum of the ranks'
+        gradients of the total."""
+        return copy_in(reduce_out(x, self.model, self.tp), self.model,
+                       self.tp)
+
     def max(self, x):
         """The largest value over the ranks (no gradient)."""
         if self.tp == 1:

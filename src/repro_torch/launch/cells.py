@@ -20,6 +20,21 @@ computes on its own shards, as XLA partitions the reference's cell:
     forward (and the shared expert's), the input's and the gates' sums
     backward; no all-to-all. The router (d x E) is gathered over
     ``model`` once a call;
+  * Mamba2 over ``model`` (``arch/mamba2.py``): a mixer's SSD heads, ``H
+    / tp`` a rank (``A_log``, ``D``, ``dt_bias``, ``norm_scale`` and
+    ``out_proj``'s rows on their heads' shards). Its fused ``in_proj``
+    splits uniformly, its shards straddling ``[z, x, B, C, dt]``: in
+    train and prefill cells the weight moves (gathered over ``model`` with
+    its period, each rank multiplying by its heads' columns and the whole
+    B and C, the gradient reduce-scattered back); in decode cells the
+    activation moves (each rank multiplies by its column shard and
+    all-gathers the product over ``model``). ``conv_w`` and ``conv_b`` are
+    gathered over ``model`` once a call. The gated RMSNorm's sum of
+    squares is an all-reduce a block forward and one backward, beside the
+    out-projection's partial sums. The ``ssd`` decode state keeps its
+    heads on ``model``; the ``conv`` state is whole on every rank.
+    Zamba2's shared block computes on its heads and MLP columns as an
+    ``attn`` block's, its FSDP shards gathered once a call;
   * FSDP over the data axes: a period's ``embed``-sharded leaves are
     all-gathered just before the period and again in its remat
     recompute, and their gradients reduce-scattered back to the shard;
@@ -37,15 +52,19 @@ computes on its own shards, as XLA partitions the reference's cell:
 
 The plan of each leaf (``leaf_plans``) says where it is gathered and how
 its gradient is reduced. Leaves the TP code does not split keep the
-gather-whole path, leaf by leaf, once a call: Mamba2's and RWKV6's leaves
-and Zamba2's shared block. So does a block whose attention projections
-the rules split in the middle of a head (H not a multiple of the model
-extent): its attention leaves are gathered over ``model`` and computed
-replicated, the *guard* (on the (16, 16) mesh: starcoder2-7b, H 36;
-qwen2-vl-7b, H 28; llama4-maverick, H 40, whose MoE blocks still compute
-on their expert shards). A cell records which pattern positions took the
-guard (``Cell.guarded``) and which MoE blocks compute on expert shards
-(``Cell.expert_split``).
+gather-whole path, leaf by leaf, once a call: RWKV6's leaves. So does a
+block whose attention projections the rules split in the middle of a
+head (H not a multiple of the model extent): its attention leaves are
+gathered over ``model`` and computed replicated, the *guard* (on the
+(16, 16) mesh: starcoder2-7b, H 36; qwen2-vl-7b, H 28; llama4-maverick,
+H 40, whose MoE blocks still compute on their expert shards); and a
+Mamba2 mixer whose SSD heads do not divide the model extent (its leaves
+gathered over ``model``, computed replicated). A cell records which
+parts took the guard (``Cell.guarded``: ``"pos{j}"``, ``"shared"``,
+``"pos{j}.mixer"``), which MoE blocks compute on expert shards
+(``Cell.expert_split``), which Mamba2 blocks on their heads
+(``Cell.mamba_split``) and how their ``in_proj`` columns reach the rank
+(``Cell.in_proj_route``).
 
 A training step's microbatch rows are spread over the data-parallel
 ranks (gcd(dp ranks, rows) slices, consecutive ranks sharing a slice);
@@ -53,9 +72,9 @@ the model axis's ranks share their rows. The gradients are reduced: over
 the data axes by the FSDP reduce-scatters, or an all-reduce for leaves
 replicated there, then divided by the data-parallel extent; over
 ``model`` by a sum only for leaves replicated there that each rank used
-in part (the KV projections and the per-head norms, and under sequence
-parallelism every such leaf but the MoE routers, whose gradient is whole
-on every rank). ``grad_hook`` then runs on the whole
+in part (the KV projections and the per-head norms, a split mixer's
+``conv_w`` and ``conv_b``, and under sequence parallelism every such
+leaf but the MoE routers, whose gradient is whole on every rank). ``grad_hook`` then runs on the whole
 gradients (where the reference's runs), the clip's global norm is taken
 over the distinct shards (a shard replicated on a mesh dim counts once),
 and AdamW runs on each rank's shards; the moments shard like the
@@ -81,6 +100,8 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from ..arch import model as M
+from ..arch.layers import kv_range
+from ..arch.mamba2 import _dims as mamba_dims
 from ..arch.moe import dispatch_geometry
 from ..arch.params import shape_structs, tree_leaves
 from ..configs import SHAPES, get_config
@@ -120,6 +141,9 @@ class Cell:
     grad_hook: bool = False
     guarded: Tuple[str, ...] = field(default_factory=tuple)
     expert_split: Tuple[str, ...] = field(default_factory=tuple)
+    mamba_split: Tuple[str, ...] = field(default_factory=tuple)
+    in_proj_route: str = ""
+    kv_chunks: bool = False
 
 
 def _extent(mesh, axes) -> int:
@@ -151,11 +175,11 @@ def train_split(mesh, rows: int) -> int:
 
 def tp_model(cfg: ModelConfig) -> bool:
     """Whether a cell of ``cfg`` computes on its model-axis shards: it has
-    attention blocks. A model without (Mamba2 with Zamba2's shared block,
-    RWKV6) keeps the gather-whole cell, its rows spread over every rank:
-    a vocab-parallel head alone would make the model axis's ranks repeat
-    its scans on shared rows."""
-    return any(k in ("attn", "attn_moe") for k in cfg.pattern)
+    attention or Mamba2 blocks (Zamba2's shared block then splits too). A
+    model without (RWKV6) keeps the gather-whole cell, its rows spread
+    over every rank: a vocab-parallel head alone would make the model
+    axis's ranks repeat its scans on shared rows."""
+    return any(k in ("attn", "attn_moe", "mamba2") for k in cfg.pattern)
 
 
 def row_axes(cfg: ModelConfig, mesh) -> tuple:
@@ -199,19 +223,25 @@ def _batch_dim(key: str) -> int:
 #: the parts of a block, and the top-level leaves, that the TP code
 #: computes on their shards; every other leaf sharded on ``model`` keeps
 #: the gather-whole path
-TP_PARTS = ("ln1", "ln2", "attn", "mlp", "moe")
-TP_TOP = ("embed", "lm_head", "final_norm", "ln0")
+TP_PARTS = ("ln1", "ln2", "attn", "mlp", "moe", "mixer")
+TP_TOP = ("embed", "lm_head", "final_norm", "ln0", "shared")
 #: a TP attention's leaves replicated on ``model`` that each rank uses in
 #: part (its KV heads, and the per-head norms on its q heads)
 PARTIAL = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
+#: a Mamba2 mixer's leaves each rank uses in part where they are whole
+#: on it (its heads' columns and conv channels, and the shared B and C)
+MIXER_PARTIAL = ("in_proj", "conv_w", "conv_b")
+#: a mixer's leaves gathered over ``model`` once a call
+MIXER_UPFRONT = ("conv_w", "conv_b")
 
 
 @dataclass(frozen=True)
 class LeafPlan:
     """How one parameter leaf is computed on and reduced in a cell:
     ``upfront`` ({mesh dim: tensor dim}) is gathered once a call, ``fsdp``
-    (data-parallel mesh dims) where the leaf is used (a period's just
-    before it, again in its recompute, the gradient reduce-scattered
+    (data-parallel mesh dims, and ``model`` for a split mixer's
+    ``in_proj`` outside decode cells) where the leaf is used (a period's
+    just before it, again in its recompute, the gradient reduce-scattered
     back); ``stationary`` (data-parallel mesh dims) is never gathered: the
     MoE experts' columns under the serving rules, whose ranks gather the
     rows instead (its gradient, taken over every rank's rows, is not
@@ -260,14 +290,84 @@ def _heads_split(cfg, mesh, rules) -> bool:
     return "model" in _axes(spec[1])
 
 
+def _on_model(rules: Rules, name: str) -> bool:
+    """Whether the rules map logical axis ``name`` to ``model``."""
+    return "model" in _axes(rules.params.get(name))
+
+
 def guarded_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
-    """The pattern positions (``"pos{j}"``) of attention blocks whose head
-    projection the rules split in the middle of a head."""
-    if not _heads_split(cfg, mesh, rules) \
-            or cfg.num_heads % mesh.shape[model_dim(mesh)] == 0:
+    """The parts the rules would split over ``model`` in the middle of a
+    head, which are gathered there and computed replicated: the pattern
+    positions (``"pos{j}"``) of attention blocks and ``"shared"`` (Zamba2's
+    shared attention) whose head projection splits mid-head, and the
+    Mamba2 mixers (``"pos{j}.mixer"``) whose SSD heads do not divide the
+    model extent."""
+    m = model_dim(mesh)
+    if m is None or mesh.shape[m] == 1:
+        return ()
+    n, out = mesh.shape[m], []
+    if _heads_split(cfg, mesh, rules) and cfg.num_heads % n:
+        out += [f"pos{j}" for j, kind in enumerate(cfg.pattern)
+                if kind in ("attn", "attn_moe")]
+        if cfg.shared_attn_every_period:
+            out.append("shared")
+    if tp_model(cfg) and _on_model(rules, "ssm_heads") \
+            and cfg.ssm_heads % n:
+        out += [f"pos{j}.mixer" for j, kind in enumerate(cfg.pattern)
+                if kind == "mamba2"]
+    return tuple(out)
+
+
+def mamba_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
+    """The pattern positions (``"pos{j}"``) of Mamba2 blocks whose mixer
+    computes on its SSD heads' shards over ``model``."""
+    m = model_dim(mesh)
+    if not tp_model(cfg) or m is None or mesh.shape[m] == 1 \
+            or not _on_model(rules, "ssm_heads") \
+            or cfg.ssm_heads % mesh.shape[m]:
         return ()
     return tuple(f"pos{j}" for j, kind in enumerate(cfg.pattern)
-                 if kind in ("attn", "attn_moe"))
+                 if kind == "mamba2")
+
+
+def in_proj_route(cfg: ModelConfig, mesh, rules: Rules, kind: str) -> str:
+    """How the split mixers reach their ``in_proj`` columns in a ``kind``
+    cell: ``"weight"`` (train, prefill: the column shards gathered over
+    ``model`` with their period, each rank multiplying by its heads'
+    columns and B, C), ``"activation"`` (decode: each rank multiplies by
+    its column shard and gathers the product over ``model``),
+    ``"whole"`` (the rules leave ``in_proj`` whole on ``model``), or
+    ``""`` where no mixer splits."""
+    if not mamba_split_positions(cfg, mesh, rules):
+        return ""
+    spec = spec_for(mesh, rules.params, ("embed", "mamba_proj"),
+                    (cfg.d_model, mamba_dims(cfg)[4]))
+    if "model" not in _axes(spec[1]):
+        return "whole"
+    return "activation" if kind == "decode" else "weight"
+
+
+def kv_cache_chunks(cfg: ModelConfig, mesh, rules: Rules, kind: str,
+                    seq_len: int) -> bool:
+    """Whether a ``kind`` cell's attention writes its k/v caches at this
+    rank's sequence chunk (``layers.attention_block``'s ``cache="chunks"``;
+    the caches' layout over ``model``) rather than every position: a
+    prefill whose attention splits on whole heads and whose sequence
+    splits over ``model``, where each rank's k/v of the KV heads its q
+    heads read (the most over the ranks) over the whole sequence and of
+    every KV head over its chunk cost less than every KV head over the
+    whole sequence (never on a model extent of 2)."""
+    m = model_dim(mesh)
+    if kind != "prefill" or not tp_model(cfg) or m is None \
+            or not _heads_split(cfg, mesh, rules):
+        return False
+    n, KV = mesh.shape[m], cfg.num_kv_heads
+    if cfg.num_heads % n or seq_len % n:
+        return False
+    hq = cfg.num_heads // n
+    most = max(b - a for a, b in (kv_range(cfg, r * hq, hq)
+                                  for r in range(n)))
+    return most * n + KV < KV * n
 
 
 def expert_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
@@ -287,26 +387,37 @@ def expert_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
 
 
 def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
-               seq: bool = False) -> list:
+               seq: bool = False, decode: bool = False) -> list:
     """Every parameter leaf's ``LeafPlan``, in ``tree_leaves`` order, on
     ``mesh`` (a ``DeviceMesh`` or ``MeshShape``) under ``rules``; without
-    ``tp_model``, every leaf gathered whole once a call."""
+    ``tp_model``, every leaf gathered whole once a call. ``decode``: the
+    plans of a decode cell (a split mixer's ``in_proj`` stays a column
+    shard on ``model``; elsewhere it is gathered there with its period)."""
     specs = M.build_param_specs(cfg)
     shardings = param_shardings(mesh, rules, specs)
     m = model_dim(mesh)
     dp = {i for i, a in enumerate(mesh.mesh_dim_names) if a in ("pod",
                                                                  "data")}
     guard = set(guarded_positions(cfg, mesh, rules))
+    mamba = set(mamba_split_positions(cfg, mesh, rules))
+    heads = _heads_split(cfg, mesh, rules)
     out = []
     for (path, spec), (_, (_, pls)) in zip(_paths(specs), _paths(shardings)):
         dims = sharded_dims(mesh, pls)
         block = path[0] == "blocks"
         tp_leaf = tp_model(cfg) and (path[2] in TP_PARTS if block
                                      else path[0] in TP_TOP)
+        # a block's position (or the top-level key) and its part
+        where = path[1] if block else path[0]
+        part = path[2] if block else (path[1] if len(path) > 2 else None)
         router = block and path[2:] == ("moe", "router")
+        mixer = block and part == "mixer"
+        split_mixer = mixer and where in mamba
         if not tp_leaf:                       # gather-whole, once a call
             upfront = dict(dims)
-        elif block and path[1] in guard and path[2] == "attn" or router:
+        elif (where in guard and part == "attn") or router \
+                or (mixer and not split_mixer) \
+                or (split_mixer and path[-1] in MIXER_UPFRONT):
             upfront = {i: d for i, d in dims.items() if i == m}
         else:
             upfront = {}
@@ -315,12 +426,15 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
                       and spec.axes[d] == "expert_mlp"}
         fsdp = {i: d for i, d in dims.items() if i in dp
                 and i not in upfront and i not in stationary}
+        if split_mixer and path[-1] == "in_proj" and m in dims \
+                and not decode:
+            fsdp[m] = dims[m]            # the weight moves with its period
         replicated = m is None or m not in dims or m in upfront
         # every rank's router gradient is whole (``arch/moe.py``)
         partial = not router and (seq or (
-            block and tp_leaf and path[2] == "attn"
-            and path[1] not in guard and path[3] in PARTIAL
-            and _heads_split(cfg, mesh, rules)))
+            tp_leaf and part == "attn" and where not in guard
+            and path[-1] in PARTIAL and heads)
+            or (split_mixer and path[-1] in MIXER_PARTIAL))
         out.append(LeafPlan(path, tuple(pls), upfront, fsdp,
                             bool(replicated and partial and m is not None
                                  and mesh.shape[m] > 1), stationary))
@@ -566,10 +680,11 @@ def _local_batch(mesh, rules: Rules, batch):
     return out, shardings["tokens" if "tokens" in batch else "frames"][1]
 
 
-def _serve_setup(cfg, mesh, rules, params, seq_len: int):
+def _serve_setup(cfg, mesh, rules, params, seq_len: int,
+                 decode: bool = False):
     """(compute params, TPContext or None) of a serve cell's call."""
     seq = seq_parallel(mesh, rules, seq_len) and tp_model(cfg)
-    plans = leaf_plans(cfg, mesh, rules, seq=seq)
+    plans = leaf_plans(cfg, mesh, rules, seq=seq, decode=decode)
     return _compute_params(params, plans, mesh), \
         tp_context(mesh, plans, seq) if tp_model(cfg) else None
 
@@ -594,11 +709,15 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
     """Returns prefill(params, batch) -> (logits, decode state) on
     ``mesh``: this rank's rows of the batch (at ``batch_shardings``) on its
     parameter shards; the caches DTensors with their rows where the
-    batch's are (whole on ``model``), the last-token logits with their
-    rows there and their vocabulary over ``model`` where the head is
-    sharded."""
-    from torch.distributed.tensor import DTensor
+    batch's are (whole on ``model``, but for the k/v caches of attention
+    split over heads, which hold this rank's sequence chunk, and the
+    ``ssd`` states of mixers split over ``model``, which hold its heads:
+    as ``decode_state_shardings`` places them; ``kv_cache_chunks``), the
+    last-token logits with their rows there and their vocabulary over
+    ``model`` where the head is sharded."""
+    from torch.distributed.tensor import DTensor, Shard
     shard = make_shard_fn(mesh, rules)
+    heads = bool(mamba_split_positions(cfg, mesh, rules))
 
     def prefill(params, batch):
         local, row_pls = _local_batch(mesh, rules, batch)
@@ -606,19 +725,28 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
         B, S = batch["tokens" if "tokens" in batch else "frames"].shape[:2]
         groups = local_moe_groups(cfg, B * S, moe_groups, split)
         compute, tp = _serve_setup(cfg, mesh, rules, params, S)
+        chunks = kv_cache_chunks(cfg, mesh, rules, "prefill", S)
         logits, state = make_prefill_step(
             cfg, shard=shard, moe_path=moe_path, moe_groups=groups,
-            tp=tp)(compute, local)
+            tp=tp, cache="chunks" if chunks else True)(compute, local)
 
-        def out(t, dim):
-            pls = _rows_placements(mesh, row_pls, dim)
+        def out(name, t, dim):
+            pls = list(_rows_placements(mesh, row_pls, dim))
             shape = list(t.shape)
             shape[dim] *= split
-            return DTensor.from_local(t, mesh, pls, run_check=False,
+            if heads and name == "ssd":           # (periods, B, H, P, N)
+                pls[model_dim(mesh)] = Shard(2)
+                shape[2] = cfg.ssm_heads
+            elif chunks and name in ("k", "v"):
+                # (periods, B, S, KV, hd): this rank's sequence chunk
+                pls[model_dim(mesh)] = Shard(2)
+                shape[2] = S
+            return DTensor.from_local(t, mesh, tuple(pls), run_check=False,
                                       shape=torch.Size(shape),
                                       stride=contiguous_stride(shape))
-        state = {"caches": tree_map(lambda t: out(t, 1), state["caches"]),
-                 "lengths": out(state["lengths"], 0)}
+        state = {"caches": _walk(lambda n, t: out(n, t, 1),
+                                 state["caches"]),
+                 "lengths": out("lengths", state["lengths"], 0)}
         return _logits_out(cfg, mesh, logits, row_pls, B), state
 
     return prefill
@@ -632,13 +760,21 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Rules, *,
     at ``decode_state_shardings`` (or plain, whole on every rank), each
     gathered to this rank's rows over every non-data-parallel mesh dim,
     except, with ``dist_decode``, the k/v caches, which stay sequence
-    shards and attend through the distributed flash-decode; the new state
+    shards and attend through the distributed flash-decode, and the
+    ``ssd`` states of mixers split over ``model``, which stay this rank's
+    heads; the new state
     at the state's placements (its k/v chunks written in place, as the
     reference donates the state); the logits as ``prefill``'s."""
     from torch.distributed.tensor import DTensor
     shard = make_shard_fn(mesh, rules)
     attn_dist = {"mesh": mesh, "seq_axis": "model",
                  "batch_axes": dp_axes(mesh)} if dist_decode else None
+    heads = bool(mamba_split_positions(cfg, mesh, rules))
+
+    def local(path) -> bool:
+        """Whether a state leaf stays as this rank holds it."""
+        return (dist_decode and path in ("k", "v")) \
+            or (heads and path == "ssd")
 
     def decode(params, state, batch):
         local_b, row_pls = _local_batch(mesh, rules, batch)
@@ -657,20 +793,21 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Rules, *,
         def take(path, x, target):
             _, pls = target
             t = _to(x, mesh, pls)
-            if dist_decode and path in ("k", "v"):
+            if local(path):
                 return t
             return gather_dims(t, mesh, spread(pls))
 
         def back(path, t, like, target):
             _, pls = target
-            if not (dist_decode and path in ("k", "v")):
+            if not local(path):
                 t = cut_dims(t, mesh, spread(pls))
             return DTensor.from_local(t, mesh, pls, run_check=False,
                                       shape=like.shape,
                                       stride=contiguous_stride(like.shape))
 
         local_s = _walk(take, state, targets)
-        compute, tp = _serve_setup(cfg, mesh, rules, params, 1)
+        compute, tp = _serve_setup(cfg, mesh, rules, params, 1,
+                                   decode=True)
         logits, new = make_decode_step(
             cfg, shard=shard, moe_path=moe_path, scan_unroll=scan_unroll,
             moe_groups=local_moe_groups(cfg, B, moe_groups, split),
@@ -760,7 +897,11 @@ def build_cell(arch: Union[str, ModelConfig],
                 cast_params_bf16=cast_params_bf16, moe_path=moe_path,
                 grad_hook=grad_hook is not None,
                 guarded=guarded_positions(cfg, mesh, rules),
-                expert_split=expert_split_positions(cfg, mesh, rules))
+                expert_split=expert_split_positions(cfg, mesh, rules),
+                mamba_split=mamba_split_positions(cfg, mesh, rules),
+                in_proj_route=in_proj_route(cfg, mesh, rules, shape.kind),
+                kv_chunks=kv_cache_chunks(cfg, mesh, rules, shape.kind,
+                                          shape.seq_len))
 
 
 def cell_shardings(cell: Cell):

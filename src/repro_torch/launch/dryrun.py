@@ -15,8 +15,9 @@ would run it (see ``launch/cells.py``):
 
   * operations: the projections' matrix products (2 in x out a token per
     weight; MoE experts over their capacity slots, a rank's experts or
-    columns), attention and the
-    scans by the formulas of ``chip_smoke.py``'s bounds, the LM head on
+    columns; a split Mamba2 mixer's ``in_proj`` on the columns it
+    multiplies by), attention and the scans (on a rank's SSD heads) by
+    the formulas of ``chip_smoke.py``'s bounds, the LM head on
     every token in training and on the last one in serving; a training
     step adds the backward (2x the forward's products, 2.5x attention's)
     and, with remat, the forward again (and the chunked loss's logits);
@@ -28,9 +29,10 @@ would run it (see ``launch/cells.py``):
     of each parameter to whole (once a step), the gradients' all-reduce
     over every mesh dim, the batch's gather, the scalar all-reduces, the
     MoE router's token means, the MoE combine's sums over ``model`` and
-    the 2D expert buffer's gathers over ``data``; a decode step's gather
-    of the sequence shards, or, with the distributed flash-decode, its
-    three stats all-reduces a layer;
+    the 2D expert buffer's gathers over ``data``, a split mixer's norm
+    sums over ``model`` (and, in decode, its projection's all-gather); a
+    decode step's gather of the sequence shards, or, with the distributed
+    flash-decode, its three stats all-reduces a layer;
   * memory: the argument, output and temporary bytes a device holds.
 
 No option changes a number here by pretending to run: ``--keep-hlo`` has
@@ -58,6 +60,7 @@ from ..distributed.sharding import (batch_shardings, param_shardings,
 from .cells import (Cell, LeafPlan, build_cell, cell_shardings,
                     leaf_plans, local_moe_groups, model_dim, row_dims,
                     row_mesh, seq_parallel, tp_model, train_split)
+from ..arch.mamba2 import _dims as mamba_dims
 from .mesh import make_production_mesh
 
 # one NVIDIA H100 80GB HBM3 at its 700 W limit (NVIDIA's data sheet, SXM,
@@ -144,10 +147,13 @@ class Layout:
     """What a cell's ranks compute on (``cells.leaf_plans``): ``tp`` the
     model extent, ``seq`` sequence parallelism, per pattern position
     whether the attention splits on whole heads (``attn``), the MLP on
-    its columns (``mlp``) and how the MoE experts split (``moe``), whether
-    the embedding table (``embed``) and the LM head (``vocab``) hold vocab
-    shards, and ``nkv``, the KV heads a rank's q heads read (the most over
-    the ranks)."""
+    its columns (``mlp``), how the MoE experts split (``moe``) and whether
+    a Mamba2 mixer splits its SSD heads (``mamba``), whether Zamba2's
+    shared attention and MLP split (``shared``: (attention, MLP)),
+    whether the embedding table (``embed``) and the LM head (``vocab``)
+    hold vocab shards, ``nkv``, the KV heads a rank's q heads read (the
+    most over the ranks), and a split mixer's ``in_proj`` route
+    (``cells.in_proj_route``)."""
     plans: list
     shapes: list
     tp: int
@@ -158,13 +164,23 @@ class Layout:
     vocab: bool
     nkv: int
     moe: dict = field(default_factory=dict)
+    mamba: dict = field(default_factory=dict)
+    shared: tuple = (False, False)
+    route: str = ""
+
+    @property
+    def ssd_split(self) -> int:
+        """How many ranks share a mixer's SSD heads: ``tp`` where the
+        mixers split, else 1."""
+        return self.tp if any(self.mamba.values()) else 1
 
 
 def layout(cell: Cell, seq_len: int) -> Layout:
     cfg, mesh = cell.cfg, cell.mesh
     seq = cell.kind != "decode" and tp_model(cfg) \
         and seq_parallel(mesh, cell.rules, seq_len)
-    plans = leaf_plans(cfg, mesh, cell.rules, seq=seq)
+    plans = leaf_plans(cfg, mesh, cell.rules, seq=seq,
+                       decode=cell.kind == "decode")
     specs = M.build_param_specs(cfg)
     shapes = [s.shape for s in tree_leaves(specs)]
     m = model_dim(mesh)
@@ -177,8 +193,10 @@ def layout(cell: Cell, seq_len: int) -> Layout:
                                 False) for j in range(len(cfg.pattern))}
     head = ("embed",) if cfg.tie_embeddings and "embed" in specs \
         else ("lm_head",)
+    shared = (split.get(("shared", "attn", "wq"), False),
+              split.get(("shared", "mlp", "w_down"), False))
     nkv = cfg.num_kv_heads
-    if any(attn.values()):
+    if any(attn.values()) or shared[0]:
         hq = cfg.num_heads // tp
         nkv = max(b - a for a, b in (kv_range(cfg, r * hq, hq)
                                      for r in range(tp)))
@@ -197,34 +215,63 @@ def layout(cell: Cell, seq_len: int) -> Layout:
                                                    reverse=True)),
             shared=split.get(("blocks", f"pos{j}", "moe", "shared",
                               "w_down"), False))
+    mamba = {pos: pos in cell.mamba_split for j, kind in
+             enumerate(cfg.pattern) if kind == "mamba2"
+             for pos in (f"pos{j}",)}
     return Layout(plans, shapes, tp, seq, attn, mlp,
                   split.get(("embed",), False), split.get(head, False), nkv,
-                  moe)
+                  moe, mamba, shared, cell.in_proj_route)
 
 
-def _split(path, lay: Layout, cfg, cache: bool) -> tuple:
+def _in_proj_cols(cfg, lay: Layout) -> float:
+    """The share of ``in_proj``'s columns a split mixer multiplies by on a
+    rank: its column shard on the activation route, else its heads' z, x
+    and dt and the whole B and C."""
+    di, H, N, _, proj = mamba_dims(cfg)
+    if lay.route == "activation":
+        return 1.0 / lay.tp
+    hl = H // lay.tp
+    return (2 * hl * cfg.ssm_head_dim + 2 * N + hl) / proj
+
+
+def _split(path, lay: Layout, cfg, cache) -> tuple:
     """(in, out) width factors of a projection on one rank, and the factor
     of its applications a token (a MoE rank's experts, and the groups it
-    gathers)."""
-    if path[0] != "blocks":
+    gathers). ``cache``: whether the pass writes every KV head's k/v
+    (True), none (False), or every KV head's at the rank's sequence chunk
+    (``"chunks"``, a prefill on split heads)."""
+    if path[0] == "shared":
+        pos, part, leaf = None, path[1], path[-1]
+        attn, mlp = lay.shared
+    elif path[0] == "blocks":
+        pos, part, leaf = path[1], path[2], path[-1]
+        attn = lay.attn.get(pos, False)
+        if part == "mlp":
+            mlp = lay.mlp[pos]
+        else:                       # the shared expert splits as the MLP
+            mlp = part == "moe" and "shared" in path and pos in lay.moe \
+                and lay.moe[pos].shared
+    else:
         return 1.0, 1.0, 1.0
-    pos, part, leaf = path[1], path[2], path[-1]
-    if part == "attn" and lay.attn[pos]:
+    if part == "attn" and attn:
         if leaf == "wq":
             return 1.0, 1.0 / lay.tp, 1.0
         if leaf == "wo":
             return 1.0 / lay.tp, 1.0, 1.0
-        if leaf in ("wk", "wv") and not cache:
-            return 1.0, lay.nkv / cfg.num_kv_heads, 1.0
-    if part == "mlp":
-        mlp = lay.mlp[pos]
-    else:                           # the shared expert splits as the MLP
-        mlp = part == "moe" and "shared" in path and pos in lay.moe \
-            and lay.moe[pos].shared
+        if leaf in ("wk", "wv") and cache is not True:
+            # its q heads' KV heads, and for a prefill's cache every KV
+            # head at its sequence chunk
+            chunk = 1.0 / lay.tp if cache == "chunks" else 0.0
+            return 1.0, lay.nkv / cfg.num_kv_heads + chunk, 1.0
     if mlp:
         if leaf in ("w_gate", "w_up", "w_in"):
             return 1.0, 1.0 / lay.tp, 1.0
         if leaf == "w_down":
+            return 1.0 / lay.tp, 1.0, 1.0
+    if part == "mixer" and lay.mamba.get(pos):
+        if leaf == "in_proj":
+            return 1.0, _in_proj_cols(cfg, lay), 1.0
+        if leaf == "out_proj":
             return 1.0 / lay.tp, 1.0, 1.0
     if part == "moe" and pos in lay.moe and "shared" not in path \
             and leaf != "router":
@@ -249,12 +296,12 @@ def _attn_split(cfg, lay: Layout, decode_dist: bool = False) -> list:
     out = [(lay.attn[f"pos{j}"] or decode_dist, cfg.num_periods)
            for j, k in enumerate(cfg.pattern) if k in ("attn", "attn_moe")]
     if cfg.shared_attn_every_period:
-        out.append((decode_dist, cfg.num_periods))
+        out.append((lay.shared[0] or decode_dist, cfg.num_periods))
     return out
 
 
 def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
-               act: int, lay: Layout, cache: bool, dist: bool = False):
+               act: int, lay: Layout, cache, dist: bool = False):
     """Forward operations and activation bytes a token on one rank:
     (projection flops, projection activation bytes, attention flops,
     attention bytes, scan flops, scan bytes), activations of ``act``
@@ -269,16 +316,17 @@ def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
     for split, n in _attn_split(cfg, lay, dist):
         t = lay.tp if split else 1
         a_flops += n * 4 * H * hd * ctx / t
-        kv = lay.nkv if split and not cache else KV
+        kv = lay.nkv if split and cache is not True else KV
         a_bytes += n * (2 * H / t + 2 * kv) * hd * act
     s_flops = s_bytes = 0.0
     n_ssd = cfg.num_periods * cfg.pattern.count("mamba2")
-    if n_ssd:
-        Hs, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    if n_ssd:              # a split mixer's scan and conv on its heads
+        Hs = cfg.ssm_heads // lay.ssd_split
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
         c = min(SSD_CHUNK, S)
         per = 4 * P * N if decode else 2 * c * (N + P) + 4 * P * N
         s_flops += n_ssd * Hs * per
-        conv_ch = cfg.d_inner + 2 * N
+        conv_ch = Hs * P + 2 * N
         s_flops += n_ssd * 2 * cfg.ssm_conv * conv_ch
         s_bytes += n_ssd * (2 * Hs * P + 2 * N + Hs) * act
     n_wkv = cfg.num_periods * cfg.pattern.count("rwkv6")
@@ -410,11 +458,11 @@ def _parts(cfg, lay: Layout) -> list:
             else:
                 out.append((False, d, lay.moe.get(pos, MoESplit())))
         elif kind == "mamba2":
-            out.append((False, d, None))
+            out.append((lay.mamba.get(pos, False), d, None))
         else:
             out += [(False, d, None), (False, d, None)]
     if cfg.shared_attn_every_period:
-        out += [(False, 2 * d, None), (False, 2 * d, None)]
+        out += [(lay.shared[0], 2 * d, None), (lay.shared[1], 2 * d, None)]
     return out
 
 
@@ -517,6 +565,28 @@ def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
                                                  tok * cfg.d_model), fwd)
                 if grad:
                     c.coll("all-reduce", _ring("all-reduce", t, tok * width))
+    _mixers(c, cfg, lay, rows * S, act, fwd, grad)
+
+
+def _mixers(c: Count, cfg, lay: Layout, tokens: int, act: int, fwd: int,
+            grad: bool) -> None:
+    """The split Mamba2 mixers' own collectives over ``model`` in one pass
+    of ``tokens`` (``arch/mamba2.py``): the gated RMSNorm's f32 sum of
+    squares (an all-reduce, ``fwd`` times; its copy-in's all-reduce
+    backward) and, on the activation route (decode), the projection's
+    all-gather."""
+    n = cfg.num_periods * sum(lay.mamba.values())
+    t = lay.tp
+    if not n:
+        return
+    c.coll("all-reduce", n * fwd * _ring("all-reduce", t, tokens * 4),
+           n * fwd)
+    if grad:
+        c.coll("all-reduce", n * _ring("all-reduce", t, tokens * 4), n)
+    if lay.route == "activation":             # decode: no backward
+        block = tokens * mamba_dims(cfg)[4] / t * act
+        c.coll("all-gather", n * fwd * _ring("all-gather", t, block),
+               n * fwd)
 
 
 def account(cell: Cell) -> dict:
@@ -565,6 +635,14 @@ def account(cell: Cell) -> dict:
                                                if v),
                      "guarded": list(cell.guarded),
                      "vocab_split": lay.vocab,
+                     "kv_cache_chunks": cell.kv_chunks,
+                     "mamba_split": {
+                         "positions": list(cell.mamba_split),
+                         "ssd_heads_per_rank": cfg.ssm_heads // lay.ssd_split
+                         if cell.mamba_split else 0,
+                         "in_proj_route": cell.in_proj_route},
+                     "shared_split": {"attention": lay.shared[0],
+                                      "mlp": lay.shared[1]},
                      "expert_split": {pos: {"experts": ms.experts,
                                             "columns_model": ms.cols,
                                             "columns_data": list(ms.dp)}
@@ -707,12 +785,18 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
     groups = local_moe_groups(cfg, B * (1 if decode else S), mesh.size(),
                               split)
     ctx = S if decode else ((S + 1) / 2 if cfg.causal else S)
+    cache = "chunks" if cell.kv_chunks else True
     pf, pb, af, ab, sf, sb = _per_token(
         cfg, S, ctx, decode, _expert_apps(cfg, tokens, groups,
-                                          cell.moe_path), act, lay, True,
+                                          cell.moe_path), act, lay, cache,
         dist=decode and cell.dist_decode)
     heads = rows if cfg.is_decoder else rows * S
     c.flops = tokens * (pf + af + sf) + heads * head
+    if not decode and lay.route == "weight":
+        # the conv state's tail from the whole in_proj's [x, B, C] columns
+        conv_ch = mamba_dims(cfg)[3]
+        c.flops += rows * cfg.num_periods * sum(lay.mamba.values()) \
+            * 2 * (cfg.ssm_conv - 1) * cfg.d_model * conv_ch
     vocab = cfg.vocab_size / (lay.tp if lay.vocab else 1)
     logits = heads * vocab * 4
     pbytes = _nbytes(tree_leaves(cell.args[0])[0].dtype)
@@ -726,9 +810,17 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
             c.coll("all-gather", _ring("all-gather", lay.tp,
                                        rows * S * cfg.d_model * act
                                        / lay.tp))
+        specs = M.decode_state_specs(cfg, rows, S, getattr(torch,
+                                                           cfg.dtype))
+        # a split mixer's ssd state: this rank's heads; a split
+        # attention's k/v: its sequence chunk
+        split = {**lay.attn, "shared": lay.shared[0]}
         caches = sum(math.prod(t.shape) * _nbytes(t.dtype)
-                     for t in tree_leaves(M.decode_state_specs(
-                         cfg, rows, S, getattr(torch, cfg.dtype))["caches"]))
+                     / (lay.ssd_split if name == "ssd" else lay.tp
+                        if name in ("k", "v") and split.get(key)
+                        and cache == "chunks" else 1)
+                     for key, leaves in specs["caches"].items()
+                     for name, t in leaves.items())
         c.bytes = w_compute + tokens * (pb + ab + sb) + logits \
             + caches * cfg.is_decoder
         return {"count": c, "split": split, "rows_per_device": rows,
@@ -744,7 +836,8 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
     for name, t, pls in _state_leaves(dstate, s_sh):
         local = _local_bytes(mesh, pls, t.shape, t.dtype)
         state_local += local
-        if cell.dist_decode and name in ("k", "v"):
+        if cell.dist_decode and name in ("k", "v") \
+                or name == "ssd" and lay.ssd_split > 1:
             state_step += local
             continue
         gathered_to = rows_only(mesh, pls)

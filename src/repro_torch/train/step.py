@@ -135,11 +135,11 @@ def to_micro(x, microbatches: int):
 
 def make_prefill_step(cfg: ModelConfig, *, shard: Callable = _ID,
                       moe_path: str = "dispatch", moe_groups: int = 0,
-                      tp=None):
+                      tp=None, cache=True):
     def prefill(params, batch):
         return M.forward(cfg, params, batch, mode="prefill", shard=shard,
                          remat=False, moe_path=moe_path,
-                         moe_groups=moe_groups, tp=tp)
+                         moe_groups=moe_groups, tp=tp, cache=cache)
     return prefill
 
 

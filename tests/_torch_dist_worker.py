@@ -542,19 +542,40 @@ def _expert_shapes(params) -> set:
     return out
 
 
-def _watched(c, params) -> set:
-    """The leaf shapes no all-gather over ``model`` may carry: the
-    experts' (``c["watch"] == "experts"``) or the ``attn``-kind leaves'."""
-    return (_expert_shapes if c.get("watch") == "experts"
-            else _attn_shapes)(params)
+def _mamba_shapes(params) -> dict:
+    """{shape: leaf name} of every Mamba2 mixer weight but ``conv_w`` and
+    ``conv_b`` (gathered over ``model`` once a call in every cell) on a
+    rank before a gather over ``model``: its block and a period's slice
+    of it."""
+    out = {}
+    for period in params["blocks"].values():
+        mixer = period.get("mixer")
+        if mixer is None:
+            continue
+        for name, leaf in mixer.items():
+            if name in ("conv_w", "conv_b"):
+                continue
+            local = tuple(leaf.to_local().shape)
+            out.update({local: name, local[1:]: name})
+    return out
+
+
+def _watched(c, params):
+    """The leaf shapes whose all-gathers over ``model`` are recorded: the
+    experts' (``c["watch"] == "experts"``), the Mamba2 mixers' (``"mamba"``,
+    a dict naming each shape's leaf) or the ``attn``-kind leaves'."""
+    return {"experts": _expert_shapes, "mamba": _mamba_shapes}.get(
+        c.get("watch"), _attn_shapes)(params)
 
 
 def _model_gathers(calls, mesh, shapes) -> list:
     """The recorded all-gathers over ``mesh``'s model group whose input
-    has the shape of an ``attn``-kind leaf."""
+    has the shape of a watched leaf (its name where ``shapes`` names
+    them)."""
     group = mesh.get_group("model") if mesh.shape[
         mesh.mesh_dim_names.index("model")] > 1 else None
-    return [c["shape"] for c in calls if c["kind"] == "all-gather"
+    return [shapes[c["shape"]] if isinstance(shapes, dict) else c["shape"]
+            for c in calls if c["kind"] == "all-gather"
             and group is not None and c["group"] is group
             and c["shape"] in shapes]
 
@@ -590,15 +611,12 @@ def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
                                                   place_tree)
     from repro_torch.launch.cells import build_cell, cell_shardings
     from repro_torch.train.optim import AdamWState
-    from repro_torch.launch import cells
     cfg = _tp_cfg(c)
     rules = getattr(S, c["rules"])("pod" in mesh.mesh_dim_names)
     B, seq = c["batches"][0]["labels"].shape
     cell = build_cell(cfg, ShapeSpec("t", seq, B, "train"), mesh,
                       rules=rules, microbatches=c["microbatches"])
-    if c.get("fault") == "router_model_sum":
-        # a planted fault: the router's gradient summed over ``model``
-        cells.leaf_plans = _router_summed(cells.leaf_plans)
+    undo = _plant(c.get("fault"))
     p_sh = param_shardings(mesh, rules, M.build_param_specs(cfg))
     o_sh = AdamWState((mesh, (Replicate(),) * mesh.ndim), p_sh, p_sh)
     b_sh = cell_shardings(cell)[2]
@@ -624,22 +642,54 @@ def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
             "placements_kept": all(
                 tuple(x.placements) == tuple(sh[1])
                 for x, sh in zip(_leaves(params), _leaves(p_sh)))})
-    if c.get("fault"):
-        cells.leaf_plans = cells.leaf_plans.__wrapped__
-    return {"steps": steps, "account": _count(cell), "guarded": cell.guarded}
+    undo()
+    return {"steps": steps, "account": _count(cell), "guarded": cell.guarded,
+            "mamba_split": cell.mamba_split,
+            "in_proj_route": cell.in_proj_route}
 
 
-def _router_summed(leaf_plans):
-    """``leaf_plans`` with every MoE router's ``model_sum`` set."""
+def _model_sum_set(leaf_plans, which, value: bool):
+    """``leaf_plans`` with ``model_sum`` set to ``value`` on the plans
+    ``which(path)`` picks."""
     import dataclasses
     import functools
 
     @functools.wraps(leaf_plans)
     def plans(*args, **kw):
-        return [dataclasses.replace(p, model_sum=True)
-                if p.path[-1] == "router" else p
-                for p in leaf_plans(*args, **kw)]
+        return [dataclasses.replace(p, model_sum=value)
+                if which(p.path) else p for p in leaf_plans(*args, **kw)]
     return plans
+
+
+#: planted faults a train case may carry, each (what it patches, the
+#: patch): the router's gradient summed over ``model``; a split mixer's
+#: norm sum with an identity backward; ``conv_w``'s and the shared
+#: block's ``wk``'s gradients left unsummed over ``model``
+_FAULTS = {
+    "router_model_sum": ("plans", lambda lp: _model_sum_set(
+        lp, lambda path: path[-1] == "router", True)),
+    "conv_w_no_model_sum": ("plans", lambda lp: _model_sum_set(
+        lp, lambda path: path[-2:] == ("mixer", "conv_w"), False)),
+    "shared_wk_no_model_sum": ("plans", lambda lp: _model_sum_set(
+        lp, lambda path: path == ("shared", "attn", "wk"), False)),
+    "norm_sum_identity_backward": ("total", None),
+}
+
+
+def _plant(fault):
+    """Plant ``fault`` (a ``_FAULTS`` key, or None); returns its undo."""
+    from repro_torch.distributed.sharding import TPContext
+    from repro_torch.launch import cells
+    if fault is None:
+        return lambda: None
+    what, patch = _FAULTS[fault]
+    if what == "plans":
+        own = cells.leaf_plans
+        cells.leaf_plans = patch(own)
+        return lambda: setattr(cells, "leaf_plans", own)
+    own = TPContext.total
+    TPContext.total = TPContext.reduce
+    return lambda: setattr(TPContext, "total", own)
 
 
 def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
@@ -672,7 +722,8 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
            "prefill_state": _whole_np(state),
            "prefill": {"tally": _tally(calls), "account": _count(pre),
                        "model_gathers": _model_gathers(calls, mesh, shapes)},
-           "guarded": pre.guarded}
+           "guarded": pre.guarded, "mamba_split": pre.mamba_split,
+           "in_proj_route": {"prefill": pre.in_proj_route}}
     if "state" not in c:
         return out
     out["decode"] = {}
@@ -681,7 +732,8 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
                          rules=rules, dist_decode=dist_decode,
                          serve_dtype="float32")
         _, s_sh, b_sh = cell_shardings(dec)
-        dstate = tree_map(torch.from_numpy, c["state"])
+        # a copy each call: the cell writes the state's blocks in place
+        dstate = tree_map(lambda a: torch.from_numpy(a.copy()), c["state"])
         dstate = {"caches": place_tree(dstate["caches"], s_sh["caches"]),
                   "lengths": place(dstate["lengths"], *s_sh["lengths"])}
         nxt = place(torch.from_numpy(c["next"]), *b_sh["tokens"])
@@ -693,6 +745,7 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
             "logits": gather_whole(logits).numpy(), "state": _whole_np(dstate),
             "tally": _tally(calls), "account": _count(dec),
             "model_gathers": _model_gathers(calls, mesh, shapes),
+            "in_proj_route": dec.in_proj_route,
             "placements_kept": all(
                 tuple(x.placements) == tuple(sh[1]) for x, sh in
                 zip(_leaves(dstate["caches"]), _leaves(s_sh["caches"])))}
@@ -701,9 +754,11 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
 
 def tensor_parallel_world(rank: int, train_cases: list,
                           serve_cases: list) -> dict:
-    """tests/test_torch_tensor_parallel.py: each train case's two cell
-    steps and each serve case's prefill and decode cells on their meshes,
-    every call's collectives recorded (by every rank)."""
+    """tests/test_torch_tensor_parallel.py and
+    tests/test_torch_mamba_parallel.py: each train case's cell steps (a
+    planted fault where the case names one) and each serve case's prefill
+    and decode cells on their meshes, every call's collectives recorded
+    (by every rank)."""
     from repro_torch.launch.mesh import make_mesh
     log = CollectiveLog()
     meshes, out = {}, {"train": [], "serve": []}

@@ -6,7 +6,9 @@ meshes serve); the accounting against the reference test's own bounds
 (``tests/test_dryrun_machinery.py``) on a (2, 4) mesh; the per-device
 parameter bytes against what the JAX package's ``param_shardings``
 implies; and ``python -m repro_torch.launch.dryrun --all`` in a
-subprocess, which loads neither ``jax`` nor ``repro``."""
+subprocess, which loads neither ``jax`` nor ``repro``. dbrx-132b's and
+zamba2-2.7b's cells on the pod mesh: their experts, SSD heads and shared
+block on shards."""
 import json
 import math
 import os
@@ -302,4 +304,122 @@ def test_dbrx_param_bytes_match_jax_shardings(dbrx_cells, shape, jax_specs):
     rules = JS.serve_rules(False) if serve else JS.baseline_rules(False)
     want = _jax_local_bytes("dbrx-132b", *MESHES["pod"], rules,
                             4 if train else 2)
+    assert r["memory"]["param_bytes"] == pytest.approx(want, rel=1e-12)
+
+
+ZAMBA_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
+@pytest.fixture(scope="module")
+def zamba_cells(tmp_path_factory):
+    """zamba2-2.7b's cells on the (16, 16) pod mesh (the serve cells also
+    ``--optimized``), and on the (16, 1) mesh (the same rows a device, no
+    model axis)."""
+    out = tmp_path_factory.mktemp("zamba2")
+    pod = {s: dryrun.run_cell("zamba2-2.7b", s, multi_pod=False,
+                              out_dir=out) for s in ZAMBA_SHAPES}
+    pod.update({f"{s} optimized": dryrun.run_cell(
+        "zamba2-2.7b", s, multi_pod=False, out_dir=out, optimized=True)
+        for s in ZAMBA_SHAPES[1:]})
+    one = {s: dryrun.run_cell("zamba2-2.7b", s, multi_pod=False,
+                              out_dir=out, mesh=MeshShape((16, 1),
+                                                          ("data", "model")))
+           for s in ZAMBA_SHAPES}
+    return pod, one
+
+
+@pytest.mark.parametrize("shape", list(ZAMBA_SHAPES) + [
+    f"{s} optimized" for s in ZAMBA_SHAPES[1:]])
+def test_zamba2_layout_names_its_mixer_split(zamba_cells, shape):
+    """The layout field of zamba2-2.7b's cells on (16, 16): every Mamba2
+    position on 5 of 80 SSD heads a rank, ``in_proj``'s route by the
+    cell's kind, the shared block's attention and MLP split; on (16, 1)
+    nothing splits."""
+    r = zamba_cells[0][shape]
+    split = r["layout"]["mamba_split"]
+    assert split["positions"] == [f"pos{j}" for j in range(6)]
+    assert split["ssd_heads_per_rank"] == 5
+    assert split["in_proj_route"] == (
+        "activation" if shape.startswith("decode") else "weight")
+    assert r["layout"]["shared_split"] == {"attention": True, "mlp": True}
+    assert r["layout"]["guarded"] == []
+    assert r["rows_per_device"] == zamba_cells[1][
+        shape.split()[0]]["rows_per_device"]
+    flat = zamba_cells[1][shape.split()[0]]["layout"]["mamba_split"]
+    assert flat == {"positions": [], "ssd_heads_per_rank": 0,
+                    "in_proj_route": ""}
+
+
+@pytest.mark.parametrize("shape,mesh,want", [
+    ("prefill_32k", (16, 16), True), ("prefill_32k", (1, 2), False),
+    ("decode_32k", (16, 16), False), ("train_4k", (16, 16), False)])
+def test_zamba2_kv_cache_chunks_decided_by_the_cell(shape, mesh, want):
+    """The cell decides once whether its prefill writes the shared block's
+    k/v caches at a rank's sequence chunk (``Cell.kv_chunks``): on (16,
+    16) each rank's 2 KV heads over the whole sequence and all 32 over its
+    chunk cost less than all 32 over the whole sequence; on a model
+    extent of 2 they never do; decode and train cells write none. The
+    dry run's layout reports the cell's choice."""
+    cell = TCells.build_cell("zamba2-2.7b", shape, MeshShape(
+        mesh, ("data", "model")))
+    assert cell.kv_chunks is want
+    assert TCells.kv_cache_chunks(cell.cfg, cell.mesh, cell.rules,
+                                  cell.kind, cell.shape.seq_len) is want
+    if shape == "prefill_32k" and mesh == (16, 16):
+        r = dryrun.account(cell)
+        assert r["layout"]["kv_cache_chunks"] is True
+
+
+@pytest.mark.parametrize("shape", ZAMBA_SHAPES)
+def test_zamba2_ssd_count_is_a_rank_s_heads(zamba_cells, shape):
+    """The SSD scan's term of a device's operations on (16, 16) is a 16th
+    of the (16, 1) mesh's, whose ranks scan all 80 heads: ``_per_token``'s
+    scan term on each layout, less the conv's (its B and C channels every
+    rank repeats)."""
+    cell = TCells.build_cell("zamba2-2.7b", shape, MeshShape(
+        (16, 16), ("data", "model")))
+    lay = dryrun.layout(cell, cell.shape.seq_len)
+    flat = dryrun.layout(TCells.build_cell(
+        "zamba2-2.7b", shape, MeshShape((16, 1), ("data", "model"))),
+        cell.shape.seq_len)
+    cfg, S = cell.cfg, cell.shape.seq_len
+    decode = shape.startswith("decode")
+    n = cfg.num_periods * 6
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    conv = lambda ch: n * 2 * cfg.ssm_conv * ch                # noqa: E731
+    got = dryrun._per_token(cfg, S, S, decode, 0.0, 2, lay, True)[4] \
+        - conv(5 * P + 2 * N)
+    whole = dryrun._per_token(cfg, S, S, decode, 0.0, 2, flat, True)[4] \
+        - conv(80 * P + 2 * N)
+    assert lay.ssd_split == 16 and flat.ssd_split == 1
+    assert got * 16 == pytest.approx(whole, rel=1e-12)
+
+
+def test_zamba2_cells_count_their_shards(zamba_cells):
+    """zamba2-2.7b on (16, 16): prefill_32k at most 5e13 flop a device
+    (5.99e14 while every model rank computed its two rows whole); decode
+    under the serving rules moves no weight over ``model`` (below 1e8 B
+    on the wire, 5.16e9 before); the train cell's rows over the data
+    axis alone (16 a device) and every cell under one card's 80e9 B."""
+    pod, _ = zamba_cells
+    assert pod["prefill_32k"]["cost"]["flops"] <= 5e13
+    assert pod["decode_32k optimized"]["cost"]["collective_wire_bytes"] \
+        < 1e8
+    assert pod["train_4k"]["rows_per_device"] == 16
+    for r in pod.values():
+        assert r["memory"]["peak_per_device_bytes"] < 80e9, r["memory"]
+
+
+@pytest.mark.parametrize("shape", list(ZAMBA_SHAPES) + [
+    f"{s} optimized" for s in ZAMBA_SHAPES[1:]])
+def test_zamba2_param_bytes_match_jax_shardings(zamba_cells, shape,
+                                                jax_specs):
+    """A device's parameter bytes in zamba2-2.7b's cells equal what the
+    JAX package's ``param_shardings`` implies: computing on the mixers'
+    and the shared block's shards moves no parameter's placement."""
+    r = zamba_cells[0][shape]
+    rules = JS.serve_rules(False) if shape.endswith("optimized") \
+        else JS.baseline_rules(False)
+    want = _jax_local_bytes("zamba2-2.7b", *MESHES["pod"], rules,
+                            4 if shape == "train_4k" else 2)
     assert r["memory"]["param_bytes"] == pytest.approx(want, rel=1e-12)

@@ -229,6 +229,28 @@ def test_chip_smoke_lm_rehearsal_on_cpu():
     assert prof["device_ms_per_call"] is None      # no device on the CPU
 
 
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b", "rwkv6-7b"])
+def test_chip_smoke_serve_refills_a_freed_slot(arch):
+    """The smoke's engine runs hold one request more than their slots and
+    request 0 asks for fewer tokens: the last request is admitted into
+    request 0's freed slot while the other rows decode (a dirty KV or
+    recurrent state zeroed beside live rows), every request emits what
+    it asked for, and the check of that holds."""
+    smoke = _chip_smoke()
+    cfg, params = smoke.lm_params(arch + "-smoke", "cpu")
+    serve = smoke.serve_phase("cpu", cfg, params, slots=2, max_seq=48,
+                              n_requests=3, prompt_lens=(4, 8),
+                              new_tokens=4, first_tokens=2)
+    assert serve["requests"] == 3 and serve["tokens"] == 2 + 4 + 4
+    assert serve["engine"].tokens_out == 10
+    # request 0 as long as the others: the last request waits for a whole
+    # wave to end, and the check says so
+    with pytest.raises(smoke.SmokeFailure, match="freed slot"):
+        smoke.serve_phase("cpu", cfg, params, slots=2, max_seq=48,
+                          n_requests=3, prompt_lens=(4, 8), new_tokens=4,
+                          first_tokens=4)
+
+
 def test_chip_smoke_bounds():
     """The bound counts what this run's data needs: the visible pairs of a
     causal tile, the valid cache entries of a decode row."""
