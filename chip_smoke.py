@@ -192,15 +192,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``DENSE_GAP_TOL``), the warm time and peak device memory; an engine
    run of 4 requests for each decoder.
 16. training across devices, in an NCCL world of one on 127.0.0.1: (a)
-   qwen3-1.7b at full width and depth (f32 masters, bf16 compute, remat,
-   B 4 x S 1024) through ``launch.cells.build_cell``'s train ``fn`` on a
-   (1, 1) ("data", "model") mesh (``baseline_rules``), 4 steps, each from
-   the same state as the undistributed ``make_train_step``: loss, grad
-   norm and every param leaf within ``LM_PARITY_TOL`` (the bit-equal
-   leaves counted), the moments and step count bit-equal (by sums of
-   their bits), 56
-   ``flash_attention`` forwards and 28
-   backwards a step; both steps' times, tokens/s and peak memory. (b) The
+   qwen3-1.7b at full width, 14 of its 28 layers (``SHARDED_TRAIN_LAYERS``;
+   f32 masters, bf16 compute, remat, B 4 x S 1024) through
+   ``launch.cells.build_cell``'s train ``fn`` on a (1, 1) ("data",
+   "model") mesh (``baseline_rules``), 4 steps, each from the same state
+   as the undistributed ``make_train_step``: loss, grad norm and every
+   param leaf within ``LM_PARITY_TOL`` (the bit-equal leaves counted), the
+   moments and step count bit-equal (by sums of their bits), 28
+   ``flash_attention`` forwards and 14 backwards a step; both steps'
+   times, tokens/s and peak memory. (b) The
    same from the same start with ``compress_with_feedback`` as the hook:
    losses finite, the last below the first, each leaf's compression
    error within half a code. (c) (a)'s state through
@@ -269,6 +269,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    end add the shared block's attention at D 80 (H 2 and H 16) and the
    SSD scan forward and backward at 5 heads (``tp_ssd_phase``: the
    train_4k and prefill_32k cells' rows a device on the pod mesh).
+20. rwkv6 on its shards: rwkv6-7b at full width cut to 2 layers, f32, in
+   a world of two gloo processes on the card (every collective probed on
+   CUDA tensors first; a refused one fails the phase), on a (1, 2) mesh:
+   32 WKV heads, 7,168 channel-mix columns and 32,768 vocabulary rows a
+   rank. A train step (B 2 x S 256) under ``baseline_rules`` against the
+   world of one's ``make_train_step`` (the loss at ``LM_PARITY_TOL``, the
+   grad norm and every gradient leaf within ``RWKV_ORDER_FACTOR`` times
+   the world of one's own gap summed in two microbatches on the card, the
+   params by ``_update_excess``); prefill and decode (with and without
+   the distributed flash-decode flag, which an attention-free model
+   ignores) under ``serve_rules`` at ``MAMBA_SERVE_TOL`` (logits,
+   ``x_tm``, ``x_cm`` and ``wkv``: 2e-5 of each tensor's max); each
+   rank's collectives equal to ``dryrun.account``'s; no RWKV6 weight
+   all-gathered over ``model``; the scan launches on rank 0 (4 forward
+   and 2 backward a train step, 2 a prefill). Within
+   ``RWKV_WORLD_SECONDS``. Phases 19 and 20 share ``_shards_world_body``.
+   The per-rank cases at the end add the WKV scan forward at 4 heads (the
+   train_4k cell's rows a microbatch on a device, B 4 x S 4096, and
+   prefill_32k's, B 2 x S 32768) and its backward at B 4 x S 4096
+   (``tp_wkv_phase``).
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
@@ -276,8 +296,8 @@ the training paths' backward calls: qwen3-1.7b's for
 ``flash_attention_backward``, zamba2-2.7b's and rwkv6-7b's for the
 scans'); ``decode_attention``'s row also carries its stats route's
 check, times and bound (``stats_*``) and launches (phase 14 b); the
-attention rows carry phase 17 (a)'s per-rank cases and the SSD scan's
-rows phase 19's (``per_rank``).
+attention rows carry phase 17 (a)'s per-rank cases, the SSD scan's rows
+phase 19's and the WKV scan's rows phase 20's (``per_rank``).
 Every kernel count is set to 0 just before each path and read just after.
 The last lines are the ``{"kernels": [...]}`` record and the device line.
 Without a card, or without ``src/repro_torch`` beside it, it exits
@@ -2498,6 +2518,11 @@ RECURRENT_TRAIN_LAYERS = {"zamba2-2.7b": 54, "rwkv6-7b": 8}
 TRAIN_PEAK_BYTES = 72e9
 
 
+# elements of a leaf ``_update_excess`` takes at once (five float64
+# slices of 0.13e9 B on the device)
+EXCESS_SLICE = 1 << 24
+
+
 def _update_excess(p_new, p_ref, g, g_ref, p0, opt, norms) -> float:
     """How far the card's first AdamW update exceeds what its gradient
     differences allow, the most over every element (<= 0 when it does
@@ -2509,17 +2534,25 @@ def _update_excess(p_new, p_ref, g, g_ref, p0, opt, norms) -> float:
     scales s_a and s_b, move a weight at most lr * min(2, |dg| / eps +
     |s_a - s_b| / (4 min(s_a, s_b))) apart, plus the f32 rounding of p -
     lr * delta (4 ulp of |p| + 2 lr, which bounds both p and the result).
-    Evaluated in float64, so that the check's own roundings do not count."""
+    Evaluated in float64, so that the check's own roundings do not count,
+    on the device of ``p_new``'s leaves, ``EXCESS_SLICE`` elements at a
+    time (elementwise, so the same numbers as on the host)."""
+    import torch
     from repro_torch.arch.params import tree_leaves
     sa, sb = (min(1.0, opt.grad_clip / (float(n) + 1e-9)) for n in norms)
     clip = abs(sa - sb) / (4 * min(sa, sb))
     worst = float("-inf")
-    for a, b, ga, gb, p in zip(*(tree_leaves(t) for t in
-                                 (p_new, p_ref, g, g_ref, p0))):
-        a, b, ga, gb, p = (t.cpu().double() for t in (a, b, ga, gb, p))
-        allow = opt.lr * ((ga - gb).abs() / opt.eps + clip).clamp(max=2.0) \
-            + 4 * 2.0 ** -23 * (p.abs() + 2 * opt.lr)
-        worst = max(worst, float(((a - b).abs() - allow).max()))
+    for leaves in zip(*(tree_leaves(t) for t in
+                        (p_new, p_ref, g, g_ref, p0))):
+        dev = leaves[0].device
+        flat = [t.reshape(-1) for t in leaves]
+        for i in range(0, flat[0].numel(), EXCESS_SLICE):
+            a, b, ga, gb, p = (t[i:i + EXCESS_SLICE].to(dev, torch.float64)
+                               for t in flat)
+            allow = opt.lr * ((ga - gb).abs() / opt.eps
+                              + clip).clamp(max=2.0) \
+                + 4 * 2.0 ** -23 * (p.abs() + 2 * opt.lr)
+            worst = max(worst, float(((a - b).abs() - allow).max()))
     return worst
 
 
@@ -3107,12 +3140,15 @@ def _leaf_paths(tree, pre: str = "") -> list:
 
 
 def _leaf_gaps(got, want) -> dict:
-    """max |got - want| / max |want| per gradient leaf, by path."""
+    """max |got - want| / max |want| per gradient leaf, by path, on the
+    device of ``got``'s leaves."""
     from repro_torch.arch.params import tree_leaves
-    return {path: float((a.cpu() - b.cpu()).abs().max()
-                        / (b.cpu().abs().max() + 1e-30))
-            for path, a, b in zip(_leaf_paths(want), tree_leaves(got),
-                                  tree_leaves(want))}
+    gaps = {}
+    for path, a, b in zip(_leaf_paths(want), tree_leaves(got),
+                          tree_leaves(want)):
+        b = b.to(a.device)
+        gaps[path] = float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    return gaps
 
 
 @contextlib.contextmanager
@@ -4144,6 +4180,11 @@ def dense_gap_phase(device: str, layers=None, *, seq: int = 64,
 # elastic remesh, restore, supervised restart, (d) the dense configs'
 # training, (e) the dry run's roofline against (a)'s step
 SHARDED_TRAIN = dict(batch=4, seq=1024, steps=4)
+# the card's (a)-(c) cell: qwen3-1.7b at full width cut to 14 of its 28
+# layers (a 12.1e9 B state to checkpoint; the full depth's 20.6e9 B took
+# 75 s to snapshot, write and restore), which keeps the smoke inside its
+# time limit beside phase 20
+SHARDED_TRAIN_LAYERS = 14
 # the supervised restart: qwen3-1.7b at full width cut to 2 layers (a
 # 4.9e9 B state, most of it the embedding's): two checkpoint writes and
 # one restore through restore_latest(shardings=)
@@ -4878,6 +4919,9 @@ def _world_rank(rank: int, port: int, out_path: str, body, kw: dict) -> None:
                             rank=rank, world_size=2)
     try:
         res = body(rank, **kw)
+        # the rank's cached blocks back to the card while the other works
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5676,17 +5720,32 @@ def _call_seconds(device: str, fn, start=None) -> float:
     return time.perf_counter() - t
 
 
-def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
-                      batch: int, seq: int, cache: int, seed: int) -> dict:
-    """The world of two's work (``mamba_world_phase``): the probe, the
-    cells on the mixers' head shards (every call's collectives, launches,
-    time and Mamba2 weights gathered over ``model`` recorded), their
-    outputs gathered whole; then rank 0's world of one on the same
-    inputs and the gaps."""
+def _stages(spawned: float, stamps: dict) -> str:
+    """Where a world of two's seconds went, from its rank 0's wall-clock
+    stamps and the time its processes were spawned."""
+    names = (("start", "spawn"), ("drawn", "probe and draw"),
+             ("train", "train calls and gathers"),
+             ("serve", "serve calls"), ("one", "the world of one"))
+    last, out = spawned, []
+    for key, name in names:
+        out.append(f"{name} {stamps[key] - last:.1f} s")
+        last = stamps[key]
+    return ", ".join(out)
+
+
+def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
+                       batch: int, seq: int, cache: int, seed: int,
+                       watch: str, order: bool = False) -> dict:
+    """A world of two's work (phases 19 and 20): the probe, the cells on
+    their shards (every call's collectives, launches, time and the
+    ``watch``-kind weights gathered over ``model`` recorded: ``"mamba"``
+    or ``"rwkv"``), their outputs gathered whole; then rank 0's world of
+    one on the same inputs and the gaps, and, where ``order``, the world
+    of one's own gap summed in another order (``_order_gaps``)."""
     import torch
     import torch.distributed as dist
-    from _torch_dist_worker import (CollectiveLog, _count, _mamba_shapes,
-                                    _model_gathers, _tally)
+    from _torch_dist_worker import (CollectiveLog, _count, _model_gathers,
+                                    _tally, _watched)
     from repro_torch.arch import model as M
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.distributed.checkpoint import flatten, tree_map
@@ -5697,10 +5756,11 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import (AdamWConfig, init_state, make_decode_step,
                                    make_prefill_step, make_train_step)
+    stamps = {"start": time.time()}
     if device != "cpu":
         torch.cuda.set_device(0)
     refused = _probe_collectives(device)
-    check(not refused, f"zamba2 world of two: gloo refused {refused} on "
+    check(not refused, f"{arch} world of two: gloo refused {refused} on "
                        f"{device} tensors, which the cells issue")
     mesh = make_mesh((1, 2), ("data", "model"), device_type=device)
     cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
@@ -5719,8 +5779,10 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
     nxt = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
                         device=device, dtype=torch.int32)
     whole_tree = lambda t: tree_map(gather_whole, t)        # noqa: E731
+    shapes_of = lambda p: _watched({"watch": watch}, p)     # noqa: E731
     log = CollectiveLog()
     calls, outs = {}, {}
+    stamps["drawn"] = time.time()
 
     def run(label, cell, fn, shapes):
         """One call of ``fn``, the ranks starting together, with its
@@ -5742,33 +5804,34 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
             "launches": {**{k: v for k, v in counts().items() if v},
                          "decode_attention_partial": _kernel_ops()[
                              "decode_attention"].partial_invocation_count()},
-            "mamba_split": cell.mamba_split,
+            "mamba_split": cell.mamba_split, "rwkv_split": cell.rwkv_split,
             "in_proj_route": cell.in_proj_route}
         return res
 
     try:
         # (a) a train step through the cell
-        cell = build_cell(cfg, ShapeSpec("mamba", seq, batch, "train"), mesh,
-                          rules=baseline_rules(), microbatches=1)
+        cell = build_cell(cfg, ShapeSpec("shards", seq, batch, "train"),
+                          mesh, rules=baseline_rules(), microbatches=1)
         sh = cell_shardings(cell)
         state = place_tree((params, init_state(params)), sh[:2])
         placed = {k: place(v, *sh[2][k]) for k, v in b.items()}
         p_d, o_d, m_d = run("train", cell,
                             lambda: cell.fn(state[0], state[1], placed),
-                            _mamba_shapes(state[0]))
+                            shapes_of(state[0]))
         outs["train"] = {"loss": float(m_d["loss"]),
                          "grad_norm": float(m_d["grad_norm"]),
                          "params": whole_tree(p_d), "mu": whole_tree(o_d.mu)}
         calls["train"]["warm_s"] = _call_seconds(device, lambda: cell.fn(
             p_d, o_d, placed), dist.barrier)
         del state, p_d, o_d
+        stamps["train"] = time.time()
         # (b) prefill and decode through the serve cells
         rules = serve_rules()
-        pre = build_cell(cfg, ShapeSpec("mamba", seq, batch, "prefill"),
+        pre = build_cell(cfg, ShapeSpec("shards", seq, batch, "prefill"),
                          mesh, rules=rules, serve_dtype="float32")
         p_sh = cell_shardings(pre)
         served = place_tree(params, p_sh[0])
-        shapes = _mamba_shapes(served)
+        shapes = shapes_of(served)
         with torch.no_grad():
             inputs = {"tokens": place(b["tokens"], *p_sh[1]["tokens"])}
             lg, st = run("prefill", pre, lambda: pre.fn(served, inputs),
@@ -5776,7 +5839,7 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
             outs["prefill"] = {"logits": gather_whole(lg),
                                "caches": whole_tree(st["caches"])}
             for dist_decode in (False, True):
-                dec = build_cell(cfg, ShapeSpec("mamba", cache, batch,
+                dec = build_cell(cfg, ShapeSpec("shards", cache, batch,
                                                 "decode"), mesh, rules=rules,
                                  dist_decode=dist_decode,
                                  serve_dtype="float32")
@@ -5794,6 +5857,7 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
                                "caches": whole_tree(new["caches"])}
     finally:
         log.close()
+    stamps["serve"] = time.time()
     every = [None, None]
     dist.all_gather_object(every, calls)
     if rank:
@@ -5806,8 +5870,6 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
     p_u, o_u, m_u = step(params, init_state(params), b)
     _sync(device)
     one = {"train": {"s": time.perf_counter() - t, "launches": counts()}}
-    one["train"]["warm_s"] = _call_seconds(device,
-                                           lambda: step(p_u, o_u, b))
     tr = outs["train"]
     grads = [tree_map(lambda m: m / (1 - opt.b1), mu)
              for mu in (tr["mu"], o_u.mu)]
@@ -5820,7 +5882,12 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
                                    float(m_u["grad_norm"])),
                      "update_excess": _update_excess(
                          tr["params"], p_u, *grads, params, opt, (0.0, 0.0))}}
-    del p_u, o_u, grads, outs["train"]
+    del grads, tr, outs["train"]
+    one["train"]["warm_s"] = _call_seconds(device,
+                                           lambda: step(p_u, o_u, b))
+    del p_u, o_u
+    if order:
+        res["rounding"] = _order_gaps(cfg, params, b)
     serve = {}
     with torch.no_grad():
         reset_counts()
@@ -5846,15 +5913,12 @@ def _mamba_world_body(rank: int, *, device: str, arch: str, layers: int,
         got = outs[label]
         res["serve"][label] = {
             "logits": gap(got["logits"], want),
-            "caches": {key: tuple(map(max, zip(*(
-                gap(got["caches"][key][n], t_)
-                for n, t_ in leaves.items()))))
-                for key, leaves in wcaches.items()}}
+            "caches": {f"{key}.{n}": gap(got["caches"][key][n], t_)
+                       for key, leaves in wcaches.items()
+                       for n, t_ in leaves.items()}}
     res["one"] = one
-    res["heads"] = (f"{cfg.ssm_heads // 2} of {cfg.ssm_heads} SSD heads, "
-                    f"{cfg.num_heads // 2} of {cfg.num_heads} shared heads "
-                    f"(D {cfg.head_dim}), {cfg.vocab_size // 2} of "
-                    f"{cfg.vocab_size} vocabulary rows a rank")
+    stamps["one"] = time.time()
+    res["stamps"] = stamps
     return res
 
 
@@ -5876,9 +5940,16 @@ def mamba_world_phase(device: str, **kw) -> dict:
     kw = {**MAMBA_WORLD, **kw, "device": device}
     _free(device)
     card = _card_line() if device != "cpu" else "the CPU"
-    res = _world_of_two(_mamba_world_body, kw, 2 * MAMBA_WORLD_SECONDS,
-                        "zamba2 world of two")
+    spawned = time.time()
+    res = _world_of_two(_shards_world_body, {**kw, "watch": "mamba"},
+                        2 * MAMBA_WORLD_SECONDS, "zamba2 world of two")
     secs = time.perf_counter() - t0
+    from repro_torch.configs import get_config
+    cfg = get_config(kw["arch"])
+    heads = (f"{cfg.ssm_heads // 2} of {cfg.ssm_heads} SSD heads, "
+             f"{cfg.num_heads // 2} of {cfg.num_heads} shared heads (D "
+             f"{cfg.head_dim}), {cfg.vocab_size // 2} of {cfg.vocab_size} "
+             f"vocabulary rows a rank")
     tr = res["train"]
     rel = {"loss": abs(tr["loss"][0] - tr["loss"][1]) / abs(tr["loss"][1]),
            "grad_norm": abs(tr["grad_norm"][0] - tr["grad_norm"][1])
@@ -5890,7 +5961,7 @@ def mamba_world_phase(device: str, **kw) -> dict:
     one = res["one"]
     print(f"zamba2 world of two ({card}): {kw['arch']} ({kw['layers']} "
           f"layers, f32) on a (1, 2) mesh of two gloo processes, "
-          f"{res['heads']}; train step through the cell "
+          f"{heads}; train step through the cell "
           f"{res['calls']['train']['s']:.3f} s a first call, "
           f"{res['calls']['train']['warm_s']:.3f} s a second (the world of "
           f"one {one['train']['s']:.3f} / {one['train']['warm_s']:.3f} s), "
@@ -5955,9 +6026,262 @@ def mamba_world_phase(device: str, **kw) -> dict:
           + ", ".join(f"{k} {v}" for k, v in one["train"]["launches"].items()
                       if v))
     print(f"zamba2 world of two ({card}): phase 19 in {secs:.1f} s (budget "
-          f"{MAMBA_WORLD_SECONDS:.0f})")
+          f"{MAMBA_WORLD_SECONDS:.0f}): "
+          + _stages(spawned, res["stamps"]))
     check(device == "cpu" or secs <= MAMBA_WORLD_SECONDS,
           f"zamba2 world of two: phase 19 took {secs:.1f} s")
+    return {**res, "seconds": secs}
+
+
+# ------------------------------------------------ rwkv6 on its shards
+
+# phase 20: rwkv6-7b at full width (d 4096, 64 WKV heads of K 64, d_ff
+# 14,336, vocab 65,536) cut to 2 layers, f32 (about 0.97e9 parameters), in
+# a world of two gloo processes on the one card, on a (1, 2) ("data",
+# "model") mesh: 32 WKV heads, 7,168 channel-mix columns and 32,768
+# vocabulary rows a rank. A train step under baseline_rules (the whole
+# AdamW step fits), prefill and decode under serve_rules, each against the
+# world of one on the same inputs
+RWKV_WORLD = dict(arch="rwkv6-7b", layers=2, batch=2, seq=256, cache=512,
+                  seed=29)
+RWKV_WORLD_SECONDS = 150.0
+# rwkv6-7b's gradients at its init turn on the order of the f32 sums (see
+# RECURRENT_PARITY_TOL): on NVIDIA H100 80GB HBM3 (700.00 W) the world of
+# one's own step, its rows summed as two microbatches, read grad norm rel
+# 1.48e-4 and its worst leaf 1.39e-3 of its max (tm/wr) against itself,
+# past LM_PARITY_TOL, where the world of two read 2.64e-4 and 2.10e-3 on
+# the same leaves. So the phase measures that gap on its own card
+# (``_order_gaps``) and holds the world of two's grad norm and gradient
+# leaves within RWKV_ORDER_FACTOR times it (RECURRENT_PARITY_TOL's eight
+# times the summation-order gap), never looser than LM_PARITY_TOL; a
+# fault of the cells (a sum left out, a cut gradient) moves a leaf by
+# O(1) of its max
+RWKV_ORDER_FACTOR = 8.0
+# the WKV scan, forward and backward (bf16, w in f32), at one rank's heads
+# of rwkv6-7b on the pod mesh's model axis of 16 (64 / 16 = 4): (label, B,
+# S, H, K, with the backward) at the train_4k cell's rows a microbatch on
+# a device (4 x 4096) and the prefill_32k cell's (2 x 32768). The kernels
+# launch an (H, B) grid: 16 and 8 blocks on the card's 132 SMs
+TP_WKV = [("rwkv6 train_4k tp16", 4, 4096, 4, 64, True),
+          ("rwkv6 prefill_32k tp16", 2, 32768, 4, 64, False)]
+
+
+def tp_wkv_phase(device: str, cases=TP_WKV, *, time_it: bool) -> dict:
+    """``wkv6_scan`` forward (bf16, w in f32) at one rank's WKV heads
+    (``TP_WKV``) against the plain chunked version on the same inputs, at
+    ``WKV_TOL``, and, where a case asks, its backward against the plain
+    backward on a seeded output gradient at ``SCAN_BWD_TOL``, with bounds
+    (``wkv_bound``, ``scan_backward_bound``) and, where ``time_it``, times
+    beside the plain versions (no single PyTorch call computes the scan).
+    Returns {kernel: [record]}."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import (wkv6_backward_reference,
+                                                    wkv6_chunked)
+    t0 = time.perf_counter()
+    out = {"wkv6_scan": [], "wkv6_scan_backward": []}
+    dtype, chunk = "bfloat16", 32
+    for seed, (label, B, S, H, K, backward) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(970 + seed)
+        dt_ = getattr(torch, dtype)
+        r, k, v, dy = (torch.randn(B, S, H, K, generator=g,
+                                   device=device).to(dt_) for _ in range(4))
+        w = _decays(g, 0.4, (B, S, H, K), device)
+        u = torch.randn(H, K, generator=g, device=device)
+        inputs = (r, k, v, w, u)
+        tag = f"{label} B={B} S={S} H={H} K={K}"
+        y, st = wkv6_scan(*inputs, chunk=chunk)
+        want_y, want_st = wkv6_chunked(*inputs, chunk=chunk)
+        rec = _agree(f"wkv6_scan per rank {tag}", y, want_y, dtype, WKV_TOL)
+        st_err = _agree(f"wkv6_scan per rank {tag} state", st, want_st,
+                        "float32", WKV_TOL)
+        rec.update(label=label, B=B, S=S, H=H,
+                   max_abs_err=max(rec["max_abs_err"],
+                                   st_err["max_abs_err"]),
+                   **wkv_bound(r, w, u, chunk))
+        del y, st, want_y, want_st
+        if time_it:
+            # the plain version takes about a second a call at S 32768:
+            # 4 kernel calls a timing there, one plain
+            _timed(rec, _input_sets(inputs, rec["bytes"]),
+                   lambda *a: wkv6_scan(*a, chunk=chunk),
+                   lambda *a: wkv6_chunked(*a, chunk=chunk), None,
+                   20 if S <= 4096 else 4)
+            print(f"wkv6_scan per rank {label} time: " + _times(
+                rec, "no single PyTorch call computes the scan"))
+        out["wkv6_scan"].append(rec)
+        if not backward:
+            continue
+        got = _wkv_backward(*inputs, dy)
+        want = wkv6_backward_reference(*inputs, dy, None, None,
+                                       chunk=chunk)[:5]
+        errs = [_agree(f"wkv6_scan_backward per rank {tag} {part}", a, b,
+                       "float32" if b.dtype == torch.float32 else dtype,
+                       SCAN_BWD_TOL)
+                for part, a, b in zip(("dr", "dk", "dv", "dw", "du"), got,
+                                      want)]
+        rec = {"label": label, "B": B, "S": S, "H": H,
+               "max_abs_err": max(e["max_abs_err"] for e in errs),
+               "rel_err": max(e["rel_err"] for e in errs),
+               **scan_backward_bound(inputs + (dy,), got,
+                                     wkv_bound(r, w, u, chunk)["flops"])}
+        del got, want
+        if time_it:
+            sets = _input_sets(inputs + (dy,), rec["bytes"])
+            _timed(rec, sets, _wkv_backward,
+                   lambda *a: wkv6_backward_reference(*a, None, None,
+                                                      chunk=chunk)[:5],
+                   None, 10)
+            print(f"wkv6_scan_backward per rank {label} time: " + _times(
+                rec, "no single PyTorch call computes the backward"))
+        out["wkv6_scan_backward"].append(rec)
+    print(f"per-rank WKV scans: {len(cases)} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _order_gaps(cfg, params, b) -> dict:
+    """How far summation order alone moves the world of one's step on this
+    device: its gradients (before the clip) on ``b`` whole against their
+    mean over two microbatches of its rows, as the world of two's are
+    read (loss and grad norm relative, each leaf's max |diff| over its max
+    |ref|)."""
+    import torch
+    from repro_torch.train.step import make_grad_fn
+    grad_fn = make_grad_fn(cfg)
+    one = grad_fn(params, [b])
+    half = b["tokens"].shape[0] // 2
+    two = grad_fn(params, [{k: v[:half] for k, v in b.items()},
+                           {k: v[half:] for k, v in b.items()}])
+    norm = [float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in gs)))
+            for gs in (one[0], two[0])]
+    return {"loss": abs(float(two[1]["loss"]) - float(one[1]["loss"]))
+            / abs(float(one[1]["loss"])),
+            "grad_norm": abs(norm[1] - norm[0]) / norm[0],
+            "grad_gaps": {path: float((c - a).abs().max()
+                                      / (a.abs().max() + 1e-30))
+                          for path, a, c in zip(_leaf_paths(params),
+                                                one[0], two[0])}}
+
+
+def rwkv_world_phase(device: str, **kw) -> dict:
+    """Phase 20, rwkv6 on its shards: ``RWKV_WORLD`` in a world of two
+    processes on one card (gloo), every collective the cells issue probed
+    on the card's tensors first (a refused one fails the phase). Holds
+    the train step against the world of one (the loss at
+    ``LM_PARITY_TOL``, the grad norm and every gradient leaf within
+    ``RWKV_ORDER_FACTOR`` times the world of one's own summation-order
+    gap on the card and never looser than ``LM_PARITY_TOL``; the params
+    after AdamW by ``_update_excess``), the prefill and decode cells' logits and states
+    (``x_tm``, ``x_cm``, ``wkv``) at ``MAMBA_SERVE_TOL`` (2e-5 of each
+    tensor's max), each rank's collectives a call against
+    ``dryrun.account``'s, no RWKV6 weight all-gathered over ``model``, and
+    the scan launches on rank 0 (4 forward and 2 backward a train step of
+    2 layers, each forward again in its period's recompute; 2 a prefill).
+    Within ``RWKV_WORLD_SECONDS`` on the card."""
+    t0 = time.perf_counter()
+    kw = {**RWKV_WORLD, **kw, "device": device}
+    _free(device)
+    card = _card_line() if device != "cpu" else "the CPU"
+    spawned = time.time()
+    res = _world_of_two(_shards_world_body,
+                        {**kw, "watch": "rwkv", "order": True},
+                        2 * RWKV_WORLD_SECONDS, "rwkv6 world of two")
+    secs = time.perf_counter() - t0
+    from repro_torch.configs import get_config
+    cfg = get_config(kw["arch"])
+    heads = (f"{cfg.rwkv_heads // 2} of {cfg.rwkv_heads} WKV heads, "
+             f"{cfg.d_ff // 2} of {cfg.d_ff} channel-mix columns, "
+             f"{cfg.vocab_size // 2} of {cfg.vocab_size} vocabulary rows a "
+             f"rank")
+    tr = res["train"]
+    rel = {"loss": abs(tr["loss"][0] - tr["loss"][1]) / abs(tr["loss"][1]),
+           "grad_norm": abs(tr["grad_norm"][0] - tr["grad_norm"][1])
+           / tr["grad_norm"][1],
+           "grad": max(res["grad_gaps"].values())}
+    worst = max(res["grad_gaps"], key=res["grad_gaps"].get)
+    rnd = res["rounding"]
+    order = {"loss": 0.0, "grad_norm": rnd["grad_norm"],
+             "grad": max(rnd["grad_gaps"].values())}
+    tol = {k: max(LM_PARITY_TOL[k], RWKV_ORDER_FACTOR * order[k])
+           for k in rel}
+    ok = all(rel[k] <= tol[k] for k in rel) \
+        and tr["update_excess"] <= TP_WORLD_TOL["update_excess"]
+    one = res["one"]
+    top = lambda g: ", ".join(f"{k} {v:.2e}" for k, v in sorted(  # noqa: E731
+        g.items(), key=lambda kv: -kv[1])[:6])
+    print(f"rwkv6 world of two ({card}): the world of one against itself "
+          f"in two microbatches (the same rows summed in another order): "
+          f"loss rel {rnd['loss']:.2e}, grad norm rel {rnd['grad_norm']:.2e},"
+          f" worst leaves {top(rnd['grad_gaps'])}; the world of two's "
+          f"worst leaves {top(res['grad_gaps'])}; held at grad norm "
+          f"{tol['grad_norm']:.2e}, leaves {tol['grad']:.2e}")
+    print(f"rwkv6 world of two ({card}): {kw['arch']} ({kw['layers']} "
+          f"layers, f32) on a (1, 2) mesh of two gloo processes, "
+          f"{heads}; train step through the cell "
+          f"{res['calls']['train']['s']:.3f} s a first call, "
+          f"{res['calls']['train']['warm_s']:.3f} s a second (the world of "
+          f"one {one['train']['s']:.3f} / {one['train']['warm_s']:.3f} s), "
+          f"B {kw['batch']} x S {kw['seq']}: "
+          f"loss {tr['loss'][0]:.6f} / {tr['loss'][1]:.6f} (rel "
+          f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
+          f"gradient leaf {rel['grad']:.2e} of its max ({worst}), params "
+          f"{tr['update_excess']:.2e} past what the gradient differences "
+          f"allow, against the world of one {'ok' if ok else 'FAIL'}")
+    check(ok, f"rwkv6 world of two: the train cell differs: {rel}, {tr}")
+    tol = MAMBA_SERVE_TOL
+    bad = []
+    for label, e in res["serve"].items():
+        good = e["logits"][1] <= tol \
+            and max(r for _, r in e["caches"].values()) <= tol
+        bad += [] if good else [label]
+        print(f"rwkv6 world of two ({card}): {label} "
+              f"({res['calls'][label]['s']:.3f} s): logits max |diff| "
+              f"{e['logits'][0]:.2e} ({e['logits'][1]:.2e} of their max), "
+              f"states " + ", ".join(
+                  f"{k} {a:.2e} ({r:.2e})" for k, (a, r) in sorted(
+                      e["caches"].items()))
+              + f" against the world of one (tol {tol:.0e} of each "
+              f"tensor's max) {'ok' if good else 'FAIL'}")
+    check(not bad, f"rwkv6 world of two: serve cells differ: {bad}")
+    for r, rank in enumerate(res["ranks"]):
+        for label, rec in rank.items():
+            same, text = _collectives_report(rec["tally"], rec["account"])
+            gathered = rec["model_gathers"]
+            print(f"rwkv6 world of two: rank {r} {label} (split "
+                  f"{', '.join(rec['rwkv_split'])}): collectives {text}"
+                  f" {'equal to' if same else 'DIFFER from'} "
+                  f"dryrun.account's; RWKV6 weights all-gathered over "
+                  f"model: {', '.join(gathered) or 'none'} "
+                  f"{'FAIL' if gathered else 'ok'}; {rec['s']:.3f} s")
+            check(same, f"rwkv6 world of two: rank {r} {label} collectives "
+                        f"{rec['tally']} against the dry run's "
+                        f"{rec['account']}")
+            check(not gathered, f"rwkv6 world of two: rank {r} {label} "
+                                f"gathered {gathered} over model")
+    launches = res["ranks"][0]
+    n = kw["layers"]
+    want = {"train": {"wkv6_scan": 2 * n, "wkv6_scan_backward": n},
+            "prefill": {"wkv6_scan": n}}
+    for label, w in want.items():
+        got = launches[label]["launches"]
+        check(all(got.get(k) == v for k, v in w.items()),
+              f"rwkv6 world of two: launches of {label}: {got}, "
+              f"expected {w}")
+    print(f"rwkv6 world of two ({card}): launches on rank 0 at its "
+          f"shards: " + "; ".join(
+              f"{label} " + (", ".join(f"{k} {v}" for k, v in
+                                       rec["launches"].items() if v)
+                             or "none")
+              for label, rec in launches.items())
+          + f"; the world of one's train step "
+          + ", ".join(f"{k} {v}" for k, v in one["train"]["launches"].items()
+                      if v))
+    print(f"rwkv6 world of two ({card}): phase 20 in {secs:.1f} s (budget "
+          f"{RWKV_WORLD_SECONDS:.0f}): "
+          + _stages(spawned, res["stamps"]))
+    check(device == "cpu" or secs <= RWKV_WORLD_SECONDS,
+          f"rwkv6 world of two: phase 20 took {secs:.1f} s")
     return {**res, "seconds": secs}
 
 
@@ -5979,7 +6303,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_all = time.perf_counter()
     print(_card_line())           # name, power limit
+
+    def lap(name: str) -> None:
+        print(f"smoke: {name} done at {time.perf_counter() - t_all:.1f} s")
     build_all()
+    lap("build_all")
 
     records = {"fleet_mlp": kernel_phase("cuda", time_it=True),
                "flash_attention": flash_phase("cuda", time_it=True),
@@ -5989,27 +6317,46 @@ def main() -> int:
                "flash_attention_backward":
                    flash_backward_phase("cuda", time_it=True),
                **scan_backward_phase("cuda", time_it=True)}
+    lap("kernel phases")
     train_parity("cuda")
+    lap("train_parity")
     fleet_path = forecast_flow("cuda")
+    lap("forecast_flow")
     durable_serverless_flow("cuda", fleet_path)
+    lap("durable_serverless_flow")
     qwen = lm_path("qwen3-1.7b", "cuda", serve_kw=QWEN_SERVE)
     zamba = lm_path("zamba2-2.7b", "cuda", serve_kw=RECURRENT_SERVE)
     rwkv = lm_path("rwkv6-7b", "cuda", serve_kw=RECURRENT_SERVE)
+    lap("serve paths")
     moe_phase("cuda")
+    lap("moe_phase")
     across = across_devices_phase("cuda")
+    lap("across_devices_phase")
     dense_gap_phase("cuda")
-    training_across_devices_phase("cuda")
+    lap("dense_gap_phase")
+    training_across_devices_phase("cuda",
+                                  train_kw={"layers": SHARDED_TRAIN_LAYERS})
+    lap("training_across_devices_phase")
     tp_world_phase("cuda")
+    lap("tp_world_phase")
     ep_world_phase("cuda")
+    lap("ep_world_phase")
     mamba_world_phase("cuda")
+    lap("mamba_world_phase")
+    rwkv_world_phase("cuda")
+    lap("rwkv_world_phase")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
+    lap("qwen3 parity and train path")
     for arch, kw in RECURRENT_PARITY.items():
         lm_train_parity("cuda", arch, tol=RECURRENT_PARITY_TOL[arch], **kw)
+    lap("recurrent parities")
     recurrent = {arch: lm_train_path("cuda", arch, layers=layers)
                  for arch, layers in RECURRENT_TRAIN_LAYERS.items()}
+    lap("recurrent train paths")
     launcher_phase("cuda")
     guard_phase("cuda")
+    lap("launcher and guard")
     # each kernel's launches on the path of the slice that ported it
     launches = {"fleet_mlp": fleet_path["launches"],
                 "flash_attention": qwen["prefill"]["launches"]["flash_attention"],
@@ -6027,9 +6374,11 @@ def main() -> int:
     records["decode_attention"].update(across["stats"],
                                        stats_launches=across["decode"]["launches"])
     # each attention kernel at one rank's head counts on the model axis
-    # and the SSD scan at one rank's heads
+    # and the SSD and WKV scans at one rank's heads
     per_rank = {**tp_kernel_phase("cuda", time_it=True),
-                **tp_ssd_phase("cuda", time_it=True)}
+                **tp_ssd_phase("cuda", time_it=True),
+                **tp_wkv_phase("cuda", time_it=True)}
+    lap("per-rank kernels")
     for name, recs in per_rank.items():
         records[name]["per_rank"] = [
             {key: r.get(key) for key in (

@@ -32,13 +32,14 @@ shards of a mesh: each period's FSDP shards gathered over the data axes
 just before the period (again in its recompute; the gradients
 reduce-scattered back), the ``attn`` and ``mlp`` parts on their head and
 column shards (``layers``), the ``moe`` part on its expert shards
-(``moe``), the ``mamba2`` mixer on its SSD heads (``mamba2``),
-Zamba2's shared block on its heads and MLP columns as an ``attn`` block,
-the embedding, the LM head and the cross-entropy vocab-parallel (an
-embedding table shorter than the vocabulary holds this rank's rows), and,
-under sequence parallelism, the residual stream between blocks as this
-rank's sequence shard. Parts whose weights are whole (RWKV6, a mixer
-whose SSD heads do not split over the model axis) compute on the whole
+(``moe``), the ``mamba2`` mixer on its SSD heads (``mamba2``), the
+``rwkv6`` time-mix on its WKV heads and its channel-mix on its columns
+(``rwkv6``), Zamba2's shared block on its heads and MLP columns as an
+``attn`` block, the embedding, the LM head and the cross-entropy
+vocab-parallel (an embedding table shorter than the vocabulary holds this
+rank's rows), and, under sequence parallelism, the residual stream between
+blocks as this rank's sequence shard. Parts whose weights are whole (a
+part whose heads do not split over the model axis) compute on the whole
 sequence. Without ``tp`` nothing changes.
 """
 from __future__ import annotations
@@ -265,7 +266,6 @@ def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups,
                  token_mean=None, tp=None, want_cache=True):
     """Full-sequence application of one block. Returns (h, cache, aux):
     aux holds an ``attn_moe`` block's router losses, else it is empty."""
-    enter, leave = _whole(tp)
     if kind in ("attn", "attn_moe"):
         a, (k, v) = layers.attention_block(cfg, p["attn"],
                                            layers.apply_norm(cfg, p["ln1"], h),
@@ -294,13 +294,13 @@ def _apply_block(cfg, kind, p, h, positions, shard, moe_path, moe_groups,
         x_prev0 = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype,
                               device=h.device)
         t, x_tm, wkv = rwkv6.timemix_block(
-            cfg, p["tm"], enter(layers.apply_norm(cfg, p["ln1"], h)),
-            x_prev0)
-        h = h + leave(t)
+            cfg, p["tm"], layers.apply_norm(cfg, p["ln1"], h), x_prev0,
+            tp=tp)
+        h = h + t
         c, x_cm = rwkv6.channelmix_block(
-            cfg, p["cm"], enter(layers.apply_norm(cfg, p["ln2"], h)),
-            x_prev0)
-        return h + leave(c), {"x_tm": x_tm, "x_cm": x_cm, "wkv": wkv}, {}
+            cfg, p["cm"], layers.apply_norm(cfg, p["ln2"], h), x_prev0,
+            tp=tp)
+        return h + c, {"x_tm": x_tm, "x_cm": x_cm, "wkv": wkv}, {}
     raise ValueError(kind)
 
 
@@ -588,12 +588,12 @@ def _decode_block(cfg, kind, p, h, cs, layer, lengths, rows, shard,
     if kind == "rwkv6":
         t, x_tm, wkv = rwkv6.timemix_decode(
             cfg, p["tm"], layers.apply_norm(cfg, p["ln1"], h),
-            cs["x_tm"][layer], cs["wkv"][layer])
+            cs["x_tm"][layer], cs["wkv"][layer], tp=tp)
         h = h + t
         # channelmix's shift uses x_prev at t=0 == stored last token
         c, x_cm = rwkv6.channelmix_block(
             cfg, p["cm"], layers.apply_norm(cfg, p["ln2"], h),
-            cs["x_cm"][layer])
+            cs["x_cm"][layer], tp=tp)
         _put(cs["x_tm"], layer, x_tm, rows)
         _put(cs["x_cm"], layer, x_cm, rows)
         _put(cs["wkv"], layer, wkv, rows)

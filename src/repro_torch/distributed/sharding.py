@@ -515,6 +515,21 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+class _GatherOut(torch.autograd.Function):
+    """All-gather along a dim into a tensor every rank then uses alike;
+    the backward keeps this rank's block of the gradient (each rank holds
+    the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.args = (dim, x.shape[dim] * rank, x.shape[dim])
+        return all_gather_along(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.args), None, None, None, None
+
+
 class _Repeated(torch.autograd.Function):
     """The identity; the backward divides the gradient by ``n``."""
 
@@ -539,6 +554,13 @@ def scatter(x, dim: int, group, n: int):
     """Reduce-scatter along ``dim`` over ``group``; the gradient is
     all-gathered back. Sequence parallelism's way out of a region."""
     return x if n == 1 else _Scatter.apply(x, dim, group, n)
+
+
+def gather_out(x, dim: int, group, n: int, rank: int):
+    """All-gather along ``dim`` over ``group`` (``n`` ranks, this one at
+    ``rank``) out of a region whose ranks each computed a block; the
+    gradient, whole on every rank, is cut back to this rank's block."""
+    return x if n == 1 else _GatherOut.apply(x, dim, group, n, rank)
 
 
 def copy_in(x, group, n: int):
@@ -692,6 +714,19 @@ class TPContext:
         gradients of the total."""
         return copy_in(reduce_out(x, self.model, self.tp), self.model,
                        self.tp)
+
+    def gate(self, r, kv):
+        """``r * kv`` in the residual stream's layout, where ``r`` is this
+        rank's block of the last dim's columns and ``kv`` the ranks'
+        partial sums of every column (RWKV6's channel-mix): ``kv``
+        reduce-scattered onto this rank's columns, the product all-gathered
+        back (one all-reduce's wire bytes; under ``seq`` this rank's
+        sequence shard kept)."""
+        dim = kv.ndim - 1
+        y = r * scatter(kv, dim, self.model, self.tp)
+        if self.seq:
+            return self.leave(gather(y, dim, self.model, self.tp), False)
+        return gather_out(y, dim, self.model, self.tp, self.rank)
 
     def max(self, x):
         """The largest value over the ranks (no gradient)."""

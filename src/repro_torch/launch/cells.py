@@ -35,6 +35,18 @@ computes on its own shards, as XLA partitions the reference's cell:
     heads on ``model``; the ``conv`` state is whole on every rank.
     Zamba2's shared block computes on its heads and MLP columns as an
     ``attn`` block's, its FSDP shards gathered once a call;
+  * RWKV6 over ``model`` (``arch/rwkv6.py``): a time-mix's WKV heads, ``H
+    / tp`` a rank (``wr``, ``wk``, ``wv``, ``wg`` column shards, ``u``'s
+    rows, ``wo``'s row shard), the lerp and the decay's low-rank input
+    computed at full width on every rank and ``w0``, ``w_lora_B`` and the
+    group norm whole, used at the rank's channels; ``wo``'s partial sums
+    an all-reduce a block forward, the copy-in's backward. A
+    channel-mix's ``wk`` columns and ``wv`` rows, and the receptance
+    ``wr``'s d columns: the partial ``kv`` reduce-scattered onto the
+    rank's columns, gated, and the product all-gathered (the wire of one
+    all-reduce; backward, the reduce-scatter's all-gather and the
+    copy-in's all-reduce). The ``wkv`` decode state keeps its heads on
+    ``model``; ``x_tm`` and ``x_cm`` are whole on every rank;
   * FSDP over the data axes: a period's ``embed``-sharded leaves are
     all-gathered just before the period and again in its remat
     recompute, and their gradients reduce-scattered back to the shard;
@@ -51,20 +63,21 @@ computes on its own shards, as XLA partitions the reference's cell:
     reduce-scatters its partial products back.
 
 The plan of each leaf (``leaf_plans``) says where it is gathered and how
-its gradient is reduced. Leaves the TP code does not split keep the
-gather-whole path, leaf by leaf, once a call: RWKV6's leaves. So does a
-block whose attention projections the rules split in the middle of a
-head (H not a multiple of the model extent): its attention leaves are
-gathered over ``model`` and computed replicated, the *guard* (on the
-(16, 16) mesh: starcoder2-7b, H 36; qwen2-vl-7b, H 28; llama4-maverick,
-H 40, whose MoE blocks still compute on their expert shards); and a
-Mamba2 mixer whose SSD heads do not divide the model extent (its leaves
-gathered over ``model``, computed replicated). A cell records which
-parts took the guard (``Cell.guarded``: ``"pos{j}"``, ``"shared"``,
-``"pos{j}.mixer"``), which MoE blocks compute on expert shards
+its gradient is reduced. A block whose attention projections the rules
+split in the middle of a head (H not a multiple of the model extent)
+gathers its attention leaves over ``model`` once a call and computes
+them replicated, the *guard* (on the (16, 16) mesh: starcoder2-7b, H 36;
+qwen2-vl-7b, H 28; llama4-maverick, H 40, whose MoE blocks still compute
+on their expert shards); so do a Mamba2 mixer whose SSD heads do not
+divide the model extent, an RWKV6 time-mix whose rank's d / tp columns
+are not whole heads and a channel-mix whose d or d_ff does not divide
+it. A cell records which parts took the guard (``Cell.guarded``:
+``"pos{j}"``, ``"shared"``, ``"pos{j}.mixer"``, ``"pos{j}.tm"``,
+``"pos{j}.cm"``), which MoE blocks compute on expert shards
 (``Cell.expert_split``), which Mamba2 blocks on their heads
 (``Cell.mamba_split``) and how their ``in_proj`` columns reach the rank
-(``Cell.in_proj_route``).
+(``Cell.in_proj_route``), and which RWKV6 parts on their shards
+(``Cell.rwkv_split``).
 
 A training step's microbatch rows are spread over the data-parallel
 ranks (gcd(dp ranks, rows) slices, consecutive ranks sharing a slice);
@@ -73,8 +86,9 @@ the data axes by the FSDP reduce-scatters, or an all-reduce for leaves
 replicated there, then divided by the data-parallel extent; over
 ``model`` by a sum only for leaves replicated there that each rank used
 in part (the KV projections and the per-head norms, a split mixer's
-``conv_w`` and ``conv_b``, and under sequence parallelism every such
-leaf but the MoE routers, whose gradient is whole on every rank). ``grad_hook`` then runs on the whole
+``conv_w`` and ``conv_b``, a split RWKV6 part's ``RWKV_PARTIAL``, and
+under sequence parallelism every such leaf but the MoE routers, whose
+gradient is whole on every rank). ``grad_hook`` then runs on the whole
 gradients (where the reference's runs), the clip's global norm is taken
 over the distinct shards (a shard replicated on a mesh dim counts once),
 and AdamW runs on each rank's shards; the moments shard like the
@@ -142,6 +156,7 @@ class Cell:
     guarded: Tuple[str, ...] = field(default_factory=tuple)
     expert_split: Tuple[str, ...] = field(default_factory=tuple)
     mamba_split: Tuple[str, ...] = field(default_factory=tuple)
+    rwkv_split: Tuple[str, ...] = field(default_factory=tuple)
     in_proj_route: str = ""
     kv_chunks: bool = False
 
@@ -173,25 +188,11 @@ def train_split(mesh, rows: int) -> int:
     return math.gcd(mesh.size(), rows)
 
 
-def tp_model(cfg: ModelConfig) -> bool:
-    """Whether a cell of ``cfg`` computes on its model-axis shards: it has
-    attention or Mamba2 blocks (Zamba2's shared block then splits too). A
-    model without (RWKV6) keeps the gather-whole cell, its rows spread
-    over every rank: a vocab-parallel head alone would make the model
-    axis's ranks repeat its scans on shared rows."""
-    return any(k in ("attn", "attn_moe", "mamba2") for k in cfg.pattern)
-
-
-def row_axes(cfg: ModelConfig, mesh) -> tuple:
-    """The mesh axes a cell's rows spread over: the data-parallel ones
-    where the model axis computes on shards, else all of them."""
-    return dp_axes(mesh) if tp_model(cfg) else tuple(mesh.mesh_dim_names)
-
-
-def row_mesh(cfg: ModelConfig, mesh) -> MeshShape:
-    """``row_axes`` as a mesh (names and sizes)."""
+def row_mesh(mesh) -> MeshShape:
+    """The mesh axes a cell's rows spread over, the data-parallel ones (the
+    model axis's ranks share their rows), as a mesh (names and sizes)."""
     names = tuple(mesh.mesh_dim_names)
-    axes = row_axes(cfg, mesh)
+    axes = dp_axes(mesh)
     return MeshShape(tuple(mesh.shape[names.index(a)] for a in axes), axes)
 
 
@@ -223,7 +224,7 @@ def _batch_dim(key: str) -> int:
 #: the parts of a block, and the top-level leaves, that the TP code
 #: computes on their shards; every other leaf sharded on ``model`` keeps
 #: the gather-whole path
-TP_PARTS = ("ln1", "ln2", "attn", "mlp", "moe", "mixer")
+TP_PARTS = ("ln1", "ln2", "attn", "mlp", "moe", "mixer", "tm", "cm")
 TP_TOP = ("embed", "lm_head", "final_norm", "ln0", "shared")
 #: a TP attention's leaves replicated on ``model`` that each rank uses in
 #: part (its KV heads, and the per-head norms on its q heads)
@@ -233,6 +234,13 @@ PARTIAL = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
 MIXER_PARTIAL = ("in_proj", "conv_w", "conv_b")
 #: a mixer's leaves gathered over ``model`` once a call
 MIXER_UPFRONT = ("conv_w", "conv_b")
+#: an RWKV6 block's leaves whole on ``model`` that a rank uses where its
+#: time-mix or channel-mix splits: the time-mix's lerp (``mu_x``, ``mu_5``,
+#: ``lora_A``, ``lora_B``) and decay (``w_lora_A``), whose outputs feed
+#: the split projections, its heads' channels of ``w0``, ``w_lora_B`` and
+#: the group norm's ``ln_x_*``; the channel-mix's ``mu_k`` and ``mu_r``
+RWKV_PARTIAL = ("mu_x", "mu_5", "lora_A", "lora_B", "w0", "w_lora_A",
+                "w_lora_B", "ln_x_scale", "ln_x_bias", "mu_k", "mu_r")
 
 
 @dataclass(frozen=True)
@@ -299,9 +307,11 @@ def guarded_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
     """The parts the rules would split over ``model`` in the middle of a
     head, which are gathered there and computed replicated: the pattern
     positions (``"pos{j}"``) of attention blocks and ``"shared"`` (Zamba2's
-    shared attention) whose head projection splits mid-head, and the
-    Mamba2 mixers (``"pos{j}.mixer"``) whose SSD heads do not divide the
-    model extent."""
+    shared attention) whose head projection splits mid-head, the Mamba2
+    mixers (``"pos{j}.mixer"``) whose SSD heads do not divide the model
+    extent, and the RWKV6 time-mixes (``"pos{j}.tm"``) and channel-mixes
+    (``"pos{j}.cm"``) some of whose leaves the rules split where the part
+    cannot split whole (``_rwkv_parts``)."""
     m = model_dim(mesh)
     if m is None or mesh.shape[m] == 1:
         return ()
@@ -311,23 +321,59 @@ def guarded_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
                 if kind in ("attn", "attn_moe")]
         if cfg.shared_attn_every_period:
             out.append("shared")
-    if tp_model(cfg) and _on_model(rules, "ssm_heads") \
-            and cfg.ssm_heads % n:
+    if _on_model(rules, "ssm_heads") and cfg.ssm_heads % n:
         out += [f"pos{j}.mixer" for j, kind in enumerate(cfg.pattern)
                 if kind == "mamba2"]
+    split, touched = _rwkv_parts(cfg, n, rules)
+    out += [f"pos{j}.{part}" for j, kind in enumerate(cfg.pattern)
+            if kind == "rwkv6" for part in ("tm", "cm")
+            if part in touched and part not in split]
     return tuple(out)
+
+
+def _rwkv_parts(cfg: ModelConfig, n: int, rules: Rules) -> tuple:
+    """(the RWKV6 parts that split over a model axis of ``n`` ranks, those
+    the rules split any leaf of): the time-mix (``"tm"``) on whole WKV heads
+    where ``rwkv_heads`` and ``rwkv_hidden`` split and each rank's d / n
+    columns are whole heads; the channel-mix (``"cm"``) where ``mlp`` and
+    ``rwkv_hidden`` split and d_ff and d divide ``n``."""
+    if "rwkv6" not in cfg.pattern or n == 1:
+        return (), ()
+    d, ff, H = cfg.d_model, cfg.d_ff, cfg.rwkv_heads
+    K = cfg.rwkv_head_size
+    hidden = _on_model(rules, "rwkv_hidden") and d % n == 0
+    heads = _on_model(rules, "rwkv_heads") and H % n == 0
+    mlp = _on_model(rules, "mlp") and ff % n == 0
+    split = (("tm",) if hidden and heads and (d // n) % K == 0 else ()) \
+        + (("cm",) if hidden and mlp else ())
+    touched = (("tm",) if hidden or heads else ()) \
+        + (("cm",) if hidden or mlp else ())
+    return split, touched
 
 
 def mamba_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
     """The pattern positions (``"pos{j}"``) of Mamba2 blocks whose mixer
     computes on its SSD heads' shards over ``model``."""
     m = model_dim(mesh)
-    if not tp_model(cfg) or m is None or mesh.shape[m] == 1 \
+    if m is None or mesh.shape[m] == 1 \
             or not _on_model(rules, "ssm_heads") \
             or cfg.ssm_heads % mesh.shape[m]:
         return ()
     return tuple(f"pos{j}" for j, kind in enumerate(cfg.pattern)
                  if kind == "mamba2")
+
+
+def rwkv_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
+    """The RWKV6 parts that compute on their ``model``-axis shards: a
+    time-mix on its WKV heads (``"pos{j}.tm"``), a channel-mix on its
+    columns (``"pos{j}.cm"``)."""
+    m = model_dim(mesh)
+    if m is None:
+        return ()
+    split = _rwkv_parts(cfg, mesh.shape[m], rules)[0]
+    return tuple(f"pos{j}.{part}" for j, kind in enumerate(cfg.pattern)
+                 if kind == "rwkv6" for part in ("tm", "cm")
+                 if part in split)
 
 
 def in_proj_route(cfg: ModelConfig, mesh, rules: Rules, kind: str) -> str:
@@ -358,7 +404,7 @@ def kv_cache_chunks(cfg: ModelConfig, mesh, rules: Rules, kind: str,
     every KV head over its chunk cost less than every KV head over the
     whole sequence (never on a model extent of 2)."""
     m = model_dim(mesh)
-    if kind != "prefill" or not tp_model(cfg) or m is None \
+    if kind != "prefill" or m is None \
             or not _heads_split(cfg, mesh, rules):
         return False
     n, KV = mesh.shape[m], cfg.num_kv_heads
@@ -374,7 +420,7 @@ def expert_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
     """The pattern positions (``"pos{j}"``) of MoE blocks whose experts
     the rules split (over ``model`` by experts or columns, or over the
     data axes by columns), which compute on their expert shards."""
-    if not tp_model(cfg) or not cfg.num_experts:
+    if not cfg.num_experts:
         return ()
     spec = spec_for(mesh, rules.params, ("expert", "embed", "expert_mlp"),
                     (cfg.num_experts, cfg.d_model, cfg.d_ff))
@@ -389,8 +435,8 @@ def expert_split_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
 def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
                seq: bool = False, decode: bool = False) -> list:
     """Every parameter leaf's ``LeafPlan``, in ``tree_leaves`` order, on
-    ``mesh`` (a ``DeviceMesh`` or ``MeshShape``) under ``rules``; without
-    ``tp_model``, every leaf gathered whole once a call. ``decode``: the
+    ``mesh`` (a ``DeviceMesh`` or ``MeshShape``) under ``rules``; a leaf
+    outside ``TP_PARTS`` and ``TP_TOP`` gathered whole once a call. ``decode``: the
     plans of a decode cell (a split mixer's ``in_proj`` stays a column
     shard on ``model``; elsewhere it is gathered there with its period)."""
     specs = M.build_param_specs(cfg)
@@ -400,24 +446,27 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
                                                                  "data")}
     guard = set(guarded_positions(cfg, mesh, rules))
     mamba = set(mamba_split_positions(cfg, mesh, rules))
+    rwkv = set(rwkv_split_positions(cfg, mesh, rules))
     heads = _heads_split(cfg, mesh, rules)
     out = []
     for (path, spec), (_, (_, pls)) in zip(_paths(specs), _paths(shardings)):
         dims = sharded_dims(mesh, pls)
         block = path[0] == "blocks"
-        tp_leaf = tp_model(cfg) and (path[2] in TP_PARTS if block
-                                     else path[0] in TP_TOP)
+        tp_leaf = path[2] in TP_PARTS if block else path[0] in TP_TOP
         # a block's position (or the top-level key) and its part
         where = path[1] if block else path[0]
         part = path[2] if block else (path[1] if len(path) > 2 else None)
         router = block and path[2:] == ("moe", "router")
         mixer = block and part == "mixer"
         split_mixer = mixer and where in mamba
+        rwkv_part = block and part in ("tm", "cm")
+        split_rwkv = rwkv_part and f"{where}.{part}" in rwkv
         if not tp_leaf:                       # gather-whole, once a call
             upfront = dict(dims)
         elif (where in guard and part == "attn") or router \
                 or (mixer and not split_mixer) \
-                or (split_mixer and path[-1] in MIXER_UPFRONT):
+                or (split_mixer and path[-1] in MIXER_UPFRONT) \
+                or (rwkv_part and not split_rwkv):
             upfront = {i: d for i, d in dims.items() if i == m}
         else:
             upfront = {}
@@ -434,7 +483,8 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
         partial = not router and (seq or (
             tp_leaf and part == "attn" and where not in guard
             and path[-1] in PARTIAL and heads)
-            or (split_mixer and path[-1] in MIXER_PARTIAL))
+            or (split_mixer and path[-1] in MIXER_PARTIAL)
+            or (split_rwkv and path[-1] in RWKV_PARTIAL))
         out.append(LeafPlan(path, tuple(pls), upfront, fsdp,
                             bool(replicated and partial and m is not None
                                  and mesh.shape[m] > 1), stationary))
@@ -476,18 +526,19 @@ def _compute_params(params, plans, mesh):
     return _unflatten(params, leaves)
 
 
-def row_dims(cfg: ModelConfig, mesh) -> list:
-    """The mesh dims of more than one rank in ``row_axes``."""
-    axes = row_axes(cfg, mesh)
+def row_dims(mesh) -> list:
+    """The mesh dims of more than one rank that a cell's rows spread over
+    (``row_mesh``)."""
+    axes = dp_axes(mesh)
     return [i for i, a in enumerate(mesh.mesh_dim_names)
             if a in axes and mesh.shape[i] > 1]
 
 
-def _row_coord(cfg, mesh) -> tuple:
-    """(flat coordinate over ``row_axes``, their extent)."""
+def _row_coord(mesh) -> tuple:
+    """(flat coordinate over ``row_mesh``'s axes, their extent)."""
     flat, ext = 0, 1
     coord = mesh.get_coordinate()
-    axes = row_axes(cfg, mesh)
+    axes = dp_axes(mesh)
     for i, a in enumerate(mesh.mesh_dim_names):
         if a in axes:
             flat, ext = flat * mesh.shape[i] + coord[i], ext * mesh.shape[i]
@@ -503,7 +554,7 @@ def _at_rows(x, mesh, bdim: int) -> bool:
         if a in ("pod", "data") and mesh.shape[i] > 1}
 
 
-def _micro_rows(cfg, batch, mesh, microbatches: int):
+def _micro_rows(batch, mesh, microbatches: int):
     """This rank's rows of each microbatch: slice ``k`` of
     ``train_split(row_mesh, rows)`` of microbatch ``i`` (rows ``i rows + k
     per``), from its block where the rows spread over the data axes, the
@@ -516,11 +567,11 @@ def _micro_rows(cfg, batch, mesh, microbatches: int):
         raise ValueError(f"batch {B} does not split into {microbatches} "
                          "microbatches")
     rows = B // microbatches
-    flat, ext = _row_coord(cfg, mesh)
-    split = train_split(row_mesh(cfg, mesh), rows)
+    flat, ext = _row_coord(mesh)
+    split = train_split(row_mesh(mesh), rows)
     per = rows // split
     k = flat // (ext // split)
-    local = microbatches == 1 and split == ext and tp_model(cfg)
+    local = microbatches == 1 and split == ext
     micro = [{} for _ in range(microbatches)]
     for key, x in sorted(batch.items()):
         bdim = _batch_dim(key)
@@ -554,25 +605,25 @@ def make_sharded_grad_fn(cfg: ModelConfig, mesh, rules: Rules, *,
         if _is_moe(cfg) else None
 
     def grads_of(params, batch):
-        micro, rows, split = _micro_rows(cfg, batch, mesh, microbatches)
+        micro, rows, split = _micro_rows(batch, mesh, microbatches)
         S = micro[0]["labels"].shape[1]
         for mb in micro:              # each rank holds the same token count
             assert mb["labels"].shape == (rows // split, S), \
                 mb["labels"].shape
-        seq = seq_parallel(mesh, rules, S) and tp_model(cfg)
+        seq = seq_parallel(mesh, rules, S)
         plans = leaf_plans(cfg, mesh, rules, seq=seq)
         grad_fn = make_grad_fn(
             cfg, shard=shard, remat=remat, moe_path=moe_path,
             scan_unroll=scan_unroll,
             moe_groups=local_moe_groups(cfg, rows * S, moe_groups, split),
             cast_params_bf16=cast_params_bf16, token_mean=token_mean,
-            tp=tp_context(mesh, plans, seq) if tp_model(cfg) else None)
+            tp=tp_context(mesh, plans, seq))
         grads, metrics = grad_fn(_compute_params(params, plans, mesh), micro)
         # the mean over the row slices, in place: the FSDP reduce-scatters
         # summed a leaf over its shard's dims; the other row dims, and the
         # model axis where a leaf's ranks each hold a part, are summed here
-        rdims, m = row_dims(cfg, mesh), model_dim(mesh)
-        ext = _row_coord(cfg, mesh)[1]
+        rdims, m = row_dims(mesh), model_dim(mesh)
+        ext = _row_coord(mesh)[1]
         g_local = []
         for g, plan in zip(grads, plans):
             for i in rdims:
@@ -683,10 +734,10 @@ def _local_batch(mesh, rules: Rules, batch):
 def _serve_setup(cfg, mesh, rules, params, seq_len: int,
                  decode: bool = False):
     """(compute params, TPContext or None) of a serve cell's call."""
-    seq = seq_parallel(mesh, rules, seq_len) and tp_model(cfg)
+    seq = seq_parallel(mesh, rules, seq_len)
     plans = leaf_plans(cfg, mesh, rules, seq=seq, decode=decode)
     return _compute_params(params, plans, mesh), \
-        tp_context(mesh, plans, seq) if tp_model(cfg) else None
+        tp_context(mesh, plans, seq)
 
 
 def _logits_out(cfg, mesh, logits, row_pls, B: int):
@@ -711,13 +762,14 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
     parameter shards; the caches DTensors with their rows where the
     batch's are (whole on ``model``, but for the k/v caches of attention
     split over heads, which hold this rank's sequence chunk, and the
-    ``ssd`` states of mixers split over ``model``, which hold its heads:
-    as ``decode_state_shardings`` places them; ``kv_cache_chunks``), the
-    last-token logits with their rows there and their vocabulary over
-    ``model`` where the head is sharded."""
+    ``ssd`` states of mixers and the ``wkv`` states of time-mixes split
+    over ``model``, which hold its heads: as ``decode_state_shardings``
+    places them; ``kv_cache_chunks``), the last-token logits with their
+    rows there and their vocabulary over ``model`` where the head is
+    sharded."""
     from torch.distributed.tensor import DTensor, Shard
     shard = make_shard_fn(mesh, rules)
-    heads = bool(mamba_split_positions(cfg, mesh, rules))
+    heads = _state_heads(cfg, mesh, rules)
 
     def prefill(params, batch):
         local, row_pls = _local_batch(mesh, rules, batch)
@@ -734,9 +786,9 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules: Rules, *,
             pls = list(_rows_placements(mesh, row_pls, dim))
             shape = list(t.shape)
             shape[dim] *= split
-            if heads and name == "ssd":           # (periods, B, H, P, N)
+            if name in heads:       # (periods, B, H, ...): its heads
                 pls[model_dim(mesh)] = Shard(2)
-                shape[2] = cfg.ssm_heads
+                shape[2] = heads[name]
             elif chunks and name in ("k", "v"):
                 # (periods, B, S, KV, hd): this rank's sequence chunk
                 pls[model_dim(mesh)] = Shard(2)
@@ -761,20 +813,19 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Rules, *,
     gathered to this rank's rows over every non-data-parallel mesh dim,
     except, with ``dist_decode``, the k/v caches, which stay sequence
     shards and attend through the distributed flash-decode, and the
-    ``ssd`` states of mixers split over ``model``, which stay this rank's
-    heads; the new state
+    ``ssd`` and ``wkv`` states of mixers split over ``model``, which stay
+    this rank's heads; the new state
     at the state's placements (its k/v chunks written in place, as the
     reference donates the state); the logits as ``prefill``'s."""
     from torch.distributed.tensor import DTensor
     shard = make_shard_fn(mesh, rules)
     attn_dist = {"mesh": mesh, "seq_axis": "model",
                  "batch_axes": dp_axes(mesh)} if dist_decode else None
-    heads = bool(mamba_split_positions(cfg, mesh, rules))
+    heads = _state_heads(cfg, mesh, rules)
 
     def local(path) -> bool:
         """Whether a state leaf stays as this rank holds it."""
-        return (dist_decode and path in ("k", "v")) \
-            or (heads and path == "ssd")
+        return (dist_decode and path in ("k", "v")) or path in heads
 
     def decode(params, state, batch):
         local_b, row_pls = _local_batch(mesh, rules, batch)
@@ -816,6 +867,19 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Rules, *,
         return _logits_out(cfg, mesh, logits, row_pls, B), new
 
     return decode
+
+
+def _state_heads(cfg: ModelConfig, mesh, rules: Rules) -> dict:
+    """{decode state leaf: its heads} of the recurrent states a rank holds
+    its heads of: the ``ssd`` states where the Mamba2 mixers split, the
+    ``wkv`` states where the RWKV6 time-mixes do."""
+    out = {}
+    if mamba_split_positions(cfg, mesh, rules):
+        out["ssd"] = cfg.ssm_heads
+    if any(p.endswith(".tm") for p in rwkv_split_positions(cfg, mesh,
+                                                           rules)):
+        out["wkv"] = cfg.rwkv_heads
+    return out
 
 
 def _walk(f, tree, *others, path: str = ""):
@@ -899,6 +963,7 @@ def build_cell(arch: Union[str, ModelConfig],
                 guarded=guarded_positions(cfg, mesh, rules),
                 expert_split=expert_split_positions(cfg, mesh, rules),
                 mamba_split=mamba_split_positions(cfg, mesh, rules),
+                rwkv_split=rwkv_split_positions(cfg, mesh, rules),
                 in_proj_route=in_proj_route(cfg, mesh, rules, shape.kind),
                 kv_chunks=kv_cache_chunks(cfg, mesh, rules, shape.kind,
                                           shape.seq_len))

@@ -16,7 +16,9 @@ would run it (see ``launch/cells.py``):
   * operations: the projections' matrix products (2 in x out a token per
     weight; MoE experts over their capacity slots, a rank's experts or
     columns; a split Mamba2 mixer's ``in_proj`` on the columns it
-    multiplies by), attention and the scans (on a rank's SSD heads) by
+    multiplies by; a split RWKV6 part's projections on its columns or
+    rows, its lerp and decay inputs whole), attention and the scans (on a
+    rank's SSD and WKV heads) by
     the formulas of ``chip_smoke.py``'s bounds, the LM head on
     every token in training and on the last one in serving; a training
     step adds the backward (2x the forward's products, 2.5x attention's)
@@ -30,7 +32,8 @@ would run it (see ``launch/cells.py``):
     over every mesh dim, the batch's gather, the scalar all-reduces, the
     MoE router's token means, the MoE combine's sums over ``model`` and
     the 2D expert buffer's gathers over ``data``, a split mixer's norm
-    sums over ``model`` (and, in decode, its projection's all-gather); a
+    sums over ``model`` (and, in decode, its projection's all-gather), a
+    split RWKV6 channel-mix's reduce-scatter and all-gather; a
     decode step's gather of the sequence shards, or, with the distributed
     flash-decode, its three stats all-reduces a layer;
   * memory: the argument, output and temporary bytes a device holds.
@@ -59,7 +62,7 @@ from ..distributed.sharding import (batch_shardings, param_shardings,
                                     sharded_extent)
 from .cells import (Cell, LeafPlan, build_cell, cell_shardings,
                     leaf_plans, local_moe_groups, model_dim, row_dims,
-                    row_mesh, seq_parallel, tp_model, train_split)
+                    row_mesh, seq_parallel, train_split)
 from ..arch.mamba2 import _dims as mamba_dims
 from .mesh import make_production_mesh
 
@@ -148,7 +151,8 @@ class Layout:
     model extent, ``seq`` sequence parallelism, per pattern position
     whether the attention splits on whole heads (``attn``), the MLP on
     its columns (``mlp``), how the MoE experts split (``moe``) and whether
-    a Mamba2 mixer splits its SSD heads (``mamba``), whether Zamba2's
+    a Mamba2 mixer splits its SSD heads (``mamba``), which RWKV6 parts
+    split (``rwkv``: ``"tm"``, ``"cm"`` by position), whether Zamba2's
     shared attention and MLP split (``shared``: (attention, MLP)),
     whether the embedding table (``embed``) and the LM head (``vocab``)
     hold vocab shards, ``nkv``, the KV heads a rank's q heads read (the
@@ -167,6 +171,7 @@ class Layout:
     mamba: dict = field(default_factory=dict)
     shared: tuple = (False, False)
     route: str = ""
+    rwkv: dict = field(default_factory=dict)
 
     @property
     def ssd_split(self) -> int:
@@ -174,17 +179,23 @@ class Layout:
         mixers split, else 1."""
         return self.tp if any(self.mamba.values()) else 1
 
+    @property
+    def wkv_split(self) -> int:
+        """How many ranks share a time-mix's WKV heads: ``tp`` where the
+        time-mixes split, else 1."""
+        return self.tp if any("tm" in v for v in self.rwkv.values()) else 1
+
 
 def layout(cell: Cell, seq_len: int) -> Layout:
     cfg, mesh = cell.cfg, cell.mesh
-    seq = cell.kind != "decode" and tp_model(cfg) \
-        and seq_parallel(mesh, cell.rules, seq_len)
+    seq = cell.kind != "decode" and seq_parallel(mesh, cell.rules,
+                                                  seq_len)
     plans = leaf_plans(cfg, mesh, cell.rules, seq=seq,
                        decode=cell.kind == "decode")
     specs = M.build_param_specs(cfg)
     shapes = [s.shape for s in tree_leaves(specs)]
     m = model_dim(mesh)
-    tp = mesh.shape[m] if m is not None and tp_model(cfg) else 1
+    tp = mesh.shape[m] if m is not None else 1
     split = {p.path: m is not None and m in sharded_dims(mesh, p.placements)
              and m not in p.upfront for p in plans}
     attn = {f"pos{j}": split.get(("blocks", f"pos{j}", "attn", "wq"), False)
@@ -204,7 +215,7 @@ def layout(cell: Cell, seq_len: int) -> Layout:
     moe = {}
     for j, kind in enumerate(cfg.pattern):
         plan = by_path.get(("blocks", f"pos{j}", "moe", "w_gate"))
-        if kind != "attn_moe" or plan is None or not tp_model(cfg):
+        if kind != "attn_moe" or plan is None:
             continue
         dims = sharded_dims(mesh, plan.placements)
         on_m = dims.get(m) if m not in plan.upfront else None
@@ -218,9 +229,12 @@ def layout(cell: Cell, seq_len: int) -> Layout:
     mamba = {pos: pos in cell.mamba_split for j, kind in
              enumerate(cfg.pattern) if kind == "mamba2"
              for pos in (f"pos{j}",)}
+    rwkv = {f"pos{j}": tuple(part for part in ("tm", "cm")
+                             if f"pos{j}.{part}" in cell.rwkv_split)
+            for j, kind in enumerate(cfg.pattern) if kind == "rwkv6"}
     return Layout(plans, shapes, tp, seq, attn, mlp,
                   split.get(("embed",), False), split.get(head, False), nkv,
-                  moe, mamba, shared, cell.in_proj_route)
+                  moe, mamba, shared, cell.in_proj_route, rwkv)
 
 
 def _in_proj_cols(cfg, lay: Layout) -> float:
@@ -273,6 +287,14 @@ def _split(path, lay: Layout, cfg, cache) -> tuple:
             return 1.0, _in_proj_cols(cfg, lay), 1.0
         if leaf == "out_proj":
             return 1.0 / lay.tp, 1.0, 1.0
+    if part in lay.rwkv.get(pos, ()):
+        # row shards: ``wo`` and the channel-mix's ``wv``; column shards:
+        # the other projections and the decay's channels of ``w_lora_B``;
+        # the lerp's and the decay's low-rank inputs whole
+        if leaf == "wo" or (part == "cm" and leaf == "wv"):
+            return 1.0 / lay.tp, 1.0, 1.0
+        if leaf in ("wr", "wk", "wv", "wg", "w_lora_B"):
+            return 1.0, 1.0 / lay.tp, 1.0
     if part == "moe" and pos in lay.moe and "shared" not in path \
             and leaf != "router":
         ms = lay.moe[pos]
@@ -330,8 +352,8 @@ def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
         s_flops += n_ssd * 2 * cfg.ssm_conv * conv_ch
         s_bytes += n_ssd * (2 * Hs * P + 2 * N + Hs) * act
     n_wkv = cfg.num_periods * cfg.pattern.count("rwkv6")
-    if n_wkv:
-        Hr, K = cfg.rwkv_heads, cfg.rwkv_head_size
+    if n_wkv:              # a split time-mix's scan on its heads
+        Hr, K = cfg.rwkv_heads // lay.wkv_split, cfg.rwkv_head_size
         c = min(WKV_CHUNK, S)
         per = 4 * K * K if decode else 3 * c * K + 2 * c * K + 4 * K * K
         s_flops += n_wkv * Hr * per
@@ -445,7 +467,8 @@ def _weights(cell: Cell, lay: Layout, c: Count, nb: int, grad: bool,
 def _parts(cfg, lay: Layout) -> list:
     """(sharded, input width, the MoE block's ``MoESplit`` or None) of
     every part a period runs, in order: an attention block's attention and
-    its MLP (or MoE), a Mamba2 mixer, RWKV6's time and channel mixes,
+    its MLP (or MoE), a Mamba2 mixer, RWKV6's time and channel mixes (a
+    split channel-mix's ``sharded`` is ``"gate"``: ``_activations``),
     Zamba2's shared attention and MLP."""
     d = cfg.d_model
     out = []
@@ -460,7 +483,9 @@ def _parts(cfg, lay: Layout) -> list:
         elif kind == "mamba2":
             out.append((lay.mamba.get(pos, False), d, None))
         else:
-            out += [(False, d, None), (False, d, None)]
+            parts = lay.rwkv.get(pos, ())
+            out += [("tm" in parts, d, None),
+                    ("gate" if "cm" in parts else False, d, None)]
     if cfg.shared_attn_every_period:
         out += [(lay.shared[0], 2 * d, None), (lay.shared[1], 2 * d, None)]
     return out
@@ -548,24 +573,43 @@ def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
         for _ in range(cfg.num_periods):
             if ms is not None:
                 _moe_part(c, cfg, ms, t, lay.seq, rows, S, act, fwd, grad)
-            elif lay.seq:
+                continue
+            if lay.seq:
                 c.coll("all-gather", fwd * _ring("all-gather", t,
                                                  tok * width / t), fwd)
                 if grad:
                     c.coll("reduce-scatter",
                            _ring("reduce-scatter", t, tok * width))
-                if sharded:
-                    c.coll("reduce-scatter", fwd * _ring(
-                        "reduce-scatter", t, tok * cfg.d_model), fwd)
-                    if grad:
-                        c.coll("all-gather", _ring("all-gather", t,
-                                                   tok * cfg.d_model / t))
+            elif sharded and grad:
+                c.coll("all-reduce", _ring("all-reduce", t, tok * width))
+            if sharded == "gate":
+                _gate(c, t, lay.seq, tok * cfg.d_model, fwd, grad)
+            elif sharded and lay.seq:
+                c.coll("reduce-scatter", fwd * _ring(
+                    "reduce-scatter", t, tok * cfg.d_model), fwd)
+                if grad:
+                    c.coll("all-gather", _ring("all-gather", t,
+                                               tok * cfg.d_model / t))
             elif sharded:
                 c.coll("all-reduce", fwd * _ring("all-reduce", t,
                                                  tok * cfg.d_model), fwd)
-                if grad:
-                    c.coll("all-reduce", _ring("all-reduce", t, tok * width))
     _mixers(c, cfg, lay, rows * S, act, fwd, grad)
+
+
+def _gate(c: Count, t: int, seq: bool, x: float, fwd: int,
+          grad: bool) -> None:
+    """A split RWKV6 channel-mix's way out (``TPContext.gate``) in one pass
+    whose output is ``x`` bytes on each rank: ``kv``'s partial sums
+    reduce-scattered onto the rank's columns and the gated product
+    all-gathered, ``fwd`` times; backward, the reduce-scatter's all-gather
+    and, under sequence parallelism, the product gather's reduce-scatter
+    (else that gradient is cut, no collective)."""
+    c.coll("reduce-scatter", fwd * _ring("reduce-scatter", t, x), fwd)
+    c.coll("all-gather", fwd * _ring("all-gather", t, x / t), fwd)
+    if grad:
+        c.coll("all-gather", _ring("all-gather", t, x / t))
+        if seq:
+            c.coll("reduce-scatter", _ring("reduce-scatter", t, x))
 
 
 def _mixers(c: Count, cfg, lay: Layout, tokens: int, act: int, fwd: int,
@@ -641,6 +685,10 @@ def account(cell: Cell) -> dict:
                          "ssd_heads_per_rank": cfg.ssm_heads // lay.ssd_split
                          if cell.mamba_split else 0,
                          "in_proj_route": cell.in_proj_route},
+                     "rwkv_split": {
+                         "parts": list(cell.rwkv_split),
+                         "wkv_heads_per_rank": cfg.rwkv_heads
+                         // lay.wkv_split if lay.wkv_split > 1 else 0},
                      "shared_split": {"attention": lay.shared[0],
                                       "mlp": lay.shared[1]},
                      "expert_split": {pos: {"experts": ms.experts,
@@ -655,7 +703,7 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
     cfg, mesh = cell.cfg, cell.mesh
     B, S = cell.shape.global_batch, cell.shape.seq_len
     mb = cell.microbatches
-    rm = row_mesh(cfg, mesh)
+    rm = row_mesh(mesh)
     ext = rm.size()
     split = train_split(rm, B // mb)
     rows = B // mb // split                      # a device's, a microbatch
@@ -677,7 +725,7 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
                         + head * (3 + recompute_head))
     # the batch's rows: gathered whole unless one microbatch is cut as
     # the data axes cut the batch
-    local = mb == 1 and split == ext and tp_model(cfg)
+    local = mb == 1 and split == ext
     if not local:
         for k, t in cell.args[-1].items():
             pls = b_pls[k]
@@ -703,7 +751,7 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
     for plan, shape in zip(lay.plans, lay.shapes):
         g = _elems(mesh, plan, shape, plan.fsdp) * pbytes
         g /= math.prod(mesh.shape[i] for i in plan.fsdp)
-        for i in row_dims(cfg, mesh):
+        for i in row_dims(mesh):
             if i not in plan.fsdp and i not in plan.stationary:
                 c.coll("all-reduce", _ring("all-reduce", mesh.shape[i], g))
         if plan.model_sum:
@@ -714,7 +762,7 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
                 math.prod(shape) * pbytes / sharded_extent(
                     mesh, plan.placements))
     n_metrics = 2 + 2 * ("attn_moe" in cfg.pattern)   # loss, ce, aux
-    for i in row_dims(cfg, mesh):
+    for i in row_dims(mesh):
         c.coll("all-reduce", n_metrics * _ring("all-reduce", mesh.shape[i],
                                                4), n_metrics)
     wire, n = _all_reduce(mesh, 4)                    # the clip's norm
@@ -812,11 +860,12 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
                                        / lay.tp))
         specs = M.decode_state_specs(cfg, rows, S, getattr(torch,
                                                            cfg.dtype))
-        # a split mixer's ssd state: this rank's heads; a split
-        # attention's k/v: its sequence chunk
+        # a split mixer's ssd state and a split time-mix's wkv state:
+        # this rank's heads; a split attention's k/v: its sequence chunk
         split = {**lay.attn, "shared": lay.shared[0]}
+        heads = {"ssd": lay.ssd_split, "wkv": lay.wkv_split}
         caches = sum(math.prod(t.shape) * _nbytes(t.dtype)
-                     / (lay.ssd_split if name == "ssd" else lay.tp
+                     / (heads[name] if name in heads else lay.tp
                         if name in ("k", "v") and split.get(key)
                         and cache == "chunks" else 1)
                      for key, leaves in specs["caches"].items()
@@ -837,7 +886,8 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
         local = _local_bytes(mesh, pls, t.shape, t.dtype)
         state_local += local
         if cell.dist_decode and name in ("k", "v") \
-                or name == "ssd" and lay.ssd_split > 1:
+                or name == "ssd" and lay.ssd_split > 1 \
+                or name == "wkv" and lay.wkv_split > 1:
             state_step += local
             continue
         gathered_to = rows_only(mesh, pls)

@@ -560,12 +560,27 @@ def _mamba_shapes(params) -> dict:
     return out
 
 
+def _rwkv_shapes(params) -> dict:
+    """{shape: the RWKV6 leaves of that shape, as ``"tm.wr/tm.wk"``} of
+    every RWKV6 weight (time-mix and channel-mix) on a rank before a
+    gather over ``model``: its block and a period's slice of it."""
+    names = {}
+    for period in params["blocks"].values():
+        for part in ("tm", "cm"):
+            for name, leaf in period.get(part, {}).items():
+                local = tuple(leaf.to_local().shape)
+                for shape in (local, local[1:]):
+                    names.setdefault(shape, set()).add(f"{part}.{name}")
+    return {shape: "/".join(sorted(n)) for shape, n in names.items()}
+
+
 def _watched(c, params):
     """The leaf shapes whose all-gathers over ``model`` are recorded: the
     experts' (``c["watch"] == "experts"``), the Mamba2 mixers' (``"mamba"``,
-    a dict naming each shape's leaf) or the ``attn``-kind leaves'."""
-    return {"experts": _expert_shapes, "mamba": _mamba_shapes}.get(
-        c.get("watch"), _attn_shapes)(params)
+    a dict naming each shape's leaf), the RWKV6 mixes' (``"rwkv"``, the
+    same) or the ``attn``-kind leaves'."""
+    return {"experts": _expert_shapes, "mamba": _mamba_shapes,
+            "rwkv": _rwkv_shapes}.get(c.get("watch"), _attn_shapes)(params)
 
 
 def _model_gathers(calls, mesh, shapes) -> list:
@@ -644,7 +659,7 @@ def _tp_train(mesh, c: dict, log: CollectiveLog) -> dict:
                 for x, sh in zip(_leaves(params), _leaves(p_sh)))})
     undo()
     return {"steps": steps, "account": _count(cell), "guarded": cell.guarded,
-            "mamba_split": cell.mamba_split,
+            "mamba_split": cell.mamba_split, "rwkv_split": cell.rwkv_split,
             "in_proj_route": cell.in_proj_route}
 
 
@@ -661,10 +676,25 @@ def _model_sum_set(leaf_plans, which, value: bool):
     return plans
 
 
-#: planted faults a train case may carry, each (what it patches, the
-#: patch): the router's gradient summed over ``model``; a split mixer's
-#: norm sum with an identity backward; ``conv_w``'s and the shared
-#: block's ``wk``'s gradients left unsummed over ``model``
+def _gate_identity_backward(tp, r, kv):
+    """``TPContext.gate`` with ``kv``'s sum taken by an all-reduce whose
+    backward is the identity, then cut to this rank's columns: the same
+    forward, but each rank's partial ``kv`` gets only its own columns'
+    gradient (it needs every column's)."""
+    from repro_torch.distributed.sharding import gather_out, reduce_out
+    dim = kv.ndim - 1
+    k = kv.shape[dim] // tp.tp
+    own = reduce_out(kv, tp.model, tp.tp).narrow(dim, tp.rank * k, k)
+    return gather_out(r * own, dim, tp.model, tp.tp, tp.rank)
+
+
+#: planted faults a train case may carry, each (what it patches: the leaf
+#: plans or a ``TPContext`` method, the patch): the router's gradient
+#: summed over ``model``; a split mixer's norm sum with an identity
+#: backward; ``conv_w``'s and the shared block's ``wk``'s gradients left
+#: unsummed over ``model``; a split RWKV6 time-mix's ``lora_A`` (the
+#: lerp) and ``ln_x_scale`` (the group norm) left unsummed; the
+#: channel-mix's gate combine with an identity backward
 _FAULTS = {
     "router_model_sum": ("plans", lambda lp: _model_sum_set(
         lp, lambda path: path[-1] == "router", True)),
@@ -672,7 +702,13 @@ _FAULTS = {
         lp, lambda path: path[-2:] == ("mixer", "conv_w"), False)),
     "shared_wk_no_model_sum": ("plans", lambda lp: _model_sum_set(
         lp, lambda path: path == ("shared", "attn", "wk"), False)),
-    "norm_sum_identity_backward": ("total", None),
+    "norm_sum_identity_backward": ("total", lambda own: own.reduce),
+    "lerp_no_model_sum": ("plans", lambda lp: _model_sum_set(
+        lp, lambda path: path[-2:] == ("tm", "lora_A"), False)),
+    "ln_x_scale_no_model_sum": ("plans", lambda lp: _model_sum_set(
+        lp, lambda path: path[-2:] == ("tm", "ln_x_scale"), False)),
+    "gate_combine_identity_backward": ("gate",
+                                       lambda own: _gate_identity_backward),
 }
 
 
@@ -687,9 +723,9 @@ def _plant(fault):
         own = cells.leaf_plans
         cells.leaf_plans = patch(own)
         return lambda: setattr(cells, "leaf_plans", own)
-    own = TPContext.total
-    TPContext.total = TPContext.reduce
-    return lambda: setattr(TPContext, "total", own)
+    own = getattr(TPContext, what)
+    setattr(TPContext, what, patch(TPContext))
+    return lambda: setattr(TPContext, what, own)
 
 
 def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
@@ -723,6 +759,7 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
            "prefill": {"tally": _tally(calls), "account": _count(pre),
                        "model_gathers": _model_gathers(calls, mesh, shapes)},
            "guarded": pre.guarded, "mamba_split": pre.mamba_split,
+           "rwkv_split": pre.rwkv_split,
            "in_proj_route": {"prefill": pre.in_proj_route}}
     if "state" not in c:
         return out
@@ -754,8 +791,9 @@ def _tp_serve(mesh, c: dict, log: CollectiveLog) -> dict:
 
 def tensor_parallel_world(rank: int, train_cases: list,
                           serve_cases: list) -> dict:
-    """tests/test_torch_tensor_parallel.py and
-    tests/test_torch_mamba_parallel.py: each train case's cell steps (a
+    """tests/test_torch_tensor_parallel.py,
+    tests/test_torch_mamba_parallel.py and
+    tests/test_torch_rwkv_parallel.py: each train case's cell steps (a
     planted fault where the case names one) and each serve case's prefill
     and decode cells on their meshes, every call's collectives recorded
     (by every rank)."""

@@ -6,9 +6,9 @@ meshes serve); the accounting against the reference test's own bounds
 (``tests/test_dryrun_machinery.py``) on a (2, 4) mesh; the per-device
 parameter bytes against what the JAX package's ``param_shardings``
 implies; and ``python -m repro_torch.launch.dryrun --all`` in a
-subprocess, which loads neither ``jax`` nor ``repro``. dbrx-132b's and
-zamba2-2.7b's cells on the pod mesh: their experts, SSD heads and shared
-block on shards."""
+subprocess, which loads neither ``jax`` nor ``repro``. dbrx-132b's,
+zamba2-2.7b's and rwkv6-7b's cells on the pod mesh: their experts, SSD
+heads and shared block, WKV heads and channel-mix columns on shards."""
 import json
 import math
 import os
@@ -421,5 +421,108 @@ def test_zamba2_param_bytes_match_jax_shardings(zamba_cells, shape,
     rules = JS.serve_rules(False) if shape.endswith("optimized") \
         else JS.baseline_rules(False)
     want = _jax_local_bytes("zamba2-2.7b", *MESHES["pod"], rules,
+                            4 if shape == "train_4k" else 2)
+    assert r["memory"]["param_bytes"] == pytest.approx(want, rel=1e-12)
+
+
+RWKV_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+@pytest.fixture(scope="module")
+def rwkv_cells(tmp_path_factory):
+    """rwkv6-7b's cells on the (16, 16) pod mesh (the serve cells also
+    ``--optimized``), and on the (16, 1) mesh (the same rows a device, no
+    model axis)."""
+    out = tmp_path_factory.mktemp("rwkv6")
+    pod = {s: dryrun.run_cell("rwkv6-7b", s, multi_pod=False, out_dir=out)
+           for s in RWKV_SHAPES}
+    pod.update({f"{s} optimized": dryrun.run_cell(
+        "rwkv6-7b", s, multi_pod=False, out_dir=out, optimized=True)
+        for s in RWKV_SHAPES[1:]})
+    one = {s: dryrun.run_cell("rwkv6-7b", s, multi_pod=False, out_dir=out,
+                              mesh=MeshShape((16, 1), ("data", "model")))
+           for s in RWKV_SHAPES}
+    return pod, one
+
+
+@pytest.mark.parametrize("shape", list(RWKV_SHAPES) + [
+    f"{s} optimized" for s in RWKV_SHAPES[1:]])
+def test_rwkv6_layout_names_its_split(rwkv_cells, shape):
+    """The layout field of rwkv6-7b's cells on (16, 16): the time-mix on 4
+    of 64 WKV heads a rank and the channel-mix on its columns
+    (``Cell.rwkv_split``), nothing guarded, the rows over the data axis
+    alone (as on (16, 1)); on (16, 1) nothing splits."""
+    r = rwkv_cells[0][shape]
+    assert r["layout"]["rwkv_split"] == {"parts": ["pos0.tm", "pos0.cm"],
+                                         "wkv_heads_per_rank": 4}
+    assert r["layout"]["guarded"] == [] and r["layout"]["model_extent"] == 16
+    flat = rwkv_cells[1][shape.split()[0]]
+    assert r["rows_per_device"] == flat["rows_per_device"]
+    assert flat["layout"]["rwkv_split"] == {"parts": [],
+                                            "wkv_heads_per_rank": 0}
+
+
+@pytest.mark.parametrize("shape", RWKV_SHAPES)
+def test_rwkv6_wkv_count_is_a_rank_s_heads(shape):
+    """The WKV scan's term of a device's operations on (16, 16) is a 16th
+    of the (16, 1) mesh's, whose ranks scan all 64 heads: ``_per_token``'s
+    scan term counts ``Hr / tp`` heads."""
+    cell = TCells.build_cell("rwkv6-7b", shape, MeshShape(
+        (16, 16), ("data", "model")))
+    flat = TCells.build_cell("rwkv6-7b", shape, MeshShape(
+        (16, 1), ("data", "model")))
+    S = cell.shape.seq_len
+    decode = cell.kind == "decode"
+    lay, flay = (dryrun.layout(c, S) for c in (cell, flat))
+    got, whole = (dryrun._per_token(cell.cfg, S, S, decode, 0.0, 2, x,
+                                    True)[4:] for x in (lay, flay))
+    assert lay.wkv_split == 16 and flay.wkv_split == 1
+    assert got[0] * 16 == pytest.approx(whole[0], rel=1e-12)
+    assert got[1] * 16 == pytest.approx(whole[1], rel=1e-12)
+
+
+def test_rwkv6_cells_count_their_shards(rwkv_cells):
+    """rwkv6-7b on (16, 16): the train cell under one card's 80e9 B (94.2e9
+    while every rank computed whole), prefill_32k below 1e14 flop a
+    device (9.26e14 while the model axis's ranks each ran their rows
+    through the whole model), and decode under the serving rules moving
+    no weight over ``model`` (below 1e8 B on the wire, 1.43e10 before);
+    every cell under 80e9 B."""
+    pod, _ = rwkv_cells
+    assert pod["train_4k"]["memory"]["peak_per_device_bytes"] < 80e9
+    assert pod["prefill_32k"]["cost"]["flops"] < 1e14
+    assert pod["decode_32k optimized"]["cost"]["collective_wire_bytes"] \
+        < 1e8
+    for r in pod.values():
+        assert r["memory"]["peak_per_device_bytes"] < 80e9, r["memory"]
+
+
+def test_rwkv6_guard_when_a_rank_s_columns_cut_a_head():
+    """On a model axis of 3 the rules leave d 4096 and 64 heads whole (3
+    divides neither): no part splits and none is guarded. A d_model 48
+    (3 heads of K 16) rwkv6 on 4 model ranks splits ``rwkv_hidden`` 12
+    columns a rank, mid-head: its time-mix takes the guard
+    (``"pos0.tm"``) while its channel-mix splits."""
+    cell = TCells.build_cell("rwkv6-7b", "train_4k", MeshShape(
+        (1, 3), ("data", "model")))
+    assert cell.rwkv_split == () and cell.guarded == ()
+    cfg = get_config("rwkv6-7b-smoke").replace(d_model=48)
+    cell = TCells.build_cell(cfg, ShapeSpec("t", 16, 8, "train"), MeshShape(
+        (1, 4), ("data", "model")))
+    assert cell.guarded == ("pos0.tm",)
+    assert cell.rwkv_split == ("pos0.cm",)
+
+
+@pytest.mark.parametrize("shape", list(RWKV_SHAPES) + [
+    f"{s} optimized" for s in RWKV_SHAPES[1:]])
+def test_rwkv6_param_bytes_match_jax_shardings(rwkv_cells, shape,
+                                               jax_specs):
+    """A device's parameter bytes in rwkv6-7b's cells equal what the JAX
+    package's ``param_shardings`` implies: computing on the time-mix's and
+    channel-mix's shards moves no parameter's placement."""
+    r = rwkv_cells[0][shape]
+    rules = JS.serve_rules(False) if shape.endswith("optimized") \
+        else JS.baseline_rules(False)
+    want = _jax_local_bytes("rwkv6-7b", *MESHES["pod"], rules,
                             4 if shape == "train_4k" else 2)
     assert r["memory"]["param_bytes"] == pytest.approx(want, rel=1e-12)
