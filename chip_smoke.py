@@ -289,6 +289,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    train_4k cell's rows a microbatch on a device, B 4 x S 4096, and
    prefill_32k's, B 2 x S 32768) and its backward at B 4 x S 4096
    (``tp_wkv_phase``).
+21. the mid-head attention on its head slots: qwen2-vl-7b at full width
+   (H 28, KV 4 of D 128) cut to 2 layers, f32, in a world of 8 gloo
+   processes on the card (every collective probed on CUDA tensors first,
+   the all-to-all with them; a refused one fails the phase), on a (1, 8)
+   mesh: each rank's 3.5 heads of q columns exchanged onto slots of 4
+   heads (rank 7's empty), 19,008 vocabulary rows a rank. A train step (B
+   2 x S 256) under ``baseline_rules``, prefill and decode (with and
+   without the distributed flash-decode) under ``serve_rules``, against
+   the world of one at phase 17 (b)'s pins (``LM_PARITY_TOL`` for the
+   loss, grad norm and every gradient leaf, the params by
+   ``_update_excess``, the serve logits and caches at
+   ``TP_WORLD_TOL["serve"]``); each rank's collectives equal to
+   ``dryrun.account``'s at its model coordinate; no attention weight
+   all-gathered over ``model``; the attention launches on rank 0 and on
+   the empty rank. Within ``MIDHEAD_WORLD_SECONDS``; it shares
+   ``_shards_world_body``. The per-rank cases at the end add the slots of
+   the three mid-head configs on 16 model ranks: qwen2-vl-7b's 2 heads
+   over 2 KV heads and llama4-maverick's last slot of one head
+   (starcoder2-7b's and llama4-maverick's 3 heads over one KV head are
+   internlm2-20b's case).
 
 Each model is freed before the next is drawn. The ``kernels`` line has
 eight rows: the five kernels and the three backwards (their launches are
@@ -2535,8 +2555,9 @@ def _update_excess(p_new, p_ref, g, g_ref, p0, opt, norms) -> float:
     |s_a - s_b| / (4 min(s_a, s_b))) apart, plus the f32 rounding of p -
     lr * delta (4 ulp of |p| + 2 lr, which bounds both p and the result).
     Evaluated in float64, so that the check's own roundings do not count,
-    on the device of ``p_new``'s leaves, ``EXCESS_SLICE`` elements at a
-    time (elementwise, so the same numbers as on the host)."""
+    on the card where any of a leaf's tensors lies there (else on the
+    host), ``EXCESS_SLICE`` elements at a time (elementwise, so the same
+    numbers as on the host)."""
     import torch
     from repro_torch.arch.params import tree_leaves
     sa, sb = (min(1.0, opt.grad_clip / (float(n) + 1e-9)) for n in norms)
@@ -2544,7 +2565,8 @@ def _update_excess(p_new, p_ref, g, g_ref, p0, opt, norms) -> float:
     worst = float("-inf")
     for leaves in zip(*(tree_leaves(t) for t in
                         (p_new, p_ref, g, g_ref, p0))):
-        dev = leaves[0].device
+        dev = next((t.device for t in leaves if t.device.type != "cpu"),
+                   leaves[0].device)
         flat = [t.reshape(-1) for t in leaves]
         for i in range(0, flat[0].numel(), EXCESS_SLICE):
             a, b, ga, gb, p = (t[i:i + EXCESS_SLICE].to(dev, torch.float64)
@@ -4685,10 +4707,16 @@ def training_across_devices_phase(device: str, *, train_kw=None,
 # earlier card run had; dbrx-132b's on a model axis of 2 (phase 18's
 # world of two) is G 6 on each rank; zamba2-2.7b's shared block (H 32 =
 # KV 32, D 80) on 16 model ranks and on 2 (phase 19's world of two)
+# and the head slots of the mid-head configs on 16 model ranks:
+# starcoder2-7b's 3 of H 36 and llama4-maverick's 3 of H 40 over one KV
+# head (internlm2-20b's case), qwen2-vl-7b's slot of 2 of H 28 spanning
+# KV heads 0 and 1 (G 7), llama4-maverick's last slot of one head
 TP_HEADS = [("qwen3 tp2", 8, 4, 128), ("llama3 tp16", 2, 1, 128),
             ("internlm2 tp16", 3, 1, 128), ("dbrx tp2", 24, 4, 128),
             ("zamba2 shared tp16", 2, 2, 80),
-            ("zamba2 shared tp2", 16, 16, 80)]
+            ("zamba2 shared tp2", 16, 16, 80),
+            ("qwen2-vl tp16", 2, 2, 128),
+            ("maverick tp16 last slot", 1, 1, 128)]
 # the attention cases' shapes: training (B, S) and decode (Bd, Sd)
 TP_SHAPES = dict(B=4, S=1024, Bd=8, Sd=2048)
 # the SSD scan, forward and backward (bf16), at one rank's heads of
@@ -4722,6 +4750,9 @@ TP_WORLD_SECONDS = 240.0
 # probed and reported too
 TP_COLLECTIVES = ("all_reduce", "all_reduce max", "all_gather")
 TP_PROBED = TP_COLLECTIVES + ("reduce_scatter",)
+# and the all-to-all of a split attention's head slots (phase 21), with
+# uneven pieces and an empty one as the slots send them
+SLOT_PROBED = TP_PROBED + ("all_to_all",)
 
 
 def tp_kernel_phase(device: str, heads=TP_HEADS, *, time_it: bool,
@@ -4907,18 +4938,26 @@ def tp_ssd_phase(device: str, cases=TP_SSD, *, time_it: bool) -> dict:
     return out
 
 
-def _world_rank(rank: int, port: int, out_path: str, body, kw: dict) -> None:
-    """One rank of a world of two gloo processes: ``body(rank, **kw)``
-    between the group's start and end, rank 0's result saved at
+def _world_rank(rank: int, port: int, out_path: str, body, kw: dict,
+                ranks: int) -> None:
+    """One rank of a world of ``ranks`` gloo processes: ``body(rank,
+    **kw)`` between the group's start and end, rank 0's result saved at
     ``out_path``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
+                            rank=rank, world_size=ranks)
     try:
-        res = body(rank, **kw)
+        try:
+            res = body(rank, **kw)
+        except BaseException:
+            # every rank's own failure, not only the first the parent sees
+            import traceback
+            print(f"world rank {rank} of {ranks} failed:\n"
+                  + traceback.format_exc(), file=sys.stderr, flush=True)
+            raise
         # the rank's cached blocks back to the card while the other works
         if torch.cuda.is_initialized():
             torch.cuda.empty_cache()
@@ -4929,18 +4968,19 @@ def _world_rank(rank: int, port: int, out_path: str, body, kw: dict) -> None:
         torch.save(res, out_path)
 
 
-def _world_of_two(body, kw: dict, seconds: float, name: str):
-    """Rank 0's result of ``body`` run in a world of two spawned gloo
-    processes (``_world_rank``). Fails if the world runs past ``seconds``;
-    kills any rank still alive when it ends."""
+def _world_of(body, kw: dict, seconds: float, name: str, ranks: int = 2):
+    """Rank 0's result of ``body`` run in a world of ``ranks`` spawned
+    gloo processes (``_world_rank``). Fails if the world runs past
+    ``seconds``; kills any rank still alive when it ends."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as td:
         path = f"{td}/rank0.pt"
         ctx = mp.start_processes(_world_rank,
-                                 args=(_free_port(), path, body, kw),
-                                 nprocs=2, join=False, start_method="spawn")
+                                 args=(_free_port(), path, body, kw, ranks),
+                                 nprocs=ranks, join=False,
+                                 start_method="spawn")
         deadline = time.monotonic() + seconds
         try:
             while not ctx.join(timeout=1.0):
@@ -4964,23 +5004,34 @@ def _collectives_report(tally: dict, acc: dict) -> tuple:
                            for k, (n, w) in sorted(tally.items()))
 
 
-def _probe_collectives(device: str) -> dict:
-    """Each collective of ``TP_PROBED`` on ``device``'s tensors in the
-    world: {name: the error it raised} for each one refused."""
+def _probe_collectives(device: str, names=TP_PROBED) -> dict:
+    """Each collective of ``names`` on ``device``'s tensors in the world:
+    {name: the error it raised} for each one refused."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed.sharding import (all_gather_along,
+                                                  all_to_all_last,
                                                   reduce_scatter_along)
+    n, r = dist.get_world_size(), dist.get_rank()
+    # rank r sends r + 1 elements to each rank but the last, none to it
+    send = [r + 1] * (n - 1) + [0]
+    recv = [s + 1 for s in range(n)] if r < n - 1 else [0] * n
     probes = {
         "all_reduce": lambda: dist.all_reduce(torch.ones(4, device=device)),
         "all_reduce max": lambda: dist.all_reduce(
             torch.ones(4, device=device), op=dist.ReduceOp.MAX),
         "all_gather": lambda: all_gather_along(
-            torch.ones(2, 3, device=device), 1, None, 2),
+            torch.ones(2, 3, device=device), 1, None, n),
         "reduce_scatter": lambda: reduce_scatter_along(
-            torch.ones(2, 4, device=device), 1, None, 2)}
+            torch.ones(2, 2 * n, device=device), 1, None, n),
+        "all_to_all": lambda: check(torch.equal(
+            all_to_all_last(torch.full((2, sum(send)), float(r),
+                                       device=device), send, recv, None),
+            torch.cat([torch.full((2, k), float(s), device=device)
+                       for s, k in enumerate(recv)], 1)),
+            "the all-to-all probe moved the wrong pieces")}
     refused = {}
-    for name in TP_PROBED:
+    for name in names:
         try:
             probes[name]()
             _sync(device)
@@ -5125,7 +5176,7 @@ def tp_world_phase(device: str, **kw) -> dict:
     and the world of one (phase 16 (a)) stands alone."""
     t0 = time.perf_counter()
     kw = {**TP_WORLD, **kw, "device": device}
-    res = _world_of_two(_tp_world_body, kw, TP_WORLD_SECONDS, "world of two")
+    res = _world_of(_tp_world_body, kw, TP_WORLD_SECONDS, "world of two")
     secs = time.perf_counter() - t0
     for name, why in res["refused"].items():
         print(f"world of two: gloo refused {name} on {device} tensors "
@@ -5579,7 +5630,7 @@ def ep_world_phase(device: str, **kw) -> dict:
     kw = {**EP_WORLD, **kw, "device": device}
     _free(device)
     card = _card_line() if device != "cpu" else "the CPU"
-    res = _world_of_two(_ep_world_body, kw, 2 * EP_WORLD_SECONDS,
+    res = _world_of(_ep_world_body, kw, 2 * EP_WORLD_SECONDS,
                         "moe world of two")
     secs = time.perf_counter() - t0
     one, calls = res["one"], res["calls"]
@@ -5733,15 +5784,42 @@ def _stages(spawned: float, stamps: dict) -> str:
     return ", ".join(out)
 
 
+def _own_blocks(tree):
+    """A tree of DTensors, each with a copy of its local block (``place``
+    gives views of the whole tensors, which the copies let go)."""
+    from repro_torch.distributed.checkpoint import tree_map
+    from repro_torch.distributed.sharding import as_local
+    return tree_map(lambda d: as_local(d.to_local().clone(), d), tree)
+
+
+def _sharded_state(params, sh, device: str):
+    """(params, a zero AdamW state) at a train cell's placements ``sh``
+    (``cell_shardings``), each rank holding copies of its blocks alone:
+    the moments drawn as zeros at the params' blocks, never whole."""
+    import torch
+    from repro_torch.distributed.checkpoint import tree_map
+    from repro_torch.distributed.sharding import as_local, place, place_tree
+    from repro_torch.train.optim import AdamWState
+    p = _own_blocks(place_tree(params, sh[0]))
+    zeros = lambda d: as_local(torch.zeros_like(d.to_local()), d)  # noqa: E731
+    return p, AdamWState(place(torch.zeros((), dtype=torch.int32,
+                                           device=device), *sh[1].step),
+                         tree_map(zeros, p), tree_map(zeros, p))
+
+
 def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
                        batch: int, seq: int, cache: int, seed: int,
-                       watch: str, order: bool = False) -> dict:
-    """A world of two's work (phases 19 and 20): the probe, the cells on
-    their shards (every call's collectives, launches, time and the
-    ``watch``-kind weights gathered over ``model`` recorded: ``"mamba"``
-    or ``"rwkv"``), their outputs gathered whole; then rank 0's world of
-    one on the same inputs and the gaps, and, where ``order``, the world
-    of one's own gap summed in another order (``_order_gaps``)."""
+                       watch: str, order: bool = False, ranks: int = 2,
+                       probe=TP_PROBED) -> dict:
+    """A world's work (phases 19, 20 and 21): the probe of ``probe``'s
+    collectives, the cells on their shards on a (1, ``ranks``) mesh of
+    ``arch`` (every call's collectives, launches, time and the
+    ``watch``-kind weights gathered over ``model`` recorded: ``"mamba"``,
+    ``"rwkv"`` or ``"attn"``), their outputs
+    gathered whole; then rank 0's world of one on the same inputs and the
+    gaps, and, where ``order``, the world of one's own gap summed in
+    another order (``_order_gaps``). Only rank 0 keeps the whole
+    parameters past the placing."""
     import torch
     import torch.distributed as dist
     from _torch_dist_worker import (CollectiveLog, _count, _model_gathers,
@@ -5751,7 +5829,8 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
     from repro_torch.distributed.checkpoint import flatten, tree_map
     from repro_torch.distributed.sharding import (baseline_rules,
                                                   gather_whole, place,
-                                                  place_tree, serve_rules)
+                                                  place_tree, serve_rules,
+                                                  sharded_dims)
     from repro_torch.launch.cells import build_cell, cell_shardings
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import (AdamWConfig, init_state, make_decode_step,
@@ -5759,10 +5838,10 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
     stamps = {"start": time.time()}
     if device != "cpu":
         torch.cuda.set_device(0)
-    refused = _probe_collectives(device)
-    check(not refused, f"{arch} world of two: gloo refused {refused} on "
+    refused = _probe_collectives(device, probe)
+    check(not refused, f"{arch} world of {ranks}: gloo refused {refused} on "
                        f"{device} tensors, which the cells issue")
-    mesh = make_mesh((1, 2), ("data", "model"), device_type=device)
+    mesh = make_mesh((1, ranks), ("data", "model"), device_type=device)
     cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
     g = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(cfg, g, device=device)
@@ -5778,7 +5857,23 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
                                       device=device, dtype=torch.int32)
     nxt = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
                         device=device, dtype=torch.int32)
-    whole_tree = lambda t: tree_map(gather_whole, t)        # noqa: E731
+    def whole_tree(tree):
+        """Every leaf whole on rank 0 alone, in host memory (None on the
+        other ranks): the world of one there reads them, and the card
+        holds every rank's blocks meanwhile. A leaf split over ``model``
+        is gathered to rank 0 by its blocks on the host (the mesh is (1,
+        ``ranks``): rank order is the model coordinate); a whole one is
+        rank 0's own."""
+        def whole(t):
+            dims = sharded_dims(t.device_mesh, t.placements)
+            block = t.to_local().detach().cpu()
+            if not dims:
+                return None if rank else block
+            parts = [torch.empty_like(block) for _ in range(ranks)] \
+                if not rank else None
+            dist.gather(block.contiguous(), parts, dst=0)
+            return None if rank else torch.cat(parts, dims[1])
+        return tree_map(whole, tree)
     shapes_of = lambda p: _watched({"watch": watch}, p)     # noqa: E731
     log = CollectiveLog()
     calls, outs = {}, {}
@@ -5805,32 +5900,38 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
                          "decode_attention_partial": _kernel_ops()[
                              "decode_attention"].partial_invocation_count()},
             "mamba_split": cell.mamba_split, "rwkv_split": cell.rwkv_split,
-            "in_proj_route": cell.in_proj_route}
+            "in_proj_route": cell.in_proj_route, "peak": _peak(device)}
         return res
 
+    # the train cell's and the serve cells' shards, each rank's own
+    cell = build_cell(cfg, ShapeSpec("shards", seq, batch, "train"), mesh,
+                      rules=baseline_rules(), microbatches=1)
+    sh = cell_shardings(cell)
+    state = _sharded_state(params, sh, device)
+    rules = serve_rules()
+    pre = build_cell(cfg, ShapeSpec("shards", seq, batch, "prefill"), mesh,
+                     rules=rules, serve_dtype="float32")
+    p_sh = cell_shardings(pre)
+    served = _own_blocks(place_tree(params, p_sh[0]))
+    if rank:       # the whole parameters' blocks back to the card
+        del params
+        _free(device)
     try:
         # (a) a train step through the cell
-        cell = build_cell(cfg, ShapeSpec("shards", seq, batch, "train"),
-                          mesh, rules=baseline_rules(), microbatches=1)
-        sh = cell_shardings(cell)
-        state = place_tree((params, init_state(params)), sh[:2])
         placed = {k: place(v, *sh[2][k]) for k, v in b.items()}
         p_d, o_d, m_d = run("train", cell,
                             lambda: cell.fn(state[0], state[1], placed),
                             shapes_of(state[0]))
+        del state
+        calls["train"]["warm_s"] = _call_seconds(device, lambda: cell.fn(
+            p_d, o_d, placed), dist.barrier)
+        _free(device)        # the first state's and the second call's blocks
         outs["train"] = {"loss": float(m_d["loss"]),
                          "grad_norm": float(m_d["grad_norm"]),
                          "params": whole_tree(p_d), "mu": whole_tree(o_d.mu)}
-        calls["train"]["warm_s"] = _call_seconds(device, lambda: cell.fn(
-            p_d, o_d, placed), dist.barrier)
-        del state, p_d, o_d
+        del p_d, o_d
         stamps["train"] = time.time()
         # (b) prefill and decode through the serve cells
-        rules = serve_rules()
-        pre = build_cell(cfg, ShapeSpec("shards", seq, batch, "prefill"),
-                         mesh, rules=rules, serve_dtype="float32")
-        p_sh = cell_shardings(pre)
-        served = place_tree(params, p_sh[0])
         shapes = shapes_of(served)
         with torch.no_grad():
             inputs = {"tokens": place(b["tokens"], *p_sh[1]["tokens"])}
@@ -5858,7 +5959,7 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
     finally:
         log.close()
     stamps["serve"] = time.time()
-    every = [None, None]
+    every = [None] * ranks
     dist.all_gather_object(every, calls)
     if rank:
         return {}
@@ -5873,7 +5974,8 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
     tr = outs["train"]
     grads = [tree_map(lambda m: m / (1 - opt.b1), mu)
              for mu in (tr["mu"], o_u.mu)]
-    gaps = {path: float((a - c).abs().max() / (c.abs().max() + 1e-30))
+    gaps = {path: float((a.to(c.device) - c).abs().max()
+                        / (c.abs().max() + 1e-30))
             for path, a, c in zip(_leaf_paths(grads[1]), flatten(grads[0]),
                                   flatten(grads[1]))}
     res = {"ranks": every, "calls": every[0], "grad_gaps": gaps,
@@ -5907,7 +6009,7 @@ def _shards_world_body(rank: int, *, device: str, arch: str, layers: int,
 
     def gap(a, ref):
         """(max |a - ref|, that over max |ref|)."""
-        d = float((a - ref).abs().max())
+        d = float((a.to(ref.device) - ref).abs().max())
         return d, d / (float(ref.abs().max()) + 1e-30)
     for label, (want, wcaches) in serve.items():
         got = outs[label]
@@ -5941,7 +6043,7 @@ def mamba_world_phase(device: str, **kw) -> dict:
     _free(device)
     card = _card_line() if device != "cpu" else "the CPU"
     spawned = time.time()
-    res = _world_of_two(_shards_world_body, {**kw, "watch": "mamba"},
+    res = _world_of(_shards_world_body, {**kw, "watch": "mamba"},
                         2 * MAMBA_WORLD_SECONDS, "zamba2 world of two")
     secs = time.perf_counter() - t0
     from repro_torch.configs import get_config
@@ -6184,7 +6286,7 @@ def rwkv_world_phase(device: str, **kw) -> dict:
     _free(device)
     card = _card_line() if device != "cpu" else "the CPU"
     spawned = time.time()
-    res = _world_of_two(_shards_world_body,
+    res = _world_of(_shards_world_body,
                         {**kw, "watch": "rwkv", "order": True},
                         2 * RWKV_WORLD_SECONDS, "rwkv6 world of two")
     secs = time.perf_counter() - t0
@@ -6285,6 +6387,143 @@ def rwkv_world_phase(device: str, **kw) -> dict:
     return {**res, "seconds": secs}
 
 
+# ------------------------------------------------ mid-head attention on slots
+
+# phase 21: qwen2-vl-7b at full width (d 3584, H 28 of D 128 over KV 4,
+# d_ff 18,944, vocab 152,064) cut to 2 layers, f32 (about 1.55e9
+# parameters), in a world of 8 gloo processes on the one card, on a (1, 8)
+# ("data", "model") mesh: each rank's 448 q columns (3.5 heads) exchanged
+# onto slots of 4 heads, rank 7's empty, 19,008 vocabulary rows a rank. A
+# train step under baseline_rules, prefill and decode under serve_rules,
+# each against the world of one on the same inputs
+MIDHEAD_WORLD = dict(arch="qwen2-vl-7b", layers=2, batch=2, seq=256,
+                     cache=512, seed=30, world=8)
+MIDHEAD_WORLD_SECONDS = 150.0
+
+
+def midhead_world_phase(device: str, **kw) -> dict:
+    """Phase 21, the mid-head attention on its head slots: ``MIDHEAD_WORLD``
+    in a world of ``world`` processes on one card (gloo), every collective
+    the cells issue probed on the card's tensors first (``SLOT_PROBED``; a
+    refused one fails the phase). Holds the train step against the world of one at phase 17 (b)'s
+    pins (the loss, grad norm and every gradient leaf at
+    ``LM_PARITY_TOL``; the params after AdamW by ``_update_excess``), the
+    prefill and decode cells' logits and k/v caches at
+    ``TP_WORLD_TOL["serve"]`` (absolute), each rank's collectives a call
+    against ``dryrun.account``'s at its model coordinate, no attention
+    weight all-gathered over ``model``, and the attention launches on
+    rank 0 (2 forward and 1 backward a layer in a train step, 1 a layer a
+    prefill and a decode step) and on the last rank, whose slot is empty
+    where ``world`` does not divide H (none but the distributed decode's).
+    Within ``MIDHEAD_WORLD_SECONDS`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import head_slots
+    t0 = time.perf_counter()
+    kw = {**MIDHEAD_WORLD, **kw, "device": device}
+    ranks = kw.pop("world")
+    _free(device)
+    card = _card_line() if device != "cpu" else "the CPU"
+    spawned = time.time()
+    res = _world_of(_shards_world_body,
+                    {**kw, "watch": "attn", "ranks": ranks,
+                     "probe": SLOT_PROBED},
+                    2 * MIDHEAD_WORLD_SECONDS, "mid-head world", ranks)
+    secs = time.perf_counter() - t0
+    cfg = get_config(kw["arch"])
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    slots = [head_slots(H, ranks, r)[1] for r in range(ranks)]
+    check(H % ranks != 0, f"mid-head world: {ranks} ranks divide H {H}")
+    layout = (f"H {H} over KV {KV} (D {hd}): {H * hd // ranks} q columns "
+              f"({H / ranks:g} heads) a rank, head slots of "
+              f"{', '.join(map(str, slots))}; {cfg.vocab_size // ranks} of "
+              f"{cfg.vocab_size} vocabulary rows a rank")
+    tr = res["train"]
+    rel = {"loss": abs(tr["loss"][0] - tr["loss"][1]) / abs(tr["loss"][1]),
+           "grad_norm": abs(tr["grad_norm"][0] - tr["grad_norm"][1])
+           / tr["grad_norm"][1],
+           "grad": max(res["grad_gaps"].values())}
+    worst = max(res["grad_gaps"], key=res["grad_gaps"].get)
+    ok = all(rel[k] <= LM_PARITY_TOL[k] for k in rel) \
+        and tr["update_excess"] <= TP_WORLD_TOL["update_excess"]
+    one = res["one"]
+    print(f"mid-head world of {ranks} ({card}): {kw['arch']} "
+          f"({kw['layers']} layers, f32) on a (1, {ranks}) mesh of gloo "
+          f"processes, {layout}; train step through the cell "
+          f"{res['calls']['train']['s']:.3f} s a first call, "
+          f"{res['calls']['train']['warm_s']:.3f} s a second (the world of "
+          f"one {one['train']['s']:.3f} / {one['train']['warm_s']:.3f} s), "
+          f"B {kw['batch']} x S {kw['seq']}: "
+          f"loss {tr['loss'][0]:.6f} / {tr['loss'][1]:.6f} (rel "
+          f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, worst "
+          f"gradient leaf {rel['grad']:.2e} of its max ({worst}), params "
+          f"{tr['update_excess']:.2e} past what the gradient differences "
+          f"allow, against the world of one {'ok' if ok else 'FAIL'}")
+    check(ok, f"mid-head world: the train cell differs: {rel}, {tr}")
+    tol = TP_WORLD_TOL["serve"]
+    bad = []
+    for label, e in res["serve"].items():
+        good = e["logits"][0] <= tol \
+            and max(a for a, _ in e["caches"].values()) <= tol
+        bad += [] if good else [label]
+        print(f"mid-head world of {ranks} ({card}): {label} "
+              f"({res['calls'][label]['s']:.3f} s): logits max |diff| "
+              f"{e['logits'][0]:.2e} ({e['logits'][1]:.2e} of their max), "
+              f"caches " + ", ".join(
+                  f"{k} {a:.2e} ({r:.2e})" for k, (a, r) in sorted(
+                      e["caches"].items()))
+              + f" against the world of one (atol {tol:.0e}) "
+              f"{'ok' if good else 'FAIL'}")
+    check(not bad, f"mid-head world: serve cells differ: {bad}")
+    for r, rank in enumerate(res["ranks"]):
+        for label, rec in rank.items():
+            same, text = _collectives_report(rec["tally"], rec["account"])
+            gathered = rec["model_gathers"]
+            print(f"mid-head world of {ranks}: rank {r} (slot of "
+                  f"{slots[r]} heads) {label}: collectives {text}"
+                  f" {'equal to' if same else 'DIFFER from'} "
+                  f"dryrun.account's; attention weights all-gathered over "
+                  f"model: {', '.join(map(str, gathered)) or 'none'} "
+                  f"{'FAIL' if gathered else 'ok'}; {rec['s']:.3f} s"
+                  + (f", peak {rec['peak'] / 1e9:.2f} GB" if rec["peak"]
+                     else ""))
+            check(same, f"mid-head world: rank {r} {label} collectives "
+                        f"{rec['tally']} against the dry run's "
+                        f"{rec['account']}")
+            check(not gathered, f"mid-head world: rank {r} {label} "
+                                f"gathered {gathered} over model")
+    n = kw["layers"]
+    want = {"train": {"flash_attention": 2 * n,
+                      "flash_attention_backward": n},
+            "prefill": {"flash_attention": n},
+            "decode dist=False": {"decode_attention": n},
+            "decode dist=True": {"decode_attention_partial": n}}
+    for r in (0, ranks - 1):
+        empty = slots[r] == 0
+        for label, w in want.items():
+            got = res["ranks"][r][label]["launches"]
+            w = {k: 0 if empty and label != "decode dist=True" else v
+                 for k, v in w.items()}
+            check(all(got.get(k, 0) == v for k, v in w.items()),
+                  f"mid-head world: rank {r} launches of {label}: {got}, "
+                  f"expected {w}")
+    print(f"mid-head world of {ranks} ({card}): launches on rank 0 and on "
+          f"rank {ranks - 1} at their slots: " + "; ".join(
+              f"rank {r} {label} " + (", ".join(
+                  f"{k} {v}" for k, v in rec["launches"].items() if v)
+                  or "none")
+              for r in (0, ranks - 1)
+              for label, rec in res["ranks"][r].items())
+          + f"; the world of one's train step "
+          + ", ".join(f"{k} {v}" for k, v in one["train"]["launches"].items()
+                      if v))
+    print(f"mid-head world of {ranks} ({card}): phase 21 in {secs:.1f} s "
+          f"(budget {MIDHEAD_WORLD_SECONDS:.0f}): "
+          + _stages(spawned, res["stamps"]))
+    check(device == "cpu" or secs <= MIDHEAD_WORLD_SECONDS,
+          f"mid-head world: phase 21 took {secs:.1f} s")
+    return {**res, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -6345,6 +6584,8 @@ def main() -> int:
     lap("mamba_world_phase")
     rwkv_world_phase("cuda")
     lap("rwkv_world_phase")
+    midhead_world_phase("cuda")
+    lap("midhead_world_phase")
     lm_train_parity("cuda")
     train = lm_train_path("cuda")
     lap("qwen3 parity and train path")

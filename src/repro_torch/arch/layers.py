@@ -8,14 +8,18 @@ kernels. Every cast below is a rounding point of the reference and is kept.
 Tensor parallelism: with ``tp`` (a ``distributed.sharding.TPContext``) the
 attention and MLP blocks take one rank's shards of the ``model`` axis,
 read from the weights' shapes. ``wq`` / ``bq`` narrower than H x hd hold
-this rank's ``H / tp`` whole heads ``[r H/tp, (r+1) H/tp)``; ``wk``,
-``wv``, ``bk``, ``bv`` stay whole and the rank computes only the KV heads
-its q heads read (and, where a prefill writes a cache, every KV head,
-at its sequence chunk where the cell chooses that; a decode step writes
-every KV head); ``wo`` is the
-matching row shard, its partial sums reduced before ``bo`` is added. In
-the MLP, ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` narrower than d_ff
-are column shards and ``w_down`` the row shard. Without ``tp``, or with
+this rank's block of the fused columns, ``wo`` the matching row block;
+the rank attends on its head slot (``head_range``): its ``H / tp`` whole
+heads ``[r H/tp, (r+1) H/tp)`` where ``tp`` divides H, whose columns its
+block holds, else ``ceil(H / tp)`` heads (the last slots short or empty),
+its q moved there from the blocks and its output back by an all-to-all
+over ``model`` (``TPContext.to_heads`` / ``to_cols``). ``wk``, ``wv``,
+``bk``, ``bv`` stay whole and the rank computes only the KV heads its q
+heads read (and, where a prefill writes a cache, every KV head, at its
+sequence chunk where the cell chooses that; a decode step writes every KV
+head); ``wo``'s partial sums are reduced before ``bo`` is added. In the
+MLP, ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` narrower than d_ff are
+column shards and ``w_down`` the row shard. Without ``tp``, or with
 whole weights, every block computes as without a mesh.
 """
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.distributed import decode_attention_distributed
 from ..kernels.decode_attention.ops import decode_attention
+from ..distributed.sharding import head_slots
 from ..kernels.flash_attention.ops import flash_attention
 from .params import ParamSpec
 
@@ -157,33 +162,36 @@ def _project_kv(cfg, p, x, kv=None):
     return k, v
 
 
-def _project_qkv(cfg, p, x, kv=None):
-    """q for the heads ``wq`` holds; k, v for KV heads ``kv`` = [a, b)
-    (default: all of them)."""
-    B, S, _ = x.shape
+def _project_q(cfg, p, x, to=None):
+    """q (B, S, heads, hd) of the columns ``wq`` holds, moved by ``to``
+    (a layout exchange of the last dim, or None) before they are cut into
+    heads."""
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = q.reshape(B, S, -1, cfg.head_dim)
+    if to is not None:
+        q = to(q)
+    q = q.reshape(*q.shape[:2], -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
-    return (q, *_project_kv(cfg, p, x, kv))
+    return q
 
 
 def head_range(cfg, p, tp) -> tuple:
-    """(first q head, q heads) this rank holds of ``p["wq"]``: all H where
-    the projection is whole."""
-    hq = p["wq"].shape[-1] // cfg.head_dim
-    if hq == cfg.num_heads:
-        return 0, hq
-    if hq * tp.tp != cfg.num_heads:
-        raise ValueError(f"{hq} of {cfg.num_heads} heads on a model axis of "
-                         f"{tp.tp}: the head projection is split mid-head")
-    return tp.rank * hq, hq
+    """(first q head, q heads) of this rank's head slot: all H where
+    ``p["wq"]`` is whole, else ``sharding.head_slots``'s (H / tp heads
+    where ``tp`` divides H; otherwise ceil(H / tp), the last slots short
+    or empty)."""
+    if p["wq"].shape[-1] == cfg.num_heads * cfg.head_dim:
+        return 0, cfg.num_heads
+    return head_slots(cfg.num_heads, tp.tp, tp.rank)
 
 
 def kv_range(cfg, lo: int, hq: int) -> tuple:
-    """[a, b): the KV heads that q heads [lo, lo + hq) read."""
+    """[a, b): the KV heads that q heads [lo, lo + hq) read (none for no
+    head)."""
+    if not hq:
+        return 0, 0
     G = cfg.num_heads // cfg.num_kv_heads
     return lo // G, (lo + hq - 1) // G + 1
 
@@ -201,33 +209,49 @@ def kv_for_heads(cfg, lo: int, hq: int, a: int, k, v):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _slot_exchanges(cfg, tp, sharded: bool):
+    """(to this rank's head slot, back to its columns): the exchanges of
+    the fused head columns' last dim, or the identity without a split."""
+    if not sharded:
+        return None, lambda y: y
+    H, hd = cfg.num_heads, cfg.head_dim
+    return (lambda x: tp.to_heads(x, H, hd)), \
+        (lambda y: tp.to_cols(y, H, hd))
+
+
 def attention_block(cfg: ModelConfig, p, x, positions, tp=None,
                     cache: Union[bool, str] = True):
     """Full-sequence attention (train / prefill).
 
     x: (B, S, d_in) normed input. Returns (out (B,S,d_model), (k, v)) so
-    prefill can populate caches. With ``tp`` and this rank's head shards,
-    k and v are only of the KV heads its q heads read, or, where
-    ``cache``, those of every KV head: at every position, or, where
-    ``cache`` is ``"chunks"`` (the cell's choice,
-    ``cells.kv_cache_chunks``), at this rank's sequence chunk (positions
-    ``[r S/tp, (r+1) S/tp)``: the cache's layout over ``model``);
-    ``out`` is reduced over the model axis (or, under sequence
-    parallelism, ``x`` and ``out`` are this rank's sequence shards)."""
+    prefill can populate caches. With ``tp`` and this rank's column block
+    of the head projection, q is exchanged onto the rank's head slot
+    (``head_range``), attends there and goes back to the block before its
+    rows of ``wo`` (a rank whose slot holds no head attends on nothing
+    but joins both exchanges); k and v are only of the KV heads its q
+    heads read, or, where ``cache``, those of every KV head: at every
+    position, or, where ``cache`` is ``"chunks"`` (the cell's choice,
+    ``cells.kv_cache_chunks``, on whole-head slots), at this rank's
+    sequence chunk (positions ``[r S/tp, (r+1) S/tp)``: the cache's layout
+    over ``model``); ``out`` is reduced over the model axis (or, under
+    sequence parallelism, ``x`` and ``out`` are this rank's sequence
+    shards)."""
     KV = cfg.num_kv_heads
     lo, hq = head_range(cfg, p, tp)
-    sharded = hq < cfg.num_heads
+    sharded = p["wq"].shape[-1] < cfg.num_heads * cfg.head_dim
     if tp is not None:
         x = tp.enter(x, sharded)
     S = x.shape[1]
     chunks = cache == "chunks"
-    if chunks and (not sharded or S % tp.tp):
-        raise ValueError(f"k/v cache chunks need heads split over the "
-                         f"model axis and S {S} a multiple of {tp.tp}")
+    if chunks and (not sharded or S % tp.tp or cfg.num_heads % tp.tp):
+        raise ValueError(f"k/v cache chunks need whole heads split over "
+                         f"the model axis and S {S} a multiple of {tp.tp}")
     whole = bool(cache) and not chunks
     used = kv_range(cfg, lo, hq) if sharded else (0, KV)
     a = 0 if whole else used[0]
-    q, k, v = _project_qkv(cfg, p, x, None if whole else used)
+    to_slot, to_cols = _slot_exchanges(cfg, tp, sharded)
+    q = _project_q(cfg, p, x, to_slot)
+    k, v = _project_kv(cfg, p, x, None if whole else used)
     q = apply_rope(q, positions, cfg.rope_theta, mrope=cfg.use_mrope)
     k = apply_rope(k, positions, cfg.rope_theta, mrope=cfg.use_mrope)
     kc, vc = k, v
@@ -236,15 +260,18 @@ def attention_block(cfg: ModelConfig, p, x, positions, tp=None,
         kc, vc = _project_kv(cfg, p, x.narrow(1, tp.rank * n, n))
         kc = apply_rope(kc, positions.narrow(-1, tp.rank * n, n),
                         cfg.rope_theta, mrope=cfg.use_mrope)
-    ka, va = k, v
-    if sharded:
-        if (used[1] - used[0]) != k.shape[2]:
-            ka = k[:, :, used[0] - a:used[1] - a].contiguous()
-            va = v[:, :, used[0] - a:used[1] - a].contiguous()
-        ka, va = kv_for_heads(cfg, lo, hq, used[0], ka, va)
-    o = flash_attention(q, ka, va, causal=cfg.causal)
+    if hq:
+        ka, va = k, v
+        if sharded:
+            if (used[1] - used[0]) != k.shape[2]:
+                ka = k[:, :, used[0] - a:used[1] - a].contiguous()
+                va = v[:, :, used[0] - a:used[1] - a].contiguous()
+            ka, va = kv_for_heads(cfg, lo, hq, used[0], ka, va)
+        o = flash_attention(q, ka, va, causal=cfg.causal)
+    else:                # an empty slot: no head to attend with
+        o = q
     B, S = o.shape[:2]
-    out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    out = to_cols(o.reshape(B, S, -1)) @ p["wo"].to(x.dtype)
     if tp is not None:
         out = tp.leave(out, sharded)
     if "bo" in p:
@@ -269,18 +296,25 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
     chunk, and every rank attends over lengths+1 through the distributed
     flash-decode (``kernels/decode_attention/distributed.py``).
 
-    With ``tp`` and this rank's head shards, the new k/v of every KV head
-    are written (the caches hold them all); the rank attends with its q
-    heads over the KV heads they read, or, with ``dist``, gathers every
-    rank's q heads, attends over its S-chunk, combines, and keeps its own
-    heads' output for its row shard of ``wo``.
+    With ``tp`` and this rank's column block of the head projection, the
+    new k/v of every KV head are written (the caches hold them all); the
+    rank's q goes to its head slot, attends with its q heads over the KV
+    heads they read and comes back to its columns (``attention_block``),
+    or, with ``dist``, every rank's q columns are gathered into whole
+    heads, attend over its S-chunk and combine, and the rank keeps its own
+    columns of the output for its row block of ``wo``.
     """
     B = x.shape[0]
     lo, hq = head_range(cfg, p, tp)
-    sharded = hq < cfg.num_heads
+    cols = p["wq"].shape[-1]
+    sharded = cols < cfg.num_heads * cfg.head_dim
     if tp is not None:
         x = tp.enter(x, sharded)
-    q, k, v = _project_qkv(cfg, p, x)                # (B,1,H/KV,hd)
+    to_slot, to_cols = _slot_exchanges(cfg, tp, sharded and dist is None)
+    if sharded and dist is not None:     # every rank's columns: every head
+        to_slot = lambda t: tp.gather_heads(t, 2)        # noqa: E731
+    q = _project_q(cfg, p, x, to_slot)               # (B,1,heads,hd)
+    k, v = _project_kv(cfg, p, x)                    # (B,1,KV,hd)
     pos = lengths[:, None]                           # (B,1)
     if cfg.use_mrope:
         pos3 = lengths[None, :, None].expand(3, B, 1)
@@ -296,13 +330,16 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
         kstack[layer, b_idx, at] = k[b_idx, 0].to(kstack.dtype)
         vstack[layer, b_idx, at] = v[b_idx, 0].to(vstack.dtype)
         kc, vc = kstack[layer], vstack[layer]
-        if sharded:
+        if sharded and hq:
             a, b = kv_range(cfg, lo, hq)
             if b - a != kc.shape[2]:
                 kc = kc[:, :, a:b].contiguous()
                 vc = vc[:, :, a:b].contiguous()
             kc, vc = kv_for_heads(cfg, lo, hq, a, kc, vc)
-        o = decode_attention(q[:, 0], kc, vc, lengths + 1)
+        # an empty slot attends with no head
+        o = decode_attention(q[:, 0], kc, vc, lengths + 1) if hq \
+            else q[:, 0]
+        o = to_cols(o.reshape(B, -1))
     else:
         seq_axis = dist.get("seq_axis", "model")
         S_loc = kstack.shape[2]
@@ -314,16 +351,14 @@ def attention_decode(cfg: ModelConfig, p, x, kstack, vstack, layer, lengths,
         for stack, new in ((kstack, k), (vstack, v)):
             stack[layer, b_idx, at] = torch.where(
                 mine, new[b_idx, 0].to(stack.dtype), stack[layer, b_idx, at])
-        qs = q[:, 0]
-        if sharded:
-            qs = tp.gather_heads(qs, 1)
         o = decode_attention_distributed(
-            qs, kstack[layer], vstack[layer], lengths + 1,
+            q[:, 0], kstack[layer], vstack[layer], lengths + 1,
             mesh=dist["mesh"], seq_axis=seq_axis,
             batch_axes=dist.get("batch_axes", ("data",)))
+        o = o.reshape(B, -1)
         if sharded:
-            o = o[:, lo:lo + hq]
-    out = o.reshape(B, -1) @ p["wo"].to(x.dtype)
+            o = o[:, tp.rank * cols:(tp.rank + 1) * cols]
+    out = o @ p["wo"].to(x.dtype)
     if tp is not None:
         out = tp.leave(out, sharded)
     if "bo" in p:

@@ -41,8 +41,8 @@ rounding. Every rank holds the whole gates and aux losses: the gates (and,
 under sequence parallelism, the router's input) pass into the sharded part
 so that the router's gradient is whole and equal on every rank. Where the
 rules split no expert dim, the block computes whole on every rank, as the
-model's other whole-weight parts do (Mamba2, RWKV6, Zamba2's shared block
-and the mid-head guard's attention: ``launch/cells.py``).
+model's other whole-weight parts do (a Mamba2 mixer or an RWKV6 part
+that takes the guard: ``launch/cells.py``).
 """
 from __future__ import annotations
 

@@ -454,6 +454,65 @@ def reduce_scatter_along(x, dim: int, group, n: int):
     return out
 
 
+def all_to_all_last(x, send, recv, group):
+    """``x``'s last dim cut into pieces of ``send[s]`` for each rank ``s``
+    of ``group`` (one all-to-all), the pieces received (``recv[s]`` from
+    rank ``s``) concatenated in group-rank order."""
+    dist = _dist()
+    xt = x.movedim(-1, 0).contiguous()
+    out = xt.new_empty((sum(recv),) + tuple(xt.shape[1:]))
+    dist.all_to_all_single(out, xt, list(recv), list(send), group=group)
+    return out.movedim(0, -1)
+
+
+def head_slots(heads: int, tp: int, rank: int) -> tuple:
+    """(first head, heads) of ``rank``'s slot when ``heads`` are dealt to
+    ``tp`` ranks in slots of ceil(heads / tp), in rank order: the last
+    slots short or empty where ``tp`` does not divide ``heads``."""
+    per = -(-heads // tp)
+    lo = min(rank * per, heads)
+    return lo, min(per, heads - lo)
+
+
+def slot_splits(heads: int, unit: int, tp: int) -> tuple:
+    """``m[r][s]``: how many of rank ``r``'s block of the columns of a fused
+    ``heads`` x ``unit`` projection (``heads * unit / tp`` of them, in rank
+    order) fall in rank ``s``'s head slot (``head_slots``)."""
+    c = heads * unit // tp
+    slots = [head_slots(heads, tp, s) for s in range(tp)]
+    return tuple(tuple(max(0, min((r + 1) * c, (lo + n) * unit)
+                           - max(r * c, lo * unit)) for lo, n in slots)
+                 for r in range(tp))
+
+
+class _Exchange(torch.autograd.Function):
+    """An all-to-all of the last dim (``all_to_all_last``); the backward
+    is the inverse exchange: each piece of the gradient goes back to the
+    rank it came from."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.args = (recv, send, group)
+        return all_to_all_last(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_last(g, *ctx.args), None, None, None
+
+
+def exchange(x, m, rank: int, group, inverse: bool = False):
+    """``x``'s last dim, this rank's block, exchanged over ``group`` by the
+    split matrix ``m`` (``m[r][s]`` elements from rank ``r`` to rank
+    ``s``; transposed where ``inverse``) under autograd; the identity,
+    with no collective, where every rank keeps its own block."""
+    if all(v == 0 for r, row in enumerate(m) for s, v in enumerate(row)
+           if r != s):
+        return x
+    send = [m[s][rank] for s in range(len(m))] if inverse else list(m[rank])
+    recv = list(m[rank]) if inverse else [m[s][rank] for s in range(len(m))]
+    return _Exchange.apply(x, send, recv, group)
+
+
 def _all_reduce_copy(x, group, op=None):
     dist = _dist()
     x = x.clone()
@@ -636,7 +695,9 @@ class TPContext:
 
     The layers read from each weight's shape whether they hold a shard of
     it: a fused head projection narrower than the config's holds this
-    rank's ``H / tp`` heads, an MLP projection narrower than ``d_ff`` its
+    rank's block of its columns, which ``to_heads`` exchanges for the
+    rank's head slot (its ``H / tp`` heads where ``tp`` divides H, the
+    blocks themselves), an MLP projection narrower than ``d_ff`` its
     columns, an embedding shorter than the vocabulary its rows, an expert
     stack shorter than E its experts. Every method is the identity at
     ``tp`` = 1."""
@@ -736,7 +797,24 @@ class TPContext:
                                 _dist().ReduceOp.MAX)
 
     def gather_heads(self, x, dim: int):
-        """Every rank's heads of ``x`` along ``dim`` (no gradient)."""
+        """Every rank's heads (or head projection columns) of ``x`` along
+        ``dim`` (no gradient)."""
         if self.tp == 1:
             return x
         return all_gather_along(x, dim, self.model, self.tp)
+
+    def to_heads(self, x, heads: int, unit: int):
+        """``x``'s last dim, this rank's block of a fused ``heads`` x
+        ``unit`` projection's columns, exchanged for this rank's head slot
+        of it (``head_slots``): one all-to-all over ``model``, each rank
+        sending the columns of its block to the ranks whose slots hold
+        them; the backward sends each column's gradient back. The identity
+        where ``tp`` divides ``heads`` (the blocks are the slots)."""
+        return exchange(x, slot_splits(heads, unit, self.tp), self.rank,
+                        self.model)
+
+    def to_cols(self, y, heads: int, unit: int):
+        """The inverse of ``to_heads``: ``y``'s last dim, this rank's head
+        slot, back to its block of the fused columns."""
+        return exchange(y, slot_splits(heads, unit, self.tp), self.rank,
+                        self.model, inverse=True)

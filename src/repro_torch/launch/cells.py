@@ -7,11 +7,19 @@ out_shardings=)`` lets XLA partition the model over the mesh. Here a
 cell's ``fn`` takes DTensors at the rules' placements and each rank
 computes on its own shards, as XLA partitions the reference's cell:
 
-  * tensor parallelism over ``model``: an ``attn`` block's q heads and
-    ``wo`` rows, the MLP's columns and ``w_down`` rows, the embedding's,
-    LM head's and cross-entropy's vocabulary (``arch/layers.py``,
-    ``arch/model.py``); two all-reduces a block forward (the attention's
-    and the MLP's partial sums) and two backward, and three a loss chunk;
+  * tensor parallelism over ``model``: an ``attn`` block's fused q
+    columns and ``wo`` rows, the MLP's columns and ``w_down`` rows, the
+    embedding's, LM head's and cross-entropy's vocabulary
+    (``arch/layers.py``, ``arch/model.py``); two all-reduces a block
+    forward (the attention's and the MLP's partial sums) and two backward,
+    and three a loss chunk. A rank attends on its head slot: its ``H /
+    tp`` heads where the model extent divides H; else, where a rank's
+    ``H hd / tp`` columns cut a head (starcoder2-7b's H 36, qwen2-vl-7b's
+    28 and llama4-maverick's 40 on 16 ranks), ``ceil(H / tp)`` heads (the
+    last slots short or empty), q exchanged from the column blocks onto
+    the slots and the output back by two all-to-alls a block forward and
+    two backward (``TPContext.to_heads``, ``to_cols``); a decode step with
+    ``dist_decode`` gathers the columns instead (below);
   * expert parallelism over ``model`` (``arch/moe.py``): an ``attn_moe``
     block's experts, ``E / tp`` a rank (or, where E does not divide the
     extent, every expert's ``d_ff / tp`` columns), the shared expert's
@@ -55,26 +63,25 @@ computes on its own shards, as XLA partitions the reference's cell:
     all-gather in and a reduce-scatter out;
   * serving (``serve_rules``: no FSDP): the weights never move; a decode
     step with ``dist_decode`` keeps the KV cache (B@data, S@model), gathers
-    every rank's q heads (B x H x hd a token), attends over its sequence
+    every rank's q columns (B x H x hd a token), attends over its sequence
     shard and combines (``kernels/decode_attention/distributed.py``), and
-    keeps its own heads' output for its row shard of ``wo``; the experts
+    keeps its own columns of the output for its row shard of ``wo``; the
+    experts
     stay 2D (``expert@model`` x ``expert_mlp@data``): each MoE block
     all-gathers its expert buffer's token groups over the data axes and
     reduce-scatters its partial products back.
 
 The plan of each leaf (``leaf_plans``) says where it is gathered and how
-its gradient is reduced. A block whose attention projections the rules
-split in the middle of a head (H not a multiple of the model extent)
-gathers its attention leaves over ``model`` once a call and computes
-them replicated, the *guard* (on the (16, 16) mesh: starcoder2-7b, H 36;
-qwen2-vl-7b, H 28; llama4-maverick, H 40, whose MoE blocks still compute
-on their expert shards); so do a Mamba2 mixer whose SSD heads do not
+its gradient is reduced. Where a part's shards would not be whole heads
+of its kind, its leaves are gathered over ``model`` once a call and it
+computes replicated, the *guard*: a Mamba2 mixer whose SSD heads do not
 divide the model extent, an RWKV6 time-mix whose rank's d / tp columns
-are not whole heads and a channel-mix whose d or d_ff does not divide
-it. A cell records which parts took the guard (``Cell.guarded``:
-``"pos{j}"``, ``"shared"``, ``"pos{j}.mixer"``, ``"pos{j}.tm"``,
-``"pos{j}.cm"``), which MoE blocks compute on expert shards
-(``Cell.expert_split``), which Mamba2 blocks on their heads
+are not whole heads and a channel-mix whose d or d_ff does not divide it.
+An attention block never takes it: its fused projections split wherever
+H x hd divides the extent (else the rules leave them whole). A cell
+records which parts took the guard (``Cell.guarded``: ``"pos{j}.mixer"``,
+``"pos{j}.tm"``, ``"pos{j}.cm"``), which MoE blocks compute on expert
+shards (``Cell.expert_split``), which Mamba2 blocks on their heads
 (``Cell.mamba_split``) and how their ``in_proj`` columns reach the rank
 (``Cell.in_proj_route``), and which RWKV6 parts on their shards
 (``Cell.rwkv_split``).
@@ -85,7 +92,8 @@ the model axis's ranks share their rows. The gradients are reduced: over
 the data axes by the FSDP reduce-scatters, or an all-reduce for leaves
 replicated there, then divided by the data-parallel extent; over
 ``model`` by a sum only for leaves replicated there that each rank used
-in part (the KV projections and the per-head norms, a split mixer's
+in part (the KV projections and the per-head norms of a split attention,
+whose ranks read their slots' KV heads, a split mixer's
 ``conv_w`` and ``conv_b``, a split RWKV6 part's ``RWKV_PARTIAL``, and
 under sequence parallelism every such leaf but the MoE routers, whose
 gradient is whole on every rank). ``grad_hook`` then runs on the whole
@@ -304,23 +312,18 @@ def _on_model(rules: Rules, name: str) -> bool:
 
 
 def guarded_positions(cfg: ModelConfig, mesh, rules: Rules) -> tuple:
-    """The parts the rules would split over ``model`` in the middle of a
-    head, which are gathered there and computed replicated: the pattern
-    positions (``"pos{j}"``) of attention blocks and ``"shared"`` (Zamba2's
-    shared attention) whose head projection splits mid-head, the Mamba2
-    mixers (``"pos{j}.mixer"``) whose SSD heads do not divide the model
-    extent, and the RWKV6 time-mixes (``"pos{j}.tm"``) and channel-mixes
-    (``"pos{j}.cm"``) some of whose leaves the rules split where the part
-    cannot split whole (``_rwkv_parts``)."""
+    """The parts the rules would split over ``model`` where a rank's shard
+    is not whole heads of its kind, which are gathered there and computed
+    replicated: the Mamba2 mixers (``"pos{j}.mixer"``) whose SSD heads do
+    not divide the model extent, and the RWKV6 time-mixes (``"pos{j}.tm"``)
+    and channel-mixes (``"pos{j}.cm"``) some of whose leaves the rules
+    split where the part cannot split whole (``_rwkv_parts``). Attention
+    blocks are never listed: a split that cuts heads computes on head
+    slots (``arch/layers.head_range``)."""
     m = model_dim(mesh)
     if m is None or mesh.shape[m] == 1:
         return ()
     n, out = mesh.shape[m], []
-    if _heads_split(cfg, mesh, rules) and cfg.num_heads % n:
-        out += [f"pos{j}" for j, kind in enumerate(cfg.pattern)
-                if kind in ("attn", "attn_moe")]
-        if cfg.shared_attn_every_period:
-            out.append("shared")
     if _on_model(rules, "ssm_heads") and cfg.ssm_heads % n:
         out += [f"pos{j}.mixer" for j, kind in enumerate(cfg.pattern)
                 if kind == "mamba2"]
@@ -444,7 +447,6 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
     m = model_dim(mesh)
     dp = {i for i, a in enumerate(mesh.mesh_dim_names) if a in ("pod",
                                                                  "data")}
-    guard = set(guarded_positions(cfg, mesh, rules))
     mamba = set(mamba_split_positions(cfg, mesh, rules))
     rwkv = set(rwkv_split_positions(cfg, mesh, rules))
     heads = _heads_split(cfg, mesh, rules)
@@ -463,8 +465,7 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
         split_rwkv = rwkv_part and f"{where}.{part}" in rwkv
         if not tp_leaf:                       # gather-whole, once a call
             upfront = dict(dims)
-        elif (where in guard and part == "attn") or router \
-                or (mixer and not split_mixer) \
+        elif router or (mixer and not split_mixer) \
                 or (split_mixer and path[-1] in MIXER_UPFRONT) \
                 or (rwkv_part and not split_rwkv):
             upfront = {i: d for i, d in dims.items() if i == m}
@@ -481,8 +482,7 @@ def leaf_plans(cfg: ModelConfig, mesh, rules: Rules, *,
         replicated = m is None or m not in dims or m in upfront
         # every rank's router gradient is whole (``arch/moe.py``)
         partial = not router and (seq or (
-            tp_leaf and part == "attn" and where not in guard
-            and path[-1] in PARTIAL and heads)
+            tp_leaf and part == "attn" and path[-1] in PARTIAL and heads)
             or (split_mixer and path[-1] in MIXER_PARTIAL)
             or (split_rwkv and path[-1] in RWKV_PARTIAL))
         out.append(LeafPlan(path, tuple(pls), upfront, fsdp,

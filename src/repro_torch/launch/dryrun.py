@@ -17,8 +17,8 @@ would run it (see ``launch/cells.py``):
     weight; MoE experts over their capacity slots, a rank's experts or
     columns; a split Mamba2 mixer's ``in_proj`` on the columns it
     multiplies by; a split RWKV6 part's projections on its columns or
-    rows, its lerp and decay inputs whole), attention and the scans (on a
-    rank's SSD and WKV heads) by
+    rows, its lerp and decay inputs whole), attention (on the busiest
+    rank's head slot) and the scans (on a rank's SSD and WKV heads) by
     the formulas of ``chip_smoke.py``'s bounds, the LM head on
     every token in training and on the last one in serving; a training
     step adds the backward (2x the forward's products, 2.5x attention's)
@@ -33,9 +33,12 @@ would run it (see ``launch/cells.py``):
     MoE router's token means, the MoE combine's sums over ``model`` and
     the 2D expert buffer's gathers over ``data``, a split mixer's norm
     sums over ``model`` (and, in decode, its projection's all-gather), a
-    split RWKV6 channel-mix's reduce-scatter and all-gather; a
-    decode step's gather of the sequence shards, or, with the distributed
-    flash-decode, its three stats all-reduces a layer;
+    split RWKV6 channel-mix's reduce-scatter and all-gather, a split
+    attention's all-to-alls between its column blocks and head slots where
+    they differ (the wire a rank receives: the busiest rank's, or
+    ``account(rank=)``'s); a decode step's gather of the sequence shards,
+    or, with the distributed flash-decode, its q columns' gather and its
+    three stats all-reduces a layer;
   * memory: the argument, output and temporary bytes a device holds.
 
 No option changes a number here by pretending to run: ``--keep-hlo`` has
@@ -50,16 +53,17 @@ import time
 import traceback
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 from ..arch import model as M
 from ..arch.moe import dispatch_geometry
 from ..arch.params import tree_leaves
 from ..configs import SHAPES, get_config, list_archs, shape_applicable
 from ..arch.layers import kv_range
-from ..distributed.sharding import (batch_shardings, param_shardings,
-                                    rows_only, serve_rules, sharded_dims,
-                                    sharded_extent)
+from ..distributed.sharding import (batch_shardings, head_slots,
+                                    param_shardings, rows_only, serve_rules,
+                                    sharded_dims, sharded_extent,
+                                    slot_splits)
 from .cells import (Cell, LeafPlan, build_cell, cell_shardings,
                     leaf_plans, local_moe_groups, model_dim, row_dims,
                     row_mesh, seq_parallel, train_split)
@@ -79,6 +83,7 @@ SSD_CHUNK, WKV_CHUNK = 64, 32
 class Count:
     flops: float = 0.0
     bytes: float = 0.0
+    attention_flops: float = 0.0     # the attention core's share of flops
     collectives: Dict[str, float] = field(default_factory=dict)
     collective_counts: Dict[str, int] = field(default_factory=dict)
 
@@ -156,8 +161,11 @@ class Layout:
     shared attention and MLP split (``shared``: (attention, MLP)),
     whether the embedding table (``embed``) and the LM head (``vocab``)
     hold vocab shards, ``nkv``, the KV heads a rank's q heads read (the
-    most over the ranks), and a split mixer's ``in_proj`` route
-    (``cells.in_proj_route``)."""
+    most over the ranks), a split mixer's ``in_proj`` route
+    (``cells.in_proj_route``), ``heads``, the q heads of the busiest
+    rank's head slot where the attention splits (``head_slots``), and
+    ``rank``, the model coordinate whose all-to-all wire is counted (None:
+    the most over the ranks)."""
     plans: list
     shapes: list
     tp: int
@@ -172,6 +180,8 @@ class Layout:
     shared: tuple = (False, False)
     route: str = ""
     rwkv: dict = field(default_factory=dict)
+    heads: int = 0
+    rank: Optional[int] = None
 
     @property
     def ssd_split(self) -> int:
@@ -186,7 +196,7 @@ class Layout:
         return self.tp if any("tm" in v for v in self.rwkv.values()) else 1
 
 
-def layout(cell: Cell, seq_len: int) -> Layout:
+def layout(cell: Cell, seq_len: int, rank: Optional[int] = None) -> Layout:
     cfg, mesh = cell.cfg, cell.mesh
     seq = cell.kind != "decode" and seq_parallel(mesh, cell.rules,
                                                   seq_len)
@@ -206,11 +216,12 @@ def layout(cell: Cell, seq_len: int) -> Layout:
         else ("lm_head",)
     shared = (split.get(("shared", "attn", "wq"), False),
               split.get(("shared", "mlp", "w_down"), False))
-    nkv = cfg.num_kv_heads
+    nkv, heads = cfg.num_kv_heads, 0
     if any(attn.values()) or shared[0]:
-        hq = cfg.num_heads // tp
-        nkv = max(b - a for a, b in (kv_range(cfg, r * hq, hq)
-                                     for r in range(tp)))
+        slots = [head_slots(cfg.num_heads, tp, r) for r in range(tp)]
+        heads = max(n for _, n in slots)
+        nkv = max(b - a for a, b in (kv_range(cfg, lo, n)
+                                     for lo, n in slots))
     by_path = {p.path: p for p in plans}
     moe = {}
     for j, kind in enumerate(cfg.pattern):
@@ -234,7 +245,7 @@ def layout(cell: Cell, seq_len: int) -> Layout:
             for j, kind in enumerate(cfg.pattern) if kind == "rwkv6"}
     return Layout(plans, shapes, tp, seq, attn, mlp,
                   split.get(("embed",), False), split.get(head, False), nkv,
-                  moe, mamba, shared, cell.in_proj_route, rwkv)
+                  moe, mamba, shared, cell.in_proj_route, rwkv, heads, rank)
 
 
 def _in_proj_cols(cfg, lay: Layout) -> float:
@@ -312,14 +323,34 @@ def _attn_layers(cfg) -> int:
 
 
 def _attn_split(cfg, lay: Layout, decode_dist: bool = False) -> list:
-    """(heads split, applications a token) of each attention kind: a
-    block position's on whole heads over the model extent (or, with the
-    distributed flash-decode, its sequence), the shared block's whole."""
-    out = [(lay.attn[f"pos{j}"] or decode_dist, cfg.num_periods)
+    """(q heads a rank attends with, whether split, applications a token)
+    of each attention kind: a block position's split on its head slot
+    (``lay.heads``), or, with the distributed flash-decode, over its
+    sequence (every head on a ``tp``-th of the keys: ``H / tp``); the
+    shared block's likewise; whole, every head."""
+    H = cfg.num_heads
+
+    def kind(split: bool) -> tuple:
+        if decode_dist:
+            return H / lay.tp, True
+        return (lay.heads, True) if split else (H, False)
+    out = [(*kind(lay.attn[f"pos{j}"]), cfg.num_periods)
            for j, k in enumerate(cfg.pattern) if k in ("attn", "attn_moe")]
     if cfg.shared_attn_every_period:
-        out.append((lay.shared[0] or decode_dist, cfg.num_periods))
+        out.append((*kind(lay.shared[0]), cfg.num_periods))
     return out
+
+
+def _slot_wire(cfg, lay: Layout) -> tuple:
+    """The fused q columns a rank receives in one exchange onto its head
+    slot and in one back to its column block (``TPContext.to_heads``,
+    ``to_cols``): the rank ``lay.rank``'s, or the pair of the rank that
+    receives the most."""
+    H, hd, t = cfg.num_heads, cfg.head_dim, lay.tp
+    m = slot_splits(H, hd, t)
+    pairs = [(sum(m[s][r] for s in range(t) if s != r),
+              sum(m[r][s] for s in range(t) if s != r)) for r in range(t)]
+    return pairs[lay.rank] if lay.rank is not None else max(pairs, key=sum)
 
 
 def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
@@ -333,13 +364,12 @@ def _per_token(cfg, S: int, ctx: float, decode: bool, expert_apps: float,
         fi, fo, fn = _split(path, lay, cfg, cache)
         p_flops += 2 * i * o * n * fn * fi * fo
         p_bytes += (i * fi + o * fo) * n * fn * act
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
     a_flops = a_bytes = 0.0
-    for split, n in _attn_split(cfg, lay, dist):
-        t = lay.tp if split else 1
-        a_flops += n * 4 * H * hd * ctx / t
+    for heads, split, n in _attn_split(cfg, lay, dist):
+        a_flops += n * 4 * heads * hd * ctx
         kv = lay.nkv if split and cache is not True else KV
-        a_bytes += n * (2 * H / t + 2 * kv) * hd * act
+        a_bytes += n * (2 * heads + 2 * kv) * hd * act
     s_flops = s_bytes = 0.0
     n_ssd = cfg.num_periods * cfg.pattern.count("mamba2")
     if n_ssd:              # a split mixer's scan and conv on its heads
@@ -549,14 +579,16 @@ def _moe_groups(c: Count, cfg, lay: Layout, tokens: int, groups: int,
 
 
 def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
-                 fwd: int, grad: bool) -> None:
+                 fwd: int, grad: bool, slots: bool = True) -> None:
     """The residual stream's collectives over ``model`` in one pass of
     ``rows`` x ``S`` tokens: the embedding's vocab sum (or sequence
     scatter) and, for each part of each period, the TP partial sums (an
     all-reduce out, and its copy-in's all-reduce backward), or under
     sequence parallelism the all-gather in and the reduce-scatter out
-    (or this rank's shard kept). Forward collectives inside a period run
-    ``fwd`` times (the remat recompute)."""
+    (or this rank's shard kept), and, where ``slots``, a split
+    attention's exchanges onto its head slots (``_slots``). Forward
+    collectives inside a period run ``fwd`` times (the remat
+    recompute)."""
     t = lay.tp
     if t == 1:
         return
@@ -594,6 +626,28 @@ def _activations(c: Count, cfg, lay: Layout, rows: int, S: int, act: int,
                 c.coll("all-reduce", fwd * _ring("all-reduce", t,
                                                  tok * cfg.d_model), fwd)
     _mixers(c, cfg, lay, rows * S, act, fwd, grad)
+    if slots:
+        _slots(c, cfg, lay, rows * S, act, fwd, grad)
+
+
+def _slots(c: Count, cfg, lay: Layout, tokens: int, act: int, fwd: int,
+           grad: bool) -> None:
+    """A split attention's all-to-alls between its q column blocks and
+    head slots in one pass of ``tokens`` (the whole sequence under
+    sequence parallelism): q onto the slot and the output back, ``fwd``
+    times; backward, the output's gradient onto the slot and q's back
+    (``_slot_wire``'s columns each)."""
+    n = cfg.num_periods * (sum(lay.attn[f"pos{j}"] for j, k in
+                               enumerate(cfg.pattern)
+                               if k in ("attn", "attn_moe"))
+                           + int(cfg.shared_attn_every_period
+                                 and lay.shared[0]))
+    if not n or cfg.num_heads % lay.tp == 0:     # the blocks are the slots
+        return
+    into, back = _slot_wire(cfg, lay)
+    times = fwd + int(grad)
+    c.coll("all-to-all", n * times * (into + back) * tokens * act,
+           2 * n * times)
 
 
 def _gate(c: Count, t: int, seq: bool, x: float, fwd: int,
@@ -633,10 +687,11 @@ def _mixers(c: Count, cfg, lay: Layout, tokens: int, act: int, fwd: int,
                n * fwd)
 
 
-def account(cell: Cell) -> dict:
+def account(cell: Cell, rank: Optional[int] = None) -> dict:
     """The per-device count of one cell (see the module's docstring):
     ``{"count": Count, "split": slices of the batch, "rows_per_device",
-    "memory": {...}}``."""
+    "memory": {...}}``; the all-to-all wire of the model coordinate
+    ``rank`` (None: the rank that receives the most)."""
     import torch
     cfg, mesh, rules = cell.cfg, cell.mesh, cell.rules
     act = _nbytes(getattr(torch, cfg.dtype))
@@ -661,7 +716,7 @@ def account(cell: Cell) -> dict:
                       for t in batch_specs.values())
     batch_local = sum(_local_bytes(mesh, b_pls[k], t.shape, t.dtype)
                       for k, t in batch_specs.items())
-    lay = layout(cell, cell.shape.seq_len)
+    lay = layout(cell, cell.shape.seq_len, rank)
     if lay.vocab:
         head /= tp
     if cell.kind == "train":
@@ -677,6 +732,7 @@ def account(cell: Cell) -> dict:
     mem["layout"] = {"model_extent": tp, "sequence_parallel": lay.seq,
                      "attention_split": sorted(k for k, v in lay.attn.items()
                                                if v),
+                     "q_heads_per_rank": lay.heads,
                      "guarded": list(cell.guarded),
                      "vocab_split": lay.vocab,
                      "kv_cache_chunks": cell.kv_chunks,
@@ -721,8 +777,9 @@ def _train(cell, c, act, head, lay, local_elems, pbytes, batch_whole,
     recompute_head = int(chunks > 1)
     vocab = cfg.vocab_size / (lay.tp if lay.vocab else 1)
     # forward, backward (2x the products, 2.5x attention's), recompute
-    c.flops = tokens * ((pf + sf) * (3 + remat) + af * (3.5 + remat)
-                        + head * (3 + recompute_head))
+    c.attention_flops = tokens * af * (3.5 + remat)
+    c.flops = tokens * ((pf + sf) * (3 + remat) + head * (3 + recompute_head)) \
+        + c.attention_flops
     # the batch's rows: gathered whole unless one microbatch is cut as
     # the data axes cut the batch
     local = mb == 1 and split == ext
@@ -839,7 +896,8 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
                                           cell.moe_path), act, lay, cache,
         dist=decode and cell.dist_decode)
     heads = rows if cfg.is_decoder else rows * S
-    c.flops = tokens * (pf + af + sf) + heads * head
+    c.attention_flops = tokens * af
+    c.flops = tokens * (pf + sf) + c.attention_flops + heads * head
     if not decode and lay.route == "weight":
         # the conv state's tail from the whole in_proj's [x, B, C] columns
         conv_ch = mamba_dims(cfg)[3]
@@ -850,7 +908,8 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
     pbytes = _nbytes(tree_leaves(cell.args[0])[0].dtype)
     w = _weights(cell, lay, c, pbytes, False, 1)
     w_compute = w["device"] / pbytes * act
-    _activations(c, cfg, lay, rows, 1 if decode else S, act, 1, False)
+    _activations(c, cfg, lay, rows, 1 if decode else S, act, 1, False,
+                 slots=not (decode and cell.dist_decode))
     _moe_groups(c, cfg, lay, tokens, groups, act)
     gathered = w["gathered"]
     if not decode:
@@ -902,8 +961,8 @@ def _serve(cell, c, act, head, lay, local_params, batch_local,
     t = lay.tp
     if cell.dist_decode and t > 1:
         H, hd = cfg.num_heads, cfg.head_dim
-        for split_heads, n in _attn_split(cfg, lay):
-            if split_heads:      # every rank's q heads
+        for _, split_heads, n in _attn_split(cfg, lay):
+            if split_heads:      # every rank's q columns
                 c.coll("all-gather", n * _ring("all-gather", t,
                                                rows * H / t * hd * act), n)
             for nbytes in (rows * H * hd * 4, rows * H * 4, rows * H * 4):
@@ -969,6 +1028,7 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool, out_dir: Path,
                  "collectives": dict(cost.collectives),
                  "collective_counts": dict(cost.collective_counts)},
         "roofline": {**roofline(cost), "card": CARD},
+        "breakdown": {"attention_flops": cost.attention_flops},
     }
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

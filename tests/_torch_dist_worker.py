@@ -479,6 +479,13 @@ class CollectiveLog:
             t = args[1]
             nbytes = t.numel() * t.element_size()
             kind, wire = "reduce-scatter", (n - 1) / n * nbytes
+        elif name == "all_to_all_single":
+            # the bytes this rank receives from the others
+            out, t = args[0], args[1]
+            split = args[2] if len(args) > 2 else kw.get("output_split_sizes")
+            row = out[:1].numel() * out.element_size()
+            own = split[dist.get_rank(group)] if split else out.shape[0] // n
+            kind, wire = "all-to-all", (out.shape[0] - own) * row
         else:
             t = args[0] if args and isinstance(args[0], torch.Tensor) \
                 else None
@@ -595,11 +602,17 @@ def _model_gathers(calls, mesh, shapes) -> list:
             and c["shape"] in shapes]
 
 
+def _model_rank(mesh) -> int:
+    """This rank's coordinate on ``mesh``'s model axis."""
+    return mesh.get_coordinate()[mesh.mesh_dim_names.index("model")]
+
+
 def _count(cell) -> dict:
-    """``dryrun.account``'s collectives for ``cell``: {kind: [count,
-    wire bytes]}."""
+    """``dryrun.account``'s collectives for ``cell`` on this rank (its
+    all-to-all wire is its model coordinate's): {kind: [count, wire
+    bytes]}."""
     from repro_torch.launch.dryrun import account
-    c = account(cell)["count"]
+    c = account(cell, _model_rank(cell.mesh))["count"]
     return {k: [c.collective_counts[k], c.collectives[k]]
             for k in c.collectives}
 
@@ -688,13 +701,43 @@ def _gate_identity_backward(tp, r, kv):
     return gather_out(r * own, dim, tp.model, tp.tp, tp.rank)
 
 
+def _slot_offset_floor(own):
+    """``layers.head_range`` with a split slot's first head at ``rank x
+    floor(H / tp)`` instead of ``rank x ceil(H / tp)``: the same heads a
+    rank, the wrong KV heads read for them where ``tp`` does not divide
+    H."""
+    def head_range(cfg, p, tp):
+        lo, n = own(cfg, p, tp)
+        if n != cfg.num_heads:
+            lo = tp.rank * (cfg.num_heads // tp.tp)
+        return lo, n
+    return head_range
+
+
+def _to_cols_summing_backward(own):
+    """``TPContext.to_cols`` whose backward sums the incoming gradient of
+    the rank's column block over ``model`` before sending it back (as if
+    every rank held a partial of every column): the same forward, but each
+    rank's block gets the others' gradients added where it should keep its
+    own."""
+    from repro_torch.distributed.sharding import copy_in
+
+    def to_cols(tp, y, heads, unit):
+        return copy_in(own(tp, y, heads, unit), tp.model, tp.tp)
+    return to_cols
+
+
 #: planted faults a train case may carry, each (what it patches: the leaf
-#: plans or a ``TPContext`` method, the patch): the router's gradient
+#: plans, a ``TPContext`` method or an ``arch.layers`` function
+#: (``"layers.<name>"``), the patch): the router's gradient
 #: summed over ``model``; a split mixer's norm sum with an identity
 #: backward; ``conv_w``'s and the shared block's ``wk``'s gradients left
 #: unsummed over ``model``; a split RWKV6 time-mix's ``lora_A`` (the
 #: lerp) and ``ln_x_scale`` (the group norm) left unsummed; the
-#: channel-mix's gate combine with an identity backward
+#: channel-mix's gate combine with an identity backward; a split
+#: attention's slot offset by floor(H / tp), its ``wk`` gradient left
+#: unsummed over ``model``, and its exchange back to the column blocks
+#: summing the gradient in its backward
 _FAULTS = {
     "router_model_sum": ("plans", lambda lp: _model_sum_set(
         lp, lambda path: path[-1] == "router", True)),
@@ -709,11 +752,17 @@ _FAULTS = {
         lp, lambda path: path[-2:] == ("tm", "ln_x_scale"), False)),
     "gate_combine_identity_backward": ("gate",
                                        lambda own: _gate_identity_backward),
+    "slot_offset_floor": ("layers.head_range", _slot_offset_floor),
+    "attn_wk_no_model_sum": ("plans", lambda lp: _model_sum_set(
+        lp, lambda path: path[-2:] == ("attn", "wk"), False)),
+    "slot_exchange_summing_backward": (
+        "to_cols", lambda own: _to_cols_summing_backward(own.to_cols)),
 }
 
 
 def _plant(fault):
     """Plant ``fault`` (a ``_FAULTS`` key, or None); returns its undo."""
+    from repro_torch.arch import layers
     from repro_torch.distributed.sharding import TPContext
     from repro_torch.launch import cells
     if fault is None:
@@ -723,6 +772,11 @@ def _plant(fault):
         own = cells.leaf_plans
         cells.leaf_plans = patch(own)
         return lambda: setattr(cells, "leaf_plans", own)
+    if what.startswith("layers."):
+        name = what.split(".", 1)[1]
+        own = getattr(layers, name)
+        setattr(layers, name, patch(own))
+        return lambda: setattr(layers, name, own)
     own = getattr(TPContext, what)
     setattr(TPContext, what, patch(TPContext))
     return lambda: setattr(TPContext, what, own)

@@ -526,3 +526,99 @@ def test_rwkv6_param_bytes_match_jax_shardings(rwkv_cells, shape,
     want = _jax_local_bytes("rwkv6-7b", *MESHES["pod"], rules,
                             4 if shape == "train_4k" else 2)
     assert r["memory"]["param_bytes"] == pytest.approx(want, rel=1e-12)
+
+
+# ------------------------------------------------ attention on head slots
+
+MIDHEAD = ("starcoder2-7b", "qwen2-vl-7b", "llama4-maverick-400b-a17b")
+#: the reference's per-device operations (its ``hlo_cost``) on the (16, 16)
+#: pod mesh: ``JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch A
+#: --shape S`` at commit c4dcef5 (llama3-8b, whose 32 heads split whole,
+#: the control)
+REF_FLOPS = {("starcoder2-7b", "train_4k"): 409197873741982.0,
+             ("qwen2-vl-7b", "train_4k"): 349484306141926.0,
+             ("llama4-maverick-400b-a17b", "train_4k"): 649291542208530.0,
+             ("starcoder2-7b", "prefill_32k"): 381859944471813.0,
+             ("llama3-8b", "train_4k"): 279975354984868.0}
+#: how the reference lays out a head projection split over 16 model ranks,
+#: read from its HLO (``--keep-hlo``, same commit): the head dim splits
+#: over gcd(H, 16) ranks (starcoder2-7b 4, qwen2-vl-7b 4, llama4-maverick
+#: 8), so a rank attends with H / gcd(H, 16) heads (9, 7, 5; each group
+#: one KV head), its q columns all-gathered over the 16 / gcd ranks that
+#: share them; its XLA attention computes every query against every key
+#: (the causal half masked, not skipped), once forward, again in the
+#: remat and twice in the backward
+REF_ATTN_PASSES = {"train": 4, "prefill": 1}
+
+
+@pytest.mark.parametrize("rules", ["baseline_rules", "sp_rules",
+                                   "serve_rules"])
+@pytest.mark.parametrize("arch", MIDHEAD)
+def test_midhead_configs_take_no_guard(arch, rules):
+    """On the (16, 16) pod mesh, in every shape and under every rule set,
+    none of the mid-head configs lists a guarded part, none of their
+    attention leaves is gathered over ``model``, and a rank attends on a
+    head slot of ceil(H / 16) heads."""
+    from repro_torch.distributed import sharding as SH
+    cfg = get_config(arch)
+    mesh = MeshShape(*MESHES["pod"])
+    r = getattr(SH, rules)(False)
+    for shape in SHAPES.values():
+        if not shape_applicable(cfg, shape)[0]:
+            continue
+        cell = TCells.build_cell(arch, shape, mesh, rules=r)
+        assert cell.guarded == (), shape.name
+        for plan in TCells.leaf_plans(cfg, mesh, r,
+                                      decode=shape.kind == "decode"):
+            if "attn" in plan.path:
+                assert 1 not in plan.upfront, (shape.name, plan.path)
+        lay = dryrun.layout(cell, shape.seq_len)
+        assert lay.heads == math.ceil(cfg.num_heads / 16)
+        assert all(lay.attn.values())
+
+
+@pytest.mark.parametrize("arch,shape", list(REF_FLOPS))
+def test_flops_against_the_reference(arch, shape, tmp_path):
+    """A device's operations against the reference's: never more (a rank
+    attends with ceil(H / 16) heads and skips the causal half, where the
+    reference's rank attends with H / gcd(H, 16) over every key); and
+    within 10 % once the port's attention core is swapped for the
+    reference's layout (``REF_ATTN_PASSES``), so every other term counts
+    what the reference computes. The mid-head guard counted 1.3335e15,
+    8.7825e14, 2.5657e15 and 8.7578e14 for the first four."""
+    cfg = get_config(arch)
+    r = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=tmp_path)
+    ref = REF_FLOPS[(arch, shape)]
+    kind, S = SHAPES[shape].kind, SHAPES[shape].seq_len
+    tokens = r["rows_per_device"] * S
+    layers = cfg.num_periods * (cfg.pattern.count("attn")
+                                + cfg.pattern.count("attn_moe"))
+    heads = cfg.num_heads // math.gcd(cfg.num_heads, 16)
+    ref_core = tokens * layers * REF_ATTN_PASSES[kind] * 4 * heads \
+        * cfg.head_dim * S
+    got = r["cost"]["flops"]
+    assert got <= ref, (got, ref)
+    swapped = got - r["breakdown"]["attention_flops"] + ref_core
+    assert abs(swapped - ref) <= 0.10 * ref, (swapped, ref)
+    assert r["layout"]["guarded"] == []
+    assert r["layout"]["q_heads_per_rank"] == math.ceil(cfg.num_heads / 16)
+
+
+def test_maverick_train_peak_falls(tmp_path):
+    """llama4-maverick ``train_4k`` on the pod mesh holds less than the
+    65.91 GiB a device the guard's whole attention leaves took."""
+    r = dryrun.run_cell("llama4-maverick-400b-a17b", "train_4k",
+                        multi_pod=False, out_dir=tmp_path)
+    assert r["memory"]["peak_per_device_bytes"] < 65.91 * 2**30
+
+
+@pytest.mark.parametrize("arch", MIDHEAD[:2])
+def test_midhead_optimized_decode_moves_no_weight(arch, tmp_path):
+    """``decode_32k --optimized`` (weight-stationary, the distributed
+    flash-decode): below 1e8 wire bytes a device (the guard gathered the
+    attention leaves every call: 2.5619e9 and 1.3580e9), its q columns
+    gathered instead of exchanged."""
+    r = dryrun.run_cell(arch, "decode_32k", multi_pod=False,
+                        out_dir=tmp_path, optimized=True)
+    assert r["cost"]["collective_wire_bytes"] < 1e8, r["cost"]
+    assert "all-to-all" not in r["cost"]["collectives"]

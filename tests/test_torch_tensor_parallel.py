@@ -15,17 +15,17 @@ f32, then its first step's), against the JAX package's
 and without the distributed flash-decode) under ``serve_rules`` against
 the port's unsharded calls. Two configs derived from qwen3-1.7b-smoke
 take the other paths: H 3 (KV 1) on a model extent of 2 splits the head
-projection mid-head, so its attention takes the guard (gathered over
-``model``, computed replicated); H 6 (KV 3) gives rank 0 q heads 0-2,
-which read KV heads 0, 0, 1, so the rank repeats its KV heads for the
-kernel.
+projection mid-head, so each rank's 1.5 heads of q columns are exchanged
+onto head slots of 2 and 1 heads (``TPContext.to_heads``) and its output
+back; H 6 (KV 3) gives rank 0 q heads 0-2, which read KV heads 0, 0, 1,
+so the rank repeats its KV heads for the kernel.
 
 In the world every call's collectives are recorded by a test-only patch
 of ``torch.distributed`` (``_torch_dist_worker.CollectiveLog``): no rank
-all-gathers an ``attn``-kind leaf over ``model`` outside the guard, none
-reaches DTensor's own collectives, and each rank's count of collectives
-and their ring wire bytes equal ``launch.dryrun.account``'s for the same
-cell."""
+all-gathers an ``attn``-kind leaf over ``model``, none reaches DTensor's
+own collectives, and each rank's count of collectives and their ring wire
+bytes (an all-to-all's: the bytes the rank receives) equal
+``launch.dryrun.account``'s for the same cell."""
 import functools
 
 import jax
@@ -53,6 +53,9 @@ torch.set_num_threads(1)
 ARCHS = ("qwen3-1.7b", "llama3-8b", "starcoder2-7b", "qwen2-vl-7b",
          "hubert-xlarge")
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+# H 3 on a model extent of 2 splits the head projection mid-head: slots
+# of 2 and 1 heads (the cases keep the name from when such a split took
+# the guard)
 GUARD = (("num_heads", 3), ("num_kv_heads", 1))
 UNEVEN = (("num_heads", 6), ("num_kv_heads", 3))
 B, S = 8, 16
@@ -286,16 +289,13 @@ def _case(world, label):
 def test_no_attn_leaf_gathered_over_model(world, label):
     """No rank all-gathers an ``attn``-kind leaf over ``model`` (its
     block, or a period's slice of it), and none reaches DTensor's own
-    collectives; the guard's attention leaves are gathered, and the cell
-    records the guard."""
+    collectives; no cell takes a guard, the mid-head H 3 case included
+    (its attention computes on head slots)."""
     over, res, calls = _case(world, label)
-    assert res["guarded"] == (("pos0",) if over == GUARD else ())
+    assert res["guarded"] == ()
     for what, tally, _, gathers in calls:
         assert not [k for k in tally if k.startswith("functional:")], what
-        if over == GUARD:
-            assert gathers, what
-        else:
-            assert not gathers, (what, gathers)
+        assert not gathers, (what, gathers)
 
 
 @pytest.mark.parametrize("label", CASES)
