@@ -12,8 +12,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``ptxas`` lines).
 2. kernel: each kernel through its public op against its plain PyTorch
    version on the same inputs. ``fleet_mlp`` at the scoring shape (N=512,
-   b=1, F=54, width 512, depth 5, f32), the unit-test shapes in f32 and
-   bf16, and a ragged N=500. ``flash_attention`` at the qwen3-1.7b prefill
+   b=1, F=54, width 512, depth 5, f32; the wide route) and the widths
+   deployments use (hidden 64 and 32 at N 512, Table 3's width 16 at N
+   1024 over 30 features; the narrow route), the unit-test shapes in f32
+   and bf16, a ragged N=500, and each route's edges in both dtypes (an N
+   that fills no whole narrow block, layers off 16-byte alignment, b 3,
+   b 50 at width 512 on a shrunk wide ring);
+   each case prints its route, and the four deployment shapes are timed
+   cold and (narrow) warm in L2 beside the plain ``bmm`` chain, eager and
+   by graph replay. ``flash_attention`` at the qwen3-1.7b prefill
    shape (B 4, S 1024, H 16, KV 8, D 128, bf16, causal) and the test
    shapes in both dtypes (D 80, non-causal, Sq < Skv, ragged).
    ``decode_attention`` at the engine shape (B 8, S 2048, H 16, KV 8,
@@ -346,11 +353,32 @@ L2_BYTES = 50 * 2**20
 TOL = {"float32": 2e-4, "bfloat16": 2e-1}
 # (label, N, b, F, hidden, depth, dtype); the first is the scoring shape
 SCORING_CASE = ("scoring", 512, 1, 54, 512, 5, "float32")
+# the widths deployments use, timed beside the scoring shape: the
+# forecaster's default hidden 64 (forecast/ann.py, ANNForecaster.DEFAULTS),
+# the shipped example's 32 (examples/smartgrid_forecasting.py:44) and the
+# paper's Table 3 rollout, N 1024 at width 16 over 30 features
+# (benchmarks/bench_table3_scalability.py:51, :83)
+NARROW_CASES = [("default", 512, 1, 54, 64, 5, "float32"),
+                ("example", 512, 1, 54, 32, 5, "float32"),
+                ("table3", 1024, 1, 30, 16, 5, "float32")]
+TIMED_FLEET = (SCORING_CASE[0],) + tuple(c[0] for c in NARROW_CASES)
 TEST_SHAPES = [(16, 4, 8, 32, 3), (8, 1, 54, 64, 5), (4, 2, 16, 16, 1)]
-KERNEL_CASES = [SCORING_CASE] + [
+# the routes' edges, (label, N, b, F, hidden, depth): an N that fills no
+# whole narrow block; layers whose per-instance slices and rows start off
+# 16-byte alignment (F 7 x width 13 on the narrow route, 7 x 131 on the
+# wide); b 3 on both routes; b 50 at width 512, which leaves the wide
+# ring two small stages
+EDGE_SHAPES = [("ragged_narrow", 13, 1, 54, 32, 5),
+               ("misaligned", 6, 2, 7, 13, 3),
+               ("misaligned_wide", 5, 2, 7, 131, 3),
+               ("b3_narrow", 9, 3, 54, 64, 5),
+               ("b3_wide", 5, 3, 54, 512, 5),
+               ("b50_wide", 3, 50, 54, 512, 5)]
+KERNEL_CASES = [SCORING_CASE] + NARROW_CASES + [
     (f"test{i}", *s, dt) for dt in ("float32", "bfloat16")
     for i, s in enumerate(TEST_SHAPES)] + [
-    ("ragged", 500, 1, 54, 512, 5, dt) for dt in ("float32", "bfloat16")]
+    ("ragged", 500, 1, 54, 512, 5, dt) for dt in ("float32", "bfloat16")] + [
+    (*e, dt) for dt in ("float32", "bfloat16") for e in EDGE_SHAPES]
 
 # the tensor cores' dense bf16 rate (the attention kernels' inputs are
 # bf16 on the path; their bound is the least time for the same work)
@@ -540,17 +568,57 @@ def fleet_mlp_bound(x, ws, bs) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _fleet_times(rec: dict, sets: list, kernel, plain, iters: int,
+                 key: str = "") -> None:
+    """``fleet_mlp``'s and its plain ``bmm`` chain's times on ``sets``:
+    eager in turns plain, kernel, kernel, plain (``ms``, ``plain_ms``), then
+    each replayed from a CUDA graph (``graph_ms``, ``plain_graph_ms``);
+    ``key`` prefixes the names (``warm_`` for one set kept in L2)."""
+    plain_ms = [_time_ms(plain, sets, iters)]
+    kern_ms = [_time_ms(kernel, sets, iters) for _ in range(2)]
+    plain_ms.append(_time_ms(plain, sets, iters))
+    rec.update({f"{key}ms": sum(kern_ms) / 2,
+                f"{key}plain_ms": sum(plain_ms) / 2,
+                f"{key}graph_ms": _time_ms(kernel, sets, iters, graph=True),
+                f"{key}plain_graph_ms": _time_ms(plain, sets, iters,
+                                                 graph=True)})
+
+
+def _fleet_time_line(label: str, rec: dict) -> str:
+    """The print line of a timed ``fleet_mlp`` case."""
+    def reading(key, what):
+        return (f"{what}: {rec[key + 'ms']:.4f} ms eager, "
+                f"{rec[key + 'graph_ms']:.4f} by graph replay "
+                f"({rec['bound_ms'] / rec[key + 'graph_ms']:.1%} of the "
+                f"bound); plain bmm chain {rec[key + 'plain_ms']:.4f} eager, "
+                f"{rec[key + 'plain_graph_ms']:.4f} by graph")
+    parts = [reading("", "inputs cold in L2")]
+    if "warm_ms" in rec:
+        parts.append(reading("warm_", "warm (one input set, in L2)"))
+    return (f"kernel {label} time: route {rec['route']}; bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bytes']} "
+            f"bytes, {rec['flops']} flop); " + "; ".join(parts)
+            + "; library: none (no single PyTorch call computes the "
+              "per-instance chain)")
+
+
 def kernel_phase(device: str, cases=KERNEL_CASES, *, time_it: bool) -> dict:
     """``fleet_mlp`` through its public wrapper against the plain version
-    on the same inputs, for every case; returns the scoring case's record
-    (error, and with ``time_it`` the CUDA-event times and bound)."""
+    on the same inputs, for every case, with the route ``plan_launch``
+    gives it; returns the scoring case's record (error, and with
+    ``time_it`` the CUDA-event times and bound). With ``time_it`` the
+    scoring and the narrow deployment shapes are timed, inputs cold in L2;
+    the narrow ones also warm, since their weights fit the L2 and a
+    rollout reads them 24 times a bin."""
     import torch
+    from repro_torch.kernels.fleet_mlp.kernel import plan_launch
     from repro_torch.kernels.fleet_mlp.ops import fleet_mlp
     from repro_torch.kernels.fleet_mlp.ref import fleet_mlp_reference
     record = None
     for seed, (label, N, b, F, hidden, depth, dtype) in enumerate(cases):
         x, ws, bs = _fleet_inputs(N, b, F, hidden, depth, dtype, device,
                                   seed)
+        route = plan_launch(b, [F] + [w.shape[2] for w in ws]).route
         got = fleet_mlp(x, ws, bs)
         want = fleet_mlp_reference(x, ws, bs)
         if device != "cpu":
@@ -562,21 +630,27 @@ def kernel_phase(device: str, cases=KERNEL_CASES, *, time_it: bool) -> dict:
         max_abs = float(diff.max())
         ok = rel <= TOL[dtype] and bool(torch.isfinite(got.float()).all())
         print(f"kernel {label:8s} N={N} b={b} F={F} width={hidden} "
-              f"depth={depth} {dtype}: rel_err={rel:.3e} "
+              f"depth={depth} {dtype} route {route}: rel_err={rel:.3e} "
               f"max_abs_err={max_abs:.3e} tol={TOL[dtype]:.0e} "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"fleet_mlp disagrees with its plain version at {label} "
                   f"{dtype}: {rel:.3e} > {TOL[dtype]:.0e}")
-        if label != SCORING_CASE[0]:
+        rec = {"max_abs_err": max_abs, "rel_err": rel, "route": route,
+               **fleet_mlp_bound(x, ws, bs)}
+        if label == SCORING_CASE[0]:
+            record = rec
+        if not (time_it and label in TIMED_FLEET):
             continue
-        record = {"max_abs_err": max_abs, "rel_err": rel,
-                  **fleet_mlp_bound(x, ws, bs)}
-        if time_it:
-            _timed(record, _input_sets((x, ws, bs), record["bytes"]),
-                   fleet_mlp, fleet_mlp_reference, None, 50)
-            print("kernel scoring time: " + _times(
-                record, "no single PyTorch call computes the per-instance "
-                        "chain"))
+        iters = 50 if label == SCORING_CASE[0] else 200
+        sets = [(t[0], list(t[1:1 + depth]), list(t[1 + depth:])) for t in
+                _input_sets((x, *ws, *bs), rec["bytes"])]
+        _fleet_times(rec, sets, fleet_mlp, fleet_mlp_reference, iters)
+        if label != SCORING_CASE[0]:
+            _fleet_times(rec, [(x, ws, bs)], fleet_mlp, fleet_mlp_reference,
+                         iters, key="warm_")
+        print(_fleet_time_line(label, rec))
+    if record is not None and "ms" in record:
+        record.update(library_ms=None, library_graph_ms=None)
     return record
 
 

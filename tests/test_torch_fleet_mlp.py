@@ -13,8 +13,10 @@ from repro.kernels.fleet_mlp.ops import fleet_mlp as jax_fleet_mlp
 from repro.kernels.fleet_mlp.ref import fleet_mlp_reference
 from repro_torch.kernels.common import KERNEL, PLAIN, resolve
 from repro_torch.kernels.fleet_mlp import ops
+from repro_torch.kernels.fleet_mlp import kernel
 from repro_torch.kernels.fleet_mlp.kernel import (MAX_DEPTH, MAX_SMEM_BYTES,
-                                                  check_launch, smem_bytes)
+                                                  check_launch, plan_launch,
+                                                  smem_bytes)
 
 torch.set_num_threads(1)
 
@@ -23,10 +25,14 @@ torch.set_num_threads(1)
 # and sums taken in another order differ in the last of them.
 TOL = {"float32": 2e-4, "bfloat16": 2e-1}
 
-# (N, b, F, hidden, depth): the three shapes of tests/test_kernels.py plus
-# a ragged N that is no multiple of any block size
+# (N, b, F, hidden, depth): the three shapes of tests/test_kernels.py, a
+# ragged N that is no multiple of any block size, and small-N versions of
+# the widths deployments use (the forecaster's default hidden 64, Table 3's
+# width 16 over 30 features) and of a layer whose per-instance slices start
+# off 16-byte alignment (F 7 x width 13)
 SHAPES = [(16, 4, 8, 32, 3), (8, 1, 54, 64, 5), (4, 2, 16, 16, 1),
-          (5, 3, 12, 24, 4)]
+          (5, 3, 12, 24, 4), (6, 1, 54, 64, 5), (5, 1, 30, 16, 5),
+          (3, 2, 7, 13, 3)]
 BLOCK_N = {16: 4, 8: 8, 4: 2}
 
 
@@ -115,11 +121,80 @@ def test_wrapper_rejects_bad_layers(bad):
 
 def test_launch_limits():
     """What the kernel cannot hold raises before any launch: depth above
-    its maximum, and a rows x width product beyond a block's shared
-    memory (never truncated)."""
+    its maximum or below 1, a rows x width product beyond a block's shared
+    memory (never truncated; b 53 at width 512 still holds, on a ring of
+    two small stages), a layer whose row outgrows a wide chunk, and b or a
+    width below 1."""
     check_launch(1, [54, 512, 512, 512, 512, 1])     # the scoring shape
     assert smem_bytes(1, [54, 512, 1]) <= MAX_SMEM_BYTES
+    check_launch(1, [8, kernel.WIDE_CHUNK_BYTES // 4, 1])
     with pytest.raises(ValueError, match="depth"):
         check_launch(1, [8] * (MAX_DEPTH + 2))
+    with pytest.raises(ValueError, match="depth"):
+        check_launch(1, [8])
     with pytest.raises(ValueError, match="shared memory"):
         check_launch(64, [54, 1024, 1])
+    check_launch(53, [54, 512, 512, 512, 512, 1])
+    with pytest.raises(ValueError, match="shared memory"):
+        check_launch(54, [54, 512, 512, 512, 512, 1])
+    with pytest.raises(ValueError, match="wide"):
+        check_launch(1, [8, kernel.WIDE_CHUNK_BYTES // 4 + 1, 1])
+    with pytest.raises(ValueError, match="b >= 1"):
+        check_launch(0, [8, 16, 1])
+    with pytest.raises(ValueError, match="widths >= 1"):
+        check_launch(1, [8, 0, 1])
+
+
+# (b, widths, route, stages, bytes a stage): the scoring shape, the widths
+# deployments use, the misaligned and b 3 edges, the narrow route's limit
+# (64) and the first width past it, narrow widths whose b x width
+# outgrows four warps' buffers (the wide route takes them), and a b x
+# width that leaves the wide ring room for three stages, then for two
+# smaller ones
+PLANS = [
+    (1, [54, 512, 512, 512, 512, 1], "wide", 4, 16416),
+    (1, [54, 64, 64, 64, 64, 1], "narrow", 6, 8224),
+    (1, [54, 32, 32, 32, 32, 1], "narrow", 5, 6944),
+    (1, [30, 16, 16, 16, 16, 1], "narrow", 5, 1952),
+    (2, [7, 13, 13, 1], "narrow", 3, 720),
+    (2, [7, 131, 131, 1], "wide", 4, 16416),
+    (3, [54, 64, 64, 64, 64, 1], "narrow", 6, 8224),
+    (3, [54, 512, 512, 512, 512, 1], "wide", 4, 16416),
+    (1, [54, 64, 1], "narrow", 3, 8224),
+    (1, [54, 65, 1], "wide", 4, 16416),
+    (1, [8, 1], "narrow", 1, 64),
+    (100, [54, 64, 1], "wide", 4, 16416),
+    (40, [54, 512, 512, 1], "wide", 3, 16416),
+    (50, [54, 512, 512, 512, 512, 1], "wide", 2, 9200),
+]
+
+
+@pytest.mark.parametrize("rows,widths,route,stages,stage_bytes", PLANS)
+def test_plan_launch_routes_by_width(rows, widths, route, stages,
+                                     stage_bytes):
+    """The route and geometry the wrapper expects ``fleet_mlp_forward`` to
+    pick (``_bind`` holds the library's own plan to these on the card):
+    a narrow warp's ring holds every chunk of an instance up to its most
+    stages, each stage the largest chunk the layers need; a wide block's
+    ring is fixed; shared memory is the mbarriers and layer tables, the
+    rings and the f32 activation and bias buffers."""
+    plan = plan_launch(rows, widths)
+    assert (plan.route, plan.stages, plan.stage_bytes) == \
+        (route, stages, stage_bytes)
+    own = 4 * (2 * rows * max(widths) + sum(widths[1:]))
+    if route == "narrow":
+        assert max(widths[1:]) <= kernel.NARROW_MAX_WIDTH
+        assert plan.threads == 32 * plan.per_block == 32 * kernel.NARROW_WARPS
+        assert plan.smem == kernel.BAR_BYTES + plan.per_block * (
+            stages * stage_bytes + own)
+        assert stage_bytes - kernel.SLACK <= kernel.NARROW_CHUNK_BYTES
+        assert plan.blocks(13, 132) == 4 and plan.blocks(1024, 132) == 256
+    else:
+        assert plan.threads == kernel.WIDE_THREADS and plan.per_block == 0
+        assert plan.smem == kernel.BAR_BYTES + stages * stage_bytes + own
+        assert plan.blocks(5, 132) == 5       # persistent: no idle block
+        per_sm = min(kernel.WIDE_BLOCKS_PER_SM,
+                     kernel.SM_SMEM_BYTES // (plan.smem + 1024))
+        assert plan.blocks(512, 132) == min(512, 132 * per_sm)
+    assert plan.smem <= MAX_SMEM_BYTES
+    assert smem_bytes(rows, widths) == plan.smem
