@@ -1,0 +1,18 @@
+"""mfu.score (%, host clock): the score ticks' model products (each
+forecast's 24-step rollout; ``harness/yardstick.py``) at the f32 peak
+over the ticks' wall time."""
+from castorbench.harness.yardstick import rollout_flops
+
+#: NVIDIA H100 SXM data sheet: dense float32 outside the tensor cores
+#: (the program's products are f32 with TF32 off), at the card's full
+#: power.limit of 700 W (the cards measured report 700.00 W)
+PEAK_F32_FLOP_S = 67e12
+
+
+def read(run):
+    ticks = [t for t in run.ticks if t.score_jobs and not t.train_jobs]
+    if not ticks or run.trace is None:
+        return None
+    flops = sum(rollout_flops(t.scored, run.cell.config["horizon"], run.sizes)
+                for t in ticks)
+    return 100.0 * flops / PEAK_F32_FLOP_S / sum(t.seconds for t in ticks)
